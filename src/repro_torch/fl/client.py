@@ -1,0 +1,77 @@
+"""Satellite-side local training (paper eq. 3): E SGD steps from the last
+received global model; the update g_k = w_k^E - w_k^0 is held until the next
+ground-station contact.
+
+Two entry points share one update body: `make_client_update` (one satellite
+per call) and `make_batched_client_update` (a stack of satellites per call
+— the engine's aggregation hot path). The batched form writes the
+satellite axis out as a leading batch dimension of the parameters: each
+step differentiates the sum of the per-satellite losses, whose gradient
+with respect to satellite m's parameters is satellite m's own gradient.
+Frozen-parameter masks (`trainable_mask`, the DenseNet adapter's) come
+with the DenseNet slice.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.tree import tree_map
+
+_LATER = "uplink compression comes with the compression slice of the port"
+
+
+def _make_update_fn(adapter, *, lr: float):
+    def update_fn(params, batches, *, step_axis: int = 0):
+        """params: dict of tensors (with a leading satellite axis when
+        batched); batches: tuple of tensors whose `step_axis` indexes the E
+        local steps. Returns the delta w^E - w^0."""
+        p = params
+        for e in range(batches[0].shape[step_axis]):
+            batch = tuple(b.select(step_axis, e) for b in batches)
+            leaves = {k: v.detach().requires_grad_(True)
+                      for k, v in p.items()}
+            loss = adapter.loss(leaves, batch).sum()
+            grads = dict(zip(leaves, torch.autograd.grad(
+                loss, list(leaves.values()))))
+            with torch.no_grad():
+                p = {k: w - lr * grads[k] for k, w in leaves.items()}
+        return {k: p[k] - params[k] for k in params}
+
+    return update_fn
+
+
+def make_client_update(adapter, *, local_steps: int, lr: float):
+    """Returns update_fn(base_params, client_idx, round_rng) -> g_k
+    (dict delta)."""
+    update_fn = _make_update_fn(adapter, lr=lr)
+
+    def client_update(base_params, client_idx: int, round_rng: int,
+                      batch_size: int = 32):
+        batch = adapter.client_batch(client_idx, round_rng, batch_size,
+                                     local_steps)
+        if batch is None:      # satellite with an empty shard
+            return tree_map(torch.zeros_like, base_params)
+        return update_fn(base_params, batch)
+
+    return client_update
+
+
+def make_batched_client_update(adapter, *, local_steps: int, lr: float,
+                               uplink_topk: float = 0.0,
+                               uplink_int8: bool = False):
+    """Returns update_many(base_params, batches) -> stacked g_k.
+
+    `batches` is the per-satellite batch tuple stacked on a leading axis M
+    (then the E local steps); the base model is shared and broadcast to
+    the M satellites."""
+    if uplink_topk or uplink_int8:
+        raise NotImplementedError(_LATER)
+    update_fn = _make_update_fn(adapter, lr=lr)
+
+    def update_many(base_params, batches):
+        m = batches[0].shape[0]
+        stacked = {k: v.expand(m, *v.shape).clone()
+                   for k, v in base_params.items()}
+        return update_fn(stacked, batches, step_axis=1)
+
+    return update_many

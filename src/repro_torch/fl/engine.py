@@ -1,0 +1,435 @@
+"""Event-driven FL simulation engine over the connectivity sequence
+(Algorithm 1), decomposed into overridable protocol steps.
+
+Time advances in T0 windows (15 min each). At window i the GS:
+  receives pending updates from connected satellites (`on_uploads`), asks
+  the scheduler whether to aggregate a^i (`on_decide`), applies the
+  staleness-compensated update of eq. 4 when a^i = 1 (`on_aggregate`), and
+  broadcasts the current model (`on_downloads`).
+
+The port of `repro.fl.engine` runs the reference's per-window host loop
+(`SimulationEngine._run_window`) with the protocol state (`SatState`),
+the model, the checkpoints and the client data on the run's device. One
+small device-to-host read per window brings back the upload counters the
+scheduler decides on. The reference's chunked fast loop (jitted scans
+between aggregation events) is a JAX `scan` idiom; its PyTorch
+counterpart (a CUDA graph) is a later slice, as are link budgets, ISLs,
+faults and the satellite-axis mesh.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.ckpt.checkpoint import CheckpointStore
+from repro_torch.core import staleness as SS
+from repro_torch.core.aggregation import aggregation_weights
+from repro_torch.core.scheduler import Scheduler
+from repro_torch.device import resolve_device
+from repro_torch.fl.client import make_batched_client_update
+from repro_torch.kernels.agg.ops import aggregate_params_tree
+from repro_torch.tree import tree_map
+
+T0_MINUTES = 15.0
+
+
+@dataclass
+class SimResult:
+    """Outcome of one simulated federated run.
+
+    Fields: `scheme` (scheduler name), `accuracy`/`val_loss`/
+    `eval_windows` (one entry per eval checkpoint), `staleness_hist`
+    (aggregated-gradient counts per clipped staleness),
+    `idle_connections`/`total_connections` (eq.-10 idleness accounting),
+    `num_global_updates` (aggregations), `num_aggregated_gradients`,
+    `windows_run`, and `time_to_target_days`/`target_acc` when a target
+    accuracy was set. `replan_stats` stays None until the port has
+    FedSpace's replan service. `days(window)` converts a window index to
+    simulated days; `summary()` returns the JSON-friendly digest."""
+    scheme: str
+    accuracy: List[float] = field(default_factory=list)
+    val_loss: List[float] = field(default_factory=list)
+    eval_windows: List[int] = field(default_factory=list)
+    staleness_hist: Optional[np.ndarray] = None
+    idle_connections: int = 0
+    total_connections: int = 0
+    num_global_updates: int = 0
+    num_aggregated_gradients: int = 0
+    windows_run: int = 0
+    time_to_target_days: Optional[float] = None
+    target_acc: Optional[float] = None
+    replan_stats: Optional[dict] = None
+
+    def days(self, window: int) -> float:
+        """Simulated days elapsed at `window` (T0 = 15-minute windows)."""
+        return window * T0_MINUTES / 60.0 / 24.0
+
+    def summary(self) -> dict:
+        """JSON-friendly digest (final/best accuracy, counters, hist)."""
+        return {
+            "scheme": self.scheme,
+            "final_acc": self.accuracy[-1] if self.accuracy else None,
+            "best_acc": max(self.accuracy) if self.accuracy else None,
+            "time_to_target_days": self.time_to_target_days,
+            "global_updates": self.num_global_updates,
+            "aggregated_gradients": self.num_aggregated_gradients,
+            "idle_connections": self.idle_connections,
+            "total_connections": self.total_connections,
+            "staleness_hist": (self.staleness_hist.tolist()
+                               if self.staleness_hist is not None else None),
+            "replan_stats": self.replan_stats,
+        }
+
+
+@dataclass
+class EngineConfig:
+    """Protocol/training knobs of one simulated run (field for field the
+    reference's `repro.fl.engine.EngineConfig`)."""
+    local_steps: int = 4
+    batch_size: int = 32
+    client_lr: float = 0.05
+    server_lr: float = 1.0
+    alpha: float = 0.5
+    eval_every: int = 8
+    target_acc: Optional[float] = None
+    max_windows: Optional[int] = None
+    repeat_connectivity: int = 1   # 0: auto-tile C to cover max_windows
+    s_max: int = 8
+    # None = unset: lets experiment-level settings (FLExperiment.seed,
+    # LinkConfig.uplink_topk) apply without 0 doubling as a sentinel
+    seed: Optional[int] = None           # unset -> 0
+    stop_at_target: bool = True
+    uplink_topk: Optional[float] = None  # >0: compressed uplink; unset -> 0
+    # dense int8 uplink quantization; unset -> False / LinkConfig fallback
+    uplink_int8: Optional[bool] = None
+    # the reference's switch between its chunked fast loop and the
+    # per-window host loop; the port has only the host loop so far, which
+    # runs either way
+    fast_loop: bool = True
+
+    def __post_init__(self):
+        # 0.0 stays legal alongside None: the engine resolves the unset
+        # sentinel to 0.0 via dataclasses.replace, which re-runs this hook
+        v = self.uplink_topk
+        if v is not None and v != 0.0 and not 0.0 < v <= 1.0:
+            raise ValueError(
+                f"EngineConfig.uplink_topk must be in (0, 1], got {v}")
+
+
+def _tile(C: np.ndarray, cfg: EngineConfig) -> np.ndarray:
+    """Tile the connectivity to the requested horizon per
+    `cfg.repeat_connectivity` (0 = auto: cover `max_windows`)."""
+    repeat = cfg.repeat_connectivity
+    if repeat == 0:
+        need = cfg.max_windows or C.shape[0]
+        repeat = max(1, -(-int(need) // C.shape[0]))
+    if repeat > 1:
+        C = np.concatenate([C] * repeat, axis=0)
+    return np.asarray(C, bool)
+
+
+class SimulationEngine:
+    """One federated run: connectivity x adapter x scheduler -> SimResult.
+
+    Protocol steps (`on_uploads`, `on_decide`, `on_aggregate`,
+    `on_downloads`) are methods so scenario variants override exactly the
+    step they change; callbacks observe the run without touching it.
+
+    Args:
+      C: (num_windows, K) bool connectivity matrix (tiled per
+        `EngineConfig.repeat_connectivity`).
+      adapter: model adapter (init/loss/client_batch/accuracy/val_loss),
+        built on `device`.
+      scheduler: aggregation policy (`repro_torch.core.scheduler`).
+      config: `EngineConfig`; keyword `overrides` replace single fields.
+      callbacks: `repro_torch.fl.callbacks` observers.
+      init_params: optional initial global model, a dict of tensors or
+        arrays (default: `adapter.init` from a generator seeded with
+        `config.seed`).
+      device: where the run lives. None means "cuda", and raises when no
+        CUDA device is present; pass "cpu" to run on the CPU.
+      link_budget, isl, faults, mesh: accepted for the reference's
+        signature; anything but None raises NotImplementedError (later
+        slices of the port).
+    """
+
+    def __init__(self, C: np.ndarray, adapter, scheduler: Scheduler,
+                 config: Optional[EngineConfig] = None, *,
+                 callbacks: Sequence = (), init_params=None, device=None,
+                 link_budget=None, isl=None, faults=None, mesh=None,
+                 **overrides):
+        for name, value in (("link_budget", link_budget), ("isl", isl),
+                            ("faults", faults), ("mesh", mesh)):
+            if value is not None:
+                raise NotImplementedError(
+                    f"SimulationEngine({name}=...) is not ported yet: it "
+                    f"comes with a later slice of the port")
+        self.device = resolve_device(device)
+        if adapter.device != self.device:
+            raise ValueError(f"adapter lives on {adapter.device}, the run "
+                             f"on {self.device}")
+        cfg = config if config is not None else EngineConfig()
+        if overrides:
+            cfg = dataclasses.replace(cfg, **overrides)
+        cfg = dataclasses.replace(
+            cfg, seed=0 if cfg.seed is None else cfg.seed,
+            uplink_topk=(0.0 if cfg.uplink_topk is None
+                         else cfg.uplink_topk),
+            uplink_int8=bool(cfg.uplink_int8))
+        self.config = cfg
+        self.C = _tile(C, cfg)
+        self.adapter = adapter
+        self.scheduler = scheduler
+        self.callbacks = list(callbacks)
+        self._init_params = init_params
+        self._stop_requested = False
+
+        self.num_windows = self.C.shape[0]
+        if cfg.max_windows:
+            self.num_windows = min(self.num_windows, cfg.max_windows)
+        self.K = self.C.shape[1]
+
+    # ------------------------------------------------------------------ API
+
+    def request_stop(self) -> None:
+        """Ask the engine to stop after the current window (callbacks use
+        this for early stopping)."""
+        self._stop_requested = True
+
+    @property
+    def version(self) -> np.ndarray:
+        """Host mirror of the last global version each satellite received.
+        Read-only diagnostic — the authoritative state is `self.state`."""
+        return self.state.version.cpu().numpy()
+
+    @property
+    def pending(self) -> np.ndarray:
+        """Host mirror of each satellite's pending-update base version."""
+        return self.state.pending.cpu().numpy()
+
+    @property
+    def buffered_base(self) -> np.ndarray:
+        """Host mirror of the GS buffer's per-satellite base versions."""
+        return self.state.buffered.cpu().numpy()
+
+    def prepare(self) -> None:
+        """Initialize run state (model, client-update functions, checkpoint
+        store, protocol state on the device). `run` calls this; tests call
+        it directly to drive individual protocol steps."""
+        cfg = self.config
+        self.scheduler.reset()
+        self._stop_requested = False
+        if self._init_params is None:
+            gen = torch.Generator().manual_seed(cfg.seed)
+            self.params = self.adapter.init(gen)
+        else:
+            self.params = tree_map(
+                lambda a: torch.as_tensor(a, device=self.device),
+                self._init_params)
+        self._batched_update = make_batched_client_update(
+            self.adapter, local_steps=cfg.local_steps, lr=cfg.client_lr,
+            uplink_topk=cfg.uplink_topk,
+            uplink_int8=bool(cfg.uplink_int8))
+
+        self.store = CheckpointStore(keep_in_memory=cfg.s_max + 26)
+        self.store.put(0, self.params)
+        self.ig = 0
+        # every satellite holds w^0 with a pending round on it (Alg. 1 init)
+        self.state = SS.bootstrap_state(self.K, device=self.device)
+        self.result = SimResult(scheme=self.scheduler.name,
+                                target_acc=cfg.target_acc)
+        self.result.staleness_hist = np.zeros(cfg.s_max + 1, np.int64)
+        self.status = float(self.adapter.val_loss(self.params))
+
+    def run(self) -> SimResult:
+        """Execute the run: `prepare()`, then advance windows until the
+        horizon, a stop request, or the target accuracy. Returns the
+        populated `SimResult`."""
+        self.prepare()
+        try:
+            self._emit("on_run_begin")
+            i = 0
+            while i < self.num_windows:
+                i, stop = self._run_window(i)
+                if stop or self._stop_requested:
+                    break
+        finally:
+            # always emitted (even on a mid-run exception) so callbacks
+            # holding resources — open files, sockets — can release them
+            self._emit("on_run_end", self.result)
+        return self.result
+
+    # ---------------------------------------------------- host window loop
+
+    def _run_window(self, i: int):
+        """One window through the overridable protocol-step methods.
+        Returns (next window, stop)."""
+        cfg = self.config
+        conn = self.C[i]
+        n_buf = self.on_uploads(i, conn)
+        a = self.on_decide(i, n_buf)
+        if a and n_buf > 0:
+            self.on_aggregate(i)
+        self.on_downloads(i, conn)
+        self.result.windows_run = i + 1
+        stop = False
+        if (i + 1) % cfg.eval_every == 0 or i == self.num_windows - 1:
+            stop = self.evaluate(i)
+        self._emit("on_window_end", i)
+        return i + 1, stop
+
+    # -------------------------------------------------------- protocol steps
+
+    def on_uploads(self, i: int, conn: np.ndarray) -> int:
+        """Connected satellites hand their pending update to the GS buffer
+        (the shared `upload_step` transition on the device). Returns the
+        buffer occupancy."""
+        res = self.result
+        conn_dev = torch.as_tensor(np.asarray(conn, bool), device=self.device)
+        self.state, info = SS.upload_step(self.state, self.ig, conn_dev)
+        n_conn, n_idle, n_buf = torch.stack(
+            [info["n_connected"], info["n_idle"], info["n_buffered"]]
+        ).tolist()
+        res.total_connections += n_conn
+        res.idle_connections += n_idle
+        return n_buf
+
+    def on_decide(self, i: int, n_buf: int) -> bool:
+        """Ask the scheduler for the aggregation indicator a^i."""
+        return self.scheduler.decide(
+            i, n_in_buffer=n_buf, K=self.K, state=self.state, ig=self.ig,
+            connectivity=self.C, status=self.status, link=None)
+
+    def on_aggregate(self, i: int) -> None:
+        """Apply the staleness-compensated buffered update (eq. 4).
+
+        Buffered satellites are grouped by base model version (and batch
+        shape); each group trains as one batched client update, and the
+        weighted reduction goes through the aggregation kernel
+        (`aggregate_params_tree`, one launch per parameter leaf). The
+        buffer's base versions come to the host once here — the grouping
+        and the batch indices are host work."""
+        cfg = self.config
+        buffered = self.state.buffered.cpu().numpy()
+        ks = np.flatnonzero(buffered >= 0)
+        stal = (self.ig - buffered[ks]).astype(np.int64)
+        stack = self._train_buffered(ks, buffered, round_rng=i)
+        w = aggregation_weights(torch.as_tensor(stal, device=self.device),
+                                cfg.alpha) * cfg.server_lr
+        self.params = aggregate_params_tree(self.params, stack, w)
+        self.state, _, _ = SS.aggregate_step(self.state, self.ig, True,
+                                             s_max=cfg.s_max, collect="none")
+        self.ig += 1
+        self.store.put(self.ig, self.params)
+        refs = np.concatenate([self.state.pending.cpu().numpy(), buffered])
+        refs = refs[refs >= 0]
+        self.store.prune(int(refs.min()) if refs.size else self.ig)
+        res = self.result
+        res.num_global_updates += 1
+        res.num_aggregated_gradients += len(ks)
+        np.add.at(res.staleness_hist, np.clip(stal, 0, cfg.s_max), 1)
+        self._emit("on_aggregate_end", i,
+                   {"ig": self.ig, "n_aggregated": len(ks),
+                    "staleness": stal.tolist()})
+
+    def _train_buffered(self, ks: np.ndarray, buffered: np.ndarray, *,
+                        round_rng: int):
+        """Compute the buffered satellites' updates, batched by base model
+        version. Returns the update stack (leading dim len(ks)) in `ks`
+        order, matching the staleness vector.
+
+        Per base version: one checkpoint fetch, one batched data gather
+        (`adapter.client_batch_many` when available), one batched client
+        update. Satellites the batched gather can't serve (empty shards,
+        off-modal batch widths) fall back to per-satellite batches, grouped
+        by shape."""
+        cfg = self.config
+        by_base = {}   # base version -> [(row in ks, client id)]
+        for row, k in enumerate(ks):
+            by_base.setdefault(int(buffered[k]), []).append((row, int(k)))
+        many = getattr(self.adapter, "client_batch_many", None)
+        order, chunks, zero_rows = [], [], []
+        for base_v, members in by_base.items():
+            base = self.store.get(base_v)       # fetched once per group
+            rest = range(len(members))
+            if many is not None:
+                stacked, used = many([k for _, k in members], round_rng,
+                                     cfg.batch_size, cfg.local_steps)
+                if used:
+                    chunks.append(self._run_batched(base, stacked))
+                    order += [members[u][0] for u in used]
+                    used = set(used)
+                    rest = [j for j in rest if j not in used]
+            by_shape = {}  # leftovers / no batched gather: group by shape
+            for j in rest:
+                row, k = members[j]
+                batch = self.adapter.client_batch(k, round_rng,
+                                                  cfg.batch_size,
+                                                  cfg.local_steps)
+                if batch is None:
+                    zero_rows.append(row)
+                    continue
+                sig = tuple(tuple(t.shape) for t in batch)
+                by_shape.setdefault(sig, []).append((row, batch))
+            for mem in by_shape.values():
+                batches = tuple(torch.stack(ts)
+                                for ts in zip(*[b for _, b in mem]))
+                chunks.append(self._run_batched(base, batches))
+                order += [row for row, _ in mem]
+        if zero_rows:
+            chunks.append({k: torch.zeros((len(zero_rows),) + p.shape,
+                                          dtype=p.dtype, device=p.device)
+                           for k, p in self.params.items()})
+            order += zero_rows
+        inv = torch.as_tensor(np.argsort(np.asarray(order)),
+                              device=self.device)     # back to ks order
+        return {k: torch.cat([c[k] for c in chunks], dim=0)[inv]
+                for k in self.params}
+
+    def _run_batched(self, base, batches):
+        """Train a group of satellites as one batched client update. (The
+        reference pads groups to powers of two so that `jit` compiles few
+        shapes; PyTorch runs eagerly and needs no padding.)"""
+        return self._batched_update(base, batches)
+
+    def on_downloads(self, i: int, conn: np.ndarray) -> None:
+        """Connected satellites fetch the current global model and start a
+        fresh local round on it (the shared `download_step` transition)."""
+        conn_dev = torch.as_tensor(np.asarray(conn, bool), device=self.device)
+        self.state, _ = SS.download_step(self.state, self.ig, conn_dev)
+
+    # --------------------------------------------------------------- eval
+
+    def evaluate(self, i: int) -> bool:
+        """Eval checkpoint; returns True when the run should stop (target
+        accuracy reached and stop_at_target is set)."""
+        cfg, res = self.config, self.result
+        acc = self.adapter.accuracy(self.params)
+        self.status = float(self.adapter.val_loss(self.params))
+        res.accuracy.append(acc)
+        res.val_loss.append(self.status)
+        res.eval_windows.append(i)
+        self._emit("on_eval", i, {
+            "window": i, "day": res.days(i), "accuracy": acc,
+            "val_loss": self.status,
+            "global_updates": res.num_global_updates,
+            "aggregated_gradients": res.num_aggregated_gradients,
+        })
+        if (cfg.target_acc is not None and acc >= cfg.target_acc
+                and res.time_to_target_days is None):
+            res.time_to_target_days = res.days(i)
+            if cfg.stop_at_target:
+                return True
+        return False
+
+    # ------------------------------------------------------------ callbacks
+
+    def _emit(self, event: str, *args) -> None:
+        for cb in self.callbacks:
+            handler = getattr(cb, event, None)
+            if handler is not None:
+                handler(self, *args)

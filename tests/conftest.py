@@ -34,3 +34,10 @@ def rng():
 @pytest.fixture(scope="session")
 def key():
     return jax.random.PRNGKey(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA GPU and nvcc; skips without one "
+        "(on the card: PYTHONPATH=src python -m pytest --noconftest -m gpu "
+        "tests/test_torch_device.py)")

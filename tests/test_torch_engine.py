@@ -1,0 +1,147 @@
+"""The port's FedBuff federation (`repro_torch.fl.api.Federation`) against
+the JAX package's on one small world, started from the reference's own
+initial model; plus the quickstart's connectivity, bit for bit.
+
+FedBuff decides on buffer counts alone, so with the target-accuracy stop
+switched off every integer counter must match exactly; accuracies, losses
+and the final model must match within float tolerance."""
+import dataclasses
+import json
+
+import jax
+import numpy as np
+import pytest
+
+import repro.fl.api as RA
+import repro_torch.fl.api as TA
+from repro.core import connectivity as RCN
+from repro.fl.callbacks import JsonlMetricsCallback as RJsonl
+from repro.fl.engine import EngineConfig as REC
+from repro_torch.core import connectivity as TCN
+from repro_torch.fl.callbacks import JsonlMetricsCallback as TJsonl
+from repro_torch.fl.engine import EngineConfig as TEC
+from repro_torch.fl.engine import SimulationEngine
+from repro_torch.weights import params_from_numpy, params_to_numpy
+
+NUM_VAL = 200
+
+
+def _exp(api, engine_config, **train):
+    return api.FLExperiment(
+        name="small",
+        constellation=api.ConstellationConfig(num_satellites=16, days=0.5),
+        dataset=api.DatasetConfig(num_train=800, num_val=NUM_VAL, noise=2.2),
+        partition=api.PartitionConfig(kind="noniid"),
+        adapter=api.AdapterConfig(kind="mlp", params={"hidden": 24}),
+        scheduler=api.SchedulerConfig(kind="fedbuff", params={"M": 4}),
+        train=engine_config(local_steps=4, client_lr=1.0, eval_every=8,
+                            stop_at_target=False, **train))
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    out = tmp_path_factory.mktemp("metrics")
+    rfed = RA.Federation.from_experiment(_exp(RA, REC))
+    p0 = jax.tree.map(np.asarray, rfed.adapter.init(jax.random.PRNGKey(0)))
+    reng = rfed.engine(init_params=p0,
+                       callbacks=[RJsonl(str(out / "ref.jsonl"))])
+    rres = reng.run()
+    tfed = TA.Federation.from_experiment(_exp(TA, TEC), device="cpu")
+    teng = tfed.engine(init_params=params_from_numpy(p0, "cpu"),
+                       callbacks=[TJsonl(str(out / "port.jsonl"))],
+                       device="cpu")
+    tres = teng.run()
+    return (rfed, reng, rres), (tfed, teng, tres), out
+
+
+@pytest.mark.parametrize("counter", [
+    "num_global_updates", "num_aggregated_gradients", "idle_connections",
+    "total_connections", "windows_run", "eval_windows"])
+def test_counters_exactly_equal(runs, counter):
+    (_, _, rres), (_, _, tres), _ = runs
+    assert getattr(tres, counter) == getattr(rres, counter)
+    if counter == "num_global_updates":
+        assert tres.num_global_updates > 3    # the run aggregated
+
+
+def test_staleness_histogram_and_protocol_state_exactly_equal(runs):
+    (_, reng, rres), (_, teng, tres), _ = runs
+    np.testing.assert_array_equal(tres.staleness_hist, rres.staleness_hist)
+    assert teng.ig == reng.ig
+    np.testing.assert_array_equal(teng.version, reng.version)
+    np.testing.assert_array_equal(teng.pending, reng.pending)
+    np.testing.assert_array_equal(teng.buffered_base, reng.buffered_base)
+
+
+def test_eval_metrics_and_final_model_within_tolerance(runs):
+    (_, reng, rres), (_, teng, tres), _ = runs
+    # accuracy counts argmax hits on NUM_VAL samples: allow one flip
+    np.testing.assert_allclose(tres.accuracy, rres.accuracy,
+                               atol=1.0 / NUM_VAL + 1e-6)
+    # float32 rounding carried through the aggregations: ~2e-7 observed
+    np.testing.assert_allclose(tres.val_loss, rres.val_loss, atol=1e-4)
+    final = params_to_numpy(teng.params)
+    for k, ref in reng.params.items():
+        # ~1.5e-6 observed after 15 aggregations of 4 steps at lr=1.0
+        np.testing.assert_allclose(final[k], np.asarray(ref), atol=1e-4,
+                                   err_msg=k)
+
+
+def test_metrics_stream_has_the_same_events(runs):
+    *_, out = runs
+    ref = [json.loads(x) for x in open(out / "ref.jsonl")]
+    port = [json.loads(x) for x in open(out / "port.jsonl")]
+    assert [e["event"] for e in port] == [e["event"] for e in ref]
+    assert port[-1]["global_updates"] == ref[-1]["global_updates"]
+
+
+def test_connectivity_summary_equal(runs):
+    (rfed, _, _), (tfed, _, _), _ = runs
+    assert tfed.connectivity_summary() == rfed.connectivity_summary()
+
+
+def test_quickstart_connectivity_bit_equal():
+    rspec = RCN.ConstellationSpec(num_satellites=40)
+    tspec = TCN.ConstellationSpec(num_satellites=40)
+    rC = RCN.connectivity_sets(rspec, days=3.0)
+    tC = TCN.connectivity_sets(tspec, days=3.0)
+    assert tC.shape == (288, 40)
+    np.testing.assert_array_equal(tC, rC)
+    rs, ts = RCN.connectivity_stats(rC), TCN.connectivity_stats(tC)
+    assert rs.keys() == ts.keys()
+    for k in rs:
+        np.testing.assert_array_equal(ts[k], rs[k], err_msg=k)
+
+
+def test_with_scheduler_shares_the_world(runs):
+    _, (tfed, _, _), _ = runs
+    other = tfed.with_scheduler("sync")
+    assert other.C is tfed.C and other.adapter is tfed.adapter
+    assert other.scheduler.name == "sync"
+    assert other.experiment.scheduler.kind == "sync"
+
+
+@pytest.mark.parametrize("change,slice_name", [
+    (dict(scheduler=TA.SchedulerConfig(kind="fedspace")), "FedSpace"),
+    (dict(link=TA.LinkConfig(model_mb=300.0, uplink_mbps=20.0)),
+     "link-budget"),
+    (dict(link=TA.LinkConfig(gs_capacity=2)), "link-budget"),
+    (dict(link=TA.LinkConfig(uplink_topk=0.25)), "compression"),
+    (dict(train=TEC(uplink_int8=True)), "compression"),
+    (dict(isl=object()), "ISL"),
+    (dict(faults=object()), "faults"),
+])
+def test_unported_options_raise_naming_their_slice(change, slice_name):
+    exp = dataclasses.replace(_exp(TA, TEC), **change)
+    with pytest.raises(NotImplementedError, match=slice_name):
+        TA.Federation.from_experiment(exp, device="cpu")
+
+
+def test_engine_rejects_unported_layers(runs):
+    _, (tfed, _, _), _ = runs
+    for name in ("link_budget", "isl", "faults", "mesh"):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            SimulationEngine(tfed.C, tfed.adapter, tfed.scheduler,
+                             device="cpu", **{name: object()})
+    with pytest.raises(NotImplementedError, match="later slice"):
+        tfed.engine(device="cpu", mesh=object())
