@@ -23,6 +23,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.device import resolve_device
+
 
 def staleness_compensation(s, alpha: float = 0.5):
     """c_alpha(s) = (s+1)^(-alpha) (paper §2.3, after Xie et al. 2019)."""
@@ -39,14 +41,19 @@ class SatState(NamedTuple):
     buffered: torch.Tensor   # base version of update sitting in GS buffer (-1)
 
 
-def init_state(K: int, *, device="cpu") -> SatState:
-    m1 = torch.full((K,), -1, dtype=torch.int32, device=device)
+def init_state(K: int, *, device=None) -> SatState:
+    """No satellite holds a model yet. `device=None` means "cuda" and
+    raises when no CUDA device is present; pass "cpu" for the CPU."""
+    m1 = torch.full((K,), -1, dtype=torch.int32,
+                    device=resolve_device(device))
     return SatState(version=m1, pending=m1.clone(), buffered=m1.clone())
 
 
-def bootstrap_state(K: int, *, device="cpu") -> SatState:
+def bootstrap_state(K: int, *, device=None) -> SatState:
     """All satellites already hold version 0 and have a pending update on it
-    (the GS seeds the constellation with w^0)."""
+    (the GS seeds the constellation with w^0). `device` as in
+    `init_state`."""
+    device = resolve_device(device)
     zeros = torch.zeros((K,), dtype=torch.int32, device=device)
     return SatState(version=zeros, pending=zeros.clone(),
                     buffered=torch.full((K,), -1, dtype=torch.int32,

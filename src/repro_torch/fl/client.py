@@ -15,27 +15,27 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 _LATER = "uplink compression comes with the compression slice of the port"
 
 
 def _make_update_fn(adapter, *, lr: float):
     def update_fn(params, batches, *, step_axis: int = 0):
-        """params: dict of tensors (with a leading satellite axis when
+        """params: tree of tensors (with a leading satellite axis when
         batched); batches: tuple of tensors whose `step_axis` indexes the E
         local steps. Returns the delta w^E - w^0."""
-        p = params
+        leaves, structure = tree_flatten(params)
         for e in range(batches[0].shape[step_axis]):
             batch = tuple(b.select(step_axis, e) for b in batches)
-            leaves = {k: v.detach().requires_grad_(True)
-                      for k, v in p.items()}
-            loss = adapter.loss(leaves, batch).sum()
-            grads = dict(zip(leaves, torch.autograd.grad(
-                loss, list(leaves.values()))))
+            leaves = [w.detach().requires_grad_(True) for w in leaves]
+            loss = adapter.loss(tree_unflatten(structure, leaves),
+                                batch).sum()
+            grads = torch.autograd.grad(loss, leaves)
             with torch.no_grad():
-                p = {k: w - lr * grads[k] for k, w in leaves.items()}
-        return {k: p[k] - params[k] for k in params}
+                leaves = [w - lr * g for w, g in zip(leaves, grads)]
+        return tree_map(lambda w, w0: w - w0,
+                        tree_unflatten(structure, leaves), params)
 
     return update_fn
 
@@ -70,8 +70,8 @@ def make_batched_client_update(adapter, *, local_steps: int, lr: float,
 
     def update_many(base_params, batches):
         m = batches[0].shape[0]
-        stacked = {k: v.expand(m, *v.shape).clone()
-                   for k, v in base_params.items()}
+        stacked = tree_map(lambda v: v.expand(m, *v.shape).clone(),
+                           base_params)
         return update_fn(stacked, batches, step_axis=1)
 
     return update_many

@@ -381,14 +381,14 @@ class SimulationEngine:
                 chunks.append(self._run_batched(base, batches))
                 order += [row for row, _ in mem]
         if zero_rows:
-            chunks.append({k: torch.zeros((len(zero_rows),) + p.shape,
-                                          dtype=p.dtype, device=p.device)
-                           for k, p in self.params.items()})
+            chunks.append(tree_map(
+                lambda p: torch.zeros((len(zero_rows),) + p.shape,
+                                      dtype=p.dtype, device=p.device),
+                self.params))
             order += zero_rows
         inv = torch.as_tensor(np.argsort(np.asarray(order)),
                               device=self.device)     # back to ks order
-        return {k: torch.cat([c[k] for c in chunks], dim=0)[inv]
-                for k in self.params}
+        return tree_map(lambda *cs: torch.cat(cs, dim=0)[inv], *chunks)
 
     def _run_batched(self, base, batches):
         """Train a group of satellites as one batched client update. (The

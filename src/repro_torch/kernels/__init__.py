@@ -1,17 +1,25 @@
 """Hand-written Hopper kernels of the port, one package per TPU kernel of
 the JAX package (`repro.kernels`):
 
-  agg/   staleness-weighted buffered aggregation (paper eq. 4), CUDA C++
+  agg/              staleness-weighted buffered aggregation (paper
+                    eq. 4), CUDA C++
+  rmsnorm/          RMSNorm over the model dim, forward and backward,
+                    CUDA C++
+  flash_attention/  causal / sliding-window flash attention with GQA,
+                    forward and backward, CUDA C++
 
 Each kernel package holds its CUDA source (`csrc/`), a wrapper
 (`kernel.py`) that checks its inputs and launches on PyTorch's current
 stream, the plain PyTorch version (`ref.py`) that CPU tensors go to, and
-the public functions (`ops.py`). A CUDA tensor always goes to the kernel,
-or the wrapper raises.
+the public functions (`ops.py`, an autograd function where the client
+update differentiates through the kernel). A CUDA tensor always goes to
+the kernel, or the wrapper raises.
 
-`launch_counts` counts kernel launches by name: each wrapper adds one
-where it launches its kernel and nowhere else, so a run can show that its
-path went through the kernels (`launch_counts.clear()` resets them).
+`launch_counts` counts launches by kernel entry point
+(`weighted_aggregate`, `rmsnorm`, `rmsnorm_bwd`, `flash_attention`,
+`flash_attention_bwd`): each wrapper adds one where it launches its
+kernel and nowhere else, so a run can show that its path went through the
+kernels (`launch_counts.clear()` resets them).
 """
 from collections import Counter
 

@@ -1,0 +1,2 @@
+"""RMSNorm kernel, forward and backward (CUDA C++ for sm_90a), with its
+wrapper, plain PyTorch version and public autograd function."""

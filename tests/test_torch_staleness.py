@@ -109,8 +109,8 @@ def test_batched_states_match_reference():
 
 
 def test_initial_states_and_compensation():
-    _same_state(RS.init_state(6), TS.init_state(6))
-    _same_state(RS.bootstrap_state(6), TS.bootstrap_state(6))
+    _same_state(RS.init_state(6), TS.init_state(6, device="cpu"))
+    _same_state(RS.bootstrap_state(6), TS.bootstrap_state(6, device="cpu"))
     s = np.arange(10)
     ref = np.asarray(RS.staleness_compensation(jnp.asarray(s), 0.5))
     got = TS.staleness_compensation(torch.as_tensor(s), 0.5).numpy()
@@ -122,5 +122,5 @@ def test_initial_states_and_compensation():
 
 def test_unported_collect_modes_raise():
     with pytest.raises(ValueError, match="marks"):
-        TS.aggregate_step(TS.bootstrap_state(3), 0, True, s_max=8,
-                          collect="marks")
+        TS.aggregate_step(TS.bootstrap_state(3, device="cpu"), 0, True,
+                          s_max=8, collect="marks")
