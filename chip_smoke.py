@@ -12,7 +12,10 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      at the main paths' shapes, the reference's test sweeps and one large
      shape each, with CUDA-event timings (kernel, plain version, one-call
      library yardstick) beside the least time the card could take for the
-     same work;
+     same work; for RMSNorm also the device and host time of a call and
+     its kernels per call, two backward calls compared bit for bit, the
+     other layouts' times at the zoo shape, and the host cost of the
+     pieces of a wrapper call;
   4. the quickstart path: the FedBuff federation of examples/quickstart.py
      (MLP payload) through `Federation.from_experiment(exp).run()` on the
      card, launch counts read around it, then the same experiment on the
@@ -173,44 +176,170 @@ def _grad_ms(fn, inputs, cotangent, iters):
                                                 retain_graph=True), iters)
 
 
-# RMSNorm shapes (G scale rows, R rows each, D): the transformer path's
+# RMSNorm shapes (G scale rows, R rows each, D), dtype, and the offset in
+# elements at which x starts in its buffer: the transformer path's
 # training call (20 satellites x 32 samples x 8 tokens, d_model 32) and
 # evaluation call (1000 samples x 8 tokens, one scale), the sweep of
-# tests/test_kernels.py, and one zoo width.
+# tests/test_kernels.py, one zoo width, and the edges of the kernels'
+# paths: a width of 72 bytes (the 1-wide path), an x one element into its
+# buffer (unaligned: the 1-wide path), and several groups whose rows are
+# no multiple of a tile.
 RMS_PATH = (20, 256, 32)
-RMS_SHAPES = [(RMS_PATH, "float32"), ((1, 8000, 32), "float32")] + [
-    (shape, dt) for shape in ((1, 4, 128), (1, 15, 256), (1, 37, 512))
-    for dt in ("float32", "bfloat16")] + [((1, 16384, 4096), "bfloat16")]
+RMS_ZOO = (1, 16384, 4096)
+RMS_SHAPES = [(RMS_PATH, "float32", 0), ((1, 8000, 32), "float32", 0)] + [
+    (shape, dt, 0) for shape in ((1, 4, 128), (1, 15, 256), (1, 37, 512))
+    for dt in ("float32", "bfloat16")] + [
+    (RMS_ZOO, "bfloat16", 0), ((4, 300, 36), "bfloat16", 0),
+    ((2, 100, 256), "float32", 1), ((8, 1000, 1024), "float32", 0)]
 RMS_EPS = 1e-6
 
 
+def _host_and_device(fn, iters):
+    """Per call of `fn`: host microseconds (host clock over `iters` calls,
+    no synchronising inside); device microseconds per kernel and kernels
+    launched per call, from `torch.profiler`'s `key_averages()` over
+    `iters` calls; the names of the kernels seen; and the kernel events
+    the profiler recorded. On the H100 machines the profiler drops some
+    kernel events (1 to 39 of 200 in a few runs), never adds any: the
+    kernels per call are the events over the calls rounded up, and the
+    device time per call the device time per event times that."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    dev_us, events, names = 0.0, 0, []
+    for e in prof.key_averages():
+        # device-side events only: host ops also report the device time
+        # of the kernels they launched
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        t = getattr(e, "self_cuda_time_total", 0) if t is None else t
+        if t > 0:
+            dev_us += t
+            events += e.count
+            names.append(e.key)
+    if dev_us <= 0:
+        raise AssertionError("torch.profiler shows no device time")
+    per_call = -(-events // iters)
+    return host_us, dev_us / events * per_call, per_call, names, events
+
+
+def _rms_layouts(K, x, scale, rstd, dy, refs):
+    """At the zoo shape: the kernels' time under each layout the wrapper
+    could choose (threads per row x loads per thread), each checked
+    against the plain version; the default is the first of each."""
+    G, R, D = x.shape
+    vec = K.vector_width(D, x.element_size(), x.data_ptr())
+    out = {}
+    for direction, default, choices, run in (
+            ("fwd", K.FWD_LOADS, (2, 4, 8, 16),
+             lambda m: K._fwd(x, scale, RMS_EPS, G, R, D, m)),
+            ("bwd", K.BWD_LOADS, (2, 4, 8),
+             lambda m: K._bwd(x, scale, rstd, dy, G, R, D, m))):
+        assert choices[0] == default
+        times = {}
+        for m in choices:
+            t, nl = K.layout(D // vec, vec > 1, m)
+            got = run(m)
+            _compare(f"rmsnorm {direction} layout {m}", got[:1], refs[
+                direction], x.dtype, grad=direction == "bwd")
+            times[f"{1 << t} threads x {nl} loads"] = _time_ms(
+                lambda: run(m), 20)
+        out[direction] = times
+    return out
+
+
+def _rms_host_pieces(K, torch):
+    """Host microseconds of the pieces of one wrapper call at the path's
+    training shape (5,000 calls of each after 100 of warm-up, no
+    synchronising): the checks, the allocations (two, as the wrapper makes
+    them, against one shared through views), the stream lookup (the raw
+    pointer the wrapper reads, against `current_stream().cuda_stream`),
+    the ctypes call alone (zero rows: no launch), and whole calls."""
+    G, R, D = RMS_PATH
+    x = torch.randn(G, R, D, device="cuda")
+    scale = torch.randn(G, D, device="cuda")
+    y, rstd = K.rmsnorm(x, scale, RMS_EPS)
+    fwd, bwd = K._library()
+    n, rows, dev = x.numel(), G * R, x.device
+
+    def one_allocation():
+        buf = torch.empty(n + rows, device=dev)
+        a, b = buf.split([n, rows])
+        return a.view(x.shape), b
+
+    pieces = {
+        "checks": lambda: K._check(x, scale),
+        "two allocations": lambda: (torch.empty_like(x), torch.empty(
+            rows, device=dev)),
+        "one allocation, split and view": one_allocation,
+        "raw stream": lambda: torch._C._cuda_getCurrentRawStream(0),
+        "current_stream().cuda_stream": lambda: torch.cuda.current_stream(
+            dev).cuda_stream,
+        "ctypes call, no launch (fwd)": lambda: fwd(
+            0, 0, 0, 0, 0, 0, 0, 0.0, 0, 4, 3, 1, 0),
+        "ctypes call, no launch (bwd)": lambda: bwd(
+            0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 4, 3, 1, 0),
+        "whole call (fwd)": lambda: K.rmsnorm(x, scale, RMS_EPS),
+        "whole call (bwd)": lambda: K.rmsnorm_bwd(x, scale, rstd, x),
+    }
+    out = {}
+    for name, fn in pieces.items():
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5000):
+            fn()
+        out[name] = (time.perf_counter() - t0) / 5000 * 1e6
+        torch.cuda.synchronize()
+    print("rmsnorm host_us", json.dumps(out), flush=True)
+    return out
+
+
 def check_rmsnorm(torch):
-    """Phase 3: RMSNorm forward and backward against the plain version."""
+    """Phase 3: RMSNorm forward and backward against the plain version,
+    with the host and device time of a call and its kernel count."""
     import torch.nn.functional as F
     from repro_torch.kernels.rmsnorm import kernel as K
     from repro_torch.kernels.rmsnorm.ref import (rmsnorm_bwd_ref,
                                                  rmsnorm_fwd_ref)
     g = torch.Generator(device="cuda").manual_seed(1)
     rows = []
-    for (G, R, D), dts in RMS_SHAPES:
+    for (G, R, D), dts, off in RMS_SHAPES:
         dt = getattr(torch, dts)
-        x = torch.randn(G, R, D, generator=g, device="cuda").to(dt)
+        x = torch.randn(G * R * D + off, generator=g, device="cuda").to(dt)[
+            off:].view(G, R, D)
         scale = (1 + 0.5 * torch.randn(G, D, generator=g, device="cuda")
                  ).to(dt)
         dy = torch.randn(G, R, D, generator=g, device="cuda").to(dt)
         y, rstd = K.rmsnorm(x, scale, RMS_EPS)
         y_ref, rstd_ref = rmsnorm_fwd_ref(x, scale, RMS_EPS)
         dx, ds = K.rmsnorm_bwd(x, scale, rstd, dy)
+        dx2, ds2 = K.rmsnorm_bwd(x, scale, rstd, dy)
         # the plain backward starts from the plain forward's rstd
         dx_ref, ds_ref = rmsnorm_bwd_ref(x, scale, rstd_ref, dy)
         torch.cuda.synchronize()
-        tag = f"rmsnorm G={G} R={R} D={D} {dts}"
+        tag = f"rmsnorm G={G} R={R} D={D} {dts} offset={off}"
         fwd_err, fwd_tol = _compare(tag, (y,), (y_ref,), dt)
         rstd_err, _ = _compare(tag + " rstd", (rstd,), (rstd_ref,),
                                torch.float32)
         fwd_err = max(fwd_err, rstd_err)
         bwd_err, bwd_tol = _compare(tag + " bwd", (dx, ds), (dx_ref, ds_ref),
                                     dt, grad=True)
+        if not (torch.equal(dx, dx2) and torch.equal(ds, ds2)):
+            raise AssertionError(f"{tag}: two backward calls differ")
         big = x.numel() >= 1 << 24
         iters = 20 if big else 200
         n, b = x.numel(), x.element_size()
@@ -219,16 +348,18 @@ def check_rmsnorm(torch):
                            FP32_FLOP_PER_S)
         bwd_bound = _bound(3 * n * b + 2 * sb + 4 * G * R, 10 * n,
                            FP32_FLOP_PER_S)
+        vec = K.vector_width(D, b, x.data_ptr(), scale.data_ptr())
         shared = G == 1    # one PyTorch call takes one (D,) scale only
-        for direction, err, tol, bound, kern, plain, lib in (
+        for direction, err, tol, bound, kern, plain, lib, loads in (
                 ("fwd", fwd_err, fwd_tol, fwd_bound,
                  lambda: K.rmsnorm(x, scale, RMS_EPS),
                  lambda: rmsnorm_fwd_ref(x, scale, RMS_EPS),
                  (lambda: F.rms_norm(x, (D,), scale[0], RMS_EPS))
-                 if shared else None),
+                 if shared else None, K.FWD_LOADS),
                 ("bwd", bwd_err, bwd_tol, bwd_bound,
                  lambda: K.rmsnorm_bwd(x, scale, rstd, dy),
-                 lambda: rmsnorm_bwd_ref(x, scale, rstd, dy), None)):
+                 lambda: rmsnorm_bwd_ref(x, scale, rstd, dy), None,
+                 K.BWD_LOADS)):
             k_ms = _time_ms(kern, iters)
             p_ms = _time_ms(plain, iters)
             if direction == "fwd":
@@ -237,15 +368,34 @@ def check_rmsnorm(torch):
                 lib_ms = _grad_ms(
                     lambda a, w: F.rms_norm(a, (D,), w[0], RMS_EPS),
                     (x, scale), dy, iters) if shared else None
+            host_us, dev_us, per_call, names, events = _host_and_device(
+                kern, iters)
+            if per_call != 1 or len(names) != 1:
+                raise AssertionError(f"{tag} {direction}: {per_call} "
+                                     f"kernels per call ({names}), not 1")
+            tpr_log2, nl = K.layout(D // vec, vec > 1, loads)
             row = {"kernel": "rmsnorm" if direction == "fwd"
                    else "rmsnorm_bwd", "G": G, "R": R, "D": D, "dtype": dts,
+                   "x_offset": off, "vector": vec,
+                   "threads_per_row": 1 << tpr_log2, "loads": nl,
                    "max_abs_err": err, "tol": tol, "kernel_ms": k_ms,
                    "plain_ms": p_ms, "library_ms": lib_ms,
                    "bound_ms": bound[0], "bound_by": bound[1],
-                   "bound_share": bound[0] / k_ms}
+                   "bound_share": bound[0] / k_ms, "device_us": dev_us,
+                   "host_us": host_us, "launches_per_call": per_call,
+                   "profiled": f"{events} kernel events over {iters} calls"}
+            if direction == "bwd":
+                row["tiles"] = K.tiles(G, R, tpr_log2)
+                row["repeats_bitwise"] = True
             print("rmsnorm", json.dumps(row), flush=True)
             rows.append(row)
-        del x, scale, dy, y, rstd, y_ref, rstd_ref, dx, ds, dx_ref, ds_ref
+        if (G, R, D) == RMS_ZOO:
+            layouts = _rms_layouts(K, x, scale, rstd, dy, {
+                "fwd": (y_ref,), "bwd": (dx_ref,)})
+            print("rmsnorm layouts", json.dumps(layouts), flush=True)
+        del x, scale, dy, y, rstd, y_ref, rstd_ref, dx, ds, dx2, ds2
+        del dx_ref, ds_ref
+    _rms_host_pieces(K, torch)
     torch.cuda.empty_cache()
     return rows
 
@@ -647,7 +797,7 @@ def main() -> int:
         (rms_rows, "rmsnorm", 5, "src/repro_torch/kernels/rmsnorm/csrc/"
          "rmsnorm.cu", "src/repro/kernels/rmsnorm/kernel.py:28",
          lambda r: (r["G"], r["R"], r["D"]) == RMS_PATH
-         and r["dtype"] == "float32",
+         and r["dtype"] == "float32" and r["x_offset"] == 0,
          f"one SGD step of a 20-satellite group: 5 calls at (G, R, D) = "
          f"{RMS_PATH}, float32; no one PyTorch call takes a scale row per "
          f"satellite"),

@@ -4,43 +4,74 @@
 //     rstd[g, r] = rsqrt(mean(x[g, r, :]^2) + eps)
 //
 // Replaces the Pallas TPU kernel `rmsnorm` (body `_rmsnorm_kernel`) in
-// src/repro/kernels/rmsnorm/kernel.py. Same arithmetic: x is read in its
-// own type (float32 or bfloat16), the sum of squares is taken in float32,
-// the scale is applied in float32, and y is cast once to x's type. The
-// TPU kernel takes one (D,) scale; here x is viewed as (G, R, D) with one
-// scale row per group g, which is what the reference gets from `vmap`
-// over a (D,) scale when the batched client update trains G satellites.
-// G = 1 is the unbatched call. The TPU kernel has no backward (its
-// off-TPU path differentiates the jnp oracle); the backward here is
+// src/repro/kernels/rmsnorm/kernel.py:28. Same arithmetic: x is read in
+// its own type (float32 or bfloat16), the sum of squares is taken in
+// float32, the scale is applied in float32, and y is cast once to x's
+// type. The TPU kernel takes one (D,) scale; here x is viewed as (G, R, D)
+// with one scale row per group g, which is what the reference gets from
+// `vmap` over a (D,) scale when the batched client update trains G
+// satellites. G = 1 is the unbatched call. The TPU kernel has no backward
+// (its off-TPU path differentiates the jnp oracle); the backward here is
 //
 //     xh = x * rstd, gy = dy * scale,
 //     dx = rstd * (gy - xh * mean(gy * xh)),
 //     dscale[g, :] = sum over the rows r of group g of dy * xh.
 //
-// Bound: memory. The forward reads x and the scale and writes y and rstd,
-// (2*b_x*D + 4)*rows + b_s*G*D bytes, against ~4*D*rows float32
-// operations; the backward reads x, dy, the scale and rstd and writes dx
-// and dscale. At the transformer payload's width (D = 32) a call moves a
-// few hundred KB and launch latency sets its time; at a zoo width (D =
-// 4096, 16k rows, bfloat16) 268 MB, ~0.08 ms at 3.35 TB/s.
+// Bound: memory. The forward must read x and the scale and write y and
+// rstd, (2*b_x*D + 4)*rows + b_s*G*D bytes, against ~4*D*rows float32
+// operations; the backward must read x, dy, the scale and rstd and write
+// dx and dscale, (3*b_x*D + 4)*rows + 2*b_s*G*D bytes. At the H100 SXM's
+// data-sheet 3.35 TB/s (at 700 W): at the transformer payload's width
+// (D = 32, 20 x 256 rows, float32) a call moves at most ~2 MB, well under
+// a microsecond, so the host's launch of it sets its time; at a zoo width
+// (D = 4096, 16384 rows, bfloat16) the forward moves 268 MB (0.080 ms)
+// and the backward 403 MB (0.120 ms).
 //
-// Design: the TPU kernel streams (256, D) row panels through VMEM. Here a
-// row needs no staging: one warp owns a row, its lanes read neighbouring
-// elements (coalesced), the row's sum of squares is a warp shuffle
-// reduction, and the row is read a second time (from L1/L2) to write y.
-// The backward's dx works the same way. dscale is a column sum across the
-// rows of a group: a first kernel sums 256-row chunks of each 32-column
-// strip into a float32 workspace (8 row lanes per column, reduced through
-// shared memory in a fixed order), a second sums the chunks in order. No
-// atomics, so results repeat run to run. The backward reads x and dy
-// twice (once for dx, once for dscale): at most 2x the byte bound, the
-// price of keeping both passes simple.
+// Design. Every row is read from device memory once, in 16-byte vector
+// loads (4 float32 or 8 bfloat16; a 1-wide instantiation of the same
+// kernels takes rows whose width or pointers do not allow them), and held
+// in registers until its output is written: `tpr` threads share a row
+// (a power of two, at most the block's 256), each holding NL loads of
+// it. The wrapper picks the fewest loads a thread (at most 2) and so the
+// most threads a row, since registers, not loads in flight, limited the
+// wide rows: on an NVIDIA H100 80GB HBM3 at 700 W, a warp per 4096-wide
+// bf16 row with 16 loads a thread took 172 registers and ran at 41% of
+// the byte bound, 8 warps with 2 loads at 81% (`chip_smoke.py`'s layout
+// line). A row narrower than 32 loads takes fewer lanes: 8 lanes a row
+// and 4 rows a warp at D = 32 float32, 512 bytes in flight per warp. The
+// row's sum is a shuffle tree over its lanes, then over its warps through
+// shared memory when a row spans several warps.
+//   Forward: sum of squares from the registers, then y from the same
+// registers with 16-byte stores; the scale is read vectorised (from L1).
+//   Backward, one launch: a block owns tiles of consecutive rows of one
+// group (the tiling depends on the shape alone). For each row it computes
+// dx from x and dy in registers and adds dy * xh into float32 column sums
+// of its own columns, in row order; at the end of a tile the row slots'
+// sums are added in slot order through shared memory. Where a group is
+// one tile (the transformer path: 256 rows, 8 steps of 32 rows), that sum
+// is dscale and the launch is a plain one. Otherwise each tile writes a
+// float32 partial, the kernel is a cooperative launch of at most the
+// resident blocks, and after a grid-wide barrier every block sums
+// 32-column slices of the partials in tile order (a warp sums a fixed
+// range of tiles, the block adds its warps in order), so the final sum is
+// spread over the card. No floating-point atomics: two calls give
+// bit-equal dx and dscale. What still bounds the wide backward (60% of
+// its byte bound on that card) is that a block has one row in flight and
+// waits for it at the row's barrier: staging the next row in shared
+// memory (cp.async or TMA) while the current one is reduced is the next
+// step.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -58,226 +89,446 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+// N consecutive elements moved as one access: 16 bytes for a wide load
+// (a float32 scale beside bfloat16 x is 32 bytes, two 16-byte accesses).
+template <typename T, int N>
+struct alignas(sizeof(T) * N >= 16 ? 16 : sizeof(T) * N) Pack {
+  T v[N];
+};
+
+// Sum over the `tpr` threads of a row, tpr a power of two. Rows narrower
+// than a warp reduce by shuffles inside their lane group; wider rows add
+// their warps' sums in warp order through red[parity] (one barrier per
+// call: a caller alternates parity between calls).
+__device__ __forceinline__ float row_sum(float v, int tpr,
+                                         float (*red)[kWarps], int parity) {
+  const int width = tpr < 32 ? tpr : 32;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = 16; o > 0; o >>= 1) {
+    if (o < width) v += __shfl_xor_sync(0xffffffffu, v, o);
+  }
+  if (tpr <= 32) return v;
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) red[parity][warp] = v;
+  __syncthreads();
+  const int wpr = tpr >> 5;
+  const int w0 = warp & ~(wpr - 1);
+  v = red[parity][w0];
+  for (int i = 1; i < wpr; ++i) v += red[parity][w0 + i];
   return v;
 }
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kStrip = 32;      // columns of one dscale block
-constexpr int kRowLanes = 8;    // row lanes of one dscale block
+struct FwdArgs {
+  const void* x;
+  const void* scale;
+  void* y;
+  float* rstd;
+  int64_t rows, rows_per_group;
+  int d, tpr_log2;
+  float eps;
+};
 
-// One warp per row; `rows` = G * rows_per_group rows of d elements.
-template <typename T, typename S>
-__global__ void __launch_bounds__(kThreads)
-rmsnorm_fwd_kernel(const T* __restrict__ x, const S* __restrict__ scale,
-                   T* __restrict__ y, float* __restrict__ rstd, int64_t rows,
-                   int64_t rows_per_group, int d, float eps) {
-  const int lane = threadIdx.x & 31;
-  const int64_t row =
-      static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (row >= rows) return;  // the whole warp leaves together
-  const T* xr = x + row * d;
-  const S* sr = scale + (row / rows_per_group) * d;
+// One row per `tpr` threads; the grid covers the rows once.
+template <typename T, typename S, int VEC, int NL>
+__global__ void __launch_bounds__(kThreads) rmsnorm_fwd_kernel(FwdArgs a) {
+  __shared__ float red[2][kWarps];
+  const T* __restrict__ x = static_cast<const T*>(a.x);
+  const S* __restrict__ scale = static_cast<const S*>(a.scale);
+  T* __restrict__ y = static_cast<T*>(a.y);
+  const int tpr = 1 << a.tpr_log2;
+  const int lane = threadIdx.x & (tpr - 1);
+  const int rpb = kThreads >> a.tpr_log2;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * rpb +
+                      (threadIdx.x >> a.tpr_log2);
+  const bool valid = row < a.rows;  // no early exit: row_sum may sync
+  const int chunks = a.d / VEC;
+  const T* xr = x + row * a.d;
+
+  Pack<T, VEC> xv[NL];
   float ss = 0.f;
-  for (int j = lane; j < d; j += 32) {
-    const float v = to_f(xr[j]);
-    ss = fmaf(v, v, ss);
-  }
-  ss = warp_sum(ss);
-  const float r = rsqrtf(ss / static_cast<float>(d) + eps);
-  T* yr = y + row * d;
-  for (int j = lane; j < d; j += 32) {
-    yr[j] = from_f<T>((to_f(xr[j]) * r) * to_f(sr[j]));
-  }
-  if (lane == 0) rstd[row] = r;
-}
-
-// dx: one warp per row.
-template <typename T, typename S>
-__global__ void __launch_bounds__(kThreads)
-rmsnorm_dx_kernel(const T* __restrict__ x, const S* __restrict__ scale,
-                  const float* __restrict__ rstd, const T* __restrict__ dy,
-                  T* __restrict__ dx, int64_t rows, int64_t rows_per_group,
-                  int d) {
-  const int lane = threadIdx.x & 31;
-  const int64_t row =
-      static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const T* xr = x + row * d;
-  const T* dyr = dy + row * d;
-  const S* sr = scale + (row / rows_per_group) * d;
-  const float r = rstd[row];
-  float dot = 0.f;  // sum over the row of (dy * scale) * xh
-  for (int j = lane; j < d; j += 32) {
-    dot = fmaf(to_f(dyr[j]) * to_f(sr[j]), to_f(xr[j]) * r, dot);
-  }
-  const float c = warp_sum(dot) / static_cast<float>(d);
-  T* dxr = dx + row * d;
-  for (int j = lane; j < d; j += 32) {
-    const float gy = to_f(dyr[j]) * to_f(sr[j]);
-    const float xh = to_f(xr[j]) * r;
-    dxr[j] = from_f<T>(r * (gy - xh * c));
-  }
-}
-
-// dscale, first pass: block (kStrip, kRowLanes) sums rows
-// [chunk * chunk_rows, +chunk_rows) of group blockIdx.z over the columns
-// [blockIdx.x * kStrip, +kStrip) into partial[g, chunk, column].
-template <typename T>
-__global__ void __launch_bounds__(kStrip * kRowLanes)
-rmsnorm_dscale_partial_kernel(const T* __restrict__ x,
-                              const float* __restrict__ rstd,
-                              const T* __restrict__ dy,
-                              float* __restrict__ partial,
-                              int64_t rows_per_group, int d, int chunk_rows) {
-  __shared__ float red[kRowLanes][kStrip];
-  const int col = blockIdx.x * kStrip + threadIdx.x;
-  const int chunk = blockIdx.y;
-  const int64_t g = blockIdx.z;
-  const int64_t r0 = static_cast<int64_t>(chunk) * chunk_rows;
-  const int64_t r1 = r0 + chunk_rows < rows_per_group ? r0 + chunk_rows
-                                                     : rows_per_group;
-  float acc = 0.f;
-  if (col < d) {
-    for (int64_t r = r0 + threadIdx.y; r < r1; r += kRowLanes) {
-      const int64_t row = g * rows_per_group + r;
-      acc = fmaf(to_f(dy[row * d + col]), to_f(x[row * d + col]) * rstd[row],
-                 acc);
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    const int c = lane + i * tpr;
+    if (valid && c < chunks) {
+      xv[i] = *reinterpret_cast<const Pack<T, VEC>*>(xr + c * VEC);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        const float v = to_f(xv[i].v[k]);
+        ss = fmaf(v, v, ss);
+      }
     }
   }
-  red[threadIdx.y][threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.y == 0 && col < d) {
-    float s = red[0][threadIdx.x];
+  ss = row_sum(ss, tpr, red, 0);
+  if (!valid) return;
+  const float r = rsqrtf(ss / static_cast<float>(a.d) + a.eps);
+  const S* sr = scale + (row / a.rows_per_group) * a.d;
+  T* yr = y + row * a.d;
 #pragma unroll
-    for (int i = 1; i < kRowLanes; ++i) s += red[i][threadIdx.x];
-    partial[(g * gridDim.y + chunk) * d + col] = s;
+  for (int i = 0; i < NL; ++i) {
+    const int c = lane + i * tpr;
+    if (c < chunks) {
+      const Pack<S, VEC> sv =
+          *reinterpret_cast<const Pack<S, VEC>*>(sr + c * VEC);
+      Pack<T, VEC> out;
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        out.v[k] = from_f<T>((to_f(xv[i].v[k]) * r) * to_f(sv.v[k]));
+      }
+      *reinterpret_cast<Pack<T, VEC>*>(yr + c * VEC) = out;
+    }
+  }
+  if (lane == 0) a.rstd[row] = r;
+}
+
+struct BwdArgs {
+  const void* x;
+  const void* scale;
+  const float* rstd;
+  const void* dy;
+  void* dx;
+  void* dscale;
+  float* partial;  // (groups * tiles_per_group, d); unused at one tile
+  int64_t groups, rows_per_group, tile_rows, tiles_per_group;
+  int d, tpr_log2;
+};
+
+// dscale over the partials, after the grid-wide barrier: a block takes
+// 32-column slices of the G*D outputs, warp w sums tiles [t0, t1) of its
+// slice in order, and warp 0 adds the warps' sums in order.
+template <typename S>
+__device__ void dscale_from_partials(const BwdArgs& a) {
+  __shared__ float fin[kWarps][32];
+  const int warp = threadIdx.x >> 5, l32 = threadIdx.x & 31;
+  const int64_t tpg = a.tiles_per_group;
+  const int64_t t0 = tpg * warp / kWarps, t1 = tpg * (warp + 1) / kWarps;
+  const int64_t n = a.groups * a.d;
+  S* dscale = static_cast<S*>(a.dscale);
+  for (int64_t s = blockIdx.x; s * 32 < n; s += gridDim.x) {
+    const int64_t q = s * 32 + l32;
+    float v = 0.f;
+    if (q < n) {
+      const int64_t g = q / a.d;
+      // written in this launch by other blocks: read through L2 only
+      const float* p = a.partial + g * tpg * a.d + (q - g * a.d);
+#pragma unroll 8
+      for (int64_t t = t0; t < t1; ++t) v += __ldcg(p + t * a.d);
+    }
+    fin[warp][l32] = v;
+    __syncthreads();
+    if (warp == 0 && q < n) {
+      float acc = fin[0][l32];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) acc += fin[w][l32];
+      dscale[q] = from_f<S>(acc);
+    }
+    __syncthreads();
   }
 }
 
-// dscale, second pass: dscale[g, col] = sum over chunks, in order.
-template <typename S>
-__global__ void __launch_bounds__(kThreads)
-rmsnorm_dscale_sum_kernel(const float* __restrict__ partial,
-                          S* __restrict__ dscale, int64_t groups, int d,
-                          int chunks) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= groups * d) return;
-  const int64_t g = i / d;
-  const int col = static_cast<int>(i % d);
-  float s = 0.f;
-  for (int c = 0; c < chunks; ++c) s += partial[(g * chunks + c) * d + col];
-  dscale[i] = from_f<S>(s);
+// One launch: tiles of rows, dx per row, dscale by fixed-order sums.
+template <typename T, typename S, int VEC, int NL>
+__global__ void __launch_bounds__(kThreads) rmsnorm_bwd_kernel(BwdArgs a) {
+  extern __shared__ float slot_sums[];  // (rpb, d) when rpb > 1
+  __shared__ float red[2][kWarps];
+  const T* __restrict__ x = static_cast<const T*>(a.x);
+  const T* __restrict__ dy = static_cast<const T*>(a.dy);
+  const S* __restrict__ scale = static_cast<const S*>(a.scale);
+  T* __restrict__ dx = static_cast<T*>(a.dx);
+  const int tpr = 1 << a.tpr_log2;
+  const int lane = threadIdx.x & (tpr - 1);
+  const int slot = threadIdx.x >> a.tpr_log2;
+  const int rpb = kThreads >> a.tpr_log2;
+  const int chunks = a.d / VEC;
+  const float inv_d = 1.f / static_cast<float>(a.d);
+  const int64_t tiles = a.groups * a.tiles_per_group;
+  int parity = 0;
+  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int64_t g = tile / a.tiles_per_group;
+    const int64_t r0 = (tile - g * a.tiles_per_group) * a.tile_rows;
+    const int64_t r1 = r0 + a.tile_rows < a.rows_per_group
+                           ? r0 + a.tile_rows
+                           : a.rows_per_group;
+    const S* sr = scale + g * a.d;
+    Pack<S, VEC> sv[NL];
+    float acc[NL][VEC];
+#pragma unroll
+    for (int i = 0; i < NL; ++i) {
+      const int c = lane + i * tpr;
+      if (c < chunks) {
+        sv[i] = *reinterpret_cast<const Pack<S, VEC>*>(sr + c * VEC);
+      }
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) acc[i][k] = 0.f;
+    }
+    for (int64_t base = r0; base < r1; base += rpb) {
+      const int64_t r = base + slot;
+      const bool valid = r < r1;
+      const int64_t row = g * a.rows_per_group + r;
+      const float rs = valid ? a.rstd[row] : 0.f;
+      Pack<T, VEC> xv[NL], gv[NL];
+      float dot = 0.f;  // sum over the row of (dy * scale) * xh
+#pragma unroll
+      for (int i = 0; i < NL; ++i) {
+        const int c = lane + i * tpr;
+        if (valid && c < chunks) {
+          xv[i] = *reinterpret_cast<const Pack<T, VEC>*>(x + row * a.d +
+                                                         c * VEC);
+          gv[i] = *reinterpret_cast<const Pack<T, VEC>*>(dy + row * a.d +
+                                                         c * VEC);
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) {
+            dot = fmaf(to_f(gv[i].v[k]) * to_f(sv[i].v[k]),
+                       to_f(xv[i].v[k]) * rs, dot);
+          }
+        }
+      }
+      const float cm = row_sum(dot, tpr, red, parity) * inv_d;
+      parity ^= 1;
+#pragma unroll
+      for (int i = 0; i < NL; ++i) {
+        const int c = lane + i * tpr;
+        if (valid && c < chunks) {
+          Pack<T, VEC> out;
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) {
+            const float dyv = to_f(gv[i].v[k]);
+            const float xh = to_f(xv[i].v[k]) * rs;
+            const float gy = dyv * to_f(sv[i].v[k]);
+            out.v[k] = from_f<T>(rs * (gy - xh * cm));
+            acc[i][k] = fmaf(dyv, xh, acc[i][k]);
+          }
+          *reinterpret_cast<Pack<T, VEC>*>(dx + row * a.d + c * VEC) = out;
+        }
+      }
+    }
+    // the tile's column sums: dscale itself when the group is one tile
+    const bool whole = a.tiles_per_group == 1;
+    float* part = a.partial + tile * a.d;
+    S* ds = static_cast<S*>(a.dscale) + g * a.d;
+    if (rpb == 1) {
+#pragma unroll
+      for (int i = 0; i < NL; ++i) {
+        const int c = lane + i * tpr;
+        if (c < chunks) {
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) {
+            if (whole) {
+              ds[c * VEC + k] = from_f<S>(acc[i][k]);
+            } else {
+              part[c * VEC + k] = acc[i][k];
+            }
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < NL; ++i) {
+        const int c = lane + i * tpr;
+        if (c < chunks) {
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) {
+            slot_sums[slot * a.d + c * VEC + k] = acc[i][k];
+          }
+        }
+      }
+      __syncthreads();
+      for (int j = threadIdx.x; j < a.d; j += kThreads) {
+        float s = slot_sums[j];
+        for (int sl = 1; sl < rpb; ++sl) s += slot_sums[sl * a.d + j];
+        if (whole) {
+          ds[j] = from_f<S>(s);
+        } else {
+          part[j] = s;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  if (a.tiles_per_group == 1) return;
+  cg::this_grid().sync();
+  dscale_from_partials<S>(a);
 }
 
-unsigned row_blocks(int64_t rows) {
-  return static_cast<unsigned>((rows + kWarps - 1) / kWarps);
+unsigned blocks_for(int64_t rows, int tpr_log2) {
+  const int64_t rpb = kThreads >> tpr_log2;
+  return static_cast<unsigned>((rows + rpb - 1) / rpb);
+}
+
+template <typename T, typename S, int VEC, int NL>
+int fwd(const FwdArgs& a, cudaStream_t stream) {
+  rmsnorm_fwd_kernel<T, S, VEC, NL>
+      <<<blocks_for(a.rows, a.tpr_log2), kThreads, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+constexpr int kMaxDevices = 64;
+
+// The current device, or -1.
+int device() {
+  int dev = -1;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices) return -1;
+  return dev;
+}
+
+int sm_count(int dev) {
+  static int count[kMaxDevices];  // a constant of each device
+  if (count[dev] == 0) {
+    cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount,
+                           dev);
+  }
+  return count[dev];
+}
+
+template <typename T, typename S, int VEC, int NL>
+int bwd(BwdArgs a, cudaStream_t stream) {
+  auto kernel = rmsnorm_bwd_kernel<T, S, VEC, NL>;
+  const int rpb = kThreads >> a.tpr_log2;
+  const size_t smem =
+      rpb > 1 ? static_cast<size_t>(rpb) * a.d * sizeof(float) : 0;
+  const int64_t tiles = a.groups * a.tiles_per_group;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (a.tiles_per_group == 1) {  // no cross-block sum: a plain launch
+    kernel<<<static_cast<unsigned>(tiles), kThreads, smem, stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // resident blocks of this instantiation at this shared memory size: a
+  // constant of the device, kept per device (the query costs host time)
+  static struct {
+    size_t smem;
+    int per_sm;
+  } occupancy[kMaxDevices];
+  const int dev = device();
+  if (dev < 0) return static_cast<int>(cudaErrorInvalidDevice);
+  cudaError_t err = cudaSuccess;
+  if (occupancy[dev].per_sm == 0 || occupancy[dev].smem != smem) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &occupancy[dev].per_sm, kernel, kThreads, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    occupancy[dev].smem = smem;
+  }
+  const int64_t resident =
+      static_cast<int64_t>(occupancy[dev].per_sm) * sm_count(dev);
+  if (resident <= 0) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  const unsigned grid =
+      static_cast<unsigned>(tiles < resident ? tiles : resident);
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
+                                    dim3(grid), dim3(kThreads), args, smem,
+                                    stream);
+  return static_cast<int>(err);
+}
+
+// Dispatch on the loads per thread, the vector width and the types. The
+// backward's wide path stops at 8 loads a thread (its column sums take
+// registers too); the wrapper never asks for more.
+#define RMS_CASE(FN, VEC, NL) \
+  case NL:                    \
+    return FN<T, S, VEC, NL>(a, stream);
+
+template <typename T, typename S>
+int dispatch_fwd(int vec, int nl, const FwdArgs& a, cudaStream_t stream) {
+  constexpr int kWide = 16 / sizeof(T);
+  if (vec == kWide) {
+    switch (nl) {
+      RMS_CASE(fwd, kWide, 1)
+      RMS_CASE(fwd, kWide, 2)
+      RMS_CASE(fwd, kWide, 4)
+      RMS_CASE(fwd, kWide, 8)
+      RMS_CASE(fwd, kWide, 16)
+    }
+  } else if (vec == 1) {
+    switch (nl) {
+      RMS_CASE(fwd, 1, 1)
+      RMS_CASE(fwd, 1, 2)
+      RMS_CASE(fwd, 1, 4)
+      RMS_CASE(fwd, 1, 8)
+      RMS_CASE(fwd, 1, 16)
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T, typename S>
-void fwd(const void* x, const void* scale, void* y, float* rstd,
-         int64_t groups, int64_t rows_per_group, int d, float eps,
-         cudaStream_t stream) {
-  const int64_t rows = groups * rows_per_group;
-  rmsnorm_fwd_kernel<T, S><<<row_blocks(rows), kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const S*>(scale),
-      static_cast<T*>(y), rstd, rows, rows_per_group, d, eps);
+int dispatch_bwd(int vec, int nl, const BwdArgs& a, cudaStream_t stream) {
+  constexpr int kWide = 16 / sizeof(T);
+  if (vec == kWide) {
+    switch (nl) {
+      RMS_CASE(bwd, kWide, 1)
+      RMS_CASE(bwd, kWide, 2)
+      RMS_CASE(bwd, kWide, 4)
+      RMS_CASE(bwd, kWide, 8)
+    }
+  } else if (vec == 1) {
+    switch (nl) {
+      RMS_CASE(bwd, 1, 1)
+      RMS_CASE(bwd, 1, 2)
+      RMS_CASE(bwd, 1, 4)
+      RMS_CASE(bwd, 1, 8)
+      RMS_CASE(bwd, 1, 16)
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename T, typename S>
-void bwd(const void* x, const void* scale, const float* rstd, const void* dy,
-         void* dx, void* dscale, float* workspace, int64_t groups,
-         int64_t rows_per_group, int d, int chunk_rows,
-         cudaStream_t stream) {
-  const int64_t rows = groups * rows_per_group;
-  rmsnorm_dx_kernel<T, S><<<row_blocks(rows), kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const S*>(scale), rstd,
-      static_cast<const T*>(dy), static_cast<T*>(dx), rows, rows_per_group,
-      d);
-  const int chunks =
-      static_cast<int>((rows_per_group + chunk_rows - 1) / chunk_rows);
-  const dim3 grid((d + kStrip - 1) / kStrip, chunks,
-                  static_cast<unsigned>(groups));
-  rmsnorm_dscale_partial_kernel<T><<<grid, dim3(kStrip, kRowLanes), 0,
-                                     stream>>>(
-      static_cast<const T*>(x), rstd, static_cast<const T*>(dy), workspace,
-      rows_per_group, d, chunk_rows);
-  const int64_t n = groups * d;
-  rmsnorm_dscale_sum_kernel<S><<<static_cast<unsigned>(
-                                     (n + kThreads - 1) / kThreads),
-                                 kThreads, 0, stream>>>(
-      workspace, static_cast<S*>(dscale), groups, d, chunks);
-}
+#undef RMS_CASE
 
 }  // namespace
 
 // C interface, loaded with ctypes. x, y: (groups, rows_per_group, d)
-// row-major in x's type (x_bf16 selects bfloat16, else float32); scale:
-// (groups, d) in its own type (scale_bf16); rstd: (groups *
-// rows_per_group,) float32. Launches on `stream` without synchronising
-// and returns cudaGetLastError() (0 on success).
+// row-major in x's type, scale: (groups, d) in its own type; `dtypes` is
+// 1 for bfloat16 x plus 2 for a bfloat16 scale (else float32); rstd:
+// (groups * rows_per_group,) float32. `vec` is the elements per access:
+// 16 bytes' worth (x, y and scale 16-byte aligned and d * sizeof(x) a
+// multiple of 16) or 1. A row is shared by 2^tpr_log2 <= 256 threads of
+// nl loads each (1, 2, 4, 8 or 16), which must cover d / vec. Launches on
+// `stream` without synchronising; returns the CUDA error (0 on success).
 extern "C" int rmsnorm_fwd_launch(const void* x, const void* scale, void* y,
                                   void* rstd, int64_t groups,
                                   int64_t rows_per_group, int64_t d,
-                                  float eps, int x_bf16, int scale_bf16,
-                                  void* stream) {
-  if (groups * rows_per_group <= 0 || d <= 0) return 0;
+                                  float eps, int dtypes, int vec,
+                                  int tpr_log2, int nl, void* stream) {
+  const FwdArgs a{x,      scale, y, static_cast<float*>(rstd),
+                  groups * rows_per_group, rows_per_group,
+                  static_cast<int>(d), tpr_log2, eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* r = static_cast<float*>(rstd);
-  const int di = static_cast<int>(d);
-  if (x_bf16) {
-    if (scale_bf16) {
-      fwd<__nv_bfloat16, __nv_bfloat16>(x, scale, y, r, groups,
-                                        rows_per_group, di, eps, s);
-    } else {
-      fwd<__nv_bfloat16, float>(x, scale, y, r, groups, rows_per_group, di,
-                                eps, s);
-    }
-  } else {
-    if (scale_bf16) {
-      fwd<float, __nv_bfloat16>(x, scale, y, r, groups, rows_per_group, di,
-                                eps, s);
-    } else {
-      fwd<float, float>(x, scale, y, r, groups, rows_per_group, di, eps, s);
-    }
+  if (a.rows <= 0 || d <= 0) return 0;
+  switch (dtypes) {
+    case 0: return dispatch_fwd<float, float>(vec, nl, a, s);
+    case 1: return dispatch_fwd<__nv_bfloat16, float>(vec, nl, a, s);
+    case 2: return dispatch_fwd<float, __nv_bfloat16>(vec, nl, a, s);
+    case 3: return dispatch_fwd<__nv_bfloat16, __nv_bfloat16>(vec, nl, a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
-// dy, dx: like x; dscale: like scale; workspace: (groups, chunks, d)
-// float32 with chunks = ceil(rows_per_group / chunk_rows), at most 65535,
-// as is groups.
+// dy, dx: like x (16-byte aligned too on the wide path); dscale: like
+// scale. Rows of a group are cut into tiles of tile_rows (a multiple of
+// the rows a block holds at once); with more than one tile per group,
+// partial is a float32 workspace of (groups * tiles, d) and the launch is
+// cooperative. One launch in every case.
 extern "C" int rmsnorm_bwd_launch(const void* x, const void* scale,
                                   const void* rstd, const void* dy, void* dx,
-                                  void* dscale, void* workspace,
+                                  void* dscale, void* partial,
                                   int64_t groups, int64_t rows_per_group,
-                                  int64_t d, int chunk_rows, int x_bf16,
-                                  int scale_bf16, void* stream) {
-  if (groups * rows_per_group <= 0 || d <= 0) return 0;
+                                  int64_t d, int64_t tile_rows, int dtypes,
+                                  int vec, int tpr_log2, int nl,
+                                  void* stream) {
+  if (groups * rows_per_group <= 0 || d <= 0 || tile_rows <= 0) return 0;
+  const BwdArgs a{x, scale, static_cast<const float*>(rstd), dy, dx, dscale,
+                  static_cast<float*>(partial), groups, rows_per_group,
+                  tile_rows, (rows_per_group + tile_rows - 1) / tile_rows,
+                  static_cast<int>(d), tpr_log2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* r = static_cast<const float*>(rstd);
-  float* w = static_cast<float*>(workspace);
-  const int di = static_cast<int>(d);
-  if (x_bf16) {
-    if (scale_bf16) {
-      bwd<__nv_bfloat16, __nv_bfloat16>(x, scale, r, dy, dx, dscale, w,
-                                        groups, rows_per_group, di,
-                                        chunk_rows, s);
-    } else {
-      bwd<__nv_bfloat16, float>(x, scale, r, dy, dx, dscale, w, groups,
-                                rows_per_group, di, chunk_rows, s);
-    }
-  } else {
-    if (scale_bf16) {
-      bwd<float, __nv_bfloat16>(x, scale, r, dy, dx, dscale, w, groups,
-                                rows_per_group, di, chunk_rows, s);
-    } else {
-      bwd<float, float>(x, scale, r, dy, dx, dscale, w, groups,
-                        rows_per_group, di, chunk_rows, s);
-    }
+  switch (dtypes) {
+    case 0: return dispatch_bwd<float, float>(vec, nl, a, s);
+    case 1: return dispatch_bwd<__nv_bfloat16, float>(vec, nl, a, s);
+    case 2: return dispatch_bwd<float, __nv_bfloat16>(vec, nl, a, s);
+    case 3: return dispatch_bwd<__nv_bfloat16, __nv_bfloat16>(vec, nl, a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -180,11 +180,19 @@ def test_rmsnorm_kernels_match_plain_version_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device with nvcc")
     g = torch.Generator(device="cuda").manual_seed(0)
-    # the payload's training call, a sweep shape, and bfloat16
-    for (G, R, D), dt in [((20, 256, 32), torch.float32),
-                          ((1, 37, 512), torch.float32),
-                          ((1, 37, 512), torch.bfloat16)]:
-        x = torch.randn(G, R, D, generator=g, device="cuda").to(dt)
+    # the payload's training call, a sweep shape, bfloat16, and the edges
+    # of the kernels' paths: a 72-byte row (the 1-wide path), an x that
+    # starts one element into its buffer (unaligned: the 1-wide path), and
+    # several groups whose rows are no multiple of a tile
+    for (G, R, D), dt, off in [((20, 256, 32), torch.float32, 0),
+                               ((1, 37, 512), torch.float32, 0),
+                               ((1, 37, 512), torch.bfloat16, 0),
+                               ((4, 300, 36), torch.bfloat16, 0),
+                               ((2, 100, 256), torch.float32, 1),
+                               ((8, 1000, 1024), torch.float32, 0)]:
+        x = torch.randn(G * R * D + off, generator=g, device="cuda")[
+            off:].view(G, R, D).to(dt)
+        assert x.is_contiguous() and (x.data_ptr() % 16 != 0) == (off > 0)
         s = (1 + torch.randn(G, D, generator=g, device="cuda")).to(dt)
         dy = torch.randn(G, R, D, generator=g, device="cuda").to(dt)
         before = dict(launch_counts)
@@ -204,6 +212,9 @@ def test_rmsnorm_kernels_match_plain_version_on_the_card():
                                    **_card_tol(dt, True))
         torch.testing.assert_close(ds.float(), rds.float(),
                                    **_card_tol(dt, True))
+        # no floating-point atomics: a second call repeats bit for bit
+        dx2, ds2 = rms_kernel.rmsnorm_bwd(x, s, rstd, dy)
+        assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
 
 
 @pytest.mark.gpu

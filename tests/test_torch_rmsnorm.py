@@ -144,3 +144,125 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         TK.rmsnorm_bwd(x, s, rstd[:-1], x)
     with pytest.raises(ValueError, match="dy must match"):
         TK.rmsnorm_bwd(x, s, rstd, x[:2])
+
+
+@pytest.mark.parametrize("d, dtype, offsets, wide", [
+    (32, torch.float32, (0, 0), 4),       # the path's rows: 128 bytes
+    (4096, torch.bfloat16, (0, 0), 8),    # a zoo width
+    (36, torch.float32, (0, 0), 4),       # 144 bytes: whole 16-byte loads
+    (36, torch.bfloat16, (0, 0), 1),      # 72 bytes: the 1-wide path
+    (256, torch.float32, (1, 0), 1),      # x one element into its buffer
+    (256, torch.bfloat16, (0, 3), 1),     # scale three elements in
+    (256, torch.bfloat16, (4, 8), 8),     # offsets of 8 and 16 bytes
+])
+def test_vector_width_follows_width_dtype_and_alignment(d, dtype, offsets,
+                                                        wide):
+    """The wrapper's choice between the 16-byte and the 1-wide kernels,
+    from the row's width in bytes and the pointers' alignment (CPU
+    tensors viewed at element offsets into their buffers)."""
+    x_off, s_off = offsets
+    x = torch.empty(3 * d + 16, dtype=dtype)[x_off:x_off + 3 * d]
+    s = torch.empty(d + 16, dtype=dtype)[s_off:s_off + d]
+    assert x.is_contiguous() and s.is_contiguous()
+    got = TK.vector_width(d, x.element_size(), x.data_ptr(), s.data_ptr())
+    if x_off * x.element_size() % 16 == 0 and \
+            s_off * s.element_size() % 16 == 0:
+        assert got == wide
+    else:
+        assert got == 1
+    meta = torch.empty(3, d, dtype=dtype, device="meta")
+    assert TK.vector_width(d, meta.element_size(), meta.data_ptr()) == \
+        (1 if (d * meta.element_size()) % 16 else 16 // meta.element_size())
+
+
+@pytest.mark.parametrize("chunks, wide, loads, want", [
+    (8, True, 2, (3, 1)),          # D = 32 f32: 8 lanes, 4 rows a warp
+    (512, True, 16, (5, 16)),      # D = 4096 bf16: a warp per row
+    (512, True, 4, (7, 4)),        # 4 warps per row
+    (512, True, 2, (8, 2)),        # the wrapper's choice: 8 warps per row
+    (36, False, 2, (5, 2)),        # D = 36 bf16, 1-wide
+    (9, True, 2, (4, 1)),          # 9 loads: 16 lanes, 7 idle
+    (1, False, 2, (0, 1)),
+    (2048, True, 2, (8, 8)),       # the widest 16-byte row
+    (4096, False, 2, (8, 16)),     # the widest 1-wide row
+])
+def test_layout_covers_the_row(chunks, wide, loads, want):
+    tpr_log2, nl = TK.layout(chunks, wide, loads)
+    assert (tpr_log2, nl) == want
+    assert (1 << tpr_log2) * nl >= chunks and nl in (1, 2, 4, 8, 16)
+    assert (1 << tpr_log2) <= TK.THREADS
+
+
+@pytest.mark.parametrize("chunks, wide", [(2049, True), (4097, False)])
+def test_layout_rejects_rows_wider_than_the_registers_hold(chunks, wide):
+    with pytest.raises(ValueError, match="holds a row of at most"):
+        TK.layout(chunks, wide, TK.FWD_LOADS)
+
+
+@pytest.mark.parametrize("g, r, tpr_log2, want", [
+    (20, 256, 3, (256, 1)),       # the path: a group is one tile
+    (1, 16384, 8, (63, 261)),     # the zoo backward: 261 tiles
+    (8, 1000, 7, (32, 32)),       # rows no multiple of the tile
+    (1, 8000, 3, (512, 16)),      # tiles of 16 steps of 32 rows
+    (2, 100, 7, (26, 4)),         # an odd tile: 13 steps of 2 rows
+    (300, 7, 3, (32, 1)),
+    (1, 1, 8, (1, 1)),
+])
+def test_backward_tiles_cover_each_group_once(g, r, tpr_log2, want):
+    rows, per_group = TK.tiles(g, r, tpr_log2)
+    assert (rows, per_group) == want
+    rpb = TK.THREADS >> tpr_log2
+    assert rows % rpb == 0 and (per_group - 1) * rows < r <= per_group * rows
+    assert g * per_group <= max(TK.TILES, g) + g
+    capped = -(-r // (rpb * TK.TILE_STEPS)) > -(-TK.TILES // g)
+    assert rows <= rpb * TK.TILE_STEPS or capped
+
+
+class _CudaLabelled(torch.Tensor):
+    """A CPU tensor that reports a CUDA device: it takes the wrapper down
+    its kernel path on a machine that has no card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda")
+
+
+def _cuda(*tensors):
+    return [torch.Tensor._make_subclass(_CudaLabelled, t) for t in tensors]
+
+
+def test_wrapper_checks_cuda_inputs_before_the_kernel():
+    """On the kernel's path (CUDA tensors) the wrapper raises what it
+    raises on the CPU, before it builds or launches anything; inputs it
+    takes reach the kernel, which cannot be built here."""
+    x, s = torch.ones(4, 8, 16), torch.ones(16)
+    rstd = torch.ones(32)
+    bad = [
+        (ValueError, "shape mismatch", lambda: TK.rmsnorm(
+            *_cuda(x, torch.ones(8)))),
+        (ValueError, "shape mismatch", lambda: TK.rmsnorm(
+            *_cuda(x, torch.ones(3, 16)))),
+        (TypeError, "float32 or bfloat16", lambda: TK.rmsnorm(
+            *_cuda(x.double(), s))),
+        (ValueError, "contiguous", lambda: TK.rmsnorm(
+            *_cuda(x.transpose(0, 1), s))),
+        (ValueError, "non-empty", lambda: TK.rmsnorm(
+            *_cuda(torch.ones(0, 16), s))),
+        (ValueError, "different devices", lambda: TK.rmsnorm(
+            _cuda(x)[0], s)),
+        (ValueError, "rstd", lambda: TK.rmsnorm_bwd(
+            *_cuda(x, s, rstd[:-1], x))),
+        (ValueError, "dy must match", lambda: TK.rmsnorm_bwd(
+            *_cuda(x, s, rstd, x[:2]))),
+        (ValueError, "different devices", lambda: TK.rmsnorm_bwd(
+            *_cuda(x, s), rstd, _cuda(x)[0])),
+        (ValueError, "contiguous", lambda: TK.rmsnorm_bwd(
+            *_cuda(x, s, torch.ones(64)[::2], x))),
+    ]
+    for exc, match, call in bad:
+        with pytest.raises(exc, match=match):
+            call()
+    for call in (lambda: TK.rmsnorm(*_cuda(x, s)),
+                 lambda: TK.rmsnorm_bwd(*_cuda(x, s, rstd, x))):
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            call()
