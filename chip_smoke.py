@@ -6,8 +6,10 @@
 Phases, each of which fails the script (nonzero exit) when it fails:
   1. device: the card's name, count, and `nvidia-smi` name/power limit;
   2. build: every CUDA source of the port (aggregation, RMSNorm, flash
-     attention) built with nvcc for sm_90a, one nvcc per source, all
-     started together, with ptxas's report;
+     attention on the CUDA cores and its forward on the tensor cores)
+     built with nvcc for sm_90a, one nvcc per source, all started
+     together, with ptxas's report (and a summary of the tensor-core
+     forward's registers and spills, which must be none);
   3. kernels against their plain PyTorch versions, forward and backward,
      at the main paths' shapes, the reference's test sweeps and one large
      shape each, with CUDA-event timings (kernel, plain version, one-call
@@ -15,7 +17,11 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      same work; for RMSNorm also the device and host time of a call and
      its kernels per call, two backward calls compared bit for bit, the
      other layouts' times at the zoo shape, and the host cost of the
-     pieces of a wrapper call;
+     pieces of a wrapper call; for attention the forward's route (tensor
+     cores or CUDA cores) on every row, checked against the launch
+     counts, and at the path's and the zoo shape the device and host time
+     of a call and its kernels per call (the zoo forward one tensor-core
+     kernel);
   4. the quickstart path: the FedBuff federation of examples/quickstart.py
      (MLP payload) through `Federation.from_experiment(exp).run()` on the
      card, launch counts read around it, then the same experiment on the
@@ -182,15 +188,19 @@ def _grad_ms(fn, inputs, cotangent, iters):
 # evaluation call (1000 samples x 8 tokens, one scale), the sweep of
 # tests/test_kernels.py, one zoo width, and the edges of the kernels'
 # paths: a width of 72 bytes (the 1-wide path), an x one element into its
-# buffer (unaligned: the 1-wide path), and several groups whose rows are
-# no multiple of a tile.
+# buffer (unaligned: the 1-wide path), several groups whose rows are no
+# multiple of a tile, and rows wider than the registers hold (the
+# row-looping kernels): D = 20,000 float32 (one tile), 32,768 bfloat16 and
+# 4,100 float32 one element into its buffer (several tiles a group).
 RMS_PATH = (20, 256, 32)
 RMS_ZOO = (1, 16384, 4096)
 RMS_SHAPES = [(RMS_PATH, "float32", 0), ((1, 8000, 32), "float32", 0)] + [
     (shape, dt, 0) for shape in ((1, 4, 128), (1, 15, 256), (1, 37, 512))
     for dt in ("float32", "bfloat16")] + [
     (RMS_ZOO, "bfloat16", 0), ((4, 300, 36), "bfloat16", 0),
-    ((2, 100, 256), "float32", 1), ((8, 1000, 1024), "float32", 0)]
+    ((2, 100, 256), "float32", 1), ((8, 1000, 1024), "float32", 0),
+    ((1, 16, 20_000), "float32", 0), ((2, 40, 32_768), "bfloat16", 0),
+    ((3, 300, 4_100), "float32", 1)]
 RMS_EPS = 1e-6
 
 
@@ -403,17 +413,24 @@ def check_rmsnorm(torch):
 # Flash-attention shapes (B, H, K, Sq, Sk, hd, causal, window, dtype): the
 # transformer path's training call (20 satellites x 32 samples, 4 heads
 # over 2 kv heads, 8 tokens, hd 8), the two sweeps of tests/test_kernels.py
-# (GQA x mask at S=128, hd=64; Sq/Sk x dtype at hd=128, unmasked), and
-# qwen3-8b's head layout at S=2048 (configs/qwen3_8b.py).
+# (GQA x mask at S=128, hd=64, in float32 and in bfloat16, the tensor
+# cores' route; Sq/Sk x dtype at hd=128, unmasked), head dims the kernels
+# do not instantiate (80 in bfloat16, padded to 128 on the tensor cores;
+# 12 in float32, padded to 16 on the CUDA cores), and qwen3-8b's head
+# layout at S=2048 (configs/qwen3_8b.py).
 FLASH_PATH = (640, 4, 2, 8, 8, 8, True, 0, "float32")
+FLASH_ZOO = (1, 32, 8, 2048, 2048, 128, True, 0, "bfloat16")
 FLASH_SHAPES = [FLASH_PATH] + [
-    (2, h, k, 128, 128, 64, causal, window, "float32")
+    (2, h, k, 128, 128, 64, causal, window, dt)
+    for dt in ("float32", "bfloat16")
     for h, k in ((4, 4), (4, 2), (8, 1))
     for causal, window in ((True, 0), (True, 32), (False, 0))] + [
     (1, 2, 2, sq, sk, 128, False, 0, dt)
     for sq, sk in ((64, 64), (100, 200), (64, 192))
     for dt in ("float32", "bfloat16")] + [
-    (1, 32, 8, 2048, 2048, 128, True, 0, "bfloat16")]
+    (1, 4, 2, 100, 200, 80, True, 0, "bfloat16"),
+    (2, 4, 2, 64, 64, 12, True, 3, "float32"), FLASH_ZOO]
+TC_KERNEL = "flash_fwd_tc_kernel"     # in the tensor-core kernel's name
 
 
 def _visible_pairs(sq, sk, causal, window):
@@ -426,6 +443,20 @@ def _visible_pairs(sq, sk, causal, window):
     return total
 
 
+def _cuda_core_fwd(K, q, k, v, causal, window):
+    """The CUDA-core forward called through its C entry point, whatever
+    route the wrapper would pick (for an unpadded hd)."""
+    import torch
+    o = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    err = K._library()[0](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          o.data_ptr(), lse.data_ptr(),
+                          *K._dims(q, k, causal, window, q.shape[-1]))
+    if err:
+        raise RuntimeError(f"flash_fwd_launch failed with cudaError {err}")
+    return o, lse
+
+
 def check_flash(torch):
     """Phase 3: flash attention forward and backward against the plain
     version."""
@@ -434,16 +465,24 @@ def check_flash(torch):
     from repro_torch.kernels.flash_attention.ref import (_mask,
                                                          attention_bwd_ref,
                                                          attention_fwd_ref)
+    from repro_torch.kernels import launch_counts
     g = torch.Generator(device="cuda").manual_seed(2)
     rows = []
-    for B, H, KH, sq, sk, hd, causal, window, dts in FLASH_SHAPES:
+    for shape in FLASH_SHAPES:
+        B, H, KH, sq, sk, hd, causal, window, dts = shape
         dt = getattr(torch, dts)
         q = torch.randn(B, H, sq, hd, generator=g, device="cuda").to(dt)
         k = torch.randn(B, KH, sk, hd, generator=g, device="cuda").to(dt)
         v = torch.randn(B, KH, sk, hd, generator=g, device="cuda").to(dt)
         do = torch.randn(B, H, sq, hd, generator=g, device="cuda").to(dt)
         kw = dict(causal=causal, window=window)
+        route = K.route(dt, K.padded_head_dim(hd))
+        before = launch_counts[K.NAME_TC]
         o, lse = K.flash_attention(q, k, v, **kw)
+        if launch_counts[K.NAME_TC] - before != (route == "tc"):
+            raise AssertionError(f"{shape}: route {route} but "
+                                 f"{launch_counts[K.NAME_TC] - before} "
+                                 f"tensor-core launches")
         o_ref, lse_ref = attention_fwd_ref(q, k, v, **kw)
         grads = K.flash_attention_bwd(q, k, v, o, lse, do, **kw)
         # the plain backward starts from the plain forward's o and lse
@@ -492,10 +531,32 @@ def check_flash(torch):
             row = {"kernel": "flash_attention" if direction == "fwd"
                    else "flash_attention_bwd", "B": B, "H": H, "K": KH,
                    "Sq": sq, "Sk": sk, "hd": hd, "causal": causal,
-                   "window": window, "dtype": dts, "max_abs_err": err,
+                   "window": window, "dtype": dts,
+                   "route": route if direction == "fwd" else "cuda_core",
+                   "max_abs_err": err,
                    "tol": tol, "kernel_ms": k_ms, "plain_ms": p_ms,
                    "library_ms": lib_ms, "bound_ms": bound[0],
                    "bound_by": bound[1], "bound_share": bound[0] / k_ms}
+            if shape == FLASH_ZOO and direction == "fwd":
+                # the CUDA-core forward on the same inputs, launched through
+                # its C entry point (not counted): the route this replaced
+                cc = _cuda_core_fwd(K, q, k, v, causal, window)
+                _compare(tag + " cuda-core", cc[:1], (o_ref,), dt)
+                row["cuda_core_ms"] = _time_ms(
+                    lambda: _cuda_core_fwd(K, q, k, v, causal, window), iters)
+            if shape in (FLASH_PATH, FLASH_ZOO):
+                host_us, dev_us, per_call, names, events = \
+                    _host_and_device(kern, iters)
+                row.update(device_us=dev_us, host_us=host_us,
+                           launches_per_call=per_call, kernels_seen=names,
+                           profiled=f"{events} kernel events over {iters} "
+                                    f"calls")
+                if direction == "fwd" and (per_call != 1 or len(names) != 1
+                                           or (TC_KERNEL in names[0]) !=
+                                           (route == "tc")):
+                    raise AssertionError(f"{tag}: {per_call} kernels per "
+                                         f"call ({names}), not one "
+                                         f"{route} kernel")
             print("flash", json.dumps(row), flush=True)
             rows.append(row)
         del q, k, v, do, o, lse, o_ref, lse_ref, grads, grads_ref
@@ -647,6 +708,10 @@ def run_transformer_path(torch):
         raise AssertionError(f"expected rmsnorm = 5/2 flash_attention, "
                              f"forward and backward, with backward calls; "
                              f"got {counts}")
+    # the path's attention is float32 at hd 8: the CUDA cores' route
+    if counts.get("flash_attention_tc", 0):
+        raise AssertionError(f"float32 attention took the tensor cores: "
+                             f"{counts}")
     if not all(math.isfinite(a) for a in res.accuracy + res.val_loss):
         raise AssertionError("non-finite accuracy or loss on the card")
     for name, want in TRANSFORMER_REFERENCE.items():
@@ -722,6 +787,21 @@ def check_client_update(torch, card, cpu, train):
                                      f"differs beyond tolerance")
 
 
+def _tc_ptxas(log: str):
+    """The tensor-core forward's registers and spills, one line per
+    instantiation, from ptxas's report; fails on a spill (a reused
+    library has no report, and nothing is checked)."""
+    import re
+    found = re.findall(r"flash_fwd_tc_kernelILi(\d+)EE.*?(\d+) bytes spill "
+                       r"stores, (\d+) bytes spill loads.*?Used (\d+) "
+                       r"registers", log, re.S)
+    for hd, stores, loads, regs in found:
+        print(f"flash_fwd_tc hd {hd}: {regs} registers, {stores} bytes spill"
+              f" stores, {loads} bytes spill loads", flush=True)
+        if int(stores) or int(loads):
+            raise AssertionError(f"flash_fwd_tc hd {hd} spills")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -750,11 +830,13 @@ def main() -> int:
 
     # 2. build, all sources at once
     for b in build.build([agg_kernel.SOURCE, rms_kernel.SOURCE,
-                          flash_kernel.SOURCE]):
+                          flash_kernel.SOURCE, flash_kernel.SOURCE_TC]):
         print(f"built {b.source.relative_to(ROOT)} -> "
               f"{b.library.relative_to(ROOT)} in {b.seconds:.1f} s",
               flush=True)
         print(b.log.strip(), flush=True)
+        if b.source == flash_kernel.SOURCE_TC:
+            _tc_ptxas(b.log)
     done("build")
 
     # 3. kernels against their plain versions
@@ -826,6 +908,8 @@ def main() -> int:
                                if r["library_ms"] is not None else None),
                 "work": what,
             })
+    flash_entry = next(k for k in kernels if k["name"] == flash_kernel.NAME)
+    flash_entry["launches_tc"] = sum(launches(flash_kernel.NAME_TC).values())
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on a main "

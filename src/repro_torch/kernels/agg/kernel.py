@@ -85,7 +85,7 @@ def weighted_aggregate(params_flat, updates, weights):
                  weights.data_ptr(), out.data_ptr(), m, n,
                  int(params_flat.dtype == torch.bfloat16),
                  int(updates.dtype == torch.bfloat16), int(wide),
-                 torch.cuda.current_stream(device).cuda_stream)
+                 torch._C._cuda_getCurrentRawStream(params_flat.get_device()))
     if err:
         raise RuntimeError(f"agg_launch failed with cudaError {err}")
     launch_counts[NAME] += 1

@@ -35,10 +35,11 @@
 // lse, dq, dk, dv. At long sequences operations bound it: at qwen3-8b's
 // head layout (H=32, K=8, hd=128, S=2048, causal) the forward is 34
 // GFLOP, 0.035 ms at the dense bf16 tensor-core peak. This kernel runs on
-// the CUDA cores (no tensor cores: the transformer payload's S = 8,
-// hd = 8 are below any tensor-core tile), so its floor there is the
-// float32 rate, ~15x slower. At the payload's shapes a call moves ~1 MB
-// and launch latency sets its time.
+// the CUDA cores in float32 (the transformer payload's S = 8, hd = 8 are
+// below any tensor-core tile, and float32 on the tensor cores would be
+// TF32), so its floor is the float32 rate, ~15x slower; bfloat16 forwards
+// at hd 64 and 128 take flash_fwd_tc.cu instead. At the payload's shapes
+// a call moves ~1 MB and launch latency sets its time.
 //
 // Design: the TPU kernel keeps (m, l, acc) in VMEM scratch across a
 // sequential kv grid axis. Here one block owns a tile of query rows of one
@@ -51,8 +52,11 @@
 // taken 16 at a time: their scores, one rescale of the accumulator, then
 // their exponentials. The backward kernels use the same row groups, with
 // the key rows (dk, dv) or query rows (dq) owned by the groups and the
-// other side staged in shared memory. head dims 8, 16, 32, 64 and 128 are
-// instantiated.
+// other side staged in shared memory. Head dims 8, 16, 32, 64, 128 and 256
+// are instantiated; the wrapper zero-pads any other hd up to 256 to the
+// next of them and passes the true hd's scale. In bfloat16 at hd 64 and
+// 128 the wrapper sends the forward to flash_fwd_tc.cu (tensor cores)
+// instead; the backward here reads that forward's o and lse alike.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -473,6 +477,7 @@ int fwd_hd(int hd, const void* q, const void* k, const void* v, void* o,
     case 32: fwd<T, 32>(q, k, v, o, lse, s, stream); break;
     case 64: fwd<T, 64>(q, k, v, o, lse, s, stream); break;
     case 128: fwd<T, 128>(q, k, v, o, lse, s, stream); break;
+    case 256: fwd<T, 256>(q, k, v, o, lse, s, stream); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -494,6 +499,9 @@ int bwd_hd(int hd, const void* q, const void* k, const void* v,
       break;
     case 128:
       bwd<T, 128>(q, k, v, o, lse, dout, dq, dk, dv, delta, s, stream);
+      break;
+    case 256:
+      bwd<T, 256>(q, k, v, o, lse, dout, dq, dk, dv, delta, s, stream);
       break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -518,8 +526,9 @@ Dims make_dims(int B, int H, int K, int Sq, int Sk, int causal, int window,
 
 // C interface, loaded with ctypes. q, o: (B, H, Sq, hd); k, v: (B, K, Sk,
 // hd), all row-major in one type (bf16 selects bfloat16, else float32);
-// lse: (B, H, Sq) float32. `scale` is hd^-0.5 rounded to float32.
-// hd must be 8, 16, 32, 64 or 128, H a multiple of K. Launches on `stream`
+// lse: (B, H, Sq) float32. `scale` is the scores' scale, the true head
+// dim's hd^-0.5 rounded to float32 (the wrapper zero-pads hd). hd must be
+// 8, 16, 32, 64, 128 or 256, H a multiple of K. Launches on `stream`
 // without synchronising and returns cudaGetLastError() (0 on success).
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* o, void* lse, int B, int H, int K,

@@ -1,13 +1,26 @@
-"""Wrappers of the CUDA flash-attention kernels
-(`csrc/flash_attention.cu`), forward and backward: GQA, top-left causal
-masking, optional sliding window, fully masked kv tiles skipped.
+"""Wrappers of the CUDA flash-attention kernels, forward and backward:
+GQA, top-left causal masking, optional sliding window, fully masked kv
+tiles skipped.
 
 They replace the Pallas TPU kernel `repro.kernels.flash_attention.
 kernel.flash_attention` (which has no backward). Each wrapper checks
 device, dtype, shape and contiguity and raises on anything the kernel does
-not take. A CPU tensor goes to the plain version (`ref.py`); a CUDA tensor
-goes to the kernel, which is built at first use, or the call raises. There
-is no fallback from one to the other.
+not take. A CPU tensor goes to the plain version (`ref.py`), at any head
+dim; a CUDA tensor goes to a kernel, which is built at first use, or the
+call raises. There is no fallback from one to the other.
+
+On the card a head dim `hd` from 1 to `MAX_HEAD_DIM` is zero-padded to
+the next instantiated width (`padded_head_dim`): zero columns change no
+dot product and give zero output columns, and the kernel takes the scale
+of the true `hd`. `route` then picks the forward's kernel:
+  "tc"         bfloat16 at padded hd 64 or 128: `csrc/flash_fwd_tc.cu`,
+               on the tensor cores (`mma.sync` with bf16 inputs and
+               float32 sums);
+  "cuda_core"  every other case: `csrc/flash_attention.cu`, float32
+               arithmetic on the CUDA cores (float32 on the tensor cores
+               would mean TF32, which changes the numbers).
+The backward always runs in `csrc/flash_attention.cu`; it reads either
+forward's o and log-sum-exp alike.
 """
 from __future__ import annotations
 
@@ -16,16 +29,46 @@ import functools
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import build, launch_counts
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_fwd_ref)
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-NAME = "flash_attention"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "flash_attention.cu"
+SOURCE_TC = CSRC / "flash_fwd_tc.cu"
+NAME = "flash_attention"          # every forward call, either route
+NAME_TC = "flash_attention_tc"    # the forward calls that took "tc"
 NAME_BWD = "flash_attention_bwd"
-HEAD_DIMS = (8, 16, 32, 64, 128)
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)   # instantiated on the CUDA cores
+TC_HEAD_DIMS = (64, 128)                # instantiated on the tensor cores
+MAX_HEAD_DIM = HEAD_DIMS[-1]
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def padded_head_dim(hd: int) -> int:
+    """The instantiated width a head dim of `hd` (1 to `MAX_HEAD_DIM`) is
+    zero-padded to on the card."""
+    for width in HEAD_DIMS:
+        if hd <= width:
+            return width
+    raise ValueError(f"head dim {hd} above the kernels' limit of "
+                     f"{MAX_HEAD_DIM}")
+
+
+def route(dtype, padded_hd: int) -> str:
+    """The forward's kernel for inputs of `dtype` at a padded head dim:
+    "tc" (tensor cores) or "cuda_core"."""
+    if dtype == torch.bfloat16 and padded_hd in TC_HEAD_DIMS:
+        return "tc"
+    return "cuda_core"
+
+
+def pad_head_dim(t, width: int):
+    """t (..., hd) zero-padded along its last dim to `width` (t itself
+    when it is that wide already)."""
+    return t if t.shape[-1] == width else F.pad(t, (0, width - t.shape[-1]))
 
 
 def _check(q, k, v, *rest, window: int):
@@ -39,8 +82,6 @@ def _check(q, k, v, *rest, window: int):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} (H must be "
                          f"a multiple of K)")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
     if q.numel() == 0 or k.numel() == 0:
         raise ValueError(f"flash_attention takes non-empty q, k, v; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}")
@@ -62,24 +103,34 @@ def _check(q, k, v, *rest, window: int):
     return device
 
 
+def _typed(fn, pointers):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * pointers + [i] * 8 + [ctypes.c_float, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
-    """The built kernels' C entry points, typed (built at first use)."""
+    """The CUDA-core kernels' C entry points, typed (built at first use)."""
     lib = build.load(SOURCE)
-    fwd, bwd = lib.flash_fwd_launch, lib.flash_bwd_launch
-    p, i = ctypes.c_void_p, ctypes.c_int
-    dims = [i] * 8 + [ctypes.c_float, i, p]
-    fwd.argtypes = [p] * 5 + dims
-    bwd.argtypes = [p] * 10 + dims
-    fwd.restype = bwd.restype = ctypes.c_int
-    return fwd, bwd
+    return _typed(lib.flash_fwd_launch, 5), _typed(lib.flash_bwd_launch, 10)
 
 
-def _dims(q, k, causal, window):
-    B, H, Sq, hd = q.shape
-    return (B, H, k.shape[1], Sq, k.shape[2], hd, int(causal), int(window),
-            hd ** -0.5, int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream(q.device).cuda_stream)
+@functools.lru_cache(maxsize=None)
+def _library_tc():
+    """The tensor-core forward's C entry point, typed (built at first
+    use)."""
+    return _typed(build.load(SOURCE_TC).flash_fwd_tc_launch, 5)
+
+
+def _dims(q, k, causal, window, hd):
+    """The C entry points' sizes for padded q and k, with the scale of the
+    true head dim `hd`."""
+    B, H, Sq, width = q.shape
+    return (B, H, k.shape[1], Sq, k.shape[2], width, int(causal),
+            int(window), hd ** -0.5, int(q.dtype == torch.bfloat16),
+            torch._C._cuda_getCurrentRawStream(q.get_device()))
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
@@ -88,15 +139,25 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     device = _check(q, k, v, window=window)
     if device.type == "cpu":
         return attention_fwd_ref(q, k, v, causal=causal, window=window)
-    launch, _ = _library()
+    hd = q.shape[-1]
+    width = padded_head_dim(hd)
+    tc = route(q.dtype, width) == "tc"
+    launch = _library_tc() if tc else _library()[0]
+    q, k, v = (pad_head_dim(t, width) for t in (q, k, v))
+    if tc:   # its 16-byte cp.async copies need 16-byte aligned rows
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=device)
     err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), *_dims(q, k, causal, window))
+                 lse.data_ptr(), *_dims(q, k, causal, window, hd))
     if err:
-        raise RuntimeError(f"flash_fwd_launch failed with cudaError {err}")
+        raise RuntimeError(f"flash_fwd{'_tc' if tc else ''}_launch failed "
+                           f"with cudaError {err}")
     launch_counts[NAME] += 1
-    return o, lse
+    if tc:
+        launch_counts[NAME_TC] += 1
+    return (o if width == hd else o[..., :hd].contiguous()), lse
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
@@ -115,14 +176,19 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     if device.type == "cpu":
         return attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                  window=window)
+    hd = q.shape[-1]
+    width = padded_head_dim(hd)
     _, launch = _library()
+    q, k, v, o, do = (pad_head_dim(t, width) for t in (q, k, v, o, do))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=device)
     err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
                  dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-                 *_dims(q, k, causal, window))
+                 *_dims(q, k, causal, window, hd))
     if err:
         raise RuntimeError(f"flash_bwd_launch failed with cudaError {err}")
     launch_counts[NAME_BWD] += 1
+    if width != hd:
+        dq, dk, dv = (t[..., :hd].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv

@@ -8,7 +8,11 @@ top-left on absolute positions (key j <= query i); `window` > 0 keeps
 i - j < window. A query row that sees no key (possible with a window and
 Sq > Sk) gets output 0, gradient 0 and log-sum-exp -inf, following the
 TPU kernel; the reference's jnp oracle `attention_ref` gives the mean of
-v there (ROADMAP C3). Everywhere else this is the oracle's function."""
+v there (ROADMAP C3). Everywhere else this is the oracle's function.
+
+Scores are scaled by `scale`, hd**-0.5 by default; the kernels' wrapper
+zero-pads hd and passes the true hd's scale, which these functions take
+too, so padded inputs can be checked against unpadded ones."""
 from __future__ import annotations
 
 import torch
@@ -33,12 +37,13 @@ def _grouped(t, k_heads):
     return t.reshape(B, k_heads, H // k_heads, S, hd).float()
 
 
-def attention_fwd_ref(q, k, v, *, causal: bool = True, window: int = 0):
+def attention_fwd_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                      scale=None):
     """-> (o (B, H, Sq, hd) in q's dtype, lse (B, H, Sq) float32)."""
     B, H, Sq, hd = q.shape
     K, Sk = k.shape[1], k.shape[2]
     s = torch.einsum("bkgqd,bktd->bkgqt", _grouped(q, K),
-                     k.float()) * hd ** -0.5
+                     k.float()) * (hd ** -0.5 if scale is None else scale)
     mask = _mask(Sq, Sk, causal, window, q.device)
     s = torch.where(mask, s, NEG_INF)
     live = mask.any(dim=-1)                  # rows that see some key
@@ -55,12 +60,12 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
 
 
 def attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
-                      window: int = 0):
+                      window: int = 0, scale=None):
     """FlashAttention-2's backward written out in float32, with the
     softmax recomputed from `lse` -> (dq like q, dk like k, dv like v)."""
     B, H, Sq, hd = q.shape
     K, Sk = k.shape[1], k.shape[2]
-    scale = hd ** -0.5
+    scale = hd ** -0.5 if scale is None else scale
     qg, dog = _grouped(q, K), _grouped(do, K)
     kf, vf = k.float(), v.float()
     s = torch.einsum("bkgqd,bktd->bkgqt", qg, kf) * scale

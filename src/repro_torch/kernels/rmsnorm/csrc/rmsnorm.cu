@@ -60,6 +60,17 @@
 // waits for it at the row's barrier: staging the next row in shared
 // memory (cp.async or TMA) while the current one is reduced is the next
 // step.
+//   Rows wider than the registers hold (more than 256 threads x 8 16-byte
+// loads, or x 16 1-wide loads: 8192 float32 or 16384 bfloat16 elements,
+// 4096 on the 1-wide path) take row-looping instantiations of the same
+// kernels (the wrapper's nl = 0): a block owns a row and walks it in
+// chunks of 256 accesses. The forward reads the row twice, once for the
+// sum of squares and once to write y (the second read mostly from L2); the
+// backward twice, once for sum(dy * scale * xh) and once to write dx, with
+// rstd from the forward. Its dscale column sums go through a float32
+// partial row per tile in device memory, each column owned by one thread
+// (no atomics), then through the same tile partials and fixed order as
+// above. Simple, not tuned: its time is recorded in PERF.md.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -178,6 +189,44 @@ __global__ void __launch_bounds__(kThreads) rmsnorm_fwd_kernel(FwdArgs a) {
     }
   }
   if (lane == 0) a.rstd[row] = r;
+}
+
+// A row wider than the registers hold: one block a row, read twice.
+template <typename T, typename S, int VEC>
+__global__ void __launch_bounds__(kThreads)
+    rmsnorm_fwd_loop_kernel(FwdArgs a) {
+  __shared__ float red[2][kWarps];
+  const int64_t row = blockIdx.x;
+  const int chunks = a.d / VEC;
+  const T* __restrict__ xr = static_cast<const T*>(a.x) + row * a.d;
+  float ss = 0.f;
+  for (int c = threadIdx.x; c < chunks; c += kThreads) {
+    const Pack<T, VEC> xv = *reinterpret_cast<const Pack<T, VEC>*>(xr +
+                                                                  c * VEC);
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      const float v = to_f(xv.v[k]);
+      ss = fmaf(v, v, ss);
+    }
+  }
+  ss = row_sum(ss, kThreads, red, 0);
+  const float r = rsqrtf(ss / static_cast<float>(a.d) + a.eps);
+  const S* __restrict__ sr =
+      static_cast<const S*>(a.scale) + (row / a.rows_per_group) * a.d;
+  T* __restrict__ yr = static_cast<T*>(a.y) + row * a.d;
+  for (int c = threadIdx.x; c < chunks; c += kThreads) {
+    const Pack<T, VEC> xv = *reinterpret_cast<const Pack<T, VEC>*>(xr +
+                                                                  c * VEC);
+    const Pack<S, VEC> sv = *reinterpret_cast<const Pack<S, VEC>*>(sr +
+                                                                  c * VEC);
+    Pack<T, VEC> out;
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      out.v[k] = from_f<T>((to_f(xv.v[k]) * r) * to_f(sv.v[k]));
+    }
+    *reinterpret_cast<Pack<T, VEC>*>(yr + c * VEC) = out;
+  }
+  if (threadIdx.x == 0) a.rstd[row] = r;
 }
 
 struct BwdArgs {
@@ -349,6 +398,83 @@ __global__ void __launch_bounds__(kThreads) rmsnorm_bwd_kernel(BwdArgs a) {
   dscale_from_partials<S>(a);
 }
 
+// A row wider than the registers hold: one block a row at a time over its
+// tiles, reading the row twice; the tile's column sums of dy * xh in
+// `partial`, each column added by the one thread that owns it, in row
+// order.
+template <typename T, typename S, int VEC>
+__global__ void __launch_bounds__(kThreads)
+    rmsnorm_bwd_loop_kernel(BwdArgs a) {
+  __shared__ float red[2][kWarps];
+  const T* __restrict__ x = static_cast<const T*>(a.x);
+  const T* __restrict__ dy = static_cast<const T*>(a.dy);
+  T* __restrict__ dx = static_cast<T*>(a.dx);
+  const int chunks = a.d / VEC;
+  const float inv_d = 1.f / static_cast<float>(a.d);
+  const int64_t tiles = a.groups * a.tiles_per_group;
+  int parity = 0;
+  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int64_t g = tile / a.tiles_per_group;
+    const int64_t r0 = (tile - g * a.tiles_per_group) * a.tile_rows;
+    const int64_t r1 = r0 + a.tile_rows < a.rows_per_group
+                           ? r0 + a.tile_rows
+                           : a.rows_per_group;
+    const S* __restrict__ sr = static_cast<const S*>(a.scale) + g * a.d;
+    float* part = a.partial + tile * a.d;
+    for (int64_t r = r0; r < r1; ++r) {
+      const int64_t row = g * a.rows_per_group + r;
+      const float rs = a.rstd[row];
+      const T* xr = x + row * a.d;
+      const T* dyr = dy + row * a.d;
+      float dot = 0.f;  // sum over the row of (dy * scale) * xh
+      for (int c = threadIdx.x; c < chunks; c += kThreads) {
+        const Pack<T, VEC> xv =
+            *reinterpret_cast<const Pack<T, VEC>*>(xr + c * VEC);
+        const Pack<T, VEC> gv =
+            *reinterpret_cast<const Pack<T, VEC>*>(dyr + c * VEC);
+        const Pack<S, VEC> sv =
+            *reinterpret_cast<const Pack<S, VEC>*>(sr + c * VEC);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          dot = fmaf(to_f(gv.v[k]) * to_f(sv.v[k]), to_f(xv.v[k]) * rs, dot);
+        }
+      }
+      const float cm = row_sum(dot, kThreads, red, parity) * inv_d;
+      parity ^= 1;
+      for (int c = threadIdx.x; c < chunks; c += kThreads) {
+        const Pack<T, VEC> xv =
+            *reinterpret_cast<const Pack<T, VEC>*>(xr + c * VEC);
+        const Pack<T, VEC> gv =
+            *reinterpret_cast<const Pack<T, VEC>*>(dyr + c * VEC);
+        const Pack<S, VEC> sv =
+            *reinterpret_cast<const Pack<S, VEC>*>(sr + c * VEC);
+        Pack<T, VEC> out;
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          const float dyv = to_f(gv.v[k]);
+          const float xh = to_f(xv.v[k]) * rs;
+          out.v[k] = from_f<T>(rs * (dyv * to_f(sv.v[k]) - xh * cm));
+          float* ps = part + c * VEC + k;
+          *ps = r == r0 ? dyv * xh : fmaf(dyv, xh, *ps);
+        }
+        *reinterpret_cast<Pack<T, VEC>*>(dx + row * a.d + c * VEC) = out;
+      }
+    }
+    if (a.tiles_per_group == 1) {  // the tile's sums are dscale
+      S* ds = static_cast<S*>(a.dscale) + g * a.d;
+      for (int j = threadIdx.x; j < chunks; j += kThreads) {
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          ds[j * VEC + k] = from_f<S>(part[j * VEC + k]);
+        }
+      }
+    }
+  }
+  if (a.tiles_per_group == 1) return;
+  cg::this_grid().sync();
+  dscale_from_partials<S>(a);
+}
+
 unsigned blocks_for(int64_t rows, int tpr_log2) {
   const int64_t rpb = kThreads >> tpr_log2;
   return static_cast<unsigned>((rows + rpb - 1) / rpb);
@@ -356,8 +482,13 @@ unsigned blocks_for(int64_t rows, int tpr_log2) {
 
 template <typename T, typename S, int VEC, int NL>
 int fwd(const FwdArgs& a, cudaStream_t stream) {
-  rmsnorm_fwd_kernel<T, S, VEC, NL>
-      <<<blocks_for(a.rows, a.tpr_log2), kThreads, 0, stream>>>(a);
+  if constexpr (NL == 0) {
+    rmsnorm_fwd_loop_kernel<T, S, VEC>
+        <<<blocks_for(a.rows, a.tpr_log2), kThreads, 0, stream>>>(a);
+  } else {
+    rmsnorm_fwd_kernel<T, S, VEC, NL>
+        <<<blocks_for(a.rows, a.tpr_log2), kThreads, 0, stream>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -379,9 +510,19 @@ int sm_count(int dev) {
   return count[dev];
 }
 
+// The backward's kernel: row-looping at nl = 0, register-held otherwise.
+template <typename T, typename S, int VEC, int NL>
+auto bwd_kernel() {
+  if constexpr (NL == 0) {
+    return rmsnorm_bwd_loop_kernel<T, S, VEC>;
+  } else {
+    return rmsnorm_bwd_kernel<T, S, VEC, NL>;
+  }
+}
+
 template <typename T, typename S, int VEC, int NL>
 int bwd(BwdArgs a, cudaStream_t stream) {
-  auto kernel = rmsnorm_bwd_kernel<T, S, VEC, NL>;
+  auto kernel = bwd_kernel<T, S, VEC, NL>();
   const int rpb = kThreads >> a.tpr_log2;
   const size_t smem =
       rpb > 1 ? static_cast<size_t>(rpb) * a.d * sizeof(float) : 0;
@@ -423,9 +564,10 @@ int bwd(BwdArgs a, cudaStream_t stream) {
   return static_cast<int>(err);
 }
 
-// Dispatch on the loads per thread, the vector width and the types. The
-// backward's wide path stops at 8 loads a thread (its column sums take
-// registers too); the wrapper never asks for more.
+// Dispatch on the loads per thread, the vector width and the types; 0
+// loads selects the row-looping kernels. The backward's wide path stops at
+// 8 loads a thread (its column sums take registers too); the wrapper never
+// asks for more.
 #define RMS_CASE(FN, VEC, NL) \
   case NL:                    \
     return FN<T, S, VEC, NL>(a, stream);
@@ -435,6 +577,7 @@ int dispatch_fwd(int vec, int nl, const FwdArgs& a, cudaStream_t stream) {
   constexpr int kWide = 16 / sizeof(T);
   if (vec == kWide) {
     switch (nl) {
+      RMS_CASE(fwd, kWide, 0)
       RMS_CASE(fwd, kWide, 1)
       RMS_CASE(fwd, kWide, 2)
       RMS_CASE(fwd, kWide, 4)
@@ -443,6 +586,7 @@ int dispatch_fwd(int vec, int nl, const FwdArgs& a, cudaStream_t stream) {
     }
   } else if (vec == 1) {
     switch (nl) {
+      RMS_CASE(fwd, 1, 0)
       RMS_CASE(fwd, 1, 1)
       RMS_CASE(fwd, 1, 2)
       RMS_CASE(fwd, 1, 4)
@@ -458,6 +602,7 @@ int dispatch_bwd(int vec, int nl, const BwdArgs& a, cudaStream_t stream) {
   constexpr int kWide = 16 / sizeof(T);
   if (vec == kWide) {
     switch (nl) {
+      RMS_CASE(bwd, kWide, 0)
       RMS_CASE(bwd, kWide, 1)
       RMS_CASE(bwd, kWide, 2)
       RMS_CASE(bwd, kWide, 4)
@@ -465,6 +610,7 @@ int dispatch_bwd(int vec, int nl, const BwdArgs& a, cudaStream_t stream) {
     }
   } else if (vec == 1) {
     switch (nl) {
+      RMS_CASE(bwd, 1, 0)
       RMS_CASE(bwd, 1, 1)
       RMS_CASE(bwd, 1, 2)
       RMS_CASE(bwd, 1, 4)
@@ -485,7 +631,8 @@ int dispatch_bwd(int vec, int nl, const BwdArgs& a, cudaStream_t stream) {
 // (groups * rows_per_group,) float32. `vec` is the elements per access:
 // 16 bytes' worth (x, y and scale 16-byte aligned and d * sizeof(x) a
 // multiple of 16) or 1. A row is shared by 2^tpr_log2 <= 256 threads of
-// nl loads each (1, 2, 4, 8 or 16), which must cover d / vec. Launches on
+// nl loads each (1, 2, 4, 8 or 16), which must cover d / vec; nl = 0 with
+// tpr_log2 = 8 selects the row-looping kernels, which take any d. Launches on
 // `stream` without synchronising; returns the CUDA error (0 on success).
 extern "C" int rmsnorm_fwd_launch(const void* x, const void* scale, void* y,
                                   void* rstd, int64_t groups,
@@ -508,9 +655,10 @@ extern "C" int rmsnorm_fwd_launch(const void* x, const void* scale, void* y,
 
 // dy, dx: like x (16-byte aligned too on the wide path); dscale: like
 // scale. Rows of a group are cut into tiles of tile_rows (a multiple of
-// the rows a block holds at once); with more than one tile per group,
-// partial is a float32 workspace of (groups * tiles, d) and the launch is
-// cooperative. One launch in every case.
+// the rows a block holds at once); with more than one tile per group, or
+// at nl = 0, partial is a float32 workspace of (groups * tiles, d); with
+// more than one tile per group the launch is cooperative. One launch in
+// every case.
 extern "C" int rmsnorm_bwd_launch(const void* x, const void* scale,
                                   const void* rstd, const void* dy, void* dx,
                                   void* dscale, void* partial,

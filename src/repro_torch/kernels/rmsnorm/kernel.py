@@ -11,10 +11,11 @@ which is built at first use, or the call raises. There is no fallback
 from one to the other.
 
 Each direction is one launch. The wrapper picks the kernel's layout from
-the shape and the pointers (`vector_width`, `layout`, `tiles`); the
-kernel holds a row in registers, so a row may be at most `MAX_LOADS`
-loads wide: 16384 bfloat16 or 8192 float32 elements on the 16-byte path,
-4096 elements on the 1-wide one.
+the shape and the pointers (`vector_width`, `layout`, `tiles`). The
+kernel holds a row in registers up to `MAX_LOADS` loads: 16384 bfloat16
+or 8192 float32 elements on the 16-byte path, 4096 elements on the 1-wide
+one. A wider row takes the row-looping instantiation (`LOOP`: a block a
+row, read twice in chunks), so any width runs.
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ THREADS = 256             # threads of a block; a row takes at most all
 FWD_LOADS = 2
 BWD_LOADS = 2
 MAX_LOADS = {True: THREADS * 8, False: THREADS * 16}   # by wide path
+LOOP = (THREADS.bit_length() - 1, 0)   # the row-looping layout: nl = 0
 TILES = 264               # backward tiles to aim for: two per H100 SM
 TILE_STEPS = 16           # a backward tile's rows: at most 16 block steps
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -58,11 +60,10 @@ def layout(chunks: int, wide: bool, max_loads: int):
     """(log2 threads per row, loads per thread) for a row of `chunks`
     accesses: up to 32 lanes a row (8 at D = 32 float32, 4 rows a warp),
     then more warps a row while a thread would hold more than `max_loads`;
-    the loads rounded up to a power of two."""
+    the loads rounded up to a power of two. A row of more than
+    `MAX_LOADS[wide]` accesses takes `LOOP` (a block a row, 0 loads held)."""
     if chunks > MAX_LOADS[wide]:
-        raise ValueError(f"rmsnorm holds a row of at most "
-                         f"{MAX_LOADS[wide]} {'16-byte ' if wide else ''}"
-                         f"loads; got {chunks}")
+        return LOOP
     tpr = min(32, 1 << (chunks - 1).bit_length())
     while -(-chunks // tpr) > max_loads and tpr < THREADS:
         tpr *= 2
@@ -161,9 +162,9 @@ def _fwd(x, scale, eps, g, r, d, max_loads=FWD_LOADS):
 
 def _bwd(x, scale, rstd, dy, g, r, d, max_loads=BWD_LOADS):
     """Launch the backward on checked CUDA tensors (`max_loads` as in
-    `_fwd`): dx and dscale, and a
-    float32 workspace for the tiles' partial sums only where a group has
-    more than one tile (not at the transformer path's shapes)."""
+    `_fwd`): dx and dscale, and a float32 workspace for the tiles' partial
+    sums only where a group has more than one tile (not at the transformer
+    path's shapes) or the row-looping kernel keeps its column sums there."""
     _, launch = _library()
     dx = torch.empty_like(x)
     dscale = torch.empty_like(scale)
@@ -172,7 +173,7 @@ def _bwd(x, scale, rstd, dy, g, r, d, max_loads=BWD_LOADS):
                        scale.data_ptr())
     tpr_log2, nl = layout(d // vec, vec > 1, max_loads)
     tile, per_group = tiles(g, r, tpr_log2)
-    partial = None if per_group == 1 else torch.empty(
+    partial = None if per_group == 1 and nl else torch.empty(
         g * per_group * d, dtype=torch.float32, device=x.device)
     err = launch(x.data_ptr(), scale.data_ptr(), rstd.data_ptr(),
                  dy.data_ptr(), dx.data_ptr(), dscale.data_ptr(),

@@ -286,3 +286,117 @@ def test_autograd_functions_match_plain_autograd_on_the_card():
             assert got.shape == ref.shape
             torch.testing.assert_close(got.cpu(), ref,
                                        **_card_tol(torch.float32, True))
+
+
+# (B, H, K, Sq, Sk, causal, window): the GQA x mask sweep at S = 128, a
+# ragged Sq = 100 against Sk = 200, and a window of 2 with Sq > Sk, where
+# the last query rows see no key
+TC_SHAPES = [(2, h, k, 128, 128, causal, window)
+             for h, k in ((4, 4), (4, 2), (8, 1))
+             for causal, window in ((True, 0), (True, 32), (False, 0))] + [
+    (1, 2, 2, 100, 200, False, 0), (1, 4, 2, 100, 200, True, 0),
+    (1, 4, 2, 40, 16, True, 2)]
+
+
+@pytest.mark.gpu
+def test_tensor_core_forward_matches_plain_version_on_the_card():
+    """The bfloat16 forward at head dims 64 and 128 takes the tensor-core
+    kernel (one launch on either counter) and agrees with the plain
+    version: o at the bfloat16 tolerance, lse at the float32 one, rows
+    that see no key 0 and -inf in both, a q that is not 16-byte aligned
+    (the wrapper copies it) as any other."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device with nvcc")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for hd in (64, 128):
+        for B, H, K, sq, sk, causal, window in TC_SHAPES:
+            # the last shape's q starts one element into its buffer
+            off = int(window == 2)
+            q = torch.randn(B * H * sq * hd + off, generator=g,
+                            device="cuda").bfloat16()[off:].view(
+                                B, H, sq, hd)
+            k, v = (torch.randn(B, K, sk, hd, generator=g,
+                                device="cuda").bfloat16() for _ in range(2))
+            kw = dict(causal=causal, window=window)
+            assert flash_kernel.route(q.dtype, hd) == "tc"
+            before = dict(launch_counts)
+            o, lse = flash_kernel.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            for name in ("flash_attention", "flash_attention_tc"):
+                assert launch_counts[name] == before.get(name, 0) + 1
+            ro, rlse = attention_fwd_ref(q, k, v, **kw)
+            torch.testing.assert_close(o.float(), ro.float(),
+                                       **_card_tol(torch.bfloat16))
+            torch.testing.assert_close(lse, rlse,
+                                       **_card_tol(torch.float32))
+            if window == 2:
+                dead = torch.isneginf(rlse)
+                assert dead.any() and torch.equal(torch.isneginf(lse), dead)
+                assert not o[dead].any()
+
+
+@pytest.mark.gpu
+def test_odd_head_dims_are_padded_on_the_card():
+    """ROADMAP C9 on the card: head dims 12 (float32, padded to 16 on the
+    CUDA cores) and 80 (bfloat16, padded to 128 on the tensor cores, and
+    float32 on the CUDA cores), forward and backward against the plain
+    version at the true head dim."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device with nvcc")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for hd, dt, tc in ((12, torch.float32, False), (80, torch.bfloat16, True),
+                       (80, torch.float32, False)):
+        q, do = (torch.randn(2, 4, 50, hd, generator=g, device="cuda").to(dt)
+                 for _ in range(2))
+        k, v = (torch.randn(2, 2, 50, hd, generator=g, device="cuda").to(dt)
+                for _ in range(2))
+        kw = dict(causal=True, window=3)
+        before = launch_counts["flash_attention_tc"]
+        o, lse = flash_kernel.flash_attention(q, k, v, **kw)
+        grads = flash_kernel.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        assert launch_counts["flash_attention_tc"] == before + tc
+        assert o.shape == q.shape and o.is_contiguous()
+        ro, rlse = attention_fwd_ref(q, k, v, **kw)
+        torch.testing.assert_close(o.float(), ro.float(), **_card_tol(dt))
+        torch.testing.assert_close(lse, rlse, **_card_tol(torch.float32))
+        for got, ref, t in zip(grads, attention_bwd_ref(q, k, v, ro, rlse,
+                                                        do, **kw), (q, k, v)):
+            assert got.shape == t.shape
+            torch.testing.assert_close(got.float(), ref.float(),
+                                       **_card_tol(dt, True))
+
+
+@pytest.mark.gpu
+def test_rmsnorm_wide_rows_on_the_card():
+    """ROADMAP C10 on the card: rows wider than the registers hold (D =
+    20,000 float32 and 32,768 bfloat16 on the 16-byte path, 4,100 float32
+    one element into its buffer on the 1-wide path) take the row-looping
+    kernels and agree with the plain version; two backward calls are
+    bit-equal. The first shape is one tile (dscale written directly), the
+    others several tiles a group (partial sums, a grid-wide barrier)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device with nvcc")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for (G, R, D), dt, off in (((1, 16, 20_000), torch.float32, 0),
+                               ((2, 40, 32_768), torch.bfloat16, 0),
+                               ((3, 300, 4_100), torch.float32, 1)):
+        x = torch.randn(G * R * D + off, generator=g, device="cuda")[
+            off:].view(G, R, D).to(dt)
+        vec = rms_kernel.vector_width(D, x.element_size(), x.data_ptr())
+        assert rms_kernel.layout(D // vec, vec > 1, 2) == rms_kernel.LOOP
+        s = (1 + torch.randn(G, D, generator=g, device="cuda")).to(dt)
+        dy = torch.randn(G, R, D, generator=g, device="cuda").to(dt)
+        y, rstd = rms_kernel.rmsnorm(x, s)
+        dx, ds = rms_kernel.rmsnorm_bwd(x, s, rstd, dy)
+        dx2, ds2 = rms_kernel.rmsnorm_bwd(x, s, rstd, dy)
+        torch.cuda.synchronize()
+        ry, rrstd = rmsnorm_fwd_ref(x, s)
+        rdx, rds = rmsnorm_bwd_ref(x, s, rrstd, dy)
+        torch.testing.assert_close(y.float(), ry.float(), **_card_tol(dt))
+        torch.testing.assert_close(rstd, rrstd, **_card_tol(torch.float32))
+        torch.testing.assert_close(dx.float(), rdx.float(),
+                                   **_card_tol(dt, True))
+        torch.testing.assert_close(ds.float(), rds.float(),
+                                   **_card_tol(dt, True))
+        assert torch.equal(dx, dx2) and torch.equal(ds, ds2)

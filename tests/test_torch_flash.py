@@ -165,11 +165,28 @@ def test_fully_masked_rows_give_zero():
         np.testing.assert_allclose(a.numpy(), b.numpy(), **GRAD)
 
 
+class _CudaLabelled(torch.Tensor):
+    """A CPU tensor that reports a CUDA device: it takes the wrapper down
+    its kernel path on a machine that has no card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda")
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take():
+    """Every head dim runs on the CPU (hd 12 gives the reference's
+    result); on the card's path a head dim above the kernels' 256 raises,
+    naming the limit, before anything is built."""
     q, k = torch.ones(1, 4, 8, 8), torch.ones(1, 2, 8, 8)
-    with pytest.raises(ValueError, match="head dim"):
-        TK.flash_attention(torch.ones(1, 4, 8, 12), torch.ones(1, 2, 8, 12),
-                           torch.ones(1, 2, 8, 12))
+    jin, tin = _qkvd(1, 4, 2, 8, 8, 12, seed=12)
+    o, lse = TK.flash_attention(*tin[:3])
+    np.testing.assert_allclose(_np(o), _np(r_ref(*jin[:3])), **F32)
+    wide = [torch.Tensor._make_subclass(_CudaLabelled, t) for t in (
+        torch.ones(1, 4, 8, 257), torch.ones(1, 2, 8, 257),
+        torch.ones(1, 2, 8, 257))]
+    with pytest.raises(ValueError, match="limit of 256"):
+        TK.flash_attention(*wide)
     with pytest.raises(ValueError, match="multiple of K"):
         TK.flash_attention(q, torch.ones(1, 3, 8, 8), torch.ones(1, 3, 8, 8))
     with pytest.raises(TypeError, match="one dtype"):
@@ -181,3 +198,73 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     o, lse = TK.flash_attention(q, k, k)
     with pytest.raises(ValueError, match="lse"):
         TK.flash_attention_bwd(q, k, k, o, lse[..., :-1], o)
+
+
+# head dims the kernels do not instantiate: zero-padded on the card to 16
+# (CUDA cores) and to 128 (the tensor cores in bfloat16)
+ODD_HD = [(hd, causal, window) for hd in (12, 80)
+          for causal, window in ((True, 0), (True, 3))]
+
+
+@pytest.mark.parametrize("hd,causal,window", ODD_HD)
+def test_odd_head_dims_match_reference(hd, causal, window):
+    """ROADMAP C9: the port at head dims 12 and 80 (GQA 4 over 2, causal,
+    with and without a window of 3), forward against the oracle and the
+    Pallas kernel in interpret mode, gradients against `jax.vjp` of the
+    oracle."""
+    jin, tin = _qkvd(2, 4, 2, 24, 24, hd, seed=hd + window)
+    kw = dict(causal=causal, window=window)
+    _forward_checks(jin, tin, F32, bq=8, bk=8, **kw)
+    _, vjp = jax.vjp(lambda a, b, c: r_ref(a, b, c, **kw), *jin[:3])
+    ref = [np.asarray(g) for g in vjp(jin[3])]
+    q, k, v, do = tin
+    o, lse = attention_fwd_ref(q, k, v, **kw)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    auto = torch.autograd.grad(flash_attention(*leaves, **kw), leaves, do)
+    for got in (TK.flash_attention_bwd(q, k, v, o, lse, do, **kw), auto):
+        for name, g, r in zip("qkv", got, ref):
+            np.testing.assert_allclose(g.numpy(), r, err_msg="d" + name,
+                                       **GRAD)
+
+
+@pytest.mark.parametrize("hd,causal,window", ODD_HD + [(1, True, 0),
+                                                      (200, False, 0)])
+def test_zero_padding_the_head_dim_changes_nothing(hd, causal, window):
+    """What the wrapper does on the card: q, k, v (and o, do) zero-padded
+    along hd to the instantiated width, the true hd's scale, the result
+    sliced back. The plain versions on padded inputs equal them on the
+    unpadded ones."""
+    width = TK.padded_head_dim(hd)
+    assert width in TK.HEAD_DIMS and width >= hd
+    _, (q, k, v, do) = _qkvd(2, 4, 2, 20, 24, hd, seed=hd)
+    kw = dict(causal=causal, window=window)
+    o, lse = attention_fwd_ref(q, k, v, **kw)
+    grads = attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    pq, pk, pv, po, pdo = (TK.pad_head_dim(t, width)
+                           for t in (q, k, v, o, do))
+    assert pq.shape[-1] == width and pq.is_contiguous()
+    assert not pq[..., hd:].any()
+    o_p, lse_p = attention_fwd_ref(pq, pk, pv, scale=hd ** -0.5, **kw)
+    grads_p = attention_bwd_ref(pq, pk, pv, po, lse_p, pdo,
+                                scale=hd ** -0.5, **kw)
+    tol = dict(rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(lse_p.numpy(), lse.numpy(), **tol)
+    assert not o_p[..., hd:].any()
+    for a, b in zip((o_p,) + grads_p, (o,) + grads):
+        np.testing.assert_allclose(a[..., :hd].numpy(), b.numpy(), **tol)
+    assert TK.pad_head_dim(q, hd) is q
+
+
+def test_route_and_padding_for_every_head_dim():
+    """`route` for every (dtype, hd) pair the wrapper takes: bfloat16 at
+    padded hd 64 or 128 goes to the tensor cores, everything else (float32
+    at any hd, bfloat16 at padded 8-32 or 256) to the CUDA cores; above
+    256 nothing."""
+    for hd in range(1, TK.MAX_HEAD_DIM + 1):
+        width = TK.padded_head_dim(hd)
+        assert width == min(w for w in TK.HEAD_DIMS if w >= hd)
+        assert TK.route(torch.float32, width) == "cuda_core"
+        want = "tc" if 33 <= hd <= 128 else "cuda_core"
+        assert TK.route(torch.bfloat16, width) == want, hd
+    with pytest.raises(ValueError, match="limit of 256"):
+        TK.padded_head_dim(TK.MAX_HEAD_DIM + 1)

@@ -195,8 +195,50 @@ def test_layout_covers_the_row(chunks, wide, loads, want):
 
 @pytest.mark.parametrize("chunks, wide", [(2049, True), (4097, False)])
 def test_layout_rejects_rows_wider_than_the_registers_hold(chunks, wide):
-    with pytest.raises(ValueError, match="holds a row of at most"):
-        TK.layout(chunks, wide, TK.FWD_LOADS)
+    """A row one access wider than the register-held kernels take goes to
+    the row-looping kernels (ROADMAP C10), at either load budget; one
+    access narrower stays register-held."""
+    for loads in (TK.FWD_LOADS, TK.BWD_LOADS, 16):
+        assert TK.layout(chunks, wide, loads) == TK.LOOP == (8, 0)
+        assert TK.layout(chunks - 1, wide, loads)[1] > 0
+
+
+@pytest.mark.parametrize("d, dtype, x_off, want", [
+    (20_000, torch.float32, 0, 4),     # 5,000 16-byte loads
+    (32_768, torch.bfloat16, 0, 8),    # 4,096 16-byte loads
+    (4_100, torch.float32, 1, 1),      # x one element in: 4,100 1-wide
+])
+def test_wide_rows_take_the_looping_layout(d, dtype, x_off, want):
+    """The three widths of ROADMAP C10 the card checks: the wrapper picks
+    the vector width as before and the row-looping layout, and the
+    backward gets a workspace for its column sums."""
+    x = torch.empty(2 * d + 8, dtype=dtype)[x_off:x_off + 2 * d]
+    vec = TK.vector_width(d, x.element_size(), x.data_ptr())
+    assert vec == want
+    assert TK.layout(d // vec, vec > 1, TK.FWD_LOADS) == TK.LOOP
+    rows, per_group = TK.tiles(1, 2, TK.LOOP[0])
+    assert (rows, per_group) == (2, 1)
+
+
+def test_wide_rows_match_oracle_and_vjp():
+    """ROADMAP C10 on the CPU: D = 20,000 float32 (wider than the
+    register-held kernels take), forward against the reference's oracle
+    and its Pallas kernel in interpret mode, gradients against `jax.vjp`
+    of the ops dispatch."""
+    x, s, dy = _inputs((3, 20_000), seed=20)
+    jx, js = jnp.asarray(x), jnp.asarray(s)
+    tx, ts, tdy = torch.tensor(x), torch.tensor(s), torch.tensor(dy)
+    y, rstd = TK.rmsnorm(tx, ts, EPS)
+    np.testing.assert_allclose(y.numpy(), np.asarray(r_ref(jx, js, EPS)),
+                               **F32)
+    np.testing.assert_allclose(
+        y.numpy(), np.asarray(r_pallas(jx, js, EPS, rows=8,
+                                       interpret=True)), **F32)
+    _, vjp = jax.vjp(lambda a, b: r_ops(a, b, EPS), jx, js)
+    rdx, rds = (np.asarray(g) for g in vjp(jnp.asarray(dy)))
+    dx, ds = TK.rmsnorm_bwd(tx, ts, rstd, tdy)
+    np.testing.assert_allclose(dx.numpy(), rdx, rtol=1e-5, atol=2e-5)
+    np.testing.assert_allclose(ds.numpy(), rds, rtol=1e-5, atol=2e-5)
 
 
 @pytest.mark.parametrize("g, r, tpr_log2, want", [
