@@ -6,10 +6,10 @@
 Phases, each of which fails the script (nonzero exit) when it fails:
   1. device: the card's name, count, and `nvidia-smi` name/power limit;
   2. build: every CUDA source of the port (aggregation, RMSNorm, flash
-     attention on the CUDA cores and its forward on the tensor cores)
-     built with nvcc for sm_90a, one nvcc per source, all started
-     together, with ptxas's report (and a summary of the tensor-core
-     forward's registers and spills, which must be none);
+     attention on the CUDA cores, its forward and its backward on the
+     tensor cores) built with nvcc for sm_90a, one nvcc per source, all
+     started together, with ptxas's report (and a summary of the
+     tensor-core kernels' registers and spills, which must be none);
   3. kernels against their plain PyTorch versions, forward and backward,
      at the main paths' shapes, the reference's test sweeps and one large
      shape each, with CUDA-event timings (kernel, plain version, one-call
@@ -17,11 +17,13 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      same work; for RMSNorm also the device and host time of a call and
      its kernels per call, two backward calls compared bit for bit, the
      other layouts' times at the zoo shape, and the host cost of the
-     pieces of a wrapper call; for attention the forward's route (tensor
-     cores or CUDA cores) on every row, checked against the launch
-     counts, and at the path's and the zoo shape the device and host time
-     of a call and its kernels per call (the zoo forward one tensor-core
-     kernel);
+     pieces of a wrapper call; for attention the route (tensor cores or
+     CUDA cores) of both directions on every row, checked against the
+     launch counts, the tensor-core backward's errors with P and dS in one
+     bf16 part and in two, and at the path's and the zoo shape the device
+     and host time of a call and its kernels per call (the zoo forward
+     one tensor-core kernel, its backward three, each timed), with the
+     CUDA-core route's time on the zoo inputs beside them;
   4. the quickstart path: the FedBuff federation of examples/quickstart.py
      (MLP payload) through `Federation.from_experiment(exp).run()` on the
      card, launch counts read around it, then the same experiment on the
@@ -30,7 +32,8 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      payload (RMSNorm and attention in the kernels, forward and backward)
      on the card, launch counts read around it, then on the CPU, and one
      batched client update of 20 satellites held leaf by leaf against the
-     CPU's from the same parameters and batches;
+     CPU's from the same parameters and batches, beside the spread of the
+     CPU's and of the card's own update under a 1e-7 nudge;
   6. one JSON line listing every ported kernel.
 The last line is `{"ok": true,
 "device": {...}}`. Without a CUDA device, or away from the repository's
@@ -52,7 +55,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # cores, and bf16 on the tensor cores. The aggregation and RMSNorm do
 # their arithmetic on the CUDA cores in float32; attention's operations
 # are bounded by the tensor cores' bf16 rate, the least time the card
-# could take for them, though the port's kernel runs on the CUDA cores.
+# could take for them, though its CUDA-core route runs in float32.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_TC_FLOP_PER_S = 989e12
@@ -212,7 +215,8 @@ def _host_and_device(fn, iters):
     the profiler recorded. On the H100 machines the profiler drops some
     kernel events (1 to 39 of 200 in a few runs), never adds any: the
     kernels per call are the events over the calls rounded up, and the
-    device time per call the device time per event times that."""
+    device time per call the device time per event times that. Also each
+    kernel's device microseconds per event, by name."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -227,7 +231,7 @@ def _host_and_device(fn, iters):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    dev_us, events, names = 0.0, 0, []
+    dev_us, events, names, by_name = 0.0, 0, [], {}
     for e in prof.key_averages():
         # device-side events only: host ops also report the device time
         # of the kernels they launched
@@ -239,10 +243,12 @@ def _host_and_device(fn, iters):
             dev_us += t
             events += e.count
             names.append(e.key)
+            by_name[e.key] = t / e.count
     if dev_us <= 0:
         raise AssertionError("torch.profiler shows no device time")
     per_call = -(-events // iters)
-    return host_us, dev_us / events * per_call, per_call, names, events
+    return (host_us, dev_us / events * per_call, per_call, names, events,
+            by_name)
 
 
 def _rms_layouts(K, x, scale, rstd, dy, refs):
@@ -378,7 +384,7 @@ def check_rmsnorm(torch):
                 lib_ms = _grad_ms(
                     lambda a, w: F.rms_norm(a, (D,), w[0], RMS_EPS),
                     (x, scale), dy, iters) if shared else None
-            host_us, dev_us, per_call, names, events = _host_and_device(
+            host_us, dev_us, per_call, names, events, _ = _host_and_device(
                 kern, iters)
             if per_call != 1 or len(names) != 1:
                 raise AssertionError(f"{tag} {direction}: {per_call} "
@@ -416,8 +422,10 @@ def check_rmsnorm(torch):
 # (GQA x mask at S=128, hd=64, in float32 and in bfloat16, the tensor
 # cores' route; Sq/Sk x dtype at hd=128, unmasked), head dims the kernels
 # do not instantiate (80 in bfloat16, padded to 128 on the tensor cores;
-# 12 in float32, padded to 16 on the CUDA cores), and qwen3-8b's head
-# layout at S=2048 (configs/qwen3_8b.py).
+# 12 in float32, padded to 16 on the CUDA cores; 300 in bfloat16 with a
+# window of 3 and 1,000 in float32, padded to 512 and 1,024 for the CUDA
+# cores' row-looping kernels), and qwen3-8b's head layout at S=2048
+# (configs/qwen3_8b.py).
 FLASH_PATH = (640, 4, 2, 8, 8, 8, True, 0, "float32")
 FLASH_ZOO = (1, 32, 8, 2048, 2048, 128, True, 0, "bfloat16")
 FLASH_SHAPES = [FLASH_PATH] + [
@@ -429,8 +437,12 @@ FLASH_SHAPES = [FLASH_PATH] + [
     for sq, sk in ((64, 64), (100, 200), (64, 192))
     for dt in ("float32", "bfloat16")] + [
     (1, 4, 2, 100, 200, 80, True, 0, "bfloat16"),
-    (2, 4, 2, 64, 64, 12, True, 3, "float32"), FLASH_ZOO]
+    (2, 4, 2, 64, 64, 12, True, 3, "float32"),
+    (1, 4, 2, 128, 128, 300, True, 3, "bfloat16"),
+    (1, 4, 2, 128, 128, 1000, True, 0, "float32"), FLASH_ZOO]
 TC_KERNEL = "flash_fwd_tc_kernel"     # in the tensor-core kernel's name
+TC_BWD_KERNELS = ("flash_bwd_tc_delta_kernel", "flash_bwd_tc_dkdv_kernel",
+                  "flash_bwd_tc_dq_kernel")   # in the backward's
 
 
 def _visible_pairs(sq, sk, causal, window):
@@ -457,6 +469,45 @@ def _cuda_core_fwd(K, q, k, v, causal, window):
     return o, lse
 
 
+def _bwd_direct(K, q, k, v, o, lse, do, causal, window, parts=None):
+    """A backward called through its C entry point, not counted, on inputs
+    zero-padded as the wrapper pads them: the CUDA-core kernels, or with
+    `parts` the tensor-core kernels with P and dS in that many bf16
+    parts."""
+    import torch
+    hd = q.shape[-1]
+    width = K.padded_head_dim(hd)
+    q, k, v, o, do = (K.pad_head_dim(t, width) for t in (q, k, v, o, do))
+    grads = [torch.empty_like(t) for t in (q, k, v)]
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    launch, extra = ((K._library()[1], ()) if parts is None
+                     else (K._library_bwd_tc(), (parts,)))
+    err = launch(*(t.data_ptr() for t in (q, k, v, o, lse, do, *grads,
+                                          delta)),
+                 *K._dims(q, k, causal, window, hd), *extra)
+    if err:
+        raise RuntimeError(f"backward launch failed with cudaError {err}")
+    return [t[..., :hd] for t in grads]
+
+
+def _errs(outs, refs, dtype):
+    """(largest |kernel - plain|, largest share of the tolerance
+    |kernel - plain| / (atol + rtol |plain|)) over outputs, without
+    failing: above 1 a check would fail."""
+    rtol, atol = _tol(dtype, grad=True)
+    diffs = [((o.float() - r.float()).abs(), r.float().abs())
+             for o, r in zip(outs, refs)]
+    return (max(d.max().item() for d, _ in diffs),
+            max((d / (atol + rtol * m)).max().item() for d, m in diffs))
+
+
+def _tc_bwd_kernels(names):
+    """Whether the kernels seen are the three of the tensor-core backward,
+    each once."""
+    return len(names) == 3 and all(
+        sum(t in n for n in names) == 1 for t in TC_BWD_KERNELS)
+
+
 def check_flash(torch):
     """Phase 3: flash attention forward and backward against the plain
     version."""
@@ -477,14 +528,15 @@ def check_flash(torch):
         do = torch.randn(B, H, sq, hd, generator=g, device="cuda").to(dt)
         kw = dict(causal=causal, window=window)
         route = K.route(dt, K.padded_head_dim(hd))
-        before = launch_counts[K.NAME_TC]
+        before = dict(launch_counts)
         o, lse = K.flash_attention(q, k, v, **kw)
-        if launch_counts[K.NAME_TC] - before != (route == "tc"):
-            raise AssertionError(f"{shape}: route {route} but "
-                                 f"{launch_counts[K.NAME_TC] - before} "
-                                 f"tensor-core launches")
         o_ref, lse_ref = attention_fwd_ref(q, k, v, **kw)
         grads = K.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        for name in (K.NAME_TC, K.NAME_BWD_TC):
+            if launch_counts[name] - before.get(name, 0) != (route == "tc"):
+                raise AssertionError(f"{shape}: route {route} but "
+                                     f"{launch_counts[name]} {name} "
+                                     f"launches")
         # the plain backward starts from the plain forward's o and lse
         grads_ref = attention_bwd_ref(q, k, v, o_ref, lse_ref, do, **kw)
         torch.cuda.synchronize()
@@ -532,8 +584,7 @@ def check_flash(torch):
                    else "flash_attention_bwd", "B": B, "H": H, "K": KH,
                    "Sq": sq, "Sk": sk, "hd": hd, "causal": causal,
                    "window": window, "dtype": dts,
-                   "route": route if direction == "fwd" else "cuda_core",
-                   "max_abs_err": err,
+                   "route": route, "max_abs_err": err,
                    "tol": tol, "kernel_ms": k_ms, "plain_ms": p_ms,
                    "library_ms": lib_ms, "bound_ms": bound[0],
                    "bound_by": bound[1], "bound_share": bound[0] / k_ms}
@@ -544,11 +595,36 @@ def check_flash(torch):
                 _compare(tag + " cuda-core", cc[:1], (o_ref,), dt)
                 row["cuda_core_ms"] = _time_ms(
                     lambda: _cuda_core_fwd(K, q, k, v, causal, window), iters)
+            if direction == "bwd" and route == "tc":
+                # P and dS in one bf16 part and in two, through the C entry
+                # point (not counted), against the same plain backward
+                row["bwd_tc_parts"] = K.BWD_TC_PARTS
+                errs = {parts: _errs(_bwd_direct(K, q, k, v, o, lse, do,
+                                                 causal, window, parts),
+                                     grads_ref, dt) for parts in (1, 2)}
+                row["max_abs_err_by_parts"] = {p: e[0]
+                                               for p, e in errs.items()}
+                row["tol_share_by_parts"] = {p: e[1]
+                                             for p, e in errs.items()}
+            if shape == FLASH_ZOO and direction == "bwd":
+                # the CUDA-core backward on the same inputs, and the other
+                # number of parts: the route and the design this replaced
+                cc = _bwd_direct(K, q, k, v, o, lse, do, causal, window)
+                _compare(tag + " bwd cuda-core", cc, grads_ref, dt,
+                         grad=True)
+                row["cuda_core_ms"] = _time_ms(
+                    lambda: _bwd_direct(K, q, k, v, o, lse, do, causal,
+                                        window), iters)
+                row["ms_by_parts"] = {parts: _time_ms(
+                    lambda: _bwd_direct(K, q, k, v, o, lse, do, causal,
+                                        window, parts), iters)
+                    for parts in (1, 2)}
             if shape in (FLASH_PATH, FLASH_ZOO):
-                host_us, dev_us, per_call, names, events = \
+                host_us, dev_us, per_call, names, events, by_name = \
                     _host_and_device(kern, iters)
                 row.update(device_us=dev_us, host_us=host_us,
                            launches_per_call=per_call, kernels_seen=names,
+                           device_us_by_kernel=by_name,
                            profiled=f"{events} kernel events over {iters} "
                                     f"calls")
                 if direction == "fwd" and (per_call != 1 or len(names) != 1
@@ -557,6 +633,11 @@ def check_flash(torch):
                     raise AssertionError(f"{tag}: {per_call} kernels per "
                                          f"call ({names}), not one "
                                          f"{route} kernel")
+                if direction == "bwd" and route == "tc" and (
+                        per_call != 3 or not _tc_bwd_kernels(names)):
+                    raise AssertionError(f"{tag}: {per_call} kernels per "
+                                         f"call ({names}), not the three "
+                                         f"tensor-core backward kernels")
             print("flash", json.dumps(row), flush=True)
             rows.append(row)
         del q, k, v, do, o, lse, o_ref, lse_ref, grads, grads_ref
@@ -708,8 +789,10 @@ def run_transformer_path(torch):
         raise AssertionError(f"expected rmsnorm = 5/2 flash_attention, "
                              f"forward and backward, with backward calls; "
                              f"got {counts}")
-    # the path's attention is float32 at hd 8: the CUDA cores' route
-    if counts.get("flash_attention_tc", 0):
+    # the path's attention is float32 at hd 8: the CUDA cores' route, both
+    # directions
+    if counts.get("flash_attention_tc", 0) or counts.get(
+            "flash_attention_bwd_tc", 0):
         raise AssertionError(f"float32 attention took the tensor cores: "
                              f"{counts}")
     if not all(math.isfinite(a) for a in res.accuracy + res.val_loss):
@@ -770,16 +853,19 @@ def check_client_update(torch, card, cpu, train):
         got, want = (update(adapter, batch, params)
                      for adapter, _, batch in runs)
         err = tree_map(lambda a, b: float(abs(a - b).max()), got, want)
-        # the CPU's own spread: its parameters moved by one rounding
+        # each device's own spread: its parameters moved by one rounding
+        # (the same nudge on both), against its own update unnudged
         r = np.random.default_rng(0)
         nudged = tree_map(lambda a: (a * (1 + 1e-7 * r.standard_normal(
             a.shape))).astype(a.dtype), params)
-        spread = max(float(abs(a - b).max()) for a, b in zip(
-            tree_leaves(update(cpu, batch_cpu, nudged)), tree_leaves(want)))
+        spread, card_spread = (max(float(abs(a - b).max()) for a, b in zip(
+            tree_leaves(update(adapter, b_, nudged)), tree_leaves(ref)))
+            for adapter, b_, ref in ((cpu, batch_cpu, want),
+                                     (card, batch, got)))
         print(f"client update ({len(rows)} satellites, {steps} steps): "
               f"max |card - CPU| per leaf {json.dumps(err)}, tolerance "
-              f"rtol {tol}, atol {tol}; the CPU's spread under a 1e-7 "
-              f"relative nudge {spread}", flush=True)
+              f"rtol {tol}, atol {tol}; the spread under a 1e-7 relative "
+              f"nudge: CPU {spread}, card {card_spread}", flush=True)
         for a, b in zip(tree_leaves(got), tree_leaves(want)):
             if a.shape != b.shape or not np.allclose(a, b, rtol=tol,
                                                      atol=tol):
@@ -788,18 +874,22 @@ def check_client_update(torch, card, cpu, train):
 
 
 def _tc_ptxas(log: str):
-    """The tensor-core forward's registers and spills, one line per
-    instantiation, from ptxas's report; fails on a spill (a reused
-    library has no report, and nothing is checked)."""
+    """The tensor-core kernels' registers and spills (forward; backward
+    delta, dk/dv and dq), one line per instantiation (hd, and for dk/dv
+    and dq whether P and dS are split), from ptxas's report; fails on a
+    spill (a reused library has no report, and nothing is checked)."""
     import re
-    found = re.findall(r"flash_fwd_tc_kernelILi(\d+)EE.*?(\d+) bytes spill "
+    # a mangled name: <length><name>I<template arguments>E
+    found = re.findall(r"Compiling entry function '\w*?\d(flash_\w+?_kernel)"
+                       r"ILi(\d+)E(?:Lb(\d)E)?E.*?(\d+) bytes spill "
                        r"stores, (\d+) bytes spill loads.*?Used (\d+) "
                        r"registers", log, re.S)
-    for hd, stores, loads, regs in found:
-        print(f"flash_fwd_tc hd {hd}: {regs} registers, {stores} bytes spill"
-              f" stores, {loads} bytes spill loads", flush=True)
+    for kernel, hd, split, stores, loads, regs in found:
+        what = f"{kernel} hd {hd}" + (f" split {split}" if split else "")
+        print(f"{what}: {regs} registers, {stores} bytes spill stores, "
+              f"{loads} bytes spill loads", flush=True)
         if int(stores) or int(loads):
-            raise AssertionError(f"flash_fwd_tc hd {hd} spills")
+            raise AssertionError(f"{what} spills")
 
 
 def main() -> int:
@@ -820,22 +910,23 @@ def main() -> int:
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     # 1. device
-    name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip()
-    print(f"device: {name} x{count}; torch {torch.__version__}, CUDA "
+    print(f"device: {kind} x{count}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
     print(smi.splitlines()[0], flush=True)      # name, power limit
 
     # 2. build, all sources at once
     for b in build.build([agg_kernel.SOURCE, rms_kernel.SOURCE,
-                          flash_kernel.SOURCE, flash_kernel.SOURCE_TC]):
+                          flash_kernel.SOURCE, flash_kernel.SOURCE_TC,
+                          flash_kernel.SOURCE_BWD_TC]):
         print(f"built {b.source.relative_to(ROOT)} -> "
               f"{b.library.relative_to(ROOT)} in {b.seconds:.1f} s",
               flush=True)
         print(b.log.strip(), flush=True)
-        if b.source == flash_kernel.SOURCE_TC:
+        if b.source in (flash_kernel.SOURCE_TC, flash_kernel.SOURCE_BWD_TC):
             _tc_ptxas(b.log)
     done("build")
 
@@ -908,14 +999,17 @@ def main() -> int:
                                if r["library_ms"] is not None else None),
                 "work": what,
             })
-    flash_entry = next(k for k in kernels if k["name"] == flash_kernel.NAME)
-    flash_entry["launches_tc"] = sum(launches(flash_kernel.NAME_TC).values())
+    for kname, tc_name in ((flash_kernel.NAME, flash_kernel.NAME_TC),
+                           (flash_kernel.NAME_BWD,
+                            flash_kernel.NAME_BWD_TC)):
+        entry = next(k for k in kernels if k["name"] == kname)
+        entry["launches_tc"] = sum(launches(tc_name).values())
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on a main "
                                  f"path")
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)
     return 0
 

@@ -2,9 +2,9 @@
 interface, loaded with `ctypes`.
 
 A library is built at first use into `build/kernels/` at the root of the
-checkout, under a name keyed by a hash of its source and flags, so an
-edited source rebuilds and an unchanged one is reused. Nothing is built
-when a module is imported.
+checkout, under a name keyed by a hash of its source, the headers (`.cuh`)
+beside it and the flags, so an edited source or header rebuilds and an
+unchanged one is reused. Nothing is built when a module is imported.
 """
 from __future__ import annotations
 
@@ -45,9 +45,13 @@ def _nvcc() -> str:
 
 
 def _target(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{source.stem}-{digest[:12]}.so"
+    """The library's path: keyed by the source, every header in its
+    directory (a source includes them by relative path) and the flags."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:12]}.so"
 
 
 def build(sources: Sequence[Path]) -> List[Build]:

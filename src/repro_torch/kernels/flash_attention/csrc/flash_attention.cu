@@ -54,9 +54,12 @@
 // the key rows (dk, dv) or query rows (dq) owned by the groups and the
 // other side staged in shared memory. Head dims 8, 16, 32, 64, 128 and 256
 // are instantiated; the wrapper zero-pads any other hd up to 256 to the
-// next of them and passes the true hd's scale. In bfloat16 at hd 64 and
-// 128 the wrapper sends the forward to flash_fwd_tc.cu (tensor cores)
-// instead; the backward here reads that forward's o and lse alike.
+// next of them and passes the true hd's scale. Wider head dims are padded
+// to a multiple of 256 and take the row-looping kernels of the section
+// "wide head dims", up to 28,928 (the widest whose dk and dv rows fit one
+// block's shared memory). In bfloat16 at hd 64 and 128 the wrapper sends
+// both directions to the tensor cores instead (flash_fwd_tc.cu,
+// flash_bwd_tc.cu); each backward reads either forward's o and lse alike.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -418,6 +421,305 @@ __global__ void flash_dq_kernel(const T* __restrict__ q,
   }
 }
 
+// ------------------------------------------- wide head dims (above 256)
+//
+// Padded widths W above 256 (multiples of kWideChunk) take these kernels:
+// one warp owns a row and walks its dims in chunks of 256 (8 a lane, lane
+// d on dims d, d + 32, ...), and the row's float32 vectors that the
+// register-held kernels above keep in registers (q and o's accumulator;
+// dk and dv; dq) sit in dynamic shared memory, sized at launch, with the
+// rows a block takes chosen so that they fit. A lane touches only its own
+// dims there, so no barrier is needed; a dot product is one warp shuffle
+// reduction. The other operand's rows are read from global memory (L1 and
+// L2 serve the block's other rows). Simple and right, not fast: no
+// configuration in the repository has a head dim above 256.
+
+constexpr int kWideChunk = 256;      // dims a warp walks at a time
+constexpr int kWideRows = 8;         // rows (warps) a block at most
+constexpr int kMaxShared = 232448;   // bytes of shared memory a block can use
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Rows a block of a wide kernel takes, for `bytes` of shared memory a row.
+int wide_rows(int64_t bytes) {
+  const int64_t r = kMaxShared / bytes;
+  return static_cast<int>(r < kWideRows ? r : kWideRows);
+}
+
+// Raise a kernel's dynamic shared-memory limit where it needs more than
+// the default 48 KB; 0 or the CUDA error.
+template <typename Kernel>
+int allow_shared(Kernel kernel, int64_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes)));
+}
+
+// Forward: a warp a query row; its q (float32) and o's accumulator in
+// shared memory, 2 W floats a row.
+template <typename T>
+__global__ void flash_fwd_wide_kernel(const T* __restrict__ q,
+                                      const T* __restrict__ k,
+                                      const T* __restrict__ v,
+                                      T* __restrict__ o,
+                                      float* __restrict__ lse, Dims s,
+                                      int W, int rows) {
+  extern __shared__ float wide_sm[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* qs = wide_sm + static_cast<int64_t>(warp) * 2 * W;
+  float* acc = qs + W;
+  const int tiles = (s.Sq + rows - 1) / rows;
+  const int i = (blockIdx.x % tiles) * rows + warp;
+  const int64_t bh = blockIdx.x / tiles;
+  if (i >= s.Sq) return;   // the whole warp; no block barrier follows
+  const int h = static_cast<int>(bh % s.H);
+  const int64_t b = bh / s.H;
+  const int kvh = h / (s.H / s.K);
+  const T* kb = k + (b * s.K + kvh) * static_cast<int64_t>(s.Sk) * W;
+  const T* vb = v + (b * s.K + kvh) * static_cast<int64_t>(s.Sk) * W;
+  const int64_t qrow = (bh * s.Sq + i) * W;
+#pragma unroll 8
+  for (int d = lane; d < W; d += 32) {
+    qs[d] = to_f(q[qrow + d]);
+    acc[d] = 0.f;
+  }
+  float m = -INFINITY, l = 0.f;
+  int lo, hi;
+  key_range(s, i, lo, hi);
+  for (int j0 = lo; j0 <= hi; j0 += kChunk) {
+    float p[kChunk];
+    float mc = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) {
+      float dot = 0.f;
+      if (j0 + c <= hi) {
+        const T* kr = kb + static_cast<int64_t>(j0 + c) * W;
+#pragma unroll 8
+        for (int d = lane; d < W; d += 32) dot = fmaf(qs[d], to_f(kr[d]), dot);
+      }
+      dot = warp_sum(dot);
+      p[c] = j0 + c <= hi ? dot * s.scale : -INFINITY;
+      mc = fmaxf(mc, p[c]);
+    }
+    const float m_new = fmaxf(m, mc);
+    const float alpha = expf(m - m_new);   // 0 on the first chunk
+    l *= alpha;
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) {
+      p[c] = j0 + c <= hi ? expf(p[c] - m_new) : 0.f;
+      l += p[c];
+    }
+    const int n = min(kChunk, hi - j0 + 1);
+#pragma unroll 8
+    for (int d = lane; d < W; d += 32) {
+      float a = acc[d] * alpha;
+#pragma unroll
+      for (int c = 0; c < kChunk; ++c) {   // unrolled: p stays in registers
+        if (c < n) {
+          a = fmaf(p[c], to_f(vb[static_cast<int64_t>(j0 + c) * W + d]), a);
+        }
+      }
+      acc[d] = a;
+    }
+    m = m_new;
+  }
+#pragma unroll 8
+  for (int d = lane; d < W; d += 32) {
+    o[qrow + d] = from_f<T>(l > 0.f ? acc[d] / l : 0.f);
+  }
+  if (lane == 0) lse[bh * s.Sq + i] = l > 0.f ? m + logf(l) : -INFINITY;
+}
+
+// delta[r] = sum_d do * o, a warp a row.
+template <typename T>
+__global__ void flash_delta_wide_kernel(const T* __restrict__ o,
+                                        const T* __restrict__ dout,
+                                        float* __restrict__ delta,
+                                        int64_t rows, int W) {
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) +
+                    (threadIdx.x >> 5);
+  if (r >= rows) return;   // the whole warp
+  const int lane = threadIdx.x & 31;
+  float acc = 0.f;
+#pragma unroll 8
+  for (int d = lane; d < W; d += 32) {
+    acc = fmaf(to_f(dout[r * W + d]), to_f(o[r * W + d]), acc);
+  }
+  acc = warp_sum(acc);
+  if (lane == 0) delta[r] = acc;
+}
+
+// dk, dv: a warp a key row of one (b, kv head), walking the query rows of
+// the G heads that see it in a fixed order; dk and dv in shared memory,
+// 2 W floats a row.
+template <typename T>
+__global__ void flash_dkdv_wide_kernel(const T* __restrict__ q,
+                                       const T* __restrict__ k,
+                                       const T* __restrict__ v,
+                                       const T* __restrict__ dout,
+                                       const float* __restrict__ lse,
+                                       const float* __restrict__ delta,
+                                       T* __restrict__ dk,
+                                       T* __restrict__ dv, Dims s, int W,
+                                       int rows) {
+  extern __shared__ float wide_sm[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* dks = wide_sm + static_cast<int64_t>(warp) * 2 * W;
+  float* dvs = dks + W;
+  const int tiles = (s.Sk + rows - 1) / rows;
+  const int j = (blockIdx.x % tiles) * rows + warp;
+  const int64_t bkv = blockIdx.x / tiles;
+  if (j >= s.Sk) return;   // the whole warp; no block barrier follows
+  const int kvh = static_cast<int>(bkv % s.K);
+  const int64_t b = bkv / s.K;
+  const int G = s.H / s.K;
+  const int64_t krow = (bkv * s.Sk + j) * W;
+#pragma unroll 8
+  for (int d = lane; d < W; d += 32) dks[d] = dvs[d] = 0.f;
+  int lo, hi;
+  query_range(s, j, lo, hi);
+  for (int g = 0; g < G; ++g) {
+    const int64_t bh = b * s.H + static_cast<int64_t>(kvh) * G + g;
+    for (int i = lo; i <= hi; ++i) {
+      const int64_t qrow = (bh * s.Sq + i) * W;
+      float sdot = 0.f, pdot = 0.f;
+#pragma unroll 8
+      for (int d = lane; d < W; d += 32) {
+        sdot = fmaf(to_f(q[qrow + d]), to_f(k[krow + d]), sdot);
+        pdot = fmaf(to_f(dout[qrow + d]), to_f(v[krow + d]), pdot);
+      }
+      sdot = warp_sum(sdot);
+      pdot = warp_sum(pdot);
+      const float p = expf(sdot * s.scale - lse[bh * s.Sq + i]);
+      const float dsc = p * (pdot - delta[bh * s.Sq + i]);
+#pragma unroll 8
+      for (int d = lane; d < W; d += 32) {
+        dvs[d] = fmaf(p, to_f(dout[qrow + d]), dvs[d]);
+        dks[d] = fmaf(dsc, to_f(q[qrow + d]), dks[d]);
+      }
+    }
+  }
+#pragma unroll 8
+  for (int d = lane; d < W; d += 32) {
+    dk[krow + d] = from_f<T>(dks[d] * s.scale);
+    dv[krow + d] = from_f<T>(dvs[d]);
+  }
+}
+
+// dq: a warp a query row, walking the keys it sees; dq in shared memory,
+// W floats a row.
+template <typename T>
+__global__ void flash_dq_wide_kernel(const T* __restrict__ q,
+                                     const T* __restrict__ k,
+                                     const T* __restrict__ v,
+                                     const T* __restrict__ dout,
+                                     const float* __restrict__ lse,
+                                     const float* __restrict__ delta,
+                                     T* __restrict__ dq, Dims s, int W,
+                                     int rows) {
+  extern __shared__ float wide_sm[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* dqs = wide_sm + static_cast<int64_t>(warp) * W;
+  const int tiles = (s.Sq + rows - 1) / rows;
+  const int i = (blockIdx.x % tiles) * rows + warp;
+  const int64_t bh = blockIdx.x / tiles;
+  if (i >= s.Sq) return;   // the whole warp; no block barrier follows
+  const int h = static_cast<int>(bh % s.H);
+  const int64_t b = bh / s.H;
+  const int kvh = h / (s.H / s.K);
+  const T* kb = k + (b * s.K + kvh) * static_cast<int64_t>(s.Sk) * W;
+  const T* vb = v + (b * s.K + kvh) * static_cast<int64_t>(s.Sk) * W;
+  const int64_t qrow = (bh * s.Sq + i) * W;
+#pragma unroll 8
+  for (int d = lane; d < W; d += 32) dqs[d] = 0.f;
+  const float lse_i = lse[bh * s.Sq + i];
+  const float delta_i = delta[bh * s.Sq + i];
+  int lo, hi;
+  key_range(s, i, lo, hi);
+  for (int j = lo; j <= hi; ++j) {
+    const int64_t krow = static_cast<int64_t>(j) * W;
+    float sdot = 0.f, pdot = 0.f;
+#pragma unroll 8
+    for (int d = lane; d < W; d += 32) {
+      sdot = fmaf(to_f(q[qrow + d]), to_f(kb[krow + d]), sdot);
+      pdot = fmaf(to_f(dout[qrow + d]), to_f(vb[krow + d]), pdot);
+    }
+    sdot = warp_sum(sdot);
+    pdot = warp_sum(pdot);
+    const float p = expf(sdot * s.scale - lse_i);
+    const float dsc = p * (pdot - delta_i);
+#pragma unroll 8
+    for (int d = lane; d < W; d += 32) {
+      dqs[d] = fmaf(dsc, to_f(kb[krow + d]), dqs[d]);
+    }
+  }
+#pragma unroll 8
+  for (int d = lane; d < W; d += 32) dq[qrow + d] = from_f<T>(dqs[d] * s.scale);
+}
+
+// Whether a padded width takes the wide kernels: a multiple of kWideChunk
+// above 256 whose largest row (dk and dv, 2 W floats) fits one block.
+bool wide_width(int W) {
+  return W > 256 && W % kWideChunk == 0 &&
+         8 * static_cast<int64_t>(W) <= kMaxShared;
+}
+
+template <typename T>
+int fwd_wide(int W, const void* q, const void* k, const void* v, void* o,
+             float* lse, const Dims& s, cudaStream_t stream) {
+  const int64_t row_bytes = 8 * static_cast<int64_t>(W);
+  const int rows = wide_rows(row_bytes);
+  auto kernel = flash_fwd_wide_kernel<T>;
+  if (const int err = allow_shared(kernel, rows * row_bytes)) return err;
+  const int64_t blocks =
+      static_cast<int64_t>(s.B) * s.H * ((s.Sq + rows - 1) / rows);
+  kernel<<<static_cast<unsigned>(blocks), 32 * rows, rows * row_bytes,
+           stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                     static_cast<const T*>(v), static_cast<T*>(o), lse, s, W,
+                     rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int bwd_wide(int W, const void* q, const void* k, const void* v,
+             const void* o, const float* lse, const void* dout, void* dq,
+             void* dk, void* dv, float* delta, const Dims& s,
+             cudaStream_t stream) {
+  const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k);
+  const T *vt = static_cast<const T*>(v), *dt = static_cast<const T*>(dout);
+  const int64_t rows = static_cast<int64_t>(s.B) * s.H * s.Sq;
+  flash_delta_wide_kernel<T><<<static_cast<unsigned>((rows + 7) / 8), 256, 0,
+                               stream>>>(static_cast<const T*>(o), dt, delta,
+                                         rows, W);
+  if (const cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
+
+  const int64_t kv_bytes = 8 * static_cast<int64_t>(W);   // dk and dv
+  const int kr = wide_rows(kv_bytes);
+  auto dkdv = flash_dkdv_wide_kernel<T>;
+  if (const int err = allow_shared(dkdv, kr * kv_bytes)) return err;
+  const int64_t kblocks =
+      static_cast<int64_t>(s.B) * s.K * ((s.Sk + kr - 1) / kr);
+  dkdv<<<static_cast<unsigned>(kblocks), 32 * kr, kr * kv_bytes, stream>>>(
+      qt, kt, vt, dt, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+      s, W, kr);
+  if (const cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
+
+  const int64_t q_bytes = 4 * static_cast<int64_t>(W);    // dq
+  const int qr = wide_rows(q_bytes);
+  auto dqk = flash_dq_wide_kernel<T>;
+  if (const int err = allow_shared(dqk, qr * q_bytes)) return err;
+  const int64_t qblocks =
+      static_cast<int64_t>(s.B) * s.H * ((s.Sq + qr - 1) / qr);
+  dqk<<<static_cast<unsigned>(qblocks), 32 * qr, qr * q_bytes, stream>>>(
+      qt, kt, vt, dt, lse, delta, static_cast<T*>(dq), s, W, qr);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ---------------------------------------------------------------- launch
 
 // Rows a block takes: at most Tile::ROWS, fewer for short sequences (the
@@ -478,7 +780,9 @@ int fwd_hd(int hd, const void* q, const void* k, const void* v, void* o,
     case 64: fwd<T, 64>(q, k, v, o, lse, s, stream); break;
     case 128: fwd<T, 128>(q, k, v, o, lse, s, stream); break;
     case 256: fwd<T, 256>(q, k, v, o, lse, s, stream); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default:
+      return wide_width(hd) ? fwd_wide<T>(hd, q, k, v, o, lse, s, stream)
+                            : static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -503,7 +807,10 @@ int bwd_hd(int hd, const void* q, const void* k, const void* v,
     case 256:
       bwd<T, 256>(q, k, v, o, lse, dout, dq, dk, dv, delta, s, stream);
       break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default:
+      return wide_width(hd) ? bwd_wide<T>(hd, q, k, v, o, lse, dout, dq, dk,
+                                          dv, delta, s, stream)
+                            : static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -528,8 +835,9 @@ Dims make_dims(int B, int H, int K, int Sq, int Sk, int causal, int window,
 // hd), all row-major in one type (bf16 selects bfloat16, else float32);
 // lse: (B, H, Sq) float32. `scale` is the scores' scale, the true head
 // dim's hd^-0.5 rounded to float32 (the wrapper zero-pads hd). hd must be
-// 8, 16, 32, 64, 128 or 256, H a multiple of K. Launches on `stream`
-// without synchronising and returns cudaGetLastError() (0 on success).
+// 8, 16, 32, 64, 128 or 256, or a multiple of 256 up to 28,928; H a
+// multiple of K. Launches on `stream` without synchronising and returns
+// cudaGetLastError() (0 on success).
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* o, void* lse, int B, int H, int K,
                                 int Sq, int Sk, int hd, int causal,

@@ -15,7 +15,8 @@
 // online softmax in float32, kv tiles that no query of the block sees
 // skipped; a query row that sees no key gets o = 0 and lse = -inf (as the
 // TPU kernel, where its kv blocks are all skipped; ROADMAP C3). Its o and
-// lse feed flash_attention.cu's backward unchanged.
+// lse feed either backward (flash_bwd_tc.cu, flash_attention.cu) unchanged.
+// The tile helpers (cp.async, ldmatrix, mma.sync) are in tc_tiles.cuh.
 //
 // Bound: operations. A visible (query, key) pair costs 4*hd operations
 // (q.k and p*v); at qwen3-8b's head layout (B 1, H 32, K 8, S 2048, hd 128,
@@ -66,20 +67,18 @@
 // warpgroups, so that the softmax of one tile overlaps the products of the
 // next (FlashAttention-3's design).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "tc_tiles.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace tc;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kBQ = 16 * kWarps;  // query rows a block
 constexpr int kBK = 64;           // keys a kv tile
-constexpr int kPad = 8;           // bf16 elements of padding a shared row
 
 struct Dims {
   int B, H, K, Sq, Sk;
@@ -89,94 +88,12 @@ struct Dims {
 
 template <int HD>
 struct Layout {
-  static constexpr int kStride = HD + kPad;      // elements a shared row
+  static constexpr int kStride = stride<HD>();   // elements a shared row
   static constexpr int kQ = kBQ * kStride;       // elements of the Q tile
   static constexpr int kTile = kBK * kStride;    // elements of a K or V tile
   // Q, two K stages, two V stages
   static constexpr size_t kBytes = (kQ + 4 * kTile) * sizeof(bf16);
 };
-
-__device__ __forceinline__ uint32_t shared_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronous; a source size of 0 writes zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   shared_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Wait until at most N of this thread's committed groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(shared_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(shared_addr(p)));
-}
-
-// d += a * b on one m16n8k16 tile: bf16 inputs, float32 sums.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats as bf16 in one register, `lo` in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// p0, p1 as the sum of a high and a low bf16 part, each pair in one
-// register: hi = bf16(p), lo = bf16(p - hi), so hi + lo is p to within
-// 2^-17 of p (p - hi is exact in float32 and at most 2^-8 of p).
-__device__ __forceinline__ void split_bf16(float p0, float p1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(p0 - __low2float(h), p1 - __high2float(h));
-}
-
-// Rows [r0, r0 + ROWS) of a (rows, HD) bf16 matrix into shared memory
-// (row stride HD + kPad); rows at or past `limit` are zero-filled.
-template <int HD, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* sm, const bf16* g, int r0,
-                                          int limit) {
-  constexpr int kChunks = HD / 8;  // 16-byte pieces of a row
-  static_assert(ROWS * kChunks % kThreads == 0, "whole passes");
-#pragma unroll
-  for (int p = 0; p < ROWS * kChunks / kThreads; ++p) {
-    const int c = p * kThreads + threadIdx.x;
-    const int r = c / kChunks, col = (c % kChunks) * 8;
-    const bool in = r0 + r < limit;
-    cp_async16(sm + r * Layout<HD>::kStride + col,
-               g + static_cast<int64_t>(in ? r0 + r : 0) * HD + col,
-               in ? 16 : 0);
-  }
-}
 
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
@@ -209,7 +126,6 @@ __global__ void __launch_bounds__(kThreads)
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int quad_row = lane >> 2, quad_lane = lane & 3;
-  const int mi = lane >> 3, mr = lane & 7;   // ldmatrix: matrix, its row
 
   // keys [lo, hi] of this lane's two rows (empty when lo > hi)
   int lo[2], hi[2];
@@ -227,10 +143,10 @@ __global__ void __launch_bounds__(kThreads)
   const int all_hi = s.causal ? min(s.Sk - 1, q0) : s.Sk - 1;
   const int ntiles = bhi >= blo ? (bhi - blo) / kBK + 1 : 0;
 
-  load_tile<HD, kBQ>(qs, qb, q0, s.Sq);
+  load_tile<HD, kBQ, kThreads>(qs, qb, q0, s.Sq);
   if (ntiles > 0) {
-    load_tile<HD, kBK>(ks, kb, blo, s.Sk);
-    load_tile<HD, kBK>(vs, vb, blo, s.Sk);
+    load_tile<HD, kBK, kThreads>(ks, kb, blo, s.Sk);
+    load_tile<HD, kBK, kThreads>(vs, vb, blo, s.Sk);
   }
   cp_async_commit();
 
@@ -248,8 +164,10 @@ __global__ void __launch_bounds__(kThreads)
     const int k0 = blo + t * kBK;
     const int st = t & 1;
     if (t + 1 < ntiles) {   // prefetch the next tile into the other stage
-      load_tile<HD, kBK>(ks + (st ^ 1) * L::kTile, kb, k0 + kBK, s.Sk);
-      load_tile<HD, kBK>(vs + (st ^ 1) * L::kTile, vb, k0 + kBK, s.Sk);
+      load_tile<HD, kBK, kThreads>(ks + (st ^ 1) * L::kTile, kb, k0 + kBK,
+                                   s.Sk);
+      load_tile<HD, kBK, kThreads>(vs + (st ^ 1) * L::kTile, vb, k0 + kBK,
+                                   s.Sk);
     }
     cp_async_commit();
     cp_async_wait<1>();     // this tile (and Q) have landed
@@ -257,8 +175,7 @@ __global__ void __launch_bounds__(kThreads)
     if (t == 0) {
 #pragma unroll
       for (int kk = 0; kk < kSteps; ++kk) {
-        ldmatrix_x4(qf[kk], qs + (warp * 16 + (lane & 15)) * L::kStride +
-                                kk * 16 + (lane >> 4) * 8);
+        load_a(qf[kk], qs, L::kStride, warp * 16, kk * 16);
       }
     }
     const bf16* kt = ks + st * L::kTile;
@@ -273,8 +190,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {   // 16 keys: two n-blocks
         uint32_t bf[4];
-        ldmatrix_x4(bf, kt + (jj * 16 + mr + (mi >> 1) * 8) * L::kStride +
-                            kk * 16 + (mi & 1) * 8);
+        load_b(bf, kt, L::kStride, jj * 16, kk * 16);
         mma_bf16(sc[2 * jj], qf[kk], bf[0], bf[1]);
         mma_bf16(sc[2 * jj + 1], qf[kk], bf[2], bf[3]);
       }
@@ -330,8 +246,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int nn = 0; nn < kOut / 2; ++nn) {   // 16 dims: two n-blocks
         uint32_t bf[4];
-        ldmatrix_x4_trans(bf, vt + (kk * 16 + mr + (mi & 1) * 8) * L::kStride +
-                                  nn * 16 + (mi >> 1) * 8);
+        load_b_trans(bf, vt, L::kStride, nn * 16, kk * 16);
         mma_bf16(acc[2 * nn], ph, bf[0], bf[1]);
         mma_bf16(acc[2 * nn], pl, bf[0], bf[1]);
         mma_bf16(acc[2 * nn + 1], ph, bf[2], bf[3]);
@@ -362,27 +277,13 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-constexpr int kMaxDevices = 64;
-
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const Dims& s, cudaStream_t stream) {
   auto kernel = flash_fwd_tc_kernel<HD>;
   constexpr size_t smem = Layout<HD>::kBytes;
-  if (smem > 48 * 1024) {   // once per device: the query costs host time
-    static bool raised[kMaxDevices];
-    int dev = -1;
-    if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) {
-      return static_cast<int>(cudaErrorInvalidDevice);
-    }
-    if (!raised[dev]) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
-      raised[dev] = true;
-    }
-  }
+  static bool raised[kMaxDevices];
+  if (const int err = allow_shared(kernel, smem, raised)) return err;
   const int64_t blocks =
       static_cast<int64_t>(s.B) * s.H * ((s.Sq + kBQ - 1) / kBQ);
   kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(

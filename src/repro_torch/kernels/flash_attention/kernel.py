@@ -12,15 +12,16 @@ call raises. There is no fallback from one to the other.
 On the card a head dim `hd` from 1 to `MAX_HEAD_DIM` is zero-padded to
 the next instantiated width (`padded_head_dim`): zero columns change no
 dot product and give zero output columns, and the kernel takes the scale
-of the true `hd`. `route` then picks the forward's kernel:
-  "tc"         bfloat16 at padded hd 64 or 128: `csrc/flash_fwd_tc.cu`,
-               on the tensor cores (`mma.sync` with bf16 inputs and
-               float32 sums);
+of the true `hd`. Up to 256 the widths are `HEAD_DIMS`; above, multiples
+of 256, which take row-looping kernels. `route` then picks the kernels of
+both directions:
+  "tc"         bfloat16 at padded hd 64 or 128: `csrc/flash_fwd_tc.cu` and
+               `csrc/flash_bwd_tc.cu`, on the tensor cores (`mma.sync`
+               with bf16 inputs and float32 sums);
   "cuda_core"  every other case: `csrc/flash_attention.cu`, float32
                arithmetic on the CUDA cores (float32 on the tensor cores
                would mean TF32, which changes the numbers).
-The backward always runs in `csrc/flash_attention.cu`; it reads either
-forward's o and log-sum-exp alike.
+Either backward reads either forward's o and log-sum-exp alike.
 """
 from __future__ import annotations
 
@@ -38,28 +39,44 @@ from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "flash_attention.cu"
 SOURCE_TC = CSRC / "flash_fwd_tc.cu"
+SOURCE_BWD_TC = CSRC / "flash_bwd_tc.cu"
 NAME = "flash_attention"          # every forward call, either route
 NAME_TC = "flash_attention_tc"    # the forward calls that took "tc"
-NAME_BWD = "flash_attention_bwd"
+NAME_BWD = "flash_attention_bwd"  # every backward call, either route
+NAME_BWD_TC = "flash_attention_bwd_tc"   # the backward calls that took "tc"
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)   # instantiated on the CUDA cores
 TC_HEAD_DIMS = (64, 128)                # instantiated on the tensor cores
-MAX_HEAD_DIM = HEAD_DIMS[-1]
+WIDE_CHUNK = 256     # above 256, widths are multiples of this
+# The widest padded head dim: the largest multiple of WIDE_CHUNK whose
+# float32 dk and dv rows (8 bytes a dim) fit one block's 227 KB of shared
+# memory in the row-looping kernels.
+MAX_HEAD_DIM = 232_448 // 8 // WIDE_CHUNK * WIDE_CHUNK
+# bf16 parts P and dS are split into as operands of the tensor-core
+# backward's dV, dK and dQ products: 1 (one rounding) or 2 (high and low)
+BWD_TC_PARTS = 2
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def padded_head_dim(hd: int) -> int:
-    """The instantiated width a head dim of `hd` (1 to `MAX_HEAD_DIM`) is
-    zero-padded to on the card."""
+    """The width a head dim of `hd` (1 to `MAX_HEAD_DIM`) is zero-padded to
+    on the card: the next of `HEAD_DIMS`, or above 256 the next multiple of
+    `WIDE_CHUNK`."""
     for width in HEAD_DIMS:
         if hd <= width:
             return width
-    raise ValueError(f"head dim {hd} above the kernels' limit of "
-                     f"{MAX_HEAD_DIM}")
+    if hd <= MAX_HEAD_DIM:
+        return -(-hd // WIDE_CHUNK) * WIDE_CHUNK
+    raise ValueError(
+        f"head dim {hd} above the kernels' limit of {MAX_HEAD_DIM}, the "
+        f"widest whose float32 row accumulators fit one block's shared "
+        f"memory (the TPU kernel keeps a (bq, hd) float32 accumulator in "
+        f"VMEM, so it has a ceiling too; no configuration in the repository "
+        f"has a head dim above 256)")
 
 
 def route(dtype, padded_hd: int) -> str:
-    """The forward's kernel for inputs of `dtype` at a padded head dim:
-    "tc" (tensor cores) or "cuda_core"."""
+    """The kernels of both directions for inputs of `dtype` at a padded
+    head dim: "tc" (tensor cores) or "cuda_core"."""
     if dtype == torch.bfloat16 and padded_hd in TC_HEAD_DIMS:
         return "tc"
     return "cuda_core"
@@ -124,6 +141,22 @@ def _library_tc():
     return _typed(build.load(SOURCE_TC).flash_fwd_tc_launch, 5)
 
 
+@functools.lru_cache(maxsize=None)
+def _library_bwd_tc():
+    """The tensor-core backward's C entry point, typed (built at first
+    use): the CUDA-core backward's arguments, then the number of bf16
+    parts of P and dS."""
+    fn = _typed(build.load(SOURCE_BWD_TC).flash_bwd_tc_launch, 10)
+    fn.argtypes = [*fn.argtypes, ctypes.c_int]
+    return fn
+
+
+def _aligned(tensors):
+    """The tensors, each copied if it does not start on 16 bytes (the
+    tensor-core kernels' 16-byte copies need 16-byte aligned rows)."""
+    return [t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors]
+
+
 def _dims(q, k, causal, window, hd):
     """The C entry points' sizes for padded q and k, with the scale of the
     true head dim `hd`."""
@@ -144,9 +177,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     tc = route(q.dtype, width) == "tc"
     launch = _library_tc() if tc else _library()[0]
     q, k, v = (pad_head_dim(t, width) for t in (q, k, v))
-    if tc:   # its 16-byte cp.async copies need 16-byte aligned rows
-        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
-                   for t in (q, k, v))
+    if tc:
+        q, k, v = _aligned((q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=device)
     err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -178,17 +210,24 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                                  window=window)
     hd = q.shape[-1]
     width = padded_head_dim(hd)
-    _, launch = _library()
+    tc = route(q.dtype, width) == "tc"
+    launch = _library_bwd_tc() if tc else _library()[1]
     q, k, v, o, do = (pad_head_dim(t, width) for t in (q, k, v, o, do))
+    if tc:
+        q, k, v, o, do = _aligned((q, k, v, o, do))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=device)
     err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
                  dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-                 *_dims(q, k, causal, window, hd))
+                 *_dims(q, k, causal, window, hd),
+                 *((BWD_TC_PARTS,) if tc else ()))
     if err:
-        raise RuntimeError(f"flash_bwd_launch failed with cudaError {err}")
+        raise RuntimeError(f"flash_bwd{'_tc' if tc else ''}_launch failed "
+                           f"with cudaError {err}")
     launch_counts[NAME_BWD] += 1
+    if tc:
+        launch_counts[NAME_BWD_TC] += 1
     if width != hd:
         dq, dk, dv = (t[..., :hd].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv

@@ -400,3 +400,86 @@ def test_rmsnorm_wide_rows_on_the_card():
         torch.testing.assert_close(ds.float(), rds.float(),
                                    **_card_tol(dt, True))
         assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
+
+
+@pytest.mark.gpu
+def test_tensor_core_backward_matches_plain_version_on_the_card():
+    """The bfloat16 backward at head dims 64 and 128 (and 80, padded to
+    128) takes the tensor-core kernels (one call on either counter) and
+    agrees with the plain backward fed the plain forward's o and lse, at
+    the bfloat16 gradient tolerance, over the GQA x mask sweep, Sq 100 /
+    Sk 200, and a window of 2 with Sq > Sk (rows that see no key get
+    gradient 0) whose q is not 16-byte aligned (the wrapper copies it);
+    two calls give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device with nvcc")
+    g = torch.Generator(device="cuda").manual_seed(6)
+    cases = [(hd, shape) for hd in (64, 128) for shape in TC_SHAPES] + [
+        (80, (1, 4, 2, 100, 200, True, 0))]
+    for hd, (B, H, K, sq, sk, causal, window) in cases:
+        off = int(window == 2)
+        q = torch.randn(B * H * sq * hd + off, generator=g,
+                        device="cuda").bfloat16()[off:].view(B, H, sq, hd)
+        k, v = (torch.randn(B, K, sk, hd, generator=g,
+                            device="cuda").bfloat16() for _ in range(2))
+        do = torch.randn(B, H, sq, hd, generator=g, device="cuda").bfloat16()
+        kw = dict(causal=causal, window=window)
+        assert flash_kernel.route(
+            q.dtype, flash_kernel.padded_head_dim(hd)) == "tc"
+        o, lse = flash_kernel.flash_attention(q, k, v, **kw)
+        before = dict(launch_counts)
+        grads = flash_kernel.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        for name in ("flash_attention_bwd", "flash_attention_bwd_tc"):
+            assert launch_counts[name] == before.get(name, 0) + 1
+        again = flash_kernel.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(grads, again))
+        ro, rlse = attention_fwd_ref(q, k, v, **kw)
+        for got, ref, t in zip(grads, attention_bwd_ref(q, k, v, ro, rlse,
+                                                        do, **kw), (q, k, v)):
+            assert got.shape == t.shape and got.dtype == t.dtype
+            torch.testing.assert_close(got.float(), ref.float(),
+                                       **_card_tol(torch.bfloat16, True))
+        if window == 2:
+            dead = torch.isneginf(rlse)
+            assert dead.any() and not grads[0][dead].any()
+
+
+@pytest.mark.gpu
+def test_wide_head_dims_on_the_card():
+    """ROADMAP C9 above 256 on the card: head dims 257 (float32), 300
+    (bfloat16, window 3) and 1,000 (float32), padded to multiples of 256
+    for the row-looping CUDA-core kernels, forward and backward against the
+    plain version at the true head dim."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device with nvcc")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for hd, dt, window in ((257, torch.float32, 0), (300, torch.bfloat16, 3),
+                           (1000, torch.float32, 0)):
+        q, do = (torch.randn(1, 4, 40, hd, generator=g, device="cuda").to(dt)
+                 for _ in range(2))
+        k, v = (torch.randn(1, 2, 40, hd, generator=g, device="cuda").to(dt)
+                for _ in range(2))
+        kw = dict(causal=True, window=window)
+        width = flash_kernel.padded_head_dim(hd)
+        assert width % 256 == 0 and flash_kernel.route(dt, width) == \
+            "cuda_core"
+        before = dict(launch_counts)
+        o, lse = flash_kernel.flash_attention(q, k, v, **kw)
+        grads = flash_kernel.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        assert launch_counts["flash_attention"] == \
+            before.get("flash_attention", 0) + 1
+        assert launch_counts["flash_attention_bwd"] == \
+            before.get("flash_attention_bwd", 0) + 1
+        assert launch_counts["flash_attention_bwd_tc"] == \
+            before.get("flash_attention_bwd_tc", 0)
+        ro, rlse = attention_fwd_ref(q, k, v, **kw)
+        assert o.shape == q.shape and o.is_contiguous()
+        torch.testing.assert_close(o.float(), ro.float(), **_card_tol(dt))
+        torch.testing.assert_close(lse, rlse, **_card_tol(torch.float32))
+        for got, ref, t in zip(grads, attention_bwd_ref(q, k, v, ro, rlse,
+                                                        do, **kw), (q, k, v)):
+            assert got.shape == t.shape
+            torch.testing.assert_close(got.float(), ref.float(),
+                                       **_card_tol(dt, True))

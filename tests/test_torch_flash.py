@@ -15,10 +15,13 @@ import torch
 from repro.kernels.flash_attention.kernel import flash_attention as r_pallas
 from repro.kernels.flash_attention.ops import flash_attention_bshd as r_bshd
 from repro.kernels.flash_attention.ref import attention_ref as r_ref
+from repro_torch.kernels import build as TB
+from repro_torch.kernels import launch_counts
 from repro_torch.kernels.flash_attention import kernel as TK
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                      flash_attention_bshd)
-from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+from repro_torch.kernels.flash_attention.ref import (_grouped, _mask,
+                                                     attention_bwd_ref,
                                                      attention_fwd_ref)
 
 # float32: the same float32 arithmetic in another order (the tolerance of
@@ -176,17 +179,23 @@ class _CudaLabelled(torch.Tensor):
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     """Every head dim runs on the CPU (hd 12 gives the reference's
-    result); on the card's path a head dim above the kernels' 256 raises,
-    naming the limit, before anything is built."""
+    result); on the card's path hd 257 passes the head-dim check (it is
+    padded to 512 and stops only where the kernel would be built), and a
+    head dim above the kernels' limit raises, naming the limit, before
+    anything is built."""
     q, k = torch.ones(1, 4, 8, 8), torch.ones(1, 2, 8, 8)
     jin, tin = _qkvd(1, 4, 2, 8, 8, 12, seed=12)
     o, lse = TK.flash_attention(*tin[:3])
     np.testing.assert_allclose(_np(o), _np(r_ref(*jin[:3])), **F32)
-    wide = [torch.Tensor._make_subclass(_CudaLabelled, t) for t in (
-        torch.ones(1, 4, 8, 257), torch.ones(1, 2, 8, 257),
-        torch.ones(1, 2, 8, 257))]
-    with pytest.raises(ValueError, match="limit of 256"):
-        TK.flash_attention(*wide)
+
+    def fake(hd):
+        return [torch.Tensor._make_subclass(_CudaLabelled, t) for t in (
+            torch.ones(1, 4, 8, hd), torch.ones(1, 2, 8, hd),
+            torch.ones(1, 2, 8, hd))]
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        TK.flash_attention(*fake(257))
+    with pytest.raises(ValueError, match=f"limit of {TK.MAX_HEAD_DIM}"):
+        TK.flash_attention(*fake(TK.MAX_HEAD_DIM + 1))
     with pytest.raises(ValueError, match="multiple of K"):
         TK.flash_attention(q, torch.ones(1, 3, 8, 8), torch.ones(1, 3, 8, 8))
     with pytest.raises(TypeError, match="one dtype"):
@@ -204,14 +213,16 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 # (CUDA cores) and to 128 (the tensor cores in bfloat16)
 ODD_HD = [(hd, causal, window) for hd in (12, 80)
           for causal, window in ((True, 0), (True, 3))]
+# head dims above 256: padded on the card to 512 (the row-looping kernels)
+WIDE_HD = [(257, True, 0), (300, True, 3)]
 
 
-@pytest.mark.parametrize("hd,causal,window", ODD_HD)
+@pytest.mark.parametrize("hd,causal,window", ODD_HD + WIDE_HD)
 def test_odd_head_dims_match_reference(hd, causal, window):
     """ROADMAP C9: the port at head dims 12 and 80 (GQA 4 over 2, causal,
-    with and without a window of 3), forward against the oracle and the
-    Pallas kernel in interpret mode, gradients against `jax.vjp` of the
-    oracle."""
+    with and without a window of 3) and above 256 (257; 300 with a window
+    of 3), forward against the oracle and the Pallas kernel in interpret
+    mode, gradients against `jax.vjp` of the oracle."""
     jin, tin = _qkvd(2, 4, 2, 24, 24, hd, seed=hd + window)
     kw = dict(causal=causal, window=window)
     _forward_checks(jin, tin, F32, bq=8, bk=8, **kw)
@@ -227,15 +238,17 @@ def test_odd_head_dims_match_reference(hd, causal, window):
                                        **GRAD)
 
 
-@pytest.mark.parametrize("hd,causal,window", ODD_HD + [(1, True, 0),
-                                                      (200, False, 0)])
+@pytest.mark.parametrize("hd,causal,window", ODD_HD + [
+    (1, True, 0), (200, False, 0), (257, True, 0), (520, False, 0)])
 def test_zero_padding_the_head_dim_changes_nothing(hd, causal, window):
     """What the wrapper does on the card: q, k, v (and o, do) zero-padded
-    along hd to the instantiated width, the true hd's scale, the result
-    sliced back. The plain versions on padded inputs equal them on the
-    unpadded ones."""
+    along hd to the instantiated width (above 256 a multiple of 256), the
+    true hd's scale, the result sliced back. The plain versions on padded
+    inputs equal them on the unpadded ones."""
     width = TK.padded_head_dim(hd)
-    assert width in TK.HEAD_DIMS and width >= hd
+    assert width >= hd
+    assert width in TK.HEAD_DIMS if hd <= 256 else (
+        width % TK.WIDE_CHUNK == 0 and width - hd < TK.WIDE_CHUNK)
     _, (q, k, v, do) = _qkvd(2, 4, 2, 20, 24, hd, seed=hd)
     kw = dict(causal=causal, window=window)
     o, lse = attention_fwd_ref(q, k, v, **kw)
@@ -247,7 +260,11 @@ def test_zero_padding_the_head_dim_changes_nothing(hd, causal, window):
     o_p, lse_p = attention_fwd_ref(pq, pk, pv, scale=hd ** -0.5, **kw)
     grads_p = attention_bwd_ref(pq, pk, pv, po, lse_p, pdo,
                                 scale=hd ** -0.5, **kw)
-    tol = dict(rtol=1e-6, atol=1e-6)
+    # the same float32 sums; above hd 256 the CPU's BLAS blocks the
+    # padded width's longer dot products differently (up to 2.1e-6 read
+    # at hd 520, padded to 768)
+    tol = dict(rtol=1e-6, atol=1e-6) if hd <= 256 else dict(rtol=1e-5,
+                                                             atol=1e-5)
     np.testing.assert_allclose(lse_p.numpy(), lse.numpy(), **tol)
     assert not o_p[..., hd:].any()
     for a, b in zip((o_p,) + grads_p, (o,) + grads):
@@ -256,15 +273,141 @@ def test_zero_padding_the_head_dim_changes_nothing(hd, causal, window):
 
 
 def test_route_and_padding_for_every_head_dim():
-    """`route` for every (dtype, hd) pair the wrapper takes: bfloat16 at
-    padded hd 64 or 128 goes to the tensor cores, everything else (float32
-    at any hd, bfloat16 at padded 8-32 or 256) to the CUDA cores; above
-    256 nothing."""
-    for hd in range(1, TK.MAX_HEAD_DIM + 1):
+    """`route` for every (dtype, hd) pair up to 1,024: bfloat16 at padded
+    hd 64 or 128 goes to the tensor cores, everything else (float32 at any
+    hd, bfloat16 at padded 8-32, 256 or above) to the CUDA cores; above
+    256 the width is the next multiple of 256; the limit is the widest such
+    width, and one more raises, naming it."""
+    for hd in range(1, 1025):
         width = TK.padded_head_dim(hd)
-        assert width == min(w for w in TK.HEAD_DIMS if w >= hd)
+        if hd <= 256:
+            assert width == min(w for w in TK.HEAD_DIMS if w >= hd)
+        else:
+            assert width == -(-hd // 256) * 256, hd
         assert TK.route(torch.float32, width) == "cuda_core"
         want = "tc" if 33 <= hd <= 128 else "cuda_core"
         assert TK.route(torch.bfloat16, width) == want, hd
-    with pytest.raises(ValueError, match="limit of 256"):
+    # the widest padded width whose float32 dk and dv rows (8 bytes a dim)
+    # fit one block's 227 KB of shared memory
+    assert TK.MAX_HEAD_DIM == 28_928 >= 4_096
+    assert 8 * TK.MAX_HEAD_DIM <= 232_448 < 8 * (TK.MAX_HEAD_DIM + 256)
+    assert TK.padded_head_dim(TK.MAX_HEAD_DIM) == TK.MAX_HEAD_DIM
+    with pytest.raises(ValueError, match="limit of 28928"):
         TK.padded_head_dim(TK.MAX_HEAD_DIM + 1)
+
+
+class _Library(Exception):
+    """Raised by a stand-in for a kernel library: which one was asked."""
+
+
+@pytest.mark.parametrize("dtype,hd,want", [
+    ("bfloat16", 64, "tc"), ("bfloat16", 80, "tc"), ("bfloat16", 128, "tc"),
+    ("bfloat16", 32, "cuda_core"), ("bfloat16", 256, "cuda_core"),
+    ("bfloat16", 300, "cuda_core"), ("float32", 64, "cuda_core"),
+    ("float32", 1000, "cuda_core")])
+def test_both_directions_take_the_route(monkeypatch, dtype, hd, want):
+    """On a CUDA tensor the forward and the backward each ask for the
+    library `route` names (tensor cores: `flash_fwd_tc.cu` and
+    `flash_bwd_tc.cu`; CUDA cores: `flash_attention.cu`) before anything
+    is allocated or counted."""
+    def ask(name):
+        def library():
+            raise _Library(name)
+        return library
+    monkeypatch.setattr(TK, "_library", ask("cuda_core"))
+    monkeypatch.setattr(TK, "_library_tc", ask("tc"))
+    monkeypatch.setattr(TK, "_library_bwd_tc", ask("tc"))
+    dt = getattr(torch, dtype)
+    assert TK.route(dt, TK.padded_head_dim(hd)) == want
+    q, k = torch.ones(1, 4, 8, hd, dtype=dt), torch.ones(1, 2, 8, hd, dtype=dt)
+    lse = torch.zeros(1, 4, 8)
+    before = dict(launch_counts)
+    for call in (lambda *t: TK.flash_attention(*t[:3]),
+                 TK.flash_attention_bwd):
+        fake = [torch.Tensor._make_subclass(_CudaLabelled, t)
+                for t in (q, k, k, q, lse, q)]
+        with pytest.raises(_Library) as asked:
+            call(*fake)
+        assert str(asked.value) == want
+    assert dict(launch_counts) == before
+
+
+def _tc_bwd_emulated(q, k, v, o, lse, do, *, causal, window, parts):
+    """The tensor-core backward's arithmetic in plain PyTorch: products of
+    bf16 inputs summed in float32; P and dS rounded to bf16 as the operands
+    of dV, dK and dQ, in one part or split into a high and a low part
+    (`split_bf16`); outputs rounded to bf16 once."""
+    B, H, Sq, hd = q.shape
+    K, Sk = k.shape[1], k.shape[2]
+    scale = hd ** -0.5
+    qg, dog = _grouped(q, K), _grouped(do, K)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bkgqd,bktd->bkgqt", qg, kf)
+    mask = _mask(Sq, Sk, causal, window, q.device)
+    lse_g = lse.reshape(B, K, H // K, Sq, 1)
+    p = torch.where(mask, torch.exp(s * scale - lse_g), 0.0)
+    delta = (dog * _grouped(o, K)).sum(dim=-1, keepdim=True)
+    ds = p * (torch.einsum("bkgqd,bktd->bkgqt", dog, vf) - delta)
+
+    def operand(x):
+        hi = x.bfloat16().float()
+        return hi if parts == 1 else hi + (x - hi).bfloat16().float()
+    p, ds = operand(p), operand(ds)
+    dv = torch.einsum("bkgqt,bkgqd->bktd", p, dog)
+    dq = torch.einsum("bkgqt,bktd->bkgqd", ds, kf) * scale
+    dk = torch.einsum("bkgqt,bkgqd->bktd", ds, qg) * scale
+    return (dq.reshape(B, H, Sq, hd).bfloat16(), dk.bfloat16(),
+            dv.bfloat16())
+
+
+# the card's tolerance of a bfloat16 gradient against the plain backward
+# (chip_smoke.py::_tol)
+CARD_BF16 = dict(rtol=1e-2, atol=1e-2)
+TC_BWD_CASES = [(2, h, k, 128, 128, 64, causal, window)
+                for h, k, causal, window in GQA_MASK] + [
+    (1, 2, 2, 100, 200, 128, False, 0)]
+
+
+@pytest.mark.parametrize("parts", [1, 2])
+@pytest.mark.parametrize("B,H,K,sq,sk,hd,causal,window", TC_BWD_CASES)
+def test_tc_backward_roundings_match_jax_vjp(B, H, K, sq, sk, hd, causal,
+                                             window, parts):
+    """The tensor-core backward's roundings (P and dS as bf16 operands, one
+    part or split), emulated, against `jax.vjp` of the oracle at the
+    bfloat16 tolerance, over the GQA x mask sweep at hd 64 and at Sq 100 /
+    Sk 200, hd 128. The number of parts the wrapper uses also keeps the
+    emulation inside the card's tolerance of the plain backward: one part
+    leaves it (1.1x the tolerance at GQA 8 over 1, causal)."""
+    jin, tin = _qkvd(B, H, K, sq, sk, hd, seed=H * 10 + K + window + hd,
+                     dtype="bfloat16")
+    kw = dict(causal=causal, window=window)
+    _, vjp = jax.vjp(lambda a, b, c: r_ref(a, b, c, **kw), *jin[:3])
+    ref = [_np(g) for g in vjp(jin[3])]
+    q, k, v, do = tin
+    o, lse = attention_fwd_ref(q, k, v, **kw)
+    got = _tc_bwd_emulated(q, k, v, o, lse, do, parts=parts, **kw)
+    for name, g, r in zip("qkv", got, ref):
+        np.testing.assert_allclose(_np(g), r, err_msg="d" + name, **BF16)
+    if parts == TK.BWD_TC_PARTS:
+        for g, r in zip(got, attention_bwd_ref(q, k, v, o, lse, do, **kw)):
+            np.testing.assert_allclose(_np(g), _np(r), **CARD_BF16)
+
+
+def test_build_target_follows_the_headers(tmp_path):
+    """A library's name is keyed by its source and every `.cuh` header
+    beside it, so an edited header (which a source includes) rebuilds."""
+    src = tmp_path / "kernel.cu"
+    src.write_text('#include "tiles.cuh"\n')
+    header = tmp_path / "tiles.cuh"
+    header.write_text("// v1\n")
+    first = TB._target(src)
+    assert TB._target(src) == first
+    header.write_text("// v2\n")
+    second = TB._target(src)
+    assert second != first and second.parent == TB.BUILD_DIR
+    (tmp_path / "other.cuh").write_text("// new\n")
+    assert TB._target(src) not in (first, second)
+    (tmp_path / "notes.txt").write_text("not a header\n")
+    third = TB._target(src)
+    (tmp_path / "notes.txt").write_text("edited\n")
+    assert TB._target(src) == third
