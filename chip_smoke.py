@@ -23,7 +23,13 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      bf16 part and in two, and at the path's and the zoo shape the device
      and host time of a call and its kernels per call (the zoo forward
      one tensor-core kernel, its backward three, each timed), with the
-     CUDA-core route's time on the zoo inputs beside them;
+     CUDA-core route's time on the zoo inputs beside them; every row that
+     takes the short-sequence kernels (`short_fits`: the path's training
+     and evaluation calls and a sweep at S = 8 and 32) has its device and
+     host time, one kernel a call either way, and the older CUDA-core
+     kernels' time on the same inputs (their device time too at the
+     path's shapes); then one attention call of the path as the adapter
+     makes it, traced: the two short kernels and no copy;
   4. the quickstart path: the FedBuff federation of examples/quickstart.py
      (MLP payload) through `Federation.from_experiment(exp).run()` on the
      card, launch counts read around it, then the same experiment on the
@@ -33,7 +39,10 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      on the card, launch counts read around it, then on the CPU, and one
      batched client update of 20 satellites held leaf by leaf against the
      CPU's from the same parameters and batches, beside the spread of the
-     CPU's and of the card's own update under a 1e-7 nudge;
+     CPU's and of the card's own update under a 1e-7 nudge; every
+     attention call on the short-sequence kernels; and that client update
+     traced (kernels, copy kernels and device time per SGD step, the
+     step's wall and the device's busy share);
   6. one JSON line listing every ported kernel.
 The last line is `{"ok": true,
 "device": {...}}`. Without a CUDA device, or away from the repository's
@@ -207,16 +216,33 @@ RMS_SHAPES = [(RMS_PATH, "float32", 0), ((1, 8000, 32), "float32", 0)] + [
 RMS_EPS = 1e-6
 
 
+def _device_events(prof):
+    """(name, count, device us) of each kernel or copy the profiler saw on
+    the device (host ops also report the device time of what they
+    launched, and are left out)."""
+    out = []
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        t = getattr(e, "self_cuda_time_total", 0) if t is None else t
+        if t > 0:
+            out.append((e.key, e.count, t))
+    return out
+
+
 def _host_and_device(fn, iters):
     """Per call of `fn`: host microseconds (host clock over `iters` calls,
     no synchronising inside); device microseconds per kernel and kernels
     launched per call, from `torch.profiler`'s `key_averages()` over
     `iters` calls; the names of the kernels seen; and the kernel events
     the profiler recorded. On the H100 machines the profiler drops some
-    kernel events (1 to 39 of 200 in a few runs), never adds any: the
-    kernels per call are the events over the calls rounded up, and the
-    device time per call the device time per event times that. Also each
-    kernel's device microseconds per event, by name."""
+    kernel events (1 to 39 of 200 in a few runs), never adds any, and in
+    one run recorded none in a window of 50 calls: the kernels per call are
+    the events over the calls rounded up, the device time per call the
+    device time per event times that, and a window with no device event is
+    traced again, three times at most. Also each kernel's device
+    microseconds per event, by name."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -227,25 +253,21 @@ def _host_and_device(fn, iters):
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    dev_us, events, names, by_name = 0.0, 0, [], {}
-    for e in prof.key_averages():
-        # device-side events only: host ops also report the device time
-        # of the kernels they launched
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-            continue
-        t = getattr(e, "self_device_time_total", None)
-        t = getattr(e, "self_cuda_time_total", 0) if t is None else t
-        if t > 0:
-            dev_us += t
-            events += e.count
-            names.append(e.key)
-            by_name[e.key] = t / e.count
-    if dev_us <= 0:
+    seen = []
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        seen = _device_events(prof)
+        if seen:
+            break
+    if not seen:
         raise AssertionError("torch.profiler shows no device time")
+    dev_us = sum(t for _, _, t in seen)
+    events = sum(c for _, c, _ in seen)
+    names = [n for n, _, _ in seen]
+    by_name = {n: t / c for n, c, t in seen}
     per_call = -(-events // iters)
     return (host_us, dev_us / events * per_call, per_call, names, events,
             by_name)
@@ -418,7 +440,13 @@ def check_rmsnorm(torch):
 
 # Flash-attention shapes (B, H, K, Sq, Sk, hd, causal, window, dtype): the
 # transformer path's training call (20 satellites x 32 samples, 4 heads
-# over 2 kv heads, 8 tokens, hd 8), the two sweeps of tests/test_kernels.py
+# over 2 kv heads, 8 tokens, hd 8) and evaluation call (1000 samples), a
+# short sweep for the short-sequence kernels (the GQA x mask cases at S = 8
+# and 32, hd 8, a client batch of 32, f32 and bf16; at S = 32 the unit of 8
+# heads over 1 is past `SHORT_BUDGET` and takes the older CUDA-core
+# kernels), the short kernels' wider instantiations (padded hd 32, 64,
+# 128 and 256 at S = 8, in float32, and in bfloat16 where the route is the
+# CUDA cores', hd 32 and 256), the two sweeps of tests/test_kernels.py
 # (GQA x mask at S=128, hd=64, in float32 and in bfloat16, the tensor
 # cores' route; Sq/Sk x dtype at hd=128, unmasked), head dims the kernels
 # do not instantiate (80 in bfloat16, padded to 128 on the tensor cores;
@@ -427,8 +455,18 @@ def check_rmsnorm(torch):
 # cores' row-looping kernels), and qwen3-8b's head layout at S=2048
 # (configs/qwen3_8b.py).
 FLASH_PATH = (640, 4, 2, 8, 8, 8, True, 0, "float32")
+FLASH_EVAL = (1000, 4, 2, 8, 8, 8, True, 0, "float32")
 FLASH_ZOO = (1, 32, 8, 2048, 2048, 128, True, 0, "bfloat16")
-FLASH_SHAPES = [FLASH_PATH] + [
+FLASH_SHORT_SWEEP = [(32, h, k, s, s, 8, causal, window, dt)
+                     for s in (8, 32) for dt in ("float32", "bfloat16")
+                     for h, k in ((4, 4), (4, 2), (8, 1))
+                     for causal, window in ((True, 0), (True, 3),
+                                            (False, 0))]
+FLASH_SHORT_WIDE = [(32, 4, 2, 8, 8, hd, True, 0, dt) for hd, dt in (
+    (32, "float32"), (32, "bfloat16"), (64, "float32"), (128, "float32"))] + [
+    (32, 2, 2, 8, 8, 256, True, 0, dt) for dt in ("float32", "bfloat16")]
+FLASH_SHAPES = [FLASH_PATH, FLASH_EVAL] + FLASH_SHORT_SWEEP \
+    + FLASH_SHORT_WIDE + [
     (2, h, k, 128, 128, 64, causal, window, dt)
     for dt in ("float32", "bfloat16")
     for h, k in ((4, 4), (4, 2), (8, 1))
@@ -443,6 +481,8 @@ FLASH_SHAPES = [FLASH_PATH] + [
 TC_KERNEL = "flash_fwd_tc_kernel"     # in the tensor-core kernel's name
 TC_BWD_KERNELS = ("flash_bwd_tc_delta_kernel", "flash_bwd_tc_dkdv_kernel",
                   "flash_bwd_tc_dq_kernel")   # in the backward's
+SHORT_KERNELS = {"fwd": "flash_fwd_short_kernel",   # in the short-sequence
+                 "bwd": "flash_bwd_short_kernel"}   # kernels' names
 
 
 def _visible_pairs(sq, sk, causal, window):
@@ -508,6 +548,38 @@ def _tc_bwd_kernels(names):
         sum(t in n for n in names) == 1 for t in TC_BWD_KERNELS)
 
 
+def _short_row(K, row, tag, direction, kern, iters, q, k, v, o, lse, do,
+               kw, fwd_ref, grads_ref, dt):
+    """A row of the short-sequence kernels: their device and host time per
+    call (one kernel a call, either direction, checked), and the older
+    CUDA-core kernels on the same inputs through their C entry points (not
+    counted), checked against the plain version and timed, with their
+    device time and kernels per call."""
+    host_us, dev_us, per_call, names, events, by_name = _host_and_device(
+        kern, iters)
+    if per_call != 1 or len(names) != 1 or \
+            SHORT_KERNELS[direction] not in names[0]:
+        raise AssertionError(f"{tag} {direction}: {per_call} kernels per "
+                             f"call ({names}), not one short kernel")
+    row.update(device_us=dev_us, host_us=host_us, launches_per_call=per_call,
+               kernels_seen=names, device_us_by_kernel=by_name,
+               profiled=f"{events} kernel events over {iters} calls")
+    causal, window = kw["causal"], kw["window"]
+    if direction == "fwd":
+        def old():
+            return _cuda_core_fwd(K, q, k, v, causal, window)
+        _compare(tag + " cuda-core", old()[:1], fwd_ref[:1], dt)
+    else:
+        def old():
+            return _bwd_direct(K, q, k, v, o, lse, do, causal, window)
+        _compare(tag + " bwd cuda-core", old(), grads_ref, dt, grad=True)
+    row["cuda_core_ms"] = _time_ms(old, iters)
+    _, dev_old, per_old, _, _, by_old = _host_and_device(old, iters)
+    row.update(cuda_core_device_us=dev_old,
+               cuda_core_launches_per_call=per_old,
+               cuda_core_device_us_by_kernel=by_old)
+
+
 def check_flash(torch):
     """Phase 3: flash attention forward and backward against the plain
     version."""
@@ -528,15 +600,18 @@ def check_flash(torch):
         do = torch.randn(B, H, sq, hd, generator=g, device="cuda").to(dt)
         kw = dict(causal=causal, window=window)
         route = K.route(dt, K.padded_head_dim(hd))
+        short = K.short_fits(H // KH, sq, sk, K.padded_head_dim(hd), dt)
         before = dict(launch_counts)
         o, lse = K.flash_attention(q, k, v, **kw)
         o_ref, lse_ref = attention_fwd_ref(q, k, v, **kw)
         grads = K.flash_attention_bwd(q, k, v, o, lse, do, **kw)
-        for name in (K.NAME_TC, K.NAME_BWD_TC):
-            if launch_counts[name] - before.get(name, 0) != (route == "tc"):
-                raise AssertionError(f"{shape}: route {route} but "
-                                     f"{launch_counts[name]} {name} "
-                                     f"launches")
+        for name, want in ((K.NAME_TC, route == "tc"),
+                           (K.NAME_BWD_TC, route == "tc"),
+                           (K.NAME_SHORT, short), (K.NAME_BWD_SHORT, short)):
+            if launch_counts[name] - before.get(name, 0) != want:
+                raise AssertionError(f"{shape}: route {route}, short "
+                                     f"{short}, but {launch_counts[name]} "
+                                     f"{name} launches")
         # the plain backward starts from the plain forward's o and lse
         grads_ref = attention_bwd_ref(q, k, v, o_ref, lse_ref, do, **kw)
         torch.cuda.synchronize()
@@ -549,7 +624,8 @@ def check_flash(torch):
         bwd_err, bwd_tol = _compare(tag + " bwd", grads, grads_ref, dt,
                                     grad=True)
         big = sq * sk * B * H >= 1 << 24
-        iters = 10 if big else 100
+        iters = 10 if big else 50 if shape in (
+            FLASH_SHORT_SWEEP + FLASH_SHORT_WIDE) else 100
         b = q.element_size()
         qo = q.numel() * b                 # bytes of q (and of o, do, dq)
         kv = k.numel() * b                 # bytes of k (and of v, dk, dv)
@@ -584,7 +660,7 @@ def check_flash(torch):
                    else "flash_attention_bwd", "B": B, "H": H, "K": KH,
                    "Sq": sq, "Sk": sk, "hd": hd, "causal": causal,
                    "window": window, "dtype": dts,
-                   "route": route, "max_abs_err": err,
+                   "route": "short" if short else route, "max_abs_err": err,
                    "tol": tol, "kernel_ms": k_ms, "plain_ms": p_ms,
                    "library_ms": lib_ms, "bound_ms": bound[0],
                    "bound_by": bound[1], "bound_share": bound[0] / k_ms}
@@ -619,7 +695,10 @@ def check_flash(torch):
                     lambda: _bwd_direct(K, q, k, v, o, lse, do, causal,
                                         window, parts), iters)
                     for parts in (1, 2)}
-            if shape in (FLASH_PATH, FLASH_ZOO):
+            if short:
+                _short_row(K, row, tag, direction, kern, iters, q, k, v, o,
+                           lse, do, kw, (o_ref, lse_ref), grads_ref, dt)
+            if shape in (FLASH_PATH, FLASH_ZOO) and not short:
                 host_us, dev_us, per_call, names, events, by_name = \
                     _host_and_device(kern, iters)
                 row.update(device_us=dev_us, host_us=host_us,
@@ -795,6 +874,11 @@ def run_transformer_path(torch):
             "flash_attention_bwd_tc", 0):
         raise AssertionError(f"float32 attention took the tensor cores: "
                              f"{counts}")
+    # ... and, at S = 8, the short-sequence kernels: every call, both ways
+    if counts.get("flash_attention_short", 0) != fa or counts.get(
+            "flash_attention_bwd_short", 0) != fb:
+        raise AssertionError(f"attention calls that did not take the "
+                             f"short-sequence kernels: {counts}")
     if not all(math.isfinite(a) for a in res.accuracy + res.val_loss):
         raise AssertionError("non-finite accuracy or loss on the card")
     for name, want in TRANSFORMER_REFERENCE.items():
@@ -819,7 +903,117 @@ def run_transformer_path(torch):
     # 1000 validation samples may move by a few argmax flips
     _close_accuracy(res, cpu, 0.02)
     check_client_update(torch, fed.adapter, cpu_fed.adapter, exp.train)
+    step = trace_client_update(torch, fed.adapter, exp.train)
+    print("client step", json.dumps(step), flush=True)
     return counts
+
+
+def _is_copy(name):
+    return "copy" in name.lower()
+
+
+def trace_client_update(torch, adapter, train, runs=5):
+    """One batched client update of the transformer path (the first 20
+    satellites, `local_steps` SGD steps at the path's lr), traced with
+    `torch.profiler` after a warm-up: kernels, copy kernels and device
+    microseconds per SGD step, and the wall of a step from `runs` untraced
+    updates (host clock, ending in a synchronise), with the busy share
+    (device time over wall). The profiler drops a few kernel events on the
+    H100 machines, so the kernel counts are a floor."""
+    from repro_torch.fl.client import make_batched_client_update
+    params = adapter.init(torch.Generator().manual_seed(0))
+    batch, _ = adapter.client_batch_many(list(range(MAIN_PATH_M)), 0,
+                                         train.batch_size, train.local_steps)
+    update = make_batched_client_update(adapter, local_steps=train.local_steps,
+                                        lr=train.client_lr)
+    batch = tuple(batch)
+    update(params, batch)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        update(params, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) / train.local_steps * 1e3)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        update(params, batch)
+        torch.cuda.synchronize()
+    events = _device_events(prof)
+    if not events:
+        raise AssertionError("torch.profiler shows no device time")
+    steps = train.local_steps
+    dev_us = sum(t for _, _, t in events) / steps
+    wall_ms = sorted(walls)[len(walls) // 2]
+    return {"satellites": MAIN_PATH_M, "sgd_steps": steps,
+            "kernels_per_step": sum(c for _, c, _ in events) / steps,
+            "copy_kernels_per_step": sum(c for n, c, _ in events
+                                         if _is_copy(n)) / steps,
+            "device_us_per_step": dev_us, "wall_ms_per_step": walls,
+            "busy_share": dev_us / (wall_ms * 1e3),
+            "kernels_by_name": {n[:120]: c for n, c, _ in sorted(
+                events, key=lambda e: -e[1])}}
+
+
+def trace_attention_call(torch, iters=200):
+    """The transformer path's attention call as its adapter makes it, one
+    forward and one backward of `ops.flash_attention_bshd` on (B, S, H, hd)
+    projections, o read as (B, S, H * hd) and the cotangent given so: the
+    host microseconds of a forward (recording the graph), of a forward
+    and backward, and of the (B, H, S, hd) wrappers' forward and backward
+    calls on the same values (host clock over `iters` calls, no
+    synchronising inside), then, traced, the device kernels the path's
+    call runs, by name, per call."""
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
+    B, H, KH, S, _, hd = FLASH_PATH[:6]
+    g = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn(B, S, 32, generator=g, device="cuda")
+    w = [torch.randn(32, n * hd, generator=g, device="cuda")
+         for n in (H, KH, KH)]
+    do = torch.randn(B, S, H * hd, generator=g, device="cuda")
+    # the projections are made outside the traced window
+    inputs = [(x @ wi).reshape(B, S, -1, hd) for wi in w]
+
+    def call():
+        q, k, v = (t.detach().requires_grad_() for t in inputs)
+        o = flash_attention_bshd(q, k, v, causal=True).reshape(B, S, H * hd)
+        return torch.autograd.grad(o, (q, k, v), do)
+
+    def forward():
+        q, k, v = (t.detach().requires_grad_() for t in inputs)
+        return flash_attention_bshd(q, k, v, causal=True)
+    bhsd = [t.transpose(1, 2).contiguous() for t in inputs]
+    o, lse = K.flash_attention(*bhsd)
+    do_bhsd = do.view(B, S, H, hd).transpose(1, 2).contiguous()
+    host_us = {}
+    for name, fn in (
+            ("forward", forward), ("forward and backward", call),
+            ("wrapper forward (B, H, S, hd)", lambda: K.flash_attention(
+                *bhsd)),
+            ("wrapper backward (B, H, S, hd)", lambda: K.flash_attention_bwd(
+                *bhsd, o, lse, do_bhsd))):
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_us[name] = (time.perf_counter() - t0) / iters * 1e6
+        torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    traced = 20
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(traced):
+            call()
+        torch.cuda.synchronize()
+    events = _device_events(prof)
+    return {"host_us": host_us, "calls": traced,
+            "kernels_per_call": {n[:120]: c / traced for n, c, _ in events},
+            "copy_kernels_per_call": sum(c for n, c, _ in events
+                                         if _is_copy(n)) / traced}
 
 
 def check_client_update(torch, card, cpu, train):
@@ -873,23 +1067,42 @@ def check_client_update(torch, card, cpu, train):
                                      f"differs beyond tolerance")
 
 
-def _tc_ptxas(log: str):
-    """The tensor-core kernels' registers and spills (forward; backward
-    delta, dk/dv and dq), one line per instantiation (hd, and for dk/dv
-    and dq whether P and dS are split), from ptxas's report; fails on a
-    spill (a reused library has no report, and nothing is checked)."""
+# ptxas's report of a kernel, from its mangled name - <length><name>I<template
+# arguments>E - to its registers: the tensor-core kernels (hd, and for dk/dv
+# and dq whether P and dS are split) and the short-sequence kernels (type,
+# hd)
+PTXAS_ENTRY = (r"Compiling entry function '\w*?\d({})I{}E.*?(\d+) bytes "
+               r"spill stores, (\d+) bytes spill loads.*?Used (\d+) "
+               r"registers")
+PTXAS_KERNELS = {"tc": (r"flash_\w+?_tc_\w*?kernel",
+                        r"Li(\d+)E(?:Lb(\d)E)?"),
+                 "short": (r"flash_(?:fwd|bwd)_short_kernel",
+                           r"(f|13__nv_bfloat16)Li(\d+)E")}
+SHORT_INSTANCES = 2 * 2 * 6    # directions x types x head dims
+
+
+def _ptxas(log: str, kind: str):
+    """The registers and spills of the tensor-core kernels (forward;
+    backward delta, dk/dv and dq) or of the short-sequence kernels (both
+    directions, every type and hd), one line per instantiation, from
+    ptxas's report; fails on a spill, and, for the short kernels, unless
+    every instantiation is reported (a reused library has no report, and
+    nothing is checked)."""
     import re
-    # a mangled name: <length><name>I<template arguments>E
-    found = re.findall(r"Compiling entry function '\w*?\d(flash_\w+?_kernel)"
-                       r"ILi(\d+)E(?:Lb(\d)E)?E.*?(\d+) bytes spill "
-                       r"stores, (\d+) bytes spill loads.*?Used (\d+) "
-                       r"registers", log, re.S)
-    for kernel, hd, split, stores, loads, regs in found:
-        what = f"{kernel} hd {hd}" + (f" split {split}" if split else "")
+    found = re.findall(PTXAS_ENTRY.format(*PTXAS_KERNELS[kind]), log,
+                       re.S)
+    for kernel, a, b, stores, loads, regs in found:
+        what = (f"{kernel} hd {a}" + (f" split {b}" if b else "")
+                if kind == "tc" else
+                f"{kernel} {'bf16' if 'bfloat16' in a else 'f32'} hd {b}")
         print(f"{what}: {regs} registers, {stores} bytes spill stores, "
               f"{loads} bytes spill loads", flush=True)
         if int(stores) or int(loads):
             raise AssertionError(f"{what} spills")
+    if kind == "short" and "Compiling entry function" in log \
+            and len(found) != SHORT_INSTANCES:
+        raise AssertionError(f"ptxas reported {len(found)} short-sequence "
+                             f"kernels, not {SHORT_INSTANCES}")
 
 
 def main() -> int:
@@ -927,13 +1140,22 @@ def main() -> int:
               flush=True)
         print(b.log.strip(), flush=True)
         if b.source in (flash_kernel.SOURCE_TC, flash_kernel.SOURCE_BWD_TC):
-            _tc_ptxas(b.log)
+            _ptxas(b.log, "tc")
+        if b.source == flash_kernel.SOURCE:
+            _ptxas(b.log, "short")
     done("build")
 
     # 3. kernels against their plain versions
     agg_rows = check_aggregation(torch)
     rms_rows = check_rmsnorm(torch)
     flash_rows = check_flash(torch)
+    call = trace_attention_call(torch)
+    print("attention call", json.dumps(call), flush=True)
+    seen = call["kernels_per_call"]
+    if call["copy_kernels_per_call"] or len(seen) != 2 or not all(
+            any(name in n for n in seen) for name in SHORT_KERNELS.values()):
+        raise AssertionError(f"the path's attention call ran {seen}, not "
+                             f"the two short-sequence kernels alone")
     done("kernel checks")
 
     # 4, 5. the main paths
@@ -999,11 +1221,21 @@ def main() -> int:
                                if r["library_ms"] is not None else None),
                 "work": what,
             })
-    for kname, tc_name in ((flash_kernel.NAME, flash_kernel.NAME_TC),
-                           (flash_kernel.NAME_BWD,
-                            flash_kernel.NAME_BWD_TC)):
+    for kname, tc_name, short_name in (
+            (flash_kernel.NAME, flash_kernel.NAME_TC, flash_kernel.NAME_SHORT),
+            (flash_kernel.NAME_BWD, flash_kernel.NAME_BWD_TC,
+             flash_kernel.NAME_BWD_SHORT)):
         entry = next(k for k in kernels if k["name"] == kname)
         entry["launches_tc"] = sum(launches(tc_name).values())
+        entry["launches_short"] = sum(launches(short_name).values())
+        # per call at the path's shape: the short kernel's device time and
+        # the older CUDA-core kernels' on the same inputs
+        (r,) = [r for r in flash_rows if r["kernel"] == kname and (
+            r["B"], r["H"], r["K"], r["Sq"], r["Sk"], r["hd"], r["causal"],
+            r["window"], r["dtype"]) == FLASH_PATH]
+        entry.update(device_us_per_call=r["device_us"],
+                     cuda_core_device_us_per_call=r["cuda_core_device_us"],
+                     bound_ms_per_call=r["bound_ms"])
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on a main "

@@ -7,7 +7,8 @@ the JAX package (`repro.kernels`):
                     CUDA C++
   flash_attention/  causal / sliding-window flash attention with GQA,
                     forward and backward, CUDA C++ (bf16 at hd 64 and 128
-                    on the tensor cores, both directions)
+                    on the tensor cores, both directions; short
+                    sequences on their own CUDA-core kernels)
 
 Each kernel package holds its CUDA source (`csrc/`), a wrapper
 (`kernel.py`) that checks its inputs and launches on PyTorch's current
@@ -20,7 +21,9 @@ the kernel, or the wrapper raises.
 (`weighted_aggregate`, `rmsnorm`, `rmsnorm_bwd`, `flash_attention`,
 `flash_attention_bwd`; `flash_attention_tc` and `flash_attention_bwd_tc`
 count, among the `flash_attention` and `flash_attention_bwd` launches,
-those of the tensor-core forward and backward): each
+those of the tensor-core forward and backward, and
+`flash_attention_short` and `flash_attention_bwd_short` those of the
+short-sequence kernels): each
 wrapper adds one where it launches its kernel and nowhere else, so a run
 can show that its path went through the kernels (`launch_counts.clear()`
 resets them).

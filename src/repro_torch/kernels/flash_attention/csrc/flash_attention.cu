@@ -59,12 +59,16 @@
 // "wide head dims", up to 28,928 (the widest whose dk and dv rows fit one
 // block's shared memory). In bfloat16 at hd 64 and 128 the wrapper sends
 // both directions to the tensor cores instead (flash_fwd_tc.cu,
-// flash_bwd_tc.cu); each backward reads either forward's o and lse alike.
+// flash_bwd_tc.cu); and a call whose (b, kv head) problem is small (the
+// transformer payload's, S = 8) takes the kernels of the section "short
+// sequences", both directions, reading any strides. Each backward reads
+// either forward's o and lse alike.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -720,6 +724,490 @@ int bwd_wide(int W, const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------- short sequences
+//
+// These kernels, like those above, replace the Pallas TPU kernel
+// `flash_attention` (src/repro/kernels/flash_attention/kernel.py:91), for
+// short sequences. The transformer payload's calls are tiny: at (B, H, K,
+// S, hd) = (640, 4, 2, 8, 8), causal, float32, a whole (b, kv head)
+// problem - a "unit" - is G * Sq = 16 query rows by Sk = 8 keys, and a
+// call moves ~2 MB (bound: the bytes of q, k, v, o and lse once forward,
+// 0.61 us; of q, k, v, o, do, lse, dq, dk and dv backward, 1.20 us). What
+// the kernels above spend there is launch latency, blocks of 8 threads (a
+// quarter of a warp), K and V staged again for each of the G query heads,
+// three backward launches around a delta buffer in global memory, and, in
+// the wrapper, copies into and out of the (B, H, S, hd) layout. So every
+// call whose unit's backward working set - in float32, q, o and do of the
+// G heads, k, v, lse, delta, P and dS - fits kShortBudget (the wrapper's
+// `short_fits` computes the same sum) takes these kernels, both
+// directions:
+//   - a warp owns a unit, a block 4 or 8 units (128 or 256 threads), 8
+//     only where that still leaves two blocks an SM (the path's 1,280 units
+//     make 320 blocks);
+//   - the unit's K and V, and the rows of its G query heads (q; in the
+//     backward also o and do), are copied once into shared memory with
+//     16-byte cp.async, in their own type, and serve all G heads;
+//   - forward: a group of lanes owns a score row - as few lanes as still
+//     give every lane a row, so that the rows of a unit mostly take one
+//     pass, each lane its keys in turn - its max and sum are shuffle
+//     reductions, and P goes to shared memory; then a lane owns (row,
+//     4 dims) of P V;
+//   - backward, one launch: delta = rowsum(do o), P = exp(S scale - lse)
+//     and dS = P (dP - delta) into shared memory, then dV = P^T dO,
+//     dK = dS^T Q scale and dQ = dS K scale, each output element summed in
+//     a fixed order (dK and dV by the lanes the warp has to spare, their
+//     parts added by shuffles in a fixed pattern): no atomics, no
+//     workspace, and two calls give the same bits;
+//   - every tensor comes with its batch, sequence and head strides (the
+//     last dim contiguous, each row on 16 bytes), so the transformer's
+//     (B, S, H, hd) projections are read in place and o, dq, dk, dv are
+//     written in the layout the wrapper allocated.
+// All arithmetic is float32 on the CUDA cores: the path is float32, which
+// on the tensor cores would be TF32 and change the numbers against the
+// reference, and an 8 x 8 problem is below an mma tile. Masking, GQA,
+// Sq != Sk, the window and dead rows (o = 0, lse = -inf, zero gradients)
+// are those of the kernels above.
+
+constexpr int kShortBudget = 49152;  // bytes of a unit's float32 working set
+constexpr int kShortUnits = 8;       // units (warps) a block at most
+// The H100 SXM's SMs. It only tunes how many units a block takes (8 or 4,
+// see short_units), never what a kernel computes, so another card's count
+// changes the speed alone.
+constexpr int kSMs = 132;
+static_assert(kShortUnits / 2 * kShortBudget <= kMaxShared,
+              "four units within the budget fit one block");
+
+struct Bsh {   // element strides of a (batch, sequence, head, hd) view
+  int64_t b, s, h;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+__device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  x[0] = t.x;
+  x[1] = t.y;
+  x[2] = t.z;
+  x[3] = t.w;
+}
+
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&x)[4]) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  const float2 a =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
+  const float2 b =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
+  x[0] = a.x;
+  x[1] = a.y;
+  x[2] = b.x;
+  x[3] = b.y;
+}
+
+__device__ __forceinline__ void store4(float* p, const float (&x)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&x)[4]) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(x[0], x[1]);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(x[2], x[3]);
+  uint2 t;
+  t.x = *reinterpret_cast<const unsigned*>(&a);
+  t.y = *reinterpret_cast<const unsigned*>(&b);
+  *reinterpret_cast<uint2*>(p) = t;
+}
+
+// A row of HD elements dotted with another, both in shared memory.
+template <typename T, int HD>
+__device__ __forceinline__ float dot_short(const T* a, const T* b) {
+  float acc = 0.f;
+#pragma unroll
+  for (int c = 0; c < HD; c += 4) {
+    float x[4], y[4];
+    load4(a + c, x);
+    load4(b + c, y);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) acc = fmaf(x[t], y[t], acc);
+  }
+  return acc;
+}
+
+// Copy groups * per rows of HD elements into sm (HD a row, row g * per + i)
+// from src + g * sg + i * si, 16 bytes a lane at a time (the warp's copies;
+// cp_async_wait_all and __syncwarp make them visible).
+template <typename T, int HD>
+__device__ __forceinline__ void stage_short(T* sm, const T* src, int groups,
+                                            int per, int64_t sg, int64_t si,
+                                            int lane) {
+  constexpr int E = 16 / static_cast<int>(sizeof(T));   // elements a copy
+  constexpr int C = HD / E;                              // copies a row
+  const int total = groups * per * C;
+  for (int idx = lane; idx < total; idx += 32) {
+    const int c = idx % C, row = idx / C;
+    cp_async16(sm + row * HD + c * E,
+               src + (row / per) * sg + (row % per) * si + c * E);
+  }
+}
+
+__device__ __forceinline__ float lanes_max(float v, int width) {
+  for (int o = width / 2; o > 0; o >>= 1) {
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  }
+  return v;
+}
+
+__device__ __forceinline__ float lanes_sum(float v, int width) {
+  for (int o = width / 2; o > 0; o >>= 1) {
+    v += __shfl_xor_sync(0xffffffffu, v, o);
+  }
+  return v;
+}
+
+// Shared memory of one unit, in bytes (16-byte aligned): the T-typed rows
+// (their sizes multiples of 16 bytes), then the float32 arrays.
+template <typename T, int HD>
+int64_t short_unit_bytes(const Dims& s, int t_rows, int f32_rows) {
+  const int64_t R = static_cast<int64_t>(s.H / s.K) * s.Sq;
+  const int64_t PS = s.Sk | 1;   // P's row stride, odd: rows on other banks
+  const int64_t bytes = (t_rows * R + 2 * s.Sk) * HD * sizeof(T) +
+                        (f32_rows * R * PS + 2 * R) * 4;
+  return (bytes + 15) / 16 * 16;
+}
+
+// Units a block: 8 where that still gives two blocks an SM, else 4; fewer
+// if their shared memory does not fit a block.
+int short_units(int64_t units, int64_t bytes) {
+  int u = units >= 2 * kSMs * kShortUnits ? kShortUnits : kShortUnits / 2;
+  while (u > 1 && u * bytes > kMaxShared) --u;
+  return u;
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(32 * kShortUnits)
+    flash_fwd_short_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, T* __restrict__ o,
+                           float* __restrict__ lse, Dims s, Bsh sq, Bsh sk,
+                           Bsh sv, Bsh so, int unit_bytes) {
+  extern __shared__ __align__(16) unsigned char short_sm[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t unit =
+      static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + warp;
+  if (unit >= static_cast<int64_t>(s.B) * s.K) return;   // the whole warp
+  const int kvh = static_cast<int>(unit % s.K);
+  const int64_t b = unit / s.K;
+  const int G = s.H / s.K, R = G * s.Sq, PS = s.Sk | 1, h0 = kvh * G;
+  T* qs = reinterpret_cast<T*>(short_sm +
+                               static_cast<int64_t>(warp) * unit_bytes);
+  T* ks = qs + R * HD;
+  T* vs = ks + s.Sk * HD;
+  float* ps = reinterpret_cast<float*>(vs + s.Sk * HD);
+  float* ls = ps + R * PS;   // each row's sum of exponentials
+  stage_short<T, HD>(qs, q + b * sq.b + h0 * sq.h, G, s.Sq, sq.h, sq.s, lane);
+  stage_short<T, HD>(ks, k + b * sk.b + kvh * sk.h, 1, s.Sk, 0, sk.s, lane);
+  stage_short<T, HD>(vs, v + b * sv.b + kvh * sv.h, 1, s.Sk, 0, sv.s, lane);
+  cp_async_wait_all();
+  __syncwarp();
+
+  // scores and softmax: `width` lanes a row, as few as still give every
+  // lane a row (so one pass at the path's 16 rows, 2 lanes a row, 4 keys
+  // a lane), 32 / width rows a pass
+  int width = 1;
+  while (2 * width * R <= 32 && width < s.Sk) width <<= 1;
+  const int sub = lane % width;
+  float* lse_u = lse + (b * s.H + h0) * s.Sq;   // the unit's R rows
+  for (int r0 = 0; r0 < R; r0 += 32 / width) {
+    const int r = r0 + lane / width;
+    const bool live = r < R;
+    int lo, hi;
+    key_range(s, live ? r % s.Sq : 0, lo, hi);
+    if (!live) hi = lo - 1;
+    float m = -INFINITY;
+    // unrolled 4 keys deep up to hd 64; from hd 128 on, where a key's dot
+    // product is itself 32 or more unrolled loads, a key at a time (deeper,
+    // the float32 kernels spill)
+#pragma unroll (HD >= 128 ? 1 : 4)
+    for (int j = sub; j < s.Sk; j += width) {
+      if (j >= lo && j <= hi) {
+        const float sc = dot_short<T, HD>(qs + r * HD, ks + j * HD) * s.scale;
+        ps[r * PS + j] = sc;
+        m = fmaxf(m, sc);
+      }
+    }
+    m = lanes_max(m, width);
+    float l = 0.f;
+#pragma unroll (HD >= 128 ? 1 : 4)
+    for (int j = sub; j < s.Sk; j += width) {
+      if (j >= lo && j <= hi) {   // m is finite here
+        const float p = expf(ps[r * PS + j] - m);
+        ps[r * PS + j] = p;
+        l += p;
+      }
+    }
+    l = lanes_sum(l, width);
+    if (live && sub == 0) {
+      ls[r] = l;
+      lse_u[r] = l > 0.f ? m + logf(l) : -INFINITY;
+    }
+  }
+  __syncwarp();
+
+  // o = P V / l: a lane (row, 4 dims), keys in order
+  constexpr int C4 = HD / 4;
+  for (int idx = lane; idx < R * C4; idx += 32) {
+    const int r = idx / C4, c = (idx % C4) * 4;
+    const int g = r / s.Sq, i = r % s.Sq;
+    int lo, hi;
+    key_range(s, i, lo, hi);
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int j = lo; j <= hi; ++j) {
+      const float p = ps[r * PS + j];
+      float x[4];
+      load4(vs + j * HD + c, x);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) acc[t] = fmaf(p, x[t], acc[t]);
+    }
+    const float l = ls[r];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) acc[t] = l > 0.f ? acc[t] / l : 0.f;
+    store4(o + b * so.b + i * so.s + (h0 + g) * so.h + c, acc);
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(32 * kShortUnits)
+    flash_bwd_short_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, const T* __restrict__ o,
+                           const float* __restrict__ lse,
+                           const T* __restrict__ dout, T* __restrict__ dq,
+                           T* __restrict__ dk, T* __restrict__ dv, Dims s,
+                           Bsh sq, Bsh sk, Bsh sv, Bsh so, Bsh sdo, Bsh sdq,
+                           Bsh sdk, Bsh sdv, int unit_bytes) {
+  extern __shared__ __align__(16) unsigned char short_sm[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t unit =
+      static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + warp;
+  if (unit >= static_cast<int64_t>(s.B) * s.K) return;   // the whole warp
+  const int kvh = static_cast<int>(unit % s.K);
+  const int64_t b = unit / s.K;
+  const int G = s.H / s.K, R = G * s.Sq, PS = s.Sk | 1, h0 = kvh * G;
+  T* qs = reinterpret_cast<T*>(short_sm +
+                               static_cast<int64_t>(warp) * unit_bytes);
+  T* os = qs + R * HD;
+  T* dos = os + R * HD;
+  T* ks = dos + R * HD;
+  T* vs = ks + s.Sk * HD;
+  float* ps = reinterpret_cast<float*>(vs + s.Sk * HD);
+  float* dss = ps + R * PS;
+  float* lse_s = dss + R * PS;
+  float* delta_s = lse_s + R;
+  stage_short<T, HD>(qs, q + b * sq.b + h0 * sq.h, G, s.Sq, sq.h, sq.s, lane);
+  stage_short<T, HD>(os, o + b * so.b + h0 * so.h, G, s.Sq, so.h, so.s, lane);
+  stage_short<T, HD>(dos, dout + b * sdo.b + h0 * sdo.h, G, s.Sq, sdo.h,
+                     sdo.s, lane);
+  stage_short<T, HD>(ks, k + b * sk.b + kvh * sk.h, 1, s.Sk, 0, sk.s, lane);
+  stage_short<T, HD>(vs, v + b * sv.b + kvh * sv.h, 1, s.Sk, 0, sv.s, lane);
+  const float* lse_u = lse + (b * s.H + h0) * s.Sq;   // the unit's R rows
+  for (int r = lane; r < R; r += 32) lse_s[r] = lse_u[r];
+  cp_async_wait_all();
+  __syncwarp();
+  for (int r = lane; r < R; r += 32) {
+    delta_s[r] = dot_short<T, HD>(dos + r * HD, os + r * HD);
+  }
+  __syncwarp();
+
+  // P and dS, a lane an entry; zero where masked or the row is dead
+  for (int idx = lane; idx < R * s.Sk; idx += 32) {
+    const int r = idx / s.Sk, j = idx % s.Sk;
+    int lo, hi;
+    key_range(s, r % s.Sq, lo, hi);
+    const float l = lse_s[r];
+    float p = 0.f, ds = 0.f;
+    if (j >= lo && j <= hi && l != -INFINITY) {
+      p = expf(dot_short<T, HD>(qs + r * HD, ks + j * HD) * s.scale - l);
+      ds = p * (dot_short<T, HD>(dos + r * HD, vs + j * HD) - delta_s[r]);
+    }
+    ps[r * PS + j] = p;
+    dss[r * PS + j] = ds;
+  }
+  __syncwarp();
+
+  // dV = P^T dO and dK = dS^T Q scale: `split` lanes an element (key j,
+  // 4 dims), as many as the warp has to spare, each summing the query rows
+  // that see key j of every split-th of the G heads (heads in turn, each in
+  // query order); the parts are added by shuffles in a fixed pattern
+  constexpr int C4 = HD / 4;
+  const int items = s.Sk * C4;
+  int split = 1;
+  while (2 * split * items <= 32) split <<= 1;
+  const int part = lane % split;
+  for (int base = 0; base < items * split; base += 32) {   // warp-uniform
+    const int idx = (base + lane) / split;
+    const int j = idx / C4, c = (idx % C4) * 4;
+    int lo = 0, hi = -1;
+    if (idx < items) query_range(s, j, lo, hi);
+    float ak[4] = {0.f, 0.f, 0.f, 0.f}, av[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int g = part; g < G; g += split) {
+      for (int r = g * s.Sq + lo; r <= g * s.Sq + hi; ++r) {
+        const float p = ps[r * PS + j], ds = dss[r * PS + j];
+        float x[4], y[4];
+        load4(dos + r * HD + c, x);
+        load4(qs + r * HD + c, y);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          av[e] = fmaf(p, x[e], av[e]);
+          ak[e] = fmaf(ds, y[e], ak[e]);
+        }
+      }
+    }
+    for (int o = split / 2; o > 0; o >>= 1) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        av[e] += __shfl_xor_sync(0xffffffffu, av[e], o);
+        ak[e] += __shfl_xor_sync(0xffffffffu, ak[e], o);
+      }
+    }
+    if (idx < items && part == 0) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ak[e] *= s.scale;
+      store4(dk + b * sdk.b + j * sdk.s + kvh * sdk.h + c, ak);
+      store4(dv + b * sdv.b + j * sdv.s + kvh * sdv.h + c, av);
+    }
+  }
+
+  // dQ = dS K scale: a lane (row, 4 dims), keys in order
+  for (int idx = lane; idx < R * C4; idx += 32) {
+    const int r = idx / C4, c = (idx % C4) * 4;
+    const int g = r / s.Sq, i = r % s.Sq;
+    int lo, hi;
+    key_range(s, i, lo, hi);
+    float a[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int j = lo; j <= hi; ++j) {
+      const float ds = dss[r * PS + j];
+      float x[4];
+      load4(ks + j * HD + c, x);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) a[t] = fmaf(ds, x[t], a[t]);
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t) a[t] *= s.scale;
+    store4(dq + b * sdq.b + i * sdq.s + (h0 + g) * sdq.h + c, a);
+  }
+}
+
+template <typename T, int HD>
+int fwd_short(const void* q, const void* k, const void* v, void* o,
+              float* lse, const Dims& s, const Bsh (&st)[4],
+              cudaStream_t stream) {
+  const int64_t bytes = short_unit_bytes<T, HD>(s, 1, 1);
+  const int64_t units = static_cast<int64_t>(s.B) * s.K;
+  const int u = short_units(units, bytes);
+  if (u * bytes > kMaxShared) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = flash_fwd_short_kernel<T, HD>;
+  if (const int err = allow_shared(kernel, u * bytes)) return err;
+  kernel<<<static_cast<unsigned>((units + u - 1) / u), 32 * u, u * bytes,
+           stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                     static_cast<const T*>(v), static_cast<T*>(o), lse, s,
+                     st[0], st[1], st[2], st[3], static_cast<int>(bytes));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int HD>
+int bwd_short(const void* q, const void* k, const void* v, const void* o,
+              const float* lse, const void* dout, void* dq, void* dk,
+              void* dv, const Dims& s, const Bsh (&st)[8],
+              cudaStream_t stream) {
+  const int64_t bytes = short_unit_bytes<T, HD>(s, 3, 2);
+  const int64_t units = static_cast<int64_t>(s.B) * s.K;
+  const int u = short_units(units, bytes);
+  if (u * bytes > kMaxShared) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = flash_bwd_short_kernel<T, HD>;
+  if (const int err = allow_shared(kernel, u * bytes)) return err;
+  kernel<<<static_cast<unsigned>((units + u - 1) / u), 32 * u, u * bytes,
+           stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                     static_cast<const T*>(v), static_cast<const T*>(o), lse,
+                     static_cast<const T*>(dout), static_cast<T*>(dq),
+                     static_cast<T*>(dk), static_cast<T*>(dv), s, st[0],
+                     st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+                     static_cast<int>(bytes));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Whether a pointer and its view's strides put every row on 16 bytes (the
+// stride of a dim of size 1, which no row steps along, aside).
+bool rows_aligned(const void* p, const Bsh& t, int64_t esize, int nb,
+                  int ns, int nh) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
+         (nb == 1 || t.b * esize % 16 == 0) &&
+         (ns == 1 || t.s * esize % 16 == 0) &&
+         (nh == 1 || t.h * esize % 16 == 0);
+}
+
+template <typename T>
+int fwd_short_hd(int hd, const void* q, const void* k, const void* v,
+                 void* o, float* lse, const Dims& s, const Bsh (&st)[4],
+                 cudaStream_t stream) {
+  const void* ptrs[4] = {q, k, v, o};
+  for (int t = 0; t < 4; ++t) {
+    const bool kv = t == 1 || t == 2;
+    if (!rows_aligned(ptrs[t], st[t], sizeof(T), s.B, kv ? s.Sk : s.Sq,
+                      kv ? s.K : s.H)) {
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    }
+  }
+  switch (hd) {
+    case 8: return fwd_short<T, 8>(q, k, v, o, lse, s, st, stream);
+    case 16: return fwd_short<T, 16>(q, k, v, o, lse, s, st, stream);
+    case 32: return fwd_short<T, 32>(q, k, v, o, lse, s, st, stream);
+    case 64: return fwd_short<T, 64>(q, k, v, o, lse, s, st, stream);
+    case 128: return fwd_short<T, 128>(q, k, v, o, lse, s, st, stream);
+    case 256: return fwd_short<T, 256>(q, k, v, o, lse, s, st, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T>
+int bwd_short_hd(int hd, const void* q, const void* k, const void* v,
+                 const void* o, const float* lse, const void* dout, void* dq,
+                 void* dk, void* dv, const Dims& s, const Bsh (&st)[8],
+                 cudaStream_t stream) {
+  const void* ptrs[8] = {q, k, v, o, dout, dq, dk, dv};
+  for (int t = 0; t < 8; ++t) {
+    const bool kv = t == 1 || t == 2 || t == 6 || t == 7;
+    if (!rows_aligned(ptrs[t], st[t], sizeof(T), s.B, kv ? s.Sk : s.Sq,
+                      kv ? s.K : s.H)) {
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    }
+  }
+  switch (hd) {
+    case 8:
+      return bwd_short<T, 8>(q, k, v, o, lse, dout, dq, dk, dv, s, st, stream);
+    case 16:
+      return bwd_short<T, 16>(q, k, v, o, lse, dout, dq, dk, dv, s, st,
+                              stream);
+    case 32:
+      return bwd_short<T, 32>(q, k, v, o, lse, dout, dq, dk, dv, s, st,
+                              stream);
+    case 64:
+      return bwd_short<T, 64>(q, k, v, o, lse, dout, dq, dk, dv, s, st,
+                              stream);
+    case 128:
+      return bwd_short<T, 128>(q, k, v, o, lse, dout, dq, dk, dv, s, st,
+                               stream);
+    case 256:
+      return bwd_short<T, 256>(q, k, v, o, lse, dout, dq, dk, dv, s, st,
+                               stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // ---------------------------------------------------------------- launch
 
 // Rows a block takes: at most Tile::ROWS, fewer for short sequences (the
@@ -868,4 +1356,74 @@ extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v,
   return bf16 ? bwd_hd<__nv_bfloat16>(hd, q, k, v, o, l, dout, dq, dk, dv,
                                       d, s, st)
               : bwd_hd<float>(hd, q, k, v, o, l, dout, dq, dk, dv, d, s, st);
+}
+
+// The short-sequence kernels' one argument (see the section "short
+// sequences"), as the wrapper packs it (`kernel.py::SHORT_ARGS`): 8-byte
+// fields, unused ones 0. A block of fields costs the ctypes call a
+// fraction of what as many separate arguments would.
+struct ShortArgs {
+  uint64_t ptr[9];   // q, k, v, o, lse, dout, dq, dk, dv (forward: 5)
+  int64_t B, H, K, Sq, Sk, hd, causal, window, bf16;
+  uint64_t stream;
+  double scale;      // rounded to float32 here, as flash_fwd_launch's
+  int64_t st[8][3];  // batch, sequence and head strides, in elements, of
+                     // q, k, v, o, dout, dq, dk, dv (forward: 4)
+};
+static_assert(sizeof(ShortArgs) == 44 * 8, "the wrapper's SHORT_ARGS");
+
+// The short-sequence kernels (one warp a (b, kv head) unit): each tensor
+// viewed as (batch, sequence, head, hd) through its strides - q, o, dout
+// and dq (B, Sq, H, hd), k, v, dk and dv (B, Sk, K, hd) - in any order of
+// their first three dims, hd contiguous and every row on 16 bytes (else
+// cudaErrorMisalignedAddress). hd is 8, 16, 32, 64, 128 or 256, and the
+// unit's shared memory must fit a block (the wrapper sends only units
+// within kShortBudget); lse (B, H, Sq) float32, contiguous; the rest as
+// in flash_fwd_launch. The forward reads q, k, v and writes o and lse.
+extern "C" int flash_fwd_short_launch(const void* packed) {
+  ShortArgs a;
+  memcpy(&a, packed, sizeof a);
+  if (a.B <= 0 || a.H <= 0 || a.Sq <= 0 || a.Sk <= 0) return 0;
+  const Dims s = make_dims(
+      static_cast<int>(a.B), static_cast<int>(a.H), static_cast<int>(a.K),
+      static_cast<int>(a.Sq), static_cast<int>(a.Sk),
+      static_cast<int>(a.causal), static_cast<int>(a.window),
+      static_cast<float>(a.scale));
+  Bsh st[4];
+  for (int t = 0; t < 4; ++t) st[t] = {a.st[t][0], a.st[t][1], a.st[t][2]};
+  void* p[5];
+  for (int t = 0; t < 5; ++t) p[t] = reinterpret_cast<void*>(a.ptr[t]);
+  cudaStream_t cs = reinterpret_cast<cudaStream_t>(a.stream);
+  float* l = static_cast<float*>(p[4]);
+  const int hd = static_cast<int>(a.hd);
+  return a.bf16
+             ? fwd_short_hd<__nv_bfloat16>(hd, p[0], p[1], p[2], p[3], l, s,
+                                           st, cs)
+             : fwd_short_hd<float>(hd, p[0], p[1], p[2], p[3], l, s, st, cs);
+}
+
+// The one-launch backward of the short-sequence kernels: reads q, k, v, o,
+// lse and dout, writes dq in its own strides (q's layout as the wrapper
+// allocates it) and dk and dv in theirs; no delta workspace.
+extern "C" int flash_bwd_short_launch(const void* packed) {
+  ShortArgs a;
+  memcpy(&a, packed, sizeof a);
+  if (a.B <= 0 || a.H <= 0 || a.Sq <= 0 || a.Sk <= 0) return 0;
+  const Dims s = make_dims(
+      static_cast<int>(a.B), static_cast<int>(a.H), static_cast<int>(a.K),
+      static_cast<int>(a.Sq), static_cast<int>(a.Sk),
+      static_cast<int>(a.causal), static_cast<int>(a.window),
+      static_cast<float>(a.scale));
+  Bsh st[8];
+  for (int t = 0; t < 8; ++t) st[t] = {a.st[t][0], a.st[t][1], a.st[t][2]};
+  void* p[9];
+  for (int t = 0; t < 9; ++t) p[t] = reinterpret_cast<void*>(a.ptr[t]);
+  cudaStream_t cs = reinterpret_cast<cudaStream_t>(a.stream);
+  const float* l = static_cast<const float*>(p[4]);
+  const int hd = static_cast<int>(a.hd);
+  return a.bf16 ? bwd_short_hd<__nv_bfloat16>(hd, p[0], p[1], p[2], p[3], l,
+                                              p[5], p[6], p[7], p[8], s, st,
+                                              cs)
+                : bwd_short_hd<float>(hd, p[0], p[1], p[2], p[3], l, p[5],
+                                      p[6], p[7], p[8], s, st, cs);
 }

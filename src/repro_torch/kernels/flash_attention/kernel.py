@@ -21,12 +21,19 @@ both directions:
   "cuda_core"  every other case: `csrc/flash_attention.cu`, float32
                arithmetic on the CUDA cores (float32 on the tensor cores
                would mean TF32, which changes the numbers).
-Either backward reads either forward's o and log-sum-exp alike.
+On the CUDA cores, a call whose (b, kv head) unit fits `SHORT_BUDGET`
+(`short_fits`: the transformer path's calls, S = 8) takes that source's
+short-sequence kernels, both directions: a warp a unit, the backward in
+one launch, and every tensor read and written through its strides, so the
+(B, S, H, hd) entry points (`flash_attention_bshd`,
+`flash_attention_bshd_bwd`) copy nothing. Either backward reads either
+forward's o and log-sum-exp alike.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import struct
 from pathlib import Path
 
 import torch
@@ -44,6 +51,8 @@ NAME = "flash_attention"          # every forward call, either route
 NAME_TC = "flash_attention_tc"    # the forward calls that took "tc"
 NAME_BWD = "flash_attention_bwd"  # every backward call, either route
 NAME_BWD_TC = "flash_attention_bwd_tc"   # the backward calls that took "tc"
+NAME_SHORT = "flash_attention_short"     # the forward calls that took the
+NAME_BWD_SHORT = "flash_attention_bwd_short"   # short kernels; backward
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)   # instantiated on the CUDA cores
 TC_HEAD_DIMS = (64, 128)                # instantiated on the tensor cores
 WIDE_CHUNK = 256     # above 256, widths are multiples of this
@@ -54,6 +63,17 @@ MAX_HEAD_DIM = 232_448 // 8 // WIDE_CHUNK * WIDE_CHUNK
 # bf16 parts P and dS are split into as operands of the tensor-core
 # backward's dV, dK and dQ products: 1 (one rounding) or 2 (high and low)
 BWD_TC_PARTS = 2
+# Bytes of one (b, kv head) unit's float32 backward working set that the
+# short-sequence kernels take (`kShortBudget` in `csrc/flash_attention.cu`):
+# four such units (128 threads) fit one block's 227 KB of shared memory.
+SHORT_BUDGET = 49_152
+# The short-sequence entry points' one argument (`ShortArgs` in the CUDA
+# source), 8-byte fields: the pointers of q, k, v, o, lse, do, dq, dk and
+# dv (the forward's first 5); B, H, K, Sq, Sk, the padded hd, causal,
+# window and the bf16 flag; the stream; the scale; then the batch,
+# sequence and head strides of q, k, v, o, do, dq, dk and dv (the
+# forward's first 4); unused fields 0.
+SHORT_ARGS = struct.Struct("<9Q9qQd24q")
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -82,38 +102,57 @@ def route(dtype, padded_hd: int) -> str:
     return "cuda_core"
 
 
+def short_fits(G: int, Sq: int, Sk: int, padded_hd: int, dtype) -> bool:
+    """Whether a call with G query heads a kv head, Sq queries, Sk keys and
+    a padded head dim takes the short-sequence kernels: a CUDA-core call
+    at a padded hd of at most 256 whose unit (one b, one kv head) has a
+    backward working set, in float32, within `SHORT_BUDGET` bytes: q, o
+    and do of its G heads, k and v, lse and delta, P and dS."""
+    if route(dtype, padded_hd) != "cuda_core" or padded_hd > HEAD_DIMS[-1]:
+        return False
+    rows = G * Sq
+    return 4 * (3 * rows * padded_hd + 2 * Sk * padded_hd + 2 * rows
+                + 2 * rows * Sk) <= SHORT_BUDGET
+
+
 def pad_head_dim(t, width: int):
     """t (..., hd) zero-padded along its last dim to `width` (t itself
     when it is that wide already)."""
     return t if t.shape[-1] == width else F.pad(t, (0, width - t.shape[-1]))
 
 
-def _check(q, k, v, *rest, window: int):
-    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError(f"flash_attention takes q (B, H, Sq, hd) and k, v "
-                         f"(B, K, Sk, hd); got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
-    B, H, _, hd = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd \
-            or k.shape[1] == 0 or H % k.shape[1]:
-        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)} (H must be "
-                         f"a multiple of K)")
-    if q.numel() == 0 or k.numel() == 0:
+def _check(q, k, v, *rest, window: int, bshd: bool = False):
+    """The device of q, k, v (and `rest`), after checking them: q
+    (B, H, Sq, hd) and k, v (B, K, Sk, hd), contiguous; with `bshd`, q
+    (B, Sq, H, hd) and k, v (B, Sk, K, hd) in any strides."""
+    qs, ks, vs = q.shape, k.shape, v.shape
+    if len(qs) != 4 or len(ks) != 4 or len(vs) != 4:
+        layout = ("(B, Sq, H, hd) and k, v (B, Sk, K, hd)" if bshd
+                  else "(B, H, Sq, hd) and k, v (B, K, Sk, hd)")
+        raise ValueError(f"flash_attention takes q {layout}; got "
+                         f"{tuple(qs)}, {tuple(ks)}, {tuple(vs)}")
+    head = 2 if bshd else 1
+    B, H, hd = qs[0], qs[head], qs[3]
+    if ks != vs or ks[0] != B or ks[3] != hd or ks[head] == 0 \
+            or H % ks[head]:
+        raise ValueError(f"shape mismatch: q {tuple(qs)}, k {tuple(ks)}, v "
+                         f"{tuple(vs)} (H must be a multiple of K)")
+    if 0 in qs or 0 in ks:
         raise ValueError(f"flash_attention takes non-empty q, k, v; got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}")
+                         f"{tuple(qs)}, {tuple(ks)}")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     tensors = (q, k, v) + rest
-    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in (k, v)):
+    dt = q.dtype
+    if dt not in _DTYPES or k.dtype != dt or v.dtype != dt:
         raise TypeError(f"q, k, v must share one dtype, float32 or "
-                        f"bfloat16; got {q.dtype}, {k.dtype}, {v.dtype}")
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"inputs on different devices: {devices}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("flash_attention takes contiguous tensors")
+                        f"bfloat16; got {dt}, {k.dtype}, {v.dtype}")
     device = q.device
+    if any(t.device != device for t in tensors[1:]):
+        raise ValueError(f"inputs on different devices: "
+                         f"{ {t.device for t in tensors} }")
+    if not bshd and not all(t.is_contiguous() for t in tensors):
+        raise ValueError("flash_attention takes contiguous tensors")
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on CUDA (or, as its plain "
                          f"version, on the CPU); got {device}")
@@ -121,6 +160,8 @@ def _check(q, k, v, *rest, window: int):
 
 
 def _typed(fn, pointers):
+    """fn's argument types: `pointers` pointers, the sizes, the scale, the
+    type flag and the stream."""
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p] * pointers + [i] * 8 + [ctypes.c_float, i, p]
     fn.restype = ctypes.c_int
@@ -129,9 +170,15 @@ def _typed(fn, pointers):
 
 @functools.lru_cache(maxsize=None)
 def _library():
-    """The CUDA-core kernels' C entry points, typed (built at first use)."""
+    """The CUDA-core kernels' C entry points, typed (built at first use):
+    the forward and backward, then the short-sequence forward and
+    backward (each taking one `SHORT_ARGS` block)."""
     lib = build.load(SOURCE)
-    return _typed(lib.flash_fwd_launch, 5), _typed(lib.flash_bwd_launch, 10)
+    short = (lib.flash_fwd_short_launch, lib.flash_bwd_short_launch)
+    for fn in short:
+        fn.argtypes, fn.restype = [ctypes.c_char_p], ctypes.c_int
+    return (_typed(lib.flash_fwd_launch, 5), _typed(lib.flash_bwd_launch, 10),
+            *short)
 
 
 @functools.lru_cache(maxsize=None)
@@ -151,19 +198,108 @@ def _library_bwd_tc():
     return fn
 
 
-def _aligned(tensors):
-    """The tensors, each copied if it does not start on 16 bytes (the
-    tensor-core kernels' 16-byte copies need 16-byte aligned rows)."""
-    return [t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors]
+def _stream(t):
+    """PyTorch's current stream on t's device, as a raw pointer."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def _dims(q, k, causal, window, hd):
-    """The C entry points' sizes for padded q and k, with the scale of the
-    true head dim `hd`."""
-    B, H, Sq, width = q.shape
-    return (B, H, k.shape[1], Sq, k.shape[2], width, int(causal),
-            int(window), hd ** -0.5, int(q.dtype == torch.bfloat16),
-            torch._C._cuda_getCurrentRawStream(q.get_device()))
+    """The C entry points' sizes for padded q (B, H, Sq, hd) and k, with
+    the scale of the true head dim `hd`."""
+    return (*_sizes(q, k, False), q.shape[-1], int(causal), int(window),
+            hd ** -0.5, int(q.dtype == torch.bfloat16), _stream(q))
+
+
+def _short_sizes(q, k, bshd: bool):
+    """(B, H, K, Sq, Sk) of q and k (in the (B, S, H, hd) layout with
+    `bshd`) where the call takes the short kernels (`short_fits` at q's
+    padded head dim), else None."""
+    sizes = _sizes(q, k, bshd)
+    _, H, K, Sq, Sk = sizes
+    if short_fits(H // K, Sq, Sk, padded_head_dim(q.shape[-1]), q.dtype):
+        return sizes
+    return None
+
+
+def _sizes(q, k, bshd: bool):
+    """(B, H, K, Sq, Sk) of q and k, in the (B, S, H, hd) layout with
+    `bshd`, else (B, H, S, hd)."""
+    qs, ks = q.shape, k.shape
+    if bshd:
+        return qs[0], qs[2], ks[2], qs[1], ks[1]
+    return qs[0], qs[1], ks[1], qs[2], ks[2]
+
+
+def _rows16(t):
+    """t, or a contiguous copy of it where its last dim is strided or a row
+    would not start on 16 bytes (the 16-byte copies of the short and the
+    tensor-core kernels; a padded hd's row is a multiple of 16 bytes)."""
+    if t.data_ptr() % 16 == 0 and (t.is_contiguous() or (
+            t.stride(-1) == 1 and all(
+                n == 1 or st * t.element_size() % 16 == 0
+                for n, st in zip(t.shape[:3], t.stride()[:3])))):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+_ZEROS = (0,) * 24
+
+
+def _short_args(tensors, strided, sizes, causal, window, hd, bshd):
+    """The `SHORT_ARGS` block of a call: the pointers of `tensors` (the
+    first padded q), the sizes, the padded and the true head dim `hd` (its
+    scale), and the batch, sequence and head strides of `strided`."""
+    q = tensors[0]
+    st = []
+    for t in strided:
+        x = t.stride()
+        st += x[:3] if bshd else (x[0], x[2], x[1])
+    return SHORT_ARGS.pack(*(t.data_ptr() for t in tensors),
+                           *_ZEROS[len(tensors):9], *sizes, q.shape[-1],
+                           causal, window, q.dtype == torch.bfloat16,
+                           _stream(q), hd ** -0.5, *st, *_ZEROS[len(st):])
+
+
+def _short_fwd(launch, q, k, v, causal, window, bshd, sizes):
+    """The short-sequence forward on CUDA tensors in either layout, of
+    `_short_sizes`: o in q's layout (contiguous), lse (B, H, Sq)
+    float32."""
+    hd = q.shape[-1]
+    width = padded_head_dim(hd)
+    q, k, v = (_rows16(pad_head_dim(t, width)) for t in (q, k, v))
+    o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = q.new_empty((sizes[0], sizes[1], sizes[3]), dtype=torch.float32)
+    err = launch(_short_args((q, k, v, o, lse), (q, k, v, o), sizes, causal,
+                             window, hd, bshd))
+    if err:
+        raise RuntimeError(f"flash_fwd_short_launch failed with cudaError "
+                           f"{err}")
+    launch_counts[NAME] += 1
+    launch_counts[NAME_SHORT] += 1
+    return (o if width == hd else o[..., :hd].contiguous()), lse
+
+
+def _short_bwd(launch, q, k, v, o, lse, do, causal, window, bshd, sizes):
+    """The short-sequence backward, one launch, on CUDA tensors in either
+    layout, of `_short_sizes`: dq in q's layout, dk and dv in k's
+    (contiguous); no workspace."""
+    hd = q.shape[-1]
+    width = padded_head_dim(hd)
+    q, k, v, o, do = (_rows16(pad_head_dim(t, width))
+                      for t in (q, k, v, o, do))
+    dq, dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format)
+                  for t in (q, k, v))
+    err = launch(_short_args((q, k, v, o, lse, do, dq, dk, dv),
+                             (q, k, v, o, do, dq, dk, dv), sizes, causal,
+                             window, hd, bshd))
+    if err:
+        raise RuntimeError(f"flash_bwd_short_launch failed with cudaError "
+                           f"{err}")
+    launch_counts[NAME_BWD] += 1
+    launch_counts[NAME_BWD_SHORT] += 1
+    if width != hd:
+        dq, dk, dv = (t[..., :hd].contiguous() for t in (dq, dk, dv))
+    return dq, dk, dv
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
@@ -172,15 +308,19 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     device = _check(q, k, v, window=window)
     if device.type == "cpu":
         return attention_fwd_ref(q, k, v, causal=causal, window=window)
+    sizes = _short_sizes(q, k, False)
+    if sizes:
+        return _short_fwd(_library()[2], q, k, v, causal, window, False,
+                          sizes)
     hd = q.shape[-1]
     width = padded_head_dim(hd)
     tc = route(q.dtype, width) == "tc"
     launch = _library_tc() if tc else _library()[0]
     q, k, v = (pad_head_dim(t, width) for t in (q, k, v))
     if tc:
-        q, k, v = _aligned((q, k, v))
+        q, k, v = (_rows16(t) for t in (q, k, v))
     o = torch.empty_like(q)
-    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=device)
+    lse = q.new_empty(q.shape[:3], dtype=torch.float32)
     err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  lse.data_ptr(), *_dims(q, k, causal, window, hd))
     if err:
@@ -208,15 +348,19 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     if device.type == "cpu":
         return attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                  window=window)
+    sizes = _short_sizes(q, k, False)
+    if sizes:
+        return _short_bwd(_library()[3], q, k, v, o, lse, do, causal,
+                          window, False, sizes)
     hd = q.shape[-1]
     width = padded_head_dim(hd)
     tc = route(q.dtype, width) == "tc"
     launch = _library_bwd_tc() if tc else _library()[1]
     q, k, v, o, do = (pad_head_dim(t, width) for t in (q, k, v, o, do))
     if tc:
-        q, k, v, o, do = _aligned((q, k, v, o, do))
+        q, k, v, o, do = (_rows16(t) for t in (q, k, v, o, do))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=device)
+    delta = q.new_empty(q.shape[:3], dtype=torch.float32)
     err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
                  dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
@@ -231,3 +375,57 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     if width != hd:
         dq, dk, dv = (t[..., :hd].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv
+
+
+def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0):
+    """q: (B, Sq, H, hd); k, v: (B, Sk, K, hd), in any strides (the
+    transformer's projections) -> (o (B, Sq, H, hd) like q, lse (B, H, Sq)
+    float32). On the card a call that `short_fits` reads the tensors in
+    place and writes o contiguous, so that (B, Sq, H * hd) is a view of
+    it; any other call is transposed to (B, H, S, hd) for
+    `flash_attention` and back."""
+    device = _check(q, k, v, window=window, bshd=True)
+    if device.type == "cpu":
+        o, lse = attention_fwd_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), causal=causal,
+                                   window=window)
+        return o.transpose(1, 2), lse
+    sizes = _short_sizes(q, k, True)
+    if sizes:
+        return _short_fwd(_library()[2], q, k, v, causal, window, True,
+                          sizes)
+    o, lse = flash_attention(*(t.transpose(1, 2).contiguous()
+                               for t in (q, k, v)),
+                             causal=causal, window=window)
+    return o.transpose(1, 2), lse
+
+
+def flash_attention_bshd_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                             window: int = 0):
+    """Gradients of `flash_attention_bshd` for the cotangent do (like o,
+    any strides) -> (dq like q, dk like k, dv like v), each in the
+    (B, S, H, hd) layout."""
+    B, Sq, H, _ = q.shape
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
+            or do.dtype != q.dtype:
+        raise ValueError(f"o and do must match q {tuple(q.shape)} {q.dtype};"
+                         f" got {tuple(o.shape)} {o.dtype}, "
+                         f"{tuple(do.shape)} {do.dtype}")
+    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous():
+        raise ValueError(f"lse must be {(B, H, Sq)} float32, contiguous; "
+                         f"got {tuple(lse.shape)} {lse.dtype}")
+    device = _check(q, k, v, o, lse, do, window=window, bshd=True)
+    if device.type == "cpu":
+        grads = attention_bwd_ref(*(t.transpose(1, 2) for t in (q, k, v, o)),
+                                  lse, do.transpose(1, 2), causal=causal,
+                                  window=window)
+        return tuple(g.transpose(1, 2) for g in grads)
+    sizes = _short_sizes(q, k, True)
+    if sizes:
+        return _short_bwd(_library()[3], q, k, v, o, lse, do, causal,
+                          window, True, sizes)
+    grads = flash_attention_bwd(
+        *(t.transpose(1, 2).contiguous() for t in (q, k, v, o)), lse,
+        do.transpose(1, 2).contiguous(), causal=causal, window=window)
+    return tuple(g.transpose(1, 2) for g in grads)

@@ -274,14 +274,18 @@ def test_autograd_functions_match_plain_autograd_on_the_card():
     q = r.standard_normal((64, 8, 4, 8)).astype(np.float32)
     k, v = (r.standard_normal((64, 8, 2, 8)).astype(np.float32)
             for _ in range(2))
+    # every call, forward and backward, on the counters of every call (the
+    # `_short` and `_tc` counters count some of those calls again)
+    calls = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
+             "flash_attention_bwd")
     for fn, arrays, cot in (
             (lambda a, b: rms_ops.rmsnorm(a, b, 1e-6), (x, s),
              r.standard_normal(x.shape).astype(np.float32)),
             (lambda a, b, c: flash_ops.flash_attention_bshd(a, b, c),
              (q, k, v), r.standard_normal(q.shape).astype(np.float32))):
-        before = sum(launch_counts.values())
+        before = sum(launch_counts[n] for n in calls)
         card = grads(fn, arrays, cot, "cuda")
-        assert sum(launch_counts.values()) == before + 2   # fwd and bwd
+        assert sum(launch_counts[n] for n in calls) == before + 2   # fwd, bwd
         for got, ref in zip(card, grads(fn, arrays, cot, "cpu")):
             assert got.shape == ref.shape
             torch.testing.assert_close(got.cpu(), ref,
@@ -483,3 +487,180 @@ def test_wide_head_dims_on_the_card():
             assert got.shape == t.shape
             torch.testing.assert_close(got.float(), ref.float(),
                                        **_card_tol(dt, True))
+
+
+# (B, H, K, Sq, Sk, hd, causal, window) of the short-sequence kernels: the
+# transformer path's training and evaluation calls; G = 1, 2, 4, 8 query
+# heads a kv head with causal, window 3 and no mask; Sq != Sk both ways; a
+# head dim padded from 12 to 16; a window of 3 with Sq > Sk, where the
+# query rows from Sk + 2 on see no key; and the wider instantiations,
+# padded hd 32, 64, 128 and 256 (48 and 200 padded), each with a mask
+SHORT_CASES = [(640, 4, 2, 8, 8, 8, True, 0), (1000, 4, 2, 8, 8, 8, True, 0)] \
+    + [(6, 2 * g, 2, 8, 8, 8, causal, window) for g in (1, 2, 4, 8)
+       for causal, window in ((True, 0), (True, 3), (False, 0))] + [
+    (4, 4, 2, 8, 24, 8, True, 0), (4, 4, 2, 24, 8, 8, False, 0),
+    (4, 4, 2, 8, 8, 12, True, 0), (3, 8, 2, 24, 8, 8, True, 3),
+    (6, 4, 2, 8, 8, 32, True, 3), (6, 4, 2, 8, 8, 64, True, 0),
+    (6, 4, 2, 8, 8, 48, False, 0), (6, 4, 2, 8, 8, 128, True, 0),
+    (4, 2, 2, 8, 16, 128, True, 3), (6, 2, 2, 8, 8, 256, True, 0),
+    (4, 2, 2, 12, 4, 200, True, 3)]
+
+
+def _short_inputs(g, B, H, K, sq, sk, hd, dt):
+    q, do = (torch.randn(B, H, sq, hd, generator=g, device="cuda").to(dt)
+             for _ in range(2))
+    k, v = (torch.randn(B, K, sk, hd, generator=g, device="cuda").to(dt)
+            for _ in range(2))
+    return q, k, v, do
+
+
+@pytest.mark.gpu
+def test_short_kernels_match_plain_version_on_the_card():
+    """Every SHORT_CASES call, in float32 and in bfloat16 (where bfloat16
+    is the CUDA cores' route: not at padded hd 64 and 128, the tensor
+    cores'), takes the short-sequence kernels (one call on each `_short`
+    counter) and agrees
+    with the plain version at the card's tolerances, o and lse forward,
+    dq, dk and dv backward (the plain backward fed the plain forward's o
+    and lse); rows that see no key give o = 0, lse = -inf and zero
+    gradients, and nothing is NaN."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device with nvcc")
+    g = torch.Generator(device="cuda").manual_seed(8)
+    for dt in (torch.float32, torch.bfloat16):
+        for B, H, K, sq, sk, hd, causal, window in SHORT_CASES:
+            width = flash_kernel.padded_head_dim(hd)
+            if flash_kernel.route(dt, width) == "tc":
+                assert dt == torch.bfloat16 and width in (64, 128)
+                continue
+            assert flash_kernel.short_fits(H // K, sq, sk, width, dt)
+            q, k, v, do = _short_inputs(g, B, H, K, sq, sk, hd, dt)
+            kw = dict(causal=causal, window=window)
+            before = dict(launch_counts)
+            o, lse = flash_kernel.flash_attention(q, k, v, **kw)
+            grads = flash_kernel.flash_attention_bwd(q, k, v, o, lse, do,
+                                                     **kw)
+            torch.cuda.synchronize()
+            for name in ("flash_attention", "flash_attention_short",
+                         "flash_attention_bwd", "flash_attention_bwd_short"):
+                assert launch_counts[name] == before.get(name, 0) + 1
+            ro, rlse = attention_fwd_ref(q, k, v, **kw)
+            assert o.shape == q.shape and o.dtype == dt
+            torch.testing.assert_close(o.float(), ro.float(), **_card_tol(dt))
+            torch.testing.assert_close(lse, rlse, **_card_tol(torch.float32))
+            for got, ref, t in zip(grads, attention_bwd_ref(
+                    q, k, v, ro, rlse, do, **kw), (q, k, v)):
+                assert got.shape == t.shape and got.dtype == dt
+                assert not got.isnan().any()
+                torch.testing.assert_close(got.float(), ref.float(),
+                                           **_card_tol(dt, True))
+            dead = torch.isneginf(rlse)
+            assert torch.equal(torch.isneginf(lse), dead)
+            if window and sq > sk:
+                assert dead.any() and not o[dead].any()
+                assert not grads[0][dead].any()
+
+
+@pytest.mark.gpu
+def test_short_kernels_read_strided_views_bit_equal():
+    """The (B, S, H, hd) entry points on strided views of one fused
+    projection (and a cotangent viewed from (B, S, H * hd)) give the same
+    bits as on the same values made contiguous, forward and backward; o
+    comes back contiguous, so that (B, S, H * hd) is a view of it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device with nvcc")
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for dt in (torch.float32, torch.bfloat16):
+        for B, S, H, K, hd, window in ((640, 8, 4, 2, 8, 0),
+                                       (5, 32, 4, 2, 16, 3),
+                                       (7, 8, 2, 2, 32, 3)):
+            assert flash_kernel.short_fits(H // K, S, S, hd, dt)
+            fused = torch.randn(B, S, H + 2 * K, hd, generator=g,
+                                device="cuda").to(dt)
+            q, k, v = (fused[:, :, :H], fused[:, :, H:H + K],
+                       fused[:, :, H + K:])
+            do = torch.randn(B, S, H * hd, generator=g, device="cuda").to(
+                dt).view(B, S, H, hd)
+            assert not q.is_contiguous()
+            kw = dict(causal=True, window=window)
+            before = launch_counts["flash_attention_short"]
+            o, lse = flash_kernel.flash_attention_bshd(q, k, v, **kw)
+            grads = flash_kernel.flash_attention_bshd_bwd(q, k, v, o, lse,
+                                                          do, **kw)
+            dense = [t.contiguous() for t in (q, k, v, do)]
+            o2, lse2 = flash_kernel.flash_attention_bshd(*dense[:3], **kw)
+            grads2 = flash_kernel.flash_attention_bshd_bwd(
+                *dense[:3], o2, lse2, dense[3], **kw)
+            torch.cuda.synchronize()
+            assert launch_counts["flash_attention_short"] == before + 2
+            assert o.is_contiguous() and o.shape == (B, S, H, hd)
+            assert torch.equal(o, o2) and torch.equal(lse, lse2)
+            assert all(torch.equal(a, b) for a, b in zip(grads, grads2))
+            ro, rlse = attention_fwd_ref(*(t.transpose(1, 2)
+                                           for t in (q, k, v)), **kw)
+            torch.testing.assert_close(o.float(), ro.transpose(1, 2).float(),
+                                       **_card_tol(dt))
+
+
+@pytest.mark.gpu
+def test_short_backward_repeats_bitwise():
+    """No atomics: two backward calls of the short-sequence kernel give the
+    same bits, at the path's shape and at G = 4, S = 32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device with nvcc")
+    g = torch.Generator(device="cuda").manual_seed(10)
+    for B, H, K, S, hd in ((640, 4, 2, 8, 8), (8, 4, 1, 32, 8)):
+        for dt in (torch.float32, torch.bfloat16):
+            assert flash_kernel.short_fits(H // K, S, S, hd, dt)
+            q, k, v, do = _short_inputs(g, B, H, K, S, S, hd, dt)
+            o, lse = flash_kernel.flash_attention(q, k, v)
+            first = flash_kernel.flash_attention_bwd(q, k, v, o, lse, do)
+            again = flash_kernel.flash_attention_bwd(q, k, v, o, lse, do)
+            assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def _cuda_core_direct(q, k, v, o, lse, do, causal, window, fwd):
+    """The CUDA-core kernels that the short ones took over, through their
+    C entry points (`_library()[0]` and `[1]`), on an unpadded hd."""
+    lib = flash_kernel._library()
+    dims = flash_kernel._dims(q, k, causal, window, q.shape[-1])
+    if fwd:
+        o = torch.empty_like(q)
+        lse = torch.empty(q.shape[:3], device=q.device)
+        assert lib[0](q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                      lse.data_ptr(), *dims) == 0
+        return o, lse
+    grads = [torch.empty_like(t) for t in (q, k, v)]
+    delta = torch.empty(q.shape[:3], device=q.device)
+    assert lib[1](*(t.data_ptr() for t in (q, k, v, o, lse, do, *grads,
+                                          delta)), *dims) == 0
+    return grads
+
+
+@pytest.mark.gpu
+def test_each_backward_takes_the_other_forwards_o_and_lse():
+    """The short backward fed the CUDA-core forward's o and lse, and the
+    CUDA-core backward fed the short forward's, agree with the plain
+    backward at the card's tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device with nvcc")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    for B, H, K, sq, sk, hd, causal, window in (
+            (640, 4, 2, 8, 8, 8, True, 0), (4, 8, 1, 24, 8, 8, True, 3)):
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, do = _short_inputs(g, B, H, K, sq, sk, hd, dt)
+            kw = dict(causal=causal, window=window)
+            ro, rlse = attention_fwd_ref(q, k, v, **kw)
+            ref = attention_bwd_ref(q, k, v, ro, rlse, do, **kw)
+            o_cc, lse_cc = _cuda_core_direct(q, k, v, None, None, None,
+                                             causal, window, fwd=True)
+            o_s, lse_s = flash_kernel.flash_attention(q, k, v, **kw)
+            for got in (flash_kernel.flash_attention_bwd(q, k, v, o_cc,
+                                                         lse_cc, do, **kw),
+                        _cuda_core_direct(q, k, v, o_s, lse_s, do, causal,
+                                          window, fwd=False)):
+                torch.cuda.synchronize()
+                for a, b in zip(got, ref):
+                    assert not a.isnan().any()
+                    torch.testing.assert_close(a.float(), b.float(),
+                                               **_card_tol(dt, True))

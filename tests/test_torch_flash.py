@@ -411,3 +411,336 @@ def test_build_target_follows_the_headers(tmp_path):
     third = TB._target(src)
     (tmp_path / "notes.txt").write_text("edited\n")
     assert TB._target(src) == third
+
+
+# ---------------------------------------------------------------------------
+# the short-sequence route (one warp a (b, kv head) unit, the backward in
+# one launch, the (B, S, H, hd) layout read in place)
+
+PATH_CALLS = [(640, 4, 2, 8, 8), (1000, 4, 2, 8, 8)]   # training, evaluation
+
+
+def _working_set(G, Sq, Sk, hd):
+    """Bytes, in float32, of one unit's backward working set, term by term:
+    q, o and do of G heads; k and v; lse and delta; P and dS."""
+    rows = G * Sq
+    terms = {"q": rows * hd, "o": rows * hd, "do": rows * hd, "k": Sk * hd,
+             "v": Sk * hd, "lse": rows, "delta": rows, "P": rows * Sk,
+             "dS": rows * Sk}
+    return 4 * sum(terms.values())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+def test_short_fits_against_the_budget(dtype, G):
+    """`short_fits` over (Sq, Sk, padded hd) for G query heads a kv head:
+    True exactly where the call is on the CUDA cores at a padded hd of at
+    most 256 and the unit's working set is within `SHORT_BUDGET`, the
+    budget the CUDA source states. The path's training and evaluation
+    calls take it; S = 128, the zoo shape and the tensor-core route do
+    not; `route` keeps its answers for every hd up to 1,024."""
+    dt = getattr(torch, dtype)
+    src = TK.SOURCE.read_text()
+    assert f"constexpr int kShortBudget = {TK.SHORT_BUDGET};" in src
+    for Sq in (1, 8, 24, 32, 64, 128, 512):
+        for Sk in (1, 8, 24, 32, 64, 128, 512):
+            for width in TK.HEAD_DIMS + (512, 1024):
+                want = (TK.route(dt, width) == "cuda_core" and width <= 256
+                        and _working_set(G, Sq, Sk, width)
+                        <= TK.SHORT_BUDGET)
+                assert TK.short_fits(G, Sq, Sk, width, dt) == want, (
+                    Sq, Sk, width)
+                if Sq == Sk == 128:
+                    assert not want
+    for B, H, K, S, hd in PATH_CALLS:
+        assert TK.short_fits(H // K, S, S, TK.padded_head_dim(hd),
+                             torch.float32)
+    # qwen3-8b's heads at S = 2048 (bf16 at hd 128: the tensor cores)
+    assert not TK.short_fits(4, 2048, 2048, 128, torch.bfloat16)
+    assert not TK.short_fits(4, 2048, 2048, 128, torch.float32)
+    for width in TK.TC_HEAD_DIMS:
+        assert TK.route(torch.bfloat16, width) == "tc"
+        assert not TK.short_fits(G, 8, 8, width, torch.bfloat16)
+    for hd in range(1, 1025):
+        width = TK.padded_head_dim(hd)
+        assert TK.route(torch.float32, width) == "cuda_core"
+        assert TK.route(torch.bfloat16, width) == (
+            "tc" if 33 <= hd <= 128 else "cuda_core")
+
+
+class _FakeLibrary:
+    """A stand-in for `_library()`: four entry points (forward, backward,
+    short forward, short backward) that record their arguments and return
+    `err`."""
+
+    NAMES = ("fwd", "bwd", "fwd_short", "bwd_short")
+
+    def __init__(self, err=0):
+        self.calls = []
+        self.err = err
+
+    def __call__(self):
+        def entry(name):
+            def launch(*args):
+                self.calls.append((name, args))
+                return self.err
+            return launch
+        return tuple(entry(n) for n in self.NAMES)
+
+
+def _projection_views(B, S, H, K, hd, seed=0):
+    """q (B, S, H, hd), k and v (B, S, K, hd) as strided views of one fused
+    (B, S, H + 2K, hd) projection, labelled CUDA, and the cotangent do
+    (B, S, H, hd) as a view of (B, S, H * hd)."""
+    r = np.random.default_rng(seed)
+    fused = torch.tensor(r.standard_normal((B, S, H + 2 * K, hd)),
+                         dtype=torch.float32)
+    do = torch.tensor(r.standard_normal((B, S, H * hd)),
+                      dtype=torch.float32).view(B, S, H, hd)
+    views = (fused[:, :, :H], fused[:, :, H:H + K], fused[:, :, H + K:], do)
+    fake = tuple(torch.Tensor._make_subclass(_CudaLabelled, t)
+                 for t in views)
+    for t, f in zip(views, fake):
+        assert f.data_ptr() == t.data_ptr() and f.stride() == t.stride()
+    return fake
+
+
+def _count_allocations(monkeypatch):
+    """Counts of tensor allocations and copies made through the functions
+    the wrappers use (a call the tensor subclass's dispatch makes inside
+    another counts once)."""
+    counts, depth = {}, [0]
+    for owner, name in ((torch.Tensor, "new_empty"), (torch, "empty_like"),
+                        (torch, "empty"), (torch.Tensor, "clone"),
+                        (torch.Tensor, "contiguous")):
+        original = getattr(owner, name)
+
+        def counted(*a, _name=name, _original=original, **kw):
+            if not depth[0]:
+                counts[_name] = counts.get(_name, 0) + 1
+            depth[0] += 1
+            try:
+                return _original(*a, **kw)
+            finally:
+                depth[0] -= 1
+        monkeypatch.setattr(owner, name, counted)
+    return counts
+
+
+def _bsh(t, bshd=True):
+    """The (batch, sequence, head) strides the wrapper passes for t."""
+    return [t.stride()[d] for d in ((0, 1, 2) if bshd else (0, 2, 1))]
+
+
+def _short_call(args):
+    """The fields of the one `SHORT_ARGS` block a short entry point was
+    given: pointers, sizes (B, H, K, Sq, Sk, hd, causal, window, bf16),
+    stream, scale and strides, unused fields included."""
+    (block,) = args
+    assert isinstance(block, bytes) and len(block) == TK.SHORT_ARGS.size
+    f = TK.SHORT_ARGS.unpack(block)
+    return {"ptrs": f[:9], "sizes": f[9:18], "stream": f[18],
+            "scale": f[19], "strides": list(f[20:])}
+
+
+def test_short_args_block_matches_the_source():
+    """The wrapper packs the short entry points' argument as the CUDA
+    source's `ShortArgs` lays it out: 44 fields of 8 bytes, in the order
+    of the struct's members."""
+    src = TK.SOURCE.read_text()
+    body = src[src.index("struct ShortArgs {"):]
+    body = body[:body.index("};")]
+    members = [line.split("//")[0].strip() for line in body.splitlines()[1:]]
+    assert [m for m in members if m] == [
+        "uint64_t ptr[9];",
+        "int64_t B, H, K, Sq, Sk, hd, causal, window, bf16;",
+        "uint64_t stream;", "double scale;", "int64_t st[8][3];"]
+    assert "static_assert(sizeof(ShortArgs) == 44 * 8" in src
+    assert TK.SHORT_ARGS.format == "<9Q9qQd24q"
+    assert TK.SHORT_ARGS.size == 44 * 8
+
+
+@pytest.mark.parametrize("window", [0, 3])
+def test_bshd_views_reach_the_short_kernels_in_place(monkeypatch, window):
+    """On a CUDA tensor that fits the short route, the (B, S, H, hd) entry
+    points hand the C entry points the projections' own views (their
+    `data_ptr()`, no copy) with the strides of that layout; the forward
+    allocates o and lse only, the backward dq, dk and dv only (no delta
+    workspace); each counts one call on its counter and its `_short`
+    counter."""
+    B, S, H, K, hd = 3, 8, 4, 2, 8
+    q, k, v, do = _projection_views(B, S, H, K, hd)
+    fake = _FakeLibrary()
+    monkeypatch.setattr(TK, "_library", fake)
+    monkeypatch.setattr(TK, "_stream", lambda t: 1234)
+    before = dict(launch_counts)
+    counts = _count_allocations(monkeypatch)
+    o, lse = TK.flash_attention_bshd(q, k, v, causal=True, window=window)
+    assert counts == {"empty_like": 1, "new_empty": 1}
+    assert o.shape == q.shape and o.is_contiguous()
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    (name, args), = fake.calls
+    assert name == "fwd_short"
+    call = _short_call(args)
+    assert call["ptrs"] == tuple(t.data_ptr() for t in (q, k, v, o, lse)) \
+        + (0,) * 4
+    assert call["sizes"] == (B, H, K, S, S, hd, 1, window, 0)
+    assert (call["stream"], call["scale"]) == (1234, hd ** -0.5)
+    assert call["strides"] == sum((_bsh(t) for t in (q, k, v, o)), []) \
+        + [0] * 12
+    counts.clear()
+    grads = TK.flash_attention_bshd_bwd(q, k, v, o, lse, do, causal=True,
+                                        window=window)
+    assert counts == {"empty_like": 3}
+    (name, args), = fake.calls[1:]
+    assert name == "bwd_short"
+    ins = (q, k, v, o, lse, do)
+    call = _short_call(args)
+    assert call["ptrs"] == tuple(t.data_ptr() for t in ins + grads)
+    assert call["sizes"] == (B, H, K, S, S, hd, 1, window, 0)
+    assert (call["stream"], call["scale"]) == (1234, hd ** -0.5)
+    assert call["strides"] == sum((_bsh(t) for t in (q, k, v, o, do)
+                                   + grads), [])
+    for g, t in zip(grads, (q, k, v)):
+        assert g.shape == t.shape and g.is_contiguous()
+    after = dict(launch_counts)
+    for name in (TK.NAME, TK.NAME_SHORT, TK.NAME_BWD, TK.NAME_BWD_SHORT):
+        assert after.get(name, 0) == before.get(name, 0) + 1
+    for name in (TK.NAME_TC, TK.NAME_BWD_TC):
+        assert after.get(name, 0) == before.get(name, 0)
+
+
+def test_bhsd_calls_that_fit_take_the_short_kernels(monkeypatch):
+    """The (B, H, S, hd) wrappers send a call that fits to the same short
+    entry points, with that layout's strides (batch, sequence, head), and
+    allocate only o and lse, then dq, dk and dv."""
+    B, H, K, S, hd = 2, 8, 1, 16, 16
+    assert TK.short_fits(H // K, S, S, hd, torch.float32)
+    q, k = torch.ones(B, H, S, hd), torch.ones(B, K, S, hd)
+    q, k, v, do = _fake_cuda_all(q, k, k.clone(), q.clone())
+    fake = _FakeLibrary()
+    monkeypatch.setattr(TK, "_library", fake)
+    monkeypatch.setattr(TK, "_stream", lambda t: 0)
+    counts = _count_allocations(monkeypatch)
+    o, lse = TK.flash_attention(q, k, v, causal=False, window=0)
+    grads = TK.flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+    assert counts == {"empty_like": 4, "new_empty": 1}
+    (f, fargs), (b, bargs) = fake.calls
+    assert (f, b) == ("fwd_short", "bwd_short")
+    assert _short_call(fargs)["strides"] == sum(
+        (_bsh(t, False) for t in (q, k, v, o)), []) + [0] * 12
+    assert _bsh(q, False) == [H * S * hd, hd, S * hd]
+    assert _short_call(bargs)["strides"] == sum(
+        (_bsh(t, False) for t in (q, k, v, o, do) + grads), [])
+    for args in (fargs, bargs):
+        assert _short_call(args)["sizes"] == (B, H, K, S, S, hd, 0, 0, 0)
+
+
+def _fake_cuda_all(*tensors):
+    return [torch.Tensor._make_subclass(_CudaLabelled, t) for t in tensors]
+
+
+@pytest.mark.parametrize("bshd", [False, True])
+@pytest.mark.parametrize("shape", [(2, 4, 2, 128, 8), (1, 8, 1, 64, 64)])
+def test_calls_that_do_not_fit_take_the_old_entry_points(monkeypatch, bshd,
+                                                         shape):
+    """A CUDA-labelled call that does not fit the short route (S = 128; a
+    unit of 8 heads at S = 64, hd 64) asks for the CUDA-core forward and
+    backward, `_library()[0]` and `[1]`, in either layout, and counts no
+    `_short` call."""
+    B, H, K, S, hd = shape
+    assert not TK.short_fits(H // K, S, S, hd, torch.float32)
+    if bshd:
+        q, k = torch.ones(B, S, H, hd), torch.ones(B, S, K, hd)
+        fwd, bwd = TK.flash_attention_bshd, TK.flash_attention_bshd_bwd
+    else:
+        q, k = torch.ones(B, H, S, hd), torch.ones(B, K, S, hd)
+        fwd, bwd = TK.flash_attention, TK.flash_attention_bwd
+    q, k, v, do = _fake_cuda_all(q, k, k.clone(), q.clone())
+    fake = _FakeLibrary()
+    monkeypatch.setattr(TK, "_library", fake)
+    monkeypatch.setattr(TK, "_stream", lambda t: 0)
+    before = dict(launch_counts)
+    o, lse = fwd(q, k, v)
+    grads = bwd(q, k, v, o, lse, do)
+    assert [c[0] for c in fake.calls] == ["fwd", "bwd"]
+    assert o.shape == q.shape and [g.shape for g in grads] == [
+        q.shape, k.shape, k.shape]
+    after = dict(launch_counts)
+    for name in (TK.NAME, TK.NAME_BWD):
+        assert after.get(name, 0) == before.get(name, 0) + 1
+    for name in (TK.NAME_SHORT, TK.NAME_BWD_SHORT):
+        assert after.get(name, 0) == before.get(name, 0)
+
+
+@pytest.mark.parametrize("bshd", [False, True])
+def test_nothing_is_counted_when_the_library_raises(monkeypatch, bshd):
+    """A library that cannot be had, or a launch that returns a CUDA
+    error, raises and leaves every count as it was."""
+    B, S, H, K, hd = 2, 8, 4, 2, 8
+    q, k, v, do = _projection_views(B, S, H, K, hd)
+    if not bshd:
+        q, k, v, do = _fake_cuda_all(*(t.transpose(1, 2).contiguous()
+                                       for t in (q, k, v, do)))
+    fwd = TK.flash_attention_bshd if bshd else TK.flash_attention
+    bwd = TK.flash_attention_bshd_bwd if bshd else TK.flash_attention_bwd
+    lse, = _fake_cuda_all(torch.zeros(B, H, S))
+    before = dict(launch_counts)
+
+    def missing():
+        raise _Library("no library")
+    monkeypatch.setattr(TK, "_stream", lambda t: 0)
+    monkeypatch.setattr(TK, "_library", missing)
+    with pytest.raises(_Library):
+        fwd(q, k, v)
+    with pytest.raises(_Library):
+        bwd(q, k, v, q, lse, do)
+    monkeypatch.setattr(TK, "_library", _FakeLibrary(err=700))
+    with pytest.raises(RuntimeError, match="flash_fwd_short_launch failed"):
+        fwd(q, k, v)
+    with pytest.raises(RuntimeError, match="flash_bwd_short_launch failed"):
+        bwd(q, k, v, q, lse, do)
+    assert dict(launch_counts) == before
+
+
+BSHD_CASES = ["path"] + [f"{g}-{c}-{w}" for g in (1, 2, 4, 8)
+                         for c, w in ((True, 0), (True, 3), (False, 0))]
+
+
+@pytest.mark.parametrize("case", BSHD_CASES)
+def test_bshd_entry_points_match_jax_on_the_cpu(case):
+    """On the CPU `ops.flash_attention_bshd` (and the kernel module's
+    (B, S, H, hd) entry points, forward and explicit backward) equal the
+    reference's `flash_attention_bshd`, which off the TPU is the oracle:
+    forward, and gradients against `jax.vjp`, at the transformer path's
+    training call (640, 8 tokens, 4 heads over 2, hd 8, causal) and at G
+    = 1, 2, 4, 8 query heads a kv head with causal, window 3 and no
+    mask."""
+    if case == "path":
+        (B, H, K, S, hd), causal, window = PATH_CALLS[0], True, 0
+    else:
+        g, c, w = case.split("-")
+        B, K, S, hd, causal, window = 4, 2, 8, 8, c == "True", int(w)
+        H = int(g) * K
+    r = np.random.default_rng(sum(map(ord, case)))
+    arrays = [r.standard_normal(s).astype(np.float32)
+              for s in ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd),
+                        (B, S, H, hd))]
+    kw = dict(causal=causal, window=window)
+    jin = [jnp.asarray(a) for a in arrays]
+    ref, vjp = jax.vjp(lambda a, b, c: r_bshd(a, b, c, **kw), *jin[:3])
+    ref_grads = [np.asarray(x) for x in vjp(jin[3])]
+    q, k, v, do = (torch.tensor(a) for a in arrays)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = flash_attention_bshd(*leaves, **kw)
+    auto = torch.autograd.grad(o, leaves, do)
+    o_k, lse = TK.flash_attention_bshd(q, k, v, **kw)
+    explicit = TK.flash_attention_bshd_bwd(q, k, v, o_k, lse, do, **kw)
+    assert o.shape == q.shape and lse.shape == (B, H, S)
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(ref), **F32)
+    np.testing.assert_array_equal(o_k.numpy(), o.detach().numpy())
+    for got in (auto, explicit):
+        for name, g, t, want in zip("qkv", got, (q, k, v), ref_grads):
+            assert g.shape == t.shape
+            np.testing.assert_allclose(g.numpy(), want, err_msg="d" + name,
+                                       **GRAD)
