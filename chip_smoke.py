@@ -9,12 +9,17 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      attention on the CUDA cores, its forward and its backward on the
      tensor cores) built with nvcc for sm_90a, one nvcc per source, all
      started together, with ptxas's report (and a summary of the
-     tensor-core kernels' registers and spills, which must be none);
+     tensor-core, short-sequence and aggregation kernels' registers and
+     spills, which must be none);
   3. kernels against their plain PyTorch versions, forward and backward,
      at the main paths' shapes, the reference's test sweeps and one large
      shape each, with CUDA-event timings (kernel, plain version, one-call
      library yardstick) beside the least time the card could take for the
-     same work; for RMSNorm also the device and host time of a call and
+     same work; for the aggregation both designs (register, ring) at
+     every shape, on permuted rows of a wider buffer, held to each other
+     bit for bit, then timed against each other around the cut-off, and
+     the ring's stages and tile bytes swept at the paper's size; for
+     RMSNorm also the device and host time of a call and
      its kernels per call, two backward calls compared bit for bit, the
      other layouts' times at the zoo shape, and the host cost of the
      pieces of a wrapper call; for attention the route (tensor cores or
@@ -32,8 +37,8 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      makes it, traced: the two short kernels and no copy;
   4. the quickstart path: the FedBuff federation of examples/quickstart.py
      (MLP payload) through `Federation.from_experiment(exp).run()` on the
-     card, launch counts read around it, then the same experiment on the
-     CPU as the check;
+     card, launch counts read around it (one aggregation launch per
+     aggregation), then the same experiment on the CPU as the check;
   5. the transformer path: the same FedBuff world with the transformer
      payload (RMSNorm and attention in the kernels, forward and backward)
      on the card, launch counts read around it, then on the CPU, and one
@@ -42,7 +47,10 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      CPU's and of the card's own update under a 1e-7 nudge; every
      attention call on the short-sequence kernels; and that client update
      traced (kernels, copy kernels and device time per SGD step, the
-     step's wall and the device's busy share);
+     step's wall and the device's busy share); then, in a fresh process
+     (`scripts/trace_aggregation.py`), aggregations of both paths traced
+     (`aggregation trace`: kernels, copy kernels, device and host
+     microseconds from the last client update to the new params);
   6. one JSON line listing every ported kernel.
 The last line is `{"ok": true,
 "device": {...}}`. Without a CUDA device, or away from the repository's
@@ -68,12 +76,23 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_TC_FLOP_PER_S = 989e12
-QUICKSTART_LEAVES = (1536, 48, 2976, 62)   # w1, b1, w2, b2 of F=32->48->62
+# The flat models one aggregation launch covers (`FlatLayout`: leaves on
+# 16 bytes): the quickstart MLP, F=32 -> 48 -> 62 (4,622 parameters, no
+# gaps), and the transformer payload (20,766 parameters in 20,768).
+QUICKSTART_N = 4_622
+TRANSFORMER_N = 20_768
 PAPER_N = 26_608_958                       # DenseNet-161, 62-class head
 PAPER_M = 191                              # flock191 satellites
 MAIN_PATH_M = 20                           # fedbuff M of the quickstart
 AGG_TOL = 2e-5      # float32 outputs: the same products summed in another
                     # order (the float32 tolerance of tests/test_kernels.py)
+# The register design against the ring around the cut-off
+# (`kernel.py::RING_MIN_N`), and the ring's stages and tile bytes a row at
+# the paper's size.
+AGG_CUTOFF_N = (65_536, 262_144, 1_048_576, 4_194_304, 8_388_608,
+                16_777_216, PAPER_N)
+AGG_STAGES = (2, 3, 4, 6, 8, 12)
+AGG_TILES = (8192, 16384, 32768)
 
 
 def _time_ms(fn, iters: int) -> float:
@@ -100,52 +119,126 @@ def _bound(moved_bytes, ops, flop_per_s):
 
 
 def _agg_bound(m: int, n: int, upd_bytes: int, par_bytes: int = 4):
-    """Least time for one aggregation: every input read once, the output
-    written once, against 2*M*N float32 operations."""
-    return _bound((m * upd_bytes + 2 * par_bytes) * n + 4 * m, 2 * m * n,
+    """Least time for one aggregation: every input (M rows of updates,
+    params, M weights and M row indices) read once, the output written
+    once, against 2*M*N float32 operations."""
+    return _bound((m * upd_bytes + 2 * par_bytes) * n + 8 * m, 2 * m * n,
                   FP32_FLOP_PER_S)
 
 
+def _agg_inputs(torch, g, m, n, udt):
+    """M update rows, permuted, in a buffer of M + 3 rows 64 elements
+    apart (as the engine's), float32 params, normalised weights, and the
+    weights scattered onto the buffer's rows (for `addmv`)."""
+    ld = -(-n // 64) * 64
+    buf = torch.randn(m + 3, ld, generator=g, device="cuda").to(udt)
+    rows = torch.randperm(m + 3, generator=g, device="cuda")[:m].int()
+    p = torch.randn(n, generator=g, device="cuda")
+    w = torch.rand(m, generator=g, device="cuda")
+    w /= w.sum()
+    w_rows = torch.zeros(m + 3, device="cuda").index_put_((rows.long(),), w)
+    return buf[:, :n], rows, p, w, w_rows
+
+
+def _both_designs(torch, K, p, upd, w, rows, iters, **ring):
+    """The register design's and the ring's outputs (asserted bit-equal)
+    and their times."""
+    outs, ms = {}, {}
+    for design in K.DESIGNS:
+        kw = dict(ring) if design == "ring" else {}
+        outs[design] = K.weighted_aggregate(p, upd, w, rows, design=design,
+                                            **kw)
+        ms[design] = _time_ms(lambda: K.weighted_aggregate(
+            p, upd, w, rows, design=design, **kw), iters)
+    torch.cuda.synchronize()
+    if not torch.equal(outs["register"], outs["ring"]):
+        raise AssertionError(f"the register design and the ring differ "
+                             f"({ring})")
+    return outs["register"], ms
+
+
 def check_aggregation(torch):
-    """Phase 3: the agg kernel against its plain version at every shape."""
-    from repro_torch.kernels.agg.kernel import weighted_aggregate
+    """Phase 3: the agg kernel's two designs against each other (to the
+    bit) and against the plain version, on permuted rows of a wider
+    buffer, at the main paths' flat models and the paper's size; then
+    the two designs around the cut-off, and the ring's stages and tiles
+    at the paper's size."""
+    from repro_torch.kernels.agg import kernel as K
     from repro_torch.kernels.agg.ref import weighted_aggregate_ref
     g = torch.Generator(device="cuda").manual_seed(0)
-    shapes = [(m, n) for n in QUICKSTART_LEAVES for m in (1, MAIN_PATH_M, 40)]
-    shapes.append((PAPER_M, PAPER_N))
-    rows = []
+    shapes = [(m, n) for n in (QUICKSTART_N, TRANSFORMER_N)
+              for m in (1, MAIN_PATH_M, 40)] + [(PAPER_M, PAPER_N)]
+    rows_out = []
     for m, n in shapes:
         for udt in (torch.float32, torch.bfloat16):
-            upd = torch.randn(m, n, generator=g, device="cuda", dtype=udt)
-            p = torch.randn(n, generator=g, device="cuda")
-            w = torch.rand(m, generator=g, device="cuda")
-            w /= w.sum()
-            out = weighted_aggregate(p, upd, w)
-            ref = weighted_aggregate_ref(p, upd, w)
+            upd, rows, p, w, w_rows = _agg_inputs(torch, g, m, n, udt)
+            iters = 10 if n == PAPER_N else 200
+            out, ms = _both_designs(torch, K, p, upd, w, rows, iters)
+            ref = weighted_aggregate_ref(p, upd, w, rows)
             torch.cuda.synchronize()
             err = (out - ref).abs().max().item()
             ok = bool(torch.allclose(out, ref, rtol=AGG_TOL, atol=AGG_TOL))
-            iters = 10 if n == PAPER_N else 200
-            k_ms = _time_ms(lambda: weighted_aggregate(p, upd, w), iters)
-            p_ms = _time_ms(lambda: weighted_aggregate_ref(p, upd, w), iters)
-            # one PyTorch call computing the same function (a cuBLAS
-            # gemv); none takes bfloat16 updates into float32 params
-            lib_ms = _time_ms(lambda: torch.addmv(p, upd.t(), w), iters) \
-                if udt == torch.float32 else None
+            p_ms = _time_ms(lambda: weighted_aggregate_ref(p, upd, w, rows),
+                            iters)
+            # one PyTorch call computing the same function (a cuBLAS gemv
+            # over the whole buffer, the weights on the rows they name);
+            # none takes bfloat16 updates into float32 params
+            lib_ms = _time_ms(lambda: torch.addmv(p, upd.t(), w_rows),
+                              iters) if udt == torch.float32 else None
             bound, by = _agg_bound(m, n, upd.element_size())
+            design = K.design_for(n, upd.stride(0) * upd.element_size())
             row = {"m": m, "n": n, "updates": str(udt).split(".")[-1],
-                   "max_abs_err": err, "tol": AGG_TOL, "kernel_ms": k_ms,
-                   "plain_ms": p_ms, "library_ms": lib_ms,
-                   "bound_ms": bound, "bound_by": by,
-                   "bound_share": bound / k_ms}
+                   "max_abs_err": err, "tol": AGG_TOL, "design": design,
+                   "kernel_ms": ms[design], "register_ms": ms["register"],
+                   "ring_ms": ms["ring"], "plain_ms": p_ms,
+                   "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
+                   "bound_share": bound / ms[design],
+                   "register_share": bound / ms["register"],
+                   "ring_share": bound / ms["ring"]}
             print("agg", json.dumps(row), flush=True)
             if not ok:
                 raise AssertionError(f"agg kernel disagrees with its plain "
                                      f"version at {row}")
-            rows.append(row)
-            del upd, p, w, out, ref
-    torch.cuda.empty_cache()
-    return rows
+            rows_out.append(row)
+            del upd, rows, p, w, w_rows, out, ref
+            torch.cuda.empty_cache()
+    for m in (MAIN_PATH_M, PAPER_M):
+        for n in AGG_CUTOFF_N:
+            upd, rows, p, w, _ = _agg_inputs(torch, g, m, n, torch.float32)
+            _, ms = _both_designs(torch, K, p, upd, w, rows, 50)
+            print("agg cutoff", json.dumps({
+                "m": m, "n": n, "updates": "float32",
+                "register_ms": ms["register"], "ring_ms": ms["ring"],
+                "bound_ms": _agg_bound(m, n, 4)[0]}), flush=True)
+            del upd, rows, p, w
+    for udt in (torch.float32, torch.bfloat16):
+        # the first version's layout: rows N apart, N % 4 = 2, so the
+        # register design takes its one-column-a-thread instantiation
+        upd = torch.randn(PAPER_M, PAPER_N, generator=g, device="cuda").to(
+            udt)
+        p = torch.randn(PAPER_N, generator=g, device="cuda")
+        w = torch.full((PAPER_M,), 1 / PAPER_M, device="cuda")
+        print("agg unpadded", json.dumps({
+            "updates": str(udt).split(".")[-1], "row_stride": PAPER_N,
+            "register_ms": _time_ms(lambda: K.weighted_aggregate(
+                p, upd, w, design="register"), 10)}), flush=True)
+        del upd, p, w
+        torch.cuda.empty_cache()
+        upd, rows, p, w, _ = _agg_inputs(torch, g, PAPER_M, PAPER_N, udt)
+        bound = _agg_bound(PAPER_M, PAPER_N, upd.element_size())[0]
+        for tile in AGG_TILES:
+            for stages in AGG_STAGES:
+                if not K.ring_fits(stages, tile):
+                    continue
+                _, ms = _both_designs(torch, K, p, upd, w, rows, 5,
+                                      stages=stages, tile_bytes=tile)
+                print("agg sweep", json.dumps({
+                    "updates": str(udt).split(".")[-1], "stages": stages,
+                    "tile_bytes": tile, "ring_ms": ms["ring"],
+                    "bound_share": bound / ms["ring"]}), flush=True)
+        del upd, rows, p, w
+        torch.cuda.empty_cache()
+    return rows_out
 
 
 def _tol(dtype, grad: bool = False):
@@ -758,10 +851,7 @@ def run_main_path(torch):
     print("main path (cuda):", json.dumps(res.summary()), flush=True)
     print(f"main path (cuda): wall {wall:.3f} s, windows "
           f"{res.windows_run}, launches {counts}", flush=True)
-    updates = res.num_global_updates
-    if updates == 0 or counts.get("weighted_aggregate") != 4 * updates:
-        raise AssertionError(f"expected 4 agg launches per aggregation "
-                             f"({updates} aggregations), got {counts}")
+    _one_launch_per_aggregation(res, counts)
     if not all(math.isfinite(a) for a in res.accuracy + res.val_loss):
         raise AssertionError("non-finite accuracy or loss on the card")
 
@@ -774,6 +864,13 @@ def run_main_path(torch):
     # products summed in another order on the card may flip a few of them
     _close_accuracy(res, cpu, 0.01)
     return counts
+
+
+def _one_launch_per_aggregation(res, counts):
+    updates = res.num_global_updates
+    if updates == 0 or counts.get("weighted_aggregate") != updates:
+        raise AssertionError(f"expected one agg launch per aggregation "
+                             f"({updates} aggregations), got {counts}")
 
 
 def _same_counters(res, cpu):
@@ -822,7 +919,6 @@ TRANSFORMER_REFERENCE = {"num_global_updates": 36,
                          "num_aggregated_gradients": 755,
                          "idle_connections": 89, "total_connections": 1300,
                          "windows_run": 288}
-TRANSFORMER_LEAVES = 13
 # Tolerances of the card against the CPU on the transformer path, float32.
 # One SGD step is the gradient itself: the same sums in other orders.
 STEP_TOL = 1e-4
@@ -853,12 +949,7 @@ def run_transformer_path(torch):
     print("transformer path (cuda):", json.dumps(res.summary()), flush=True)
     print(f"transformer path (cuda): wall {wall:.3f} s, windows "
           f"{res.windows_run}, launches {counts}", flush=True)
-    updates = res.num_global_updates
-    if updates == 0 or counts.get("weighted_aggregate") != \
-            TRANSFORMER_LEAVES * updates:
-        raise AssertionError(f"expected {TRANSFORMER_LEAVES} agg launches "
-                             f"per aggregation ({updates} aggregations), "
-                             f"got {counts}")
+    _one_launch_per_aggregation(res, counts)
     # every forward makes 5 RMSNorm and 2 attention calls, every backward
     # the same number of backward calls
     fa, fb = counts.get("flash_attention", 0), counts.get(
@@ -908,8 +999,132 @@ def run_transformer_path(torch):
     return counts
 
 
+def trace_aggregations_apart():
+    """`trace_aggregation` on both paths in a fresh process
+    (`scripts/trace_aggregation.py`): in this one, after the profiler
+    windows above, the profiler records few device events or none. Prints
+    one `aggregation trace` line a path; fails if the script fails, if an
+    aggregation ran more than one aggregation kernel, or if a cat or a
+    gather ran (a dropped event can only lower these counts)."""
+    out = subprocess.run([sys.executable,
+                          str(ROOT / "scripts" / "trace_aggregation.py"),
+                          "--label", "chip_smoke"], capture_output=True,
+                         text=True, timeout=600)
+    if out.returncode:
+        raise AssertionError(f"scripts/trace_aggregation.py failed:\n"
+                             f"{out.stderr[-3000:]}")
+    traced = json.loads(out.stdout.strip().splitlines()[-1])
+    for exp in (quickstart_experiment(), transformer_experiment()):
+        t = traced[exp.name]
+        print("aggregation trace", json.dumps(t), flush=True)
+        if t["agg_kernels"] > 1 or t["cat_gather_kernels"]:
+            raise AssertionError(f"an aggregation of {exp.name} ran "
+                                 f"{t['agg_kernels']} aggregation kernels "
+                                 f"and {t['cat_gather_kernels']} cats or "
+                                 f"gathers")
+
+
 def _is_copy(name):
     return "copy" in name.lower()
+
+
+def _is_copy_kernel(name):
+    """A kernel that moves data (a copy, a `torch.cat`, a gather or
+    indexing), not a host-device transfer."""
+    low = name.lower()
+    return "memcpy" not in low and any(
+        w in low for w in ("copy", "gather", "index"))
+
+
+def trace_aggregation(torch, exp, traced=3):
+    """The federation of `exp` on the card, stopped once `traced`
+    aggregations were traced and as many timed. For each aggregation the
+    window from the end of its last batched client update
+    (`SimulationEngine._run_batched`) to the new params (the engine's next
+    call, `SS.aggregate_step`): the host microseconds of the untraced ones
+    after the first (host clock ending in a synchronise), and, traced with
+    `torch.profiler` (every other one), its device kernels by name, the
+    aggregation kernels, the copy kernels (copies, dtype casts, cats,
+    gathers), the cat and gather kernels among them, the host-to-device
+    transfers and the device microseconds. The profiler on the H100
+    machines drops kernel events, most after other profiler windows in
+    the same process, and now and then records none: a window without a
+    device event is traced again, and the counts are a floor. It hooks
+    only `_run_batched` and the engine module's `SS`, so it runs on any
+    checkout of the port (`scripts/trace_aggregation.py`)."""
+    from repro_torch.fl import engine as E
+    from repro_torch.fl.api import Federation
+    eng = Federation.from_experiment(exp).engine()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    st = {"prof": None, "t0": None, "n": 0}
+    host_us, traces = [], []
+    run_batched = eng._run_batched
+
+    def hooked_run(*args, **kw):
+        if st["prof"] is not None:      # not the aggregation's last group
+            st["prof"].stop()
+            st["prof"] = None
+        out = run_batched(*args, **kw)
+        torch.cuda.synchronize()
+        if st["n"] % 2:
+            st["prof"] = torch.profiler.profile(activities=acts)
+            st["prof"].start()
+        st["t0"] = time.perf_counter()
+        return out
+
+    real = E.SS
+
+    class _Hooked:
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+        def aggregate_step(self, *args, **kw):
+            torch.cuda.synchronize()
+            us = (time.perf_counter() - st["t0"]) * 1e6
+            if st["prof"] is not None:
+                st["prof"].stop()
+                events = _device_events(st["prof"])
+                if events:
+                    traces.append(events)
+                st["prof"] = None
+            elif st["n"]:
+                host_us.append(us)
+            st["n"] += 1
+            if len(traces) >= traced and len(host_us) >= traced \
+                    or st["n"] > 6 * traced:
+                eng.request_stop()
+            return real.aggregate_step(*args, **kw)
+
+    eng._run_batched = hooked_run
+    E.SS = _Hooked()
+    try:
+        eng.run()
+    finally:
+        E.SS = real
+    if len(traces) < traced:
+        raise AssertionError(f"{len(traces)} of the traced aggregations "
+                             f"showed device events, not {traced}")
+    per = 1 / len(traces)
+    by_name = {}
+    for events in traces:
+        for n, c, _ in events:
+            by_name[n[:120]] = by_name.get(n[:120], 0) + c * per
+    return {"experiment": exp.name, "aggregations_traced": len(traces),
+            "host_us": host_us,
+            "kernels": sum(c for ev in traces for _, c, _ in ev) * per,
+            "agg_kernels": sum(c for ev in traces for n, c, _ in ev
+                               if "agg_" in n) * per,
+            "copy_kernels": sum(c for ev in traces for n, c, _ in ev
+                                if _is_copy_kernel(n)) * per,
+            "cat_gather_kernels": sum(
+                c for ev in traces for n, c, _ in ev
+                if any(w in n.lower() for w in ("catarray", "gather",
+                                                "index"))) * per,
+            "host_to_device": sum(c for ev in traces for n, c, _ in ev
+                                  if "memcpy" in n.lower()) * per,
+            "device_us": [sum(t for _, _, t in ev) for ev in traces],
+            "by_name": by_name}
 
 
 def trace_client_update(torch, adapter, train, runs=5):
@@ -1077,32 +1292,40 @@ PTXAS_ENTRY = (r"Compiling entry function '\w*?\d({})I{}E.*?(\d+) bytes "
 PTXAS_KERNELS = {"tc": (r"flash_\w+?_tc_\w*?kernel",
                         r"Li(\d+)E(?:Lb(\d)E)?"),
                  "short": (r"flash_(?:fwd|bwd)_short_kernel",
-                           r"(f|13__nv_bfloat16)Li(\d+)E")}
+                           r"(f|13__nv_bfloat16)Li(\d+)E"),
+                 "agg": (r"agg_(?:register|ring)_kernel",
+                         r"((?:f|13__nv_bfloat16)(?:f|13__nv_bfloat16|S1_))"
+                         r"(?:Li(\d)E)?")}
 SHORT_INSTANCES = 2 * 2 * 6    # directions x types x head dims
+AGG_INSTANCES = 4 * 3          # type pairs x (register 4- and 1-wide, ring)
 
 
 def _ptxas(log: str, kind: str):
     """The registers and spills of the tensor-core kernels (forward;
-    backward delta, dk/dv and dq) or of the short-sequence kernels (both
-    directions, every type and hd), one line per instantiation, from
-    ptxas's report; fails on a spill, and, for the short kernels, unless
-    every instantiation is reported (a reused library has no report, and
-    nothing is checked)."""
+    backward delta, dk/dv and dq), of the short-sequence kernels (both
+    directions, every type and hd) or of the aggregation's (both designs,
+    every type pair), one line per instantiation, from ptxas's report;
+    fails on a spill, and, for the short and the aggregation kernels,
+    unless every instantiation is reported (a reused library has no
+    report, and nothing is checked)."""
     import re
     found = re.findall(PTXAS_ENTRY.format(*PTXAS_KERNELS[kind]), log,
                        re.S)
     for kernel, a, b, stores, loads, regs in found:
-        what = (f"{kernel} hd {a}" + (f" split {b}" if b else "")
-                if kind == "tc" else
-                f"{kernel} {'bf16' if 'bfloat16' in a else 'f32'} hd {b}")
+        if kind == "tc":
+            what = f"{kernel} hd {a}" + (f" split {b}" if b else "")
+        elif kind == "short":
+            what = f"{kernel} {'bf16' if 'bfloat16' in a else 'f32'} hd {b}"
+        else:
+            what = f"{kernel} <{a}>" + (f" E {b}" if b else "")
         print(f"{what}: {regs} registers, {stores} bytes spill stores, "
               f"{loads} bytes spill loads", flush=True)
         if int(stores) or int(loads):
             raise AssertionError(f"{what} spills")
-    if kind == "short" and "Compiling entry function" in log \
-            and len(found) != SHORT_INSTANCES:
-        raise AssertionError(f"ptxas reported {len(found)} short-sequence "
-                             f"kernels, not {SHORT_INSTANCES}")
+    want = {"short": SHORT_INSTANCES, "agg": AGG_INSTANCES}.get(kind)
+    if want and "Compiling entry function" in log and len(found) != want:
+        raise AssertionError(f"ptxas reported {len(found)} {kind} "
+                             f"kernels, not {want}")
 
 
 def main() -> int:
@@ -1143,6 +1366,8 @@ def main() -> int:
             _ptxas(b.log, "tc")
         if b.source == flash_kernel.SOURCE:
             _ptxas(b.log, "short")
+        if b.source == agg_kernel.SOURCE:
+            _ptxas(b.log, "agg")
     done("build")
 
     # 3. kernels against their plain versions
@@ -1163,14 +1388,17 @@ def main() -> int:
     done("quickstart path")
     paths["transformer"] = run_transformer_path(torch)
     done("transformer path")
+    trace_aggregations_apart()
+    done("aggregation traces")
 
-    # 6. the kernels line. One aggregation of the quickstart (the four
-    # leaves at M=20, float32); one SGD step of a 20-satellite group on
-    # the transformer path (5 RMSNorm and 2 attention calls, each way).
+    # 6. the kernels line. One aggregation of the quickstart (one launch
+    # over its flat model at M=20, float32); one SGD step of a
+    # 20-satellite group on the transformer path (5 RMSNorm and 2
+    # attention calls, each way).
     def launches(kernel_name):
         return {p: c.get(kernel_name, 0) for p, c in paths.items()}
 
-    work = [r for r in agg_rows if r["n"] in QUICKSTART_LEAVES
+    (r,) = [r for r in agg_rows if r["n"] == QUICKSTART_N
             and r["m"] == MAIN_PATH_M and r["updates"] == "float32"]
     kernels = [{
         "name": agg_kernel.NAME, "route": "cuda",
@@ -1178,15 +1406,12 @@ def main() -> int:
         "replaces": "src/repro/kernels/agg/kernel.py:35",
         "launches": sum(launches(agg_kernel.NAME).values()),
         "launches_by_path": launches(agg_kernel.NAME),
-        "max_abs_err": max(r["max_abs_err"] for r in agg_rows),
-        "ms": sum(r["kernel_ms"] for r in work),
-        "plain_ms": sum(r["plain_ms"] for r in work),
-        "bound_ms": sum(r["bound_ms"] for r in work),
-        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in work)
-                    else "operations",
-        "library_ms": sum(r["library_ms"] for r in work),
-        "work": "one quickstart aggregation: leaves N=1536,48,2976,62 at "
-                "M=20, float32",
+        "max_abs_err": max(x["max_abs_err"] for x in agg_rows),
+        "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"], "design": r["design"],
+        "work": "one quickstart aggregation: one launch over N = 4,622 at "
+                "M = 20, float32",
     }]
     path_shapes = (
         (rms_rows, "rmsnorm", 5, "src/repro_torch/kernels/rmsnorm/csrc/"

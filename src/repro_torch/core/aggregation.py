@@ -4,8 +4,9 @@
 
 Operates on parameter trees of per-satellite update stacks. The weighted
 reduction over the update buffer routes through
-`repro_torch.kernels.agg.ops.aggregate_params_tree`: the CUDA kernel for
-tensors on the card, its plain PyTorch version for tensors on the CPU.
+`repro_torch.kernels.agg.ops.aggregate_params_tree`: one launch of the
+CUDA kernel over the flattened tree for tensors on the card, its plain
+PyTorch version for tensors on the CPU.
 """
 from __future__ import annotations
 

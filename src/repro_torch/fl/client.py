@@ -21,10 +21,12 @@ _LATER = "uplink compression comes with the compression slice of the port"
 
 
 def _make_update_fn(adapter, *, lr: float):
-    def update_fn(params, batches, *, step_axis: int = 0):
+    def update_fn(params, batches, *, step_axis: int = 0, out=None):
         """params: tree of tensors (with a leading satellite axis when
         batched); batches: tuple of tensors whose `step_axis` indexes the E
-        local steps. Returns the delta w^E - w^0."""
+        local steps. Returns the delta w^E - w^0, written into `out` (a
+        tree of tensors of the params' shapes, e.g. views of rows of the
+        engine's update buffer) when given."""
         leaves, structure = tree_flatten(params)
         for e in range(batches[0].shape[step_axis]):
             batch = tuple(b.select(step_axis, e) for b in batches)
@@ -34,8 +36,11 @@ def _make_update_fn(adapter, *, lr: float):
             grads = torch.autograd.grad(loss, leaves)
             with torch.no_grad():
                 leaves = [w - lr * g for w, g in zip(leaves, grads)]
-        return tree_map(lambda w, w0: w - w0,
-                        tree_unflatten(structure, leaves), params)
+        final = tree_unflatten(structure, leaves)
+        if out is None:
+            return tree_map(lambda w, w0: w - w0, final, params)
+        return tree_map(lambda w, w0, o: torch.sub(w, w0, out=o), final,
+                        params, out)
 
     return update_fn
 
@@ -59,19 +64,20 @@ def make_client_update(adapter, *, local_steps: int, lr: float):
 def make_batched_client_update(adapter, *, local_steps: int, lr: float,
                                uplink_topk: float = 0.0,
                                uplink_int8: bool = False):
-    """Returns update_many(base_params, batches) -> stacked g_k.
+    """Returns update_many(base_params, batches, out=None) -> stacked g_k.
 
     `batches` is the per-satellite batch tuple stacked on a leading axis M
     (then the E local steps); the base model is shared and broadcast to
-    the M satellites."""
+    the M satellites. With `out` (a tree of (M, *shape) tensors) the
+    deltas are written there and `out` is returned."""
     if uplink_topk or uplink_int8:
         raise NotImplementedError(_LATER)
     update_fn = _make_update_fn(adapter, lr=lr)
 
-    def update_many(base_params, batches):
+    def update_many(base_params, batches, out=None):
         m = batches[0].shape[0]
         stacked = tree_map(lambda v: v.expand(m, *v.shape).clone(),
                            base_params)
-        return update_fn(stacked, batches, step_axis=1)
+        return update_fn(stacked, batches, step_axis=1, out=out)
 
     return update_many

@@ -31,8 +31,9 @@ from repro_torch.core.aggregation import aggregation_weights
 from repro_torch.core.scheduler import Scheduler
 from repro_torch.device import resolve_device
 from repro_torch.fl.client import make_batched_client_update
-from repro_torch.kernels.agg.ops import aggregate_params_tree
-from repro_torch.tree import tree_map
+from repro_torch.kernels.agg.ops import FlatLayout, aggregate_flat
+from repro_torch.tree import tree_flatten, tree_leaves, tree_map, \
+    tree_unflatten
 
 T0_MINUTES = 15.0
 
@@ -225,11 +226,18 @@ class SimulationEngine:
         self._stop_requested = False
         if self._init_params is None:
             gen = torch.Generator().manual_seed(cfg.seed)
-            self.params = self.adapter.init(gen)
+            params = self.adapter.init(gen)
         else:
-            self.params = tree_map(
+            params = tree_map(
                 lambda a: torch.as_tensor(a, device=self.device),
                 self._init_params)
+        # the global model lives in one flat buffer (`FlatLayout`: leaves
+        # in tree order, each on 16 bytes); `self.params` is a tree of
+        # views of it, re-viewed onto each aggregation's output
+        leaves, self._structure = tree_flatten(params)
+        self.layout = FlatLayout.of(leaves)
+        self.params = self._view(self.layout.flat(leaves))
+        self._updates = None      # the update buffer, made at first use
         self._batched_update = make_batched_client_update(
             self.adapter, local_steps=cfg.local_steps, lr=cfg.client_lr,
             uplink_topk=cfg.uplink_topk,
@@ -308,19 +316,22 @@ class SimulationEngine:
         """Apply the staleness-compensated buffered update (eq. 4).
 
         Buffered satellites are grouped by base model version (and batch
-        shape); each group trains as one batched client update, and the
-        weighted reduction goes through the aggregation kernel
-        (`aggregate_params_tree`, one launch per parameter leaf). The
-        buffer's base versions come to the host once here — the grouping
-        and the batch indices are host work."""
+        shape); each group trains as one batched client update that writes
+        its deltas into its rows of one update buffer, and the weighted
+        reduction is one launch of the aggregation kernel over the flat
+        model (`aggregate_flat`), reading the rows in the staleness
+        vector's order where they lie. The buffer's base versions come to
+        the host once here — the grouping and the batch indices are host
+        work."""
         cfg = self.config
         buffered = self.state.buffered.cpu().numpy()
         ks = np.flatnonzero(buffered >= 0)
         stal = (self.ig - buffered[ks]).astype(np.int64)
-        stack = self._train_buffered(ks, buffered, round_rng=i)
+        updates, rows = self._train_buffered(ks, buffered, round_rng=i)
         w = aggregation_weights(torch.as_tensor(stal, device=self.device),
                                 cfg.alpha) * cfg.server_lr
-        self.params = aggregate_params_tree(self.params, stack, w)
+        flat = self.layout.flat(tree_leaves(self.params))
+        self.params = self._view(aggregate_flat(flat, updates, w, rows))
         self.state, _, _ = SS.aggregate_step(self.state, self.ig, True,
                                              s_max=cfg.s_max, collect="none")
         self.ig += 1
@@ -339,8 +350,10 @@ class SimulationEngine:
     def _train_buffered(self, ks: np.ndarray, buffered: np.ndarray, *,
                         round_rng: int):
         """Compute the buffered satellites' updates, batched by base model
-        version. Returns the update stack (leading dim len(ks)) in `ks`
-        order, matching the staleness vector.
+        version, into the rows of one (len(ks), N) buffer (`_update_rows`),
+        a group's rows after the previous group's. Returns (updates, rows):
+        the buffer and, for each satellite of `ks` (the staleness vector's
+        order), the int32 index of its row.
 
         Per base version: one checkpoint fetch, one batched data gather
         (`adapter.client_batch_many` when available), one batched client
@@ -352,7 +365,14 @@ class SimulationEngine:
         for row, k in enumerate(ks):
             by_base.setdefault(int(buffered[k]), []).append((row, int(k)))
         many = getattr(self.adapter, "client_batch_many", None)
-        order, chunks, zero_rows = [], [], []
+        updates = self._update_rows(len(ks))
+        order, zero_rows = [], []     # order: the row in ks of each row
+
+        def run(base, batches, rows_in_ks):
+            r0 = len(order)
+            self._run_batched(base, batches, out=self._view(
+                updates[r0:r0 + len(rows_in_ks)]))
+            order.extend(rows_in_ks)
         for base_v, members in by_base.items():
             base = self.store.get(base_v)       # fetched once per group
             rest = range(len(members))
@@ -360,8 +380,7 @@ class SimulationEngine:
                 stacked, used = many([k for _, k in members], round_rng,
                                      cfg.batch_size, cfg.local_steps)
                 if used:
-                    chunks.append(self._run_batched(base, stacked))
-                    order += [members[u][0] for u in used]
+                    run(base, stacked, [members[u][0] for u in used])
                     used = set(used)
                     rest = [j for j in rest if j not in used]
             by_shape = {}  # leftovers / no batched gather: group by shape
@@ -378,23 +397,37 @@ class SimulationEngine:
             for mem in by_shape.values():
                 batches = tuple(torch.stack(ts)
                                 for ts in zip(*[b for _, b in mem]))
-                chunks.append(self._run_batched(base, batches))
-                order += [row for row, _ in mem]
+                run(base, batches, [row for row, _ in mem])
         if zero_rows:
-            chunks.append(tree_map(
-                lambda p: torch.zeros((len(zero_rows),) + p.shape,
-                                      dtype=p.dtype, device=p.device),
-                self.params))
+            updates[len(order):].zero_()
             order += zero_rows
-        inv = torch.as_tensor(np.argsort(np.asarray(order)),
-                              device=self.device)     # back to ks order
-        return tree_map(lambda *cs: torch.cat(cs, dim=0)[inv], *chunks)
+        rows = np.argsort(np.asarray(order)).astype(np.int32)
+        return updates, torch.as_tensor(rows, device=self.device)
 
-    def _run_batched(self, base, batches):
-        """Train a group of satellites as one batched client update. (The
-        reference pads groups to powers of two so that `jit` compiles few
-        shapes; PyTorch runs eagerly and needs no padding.)"""
-        return self._batched_update(base, batches)
+    def _update_rows(self, m: int):
+        """Rows [0, m) of the engine's update buffer, (m, N) in the params'
+        dtype, rows a multiple of 64 elements apart. The buffer is kept
+        between aggregations and grows to the largest buffer seen; it
+        starts zeroed, so the elements between leaves (`FlatLayout`),
+        which no update writes, stay 0."""
+        n = self.layout.size
+        if self._updates is None or self._updates.shape[0] < m:
+            dtype = tree_leaves(self.params)[0].dtype
+            self._updates = torch.zeros((m, -(-n // 64) * 64), dtype=dtype,
+                                        device=self.device)
+        return self._updates[:m, :n]
+
+    def _view(self, flat):
+        """The parameter tree as views of `flat` (..., N)."""
+        return tree_unflatten(self._structure, self.layout.views(flat))
+
+    def _run_batched(self, base, batches, out=None):
+        """Train a group of satellites as one batched client update,
+        writing the deltas into `out` (a tree of (m, *shape) views) when
+        given. (The reference pads groups to powers of two so that `jit`
+        compiles few shapes; PyTorch runs eagerly and needs no
+        padding.)"""
+        return self._batched_update(base, batches, out=out)
 
     def on_downloads(self, i: int, conn: np.ndarray) -> None:
         """Connected satellites fetch the current global model and start a

@@ -18,8 +18,10 @@ from repro.kernels.agg.kernel import weighted_aggregate as pallas_aggregate
 from repro.kernels.agg.ref import weighted_aggregate_ref
 from repro_torch.core import aggregation as TAG
 from repro_torch.kernels import launch_counts
+from repro_torch.kernels.agg import kernel as TK
 from repro_torch.kernels.agg import ops as TO
 from repro_torch.kernels.agg.kernel import weighted_aggregate
+from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
 from repro_torch.weights import params_from_numpy, params_to_numpy
 
 _DT = {"float32": (jnp.float32, torch.float32),
@@ -138,3 +140,196 @@ def test_apply_aggregation_against_reference():
     np.testing.assert_allclose(got["a"], np.asarray(ref["a"]), atol=1e-6)
     np.testing.assert_allclose(got["b"]["c"], np.asarray(ref["b"]["c"]),
                                atol=1e-6)
+
+
+# ------------------------------------------------ rows, strides, flat trees
+
+def _buffer(r, n, offset, dtype, seed):
+    """An (r, n) update buffer as a column slice, `offset` elements in, of
+    a wider (r, ld) one, drawn with numpy; its float32 values; and the
+    plain (r, n) array both packages are given."""
+    rng = np.random.default_rng(seed)
+    ld = -(-(n + offset) // 64) * 64
+    wide = rng.standard_normal((r, ld), dtype=np.float32)
+    full = torch.from_numpy(wide).to(_DT[dtype][1])
+    return full[:, offset:offset + n], wide[:, offset:offset + n]
+
+
+@pytest.mark.parametrize("case", ["permuted", "subset"])
+@pytest.mark.parametrize("n", [62, 4621])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rows_read_in_place_against_reference(case, n, dtype):
+    """`rows` permuted over the buffer, or a subset of a wider (R, N)
+    buffer whose rows lie a row stride apart: the port against the
+    reference's oracle and its Pallas kernel (interpreter) on the stack
+    gathered in the weights' order."""
+    m = 9
+    r = m if case == "permuted" else m + 5
+    updates, plain = _buffer(r, n, offset=3, dtype=dtype, seed=n + r)
+    rng = np.random.default_rng(n)
+    rows = rng.permutation(r)[:m].astype(np.int32)
+    p = rng.standard_normal(n, dtype=np.float32)
+    w = rng.uniform(size=m).astype(np.float32)
+    w /= w.sum()
+    jdt, tdt = _DT[dtype]
+    assert updates.stride() == (updates.stride(0), 1)
+    assert updates.stride(0) > n
+    got = weighted_aggregate(torch.from_numpy(p).to(tdt), updates,
+                             torch.from_numpy(w), torch.from_numpy(rows))
+    assert got.dtype == tdt and got.shape == (n,)
+    got = got.float().numpy()
+    stack = jnp.asarray(plain[rows], jdt)
+    jp, jw = jnp.asarray(p, jdt), jnp.asarray(w)
+    oracle = np.asarray(weighted_aggregate_ref(jp, stack, jw), np.float32)
+    pallas = np.asarray(pallas_aggregate(jp, stack, jw, block=4096,
+                                         interpret=True), np.float32)
+    np.testing.assert_allclose(got, oracle, **_tol(dtype))
+    np.testing.assert_allclose(got, pallas, **_tol(dtype))
+
+
+# the transformer adapter's 13 leaves (d_model 32, 2 layers, swiglu 64, 62
+# classes), in tree order
+_TRANSFORMER_SHAPES = [
+    (32,), (62,), (32, 62), (2, 32), (2, 32, 16), (2, 32, 32),
+    (2, 32, 32), (2, 32, 16), (2, 64, 32), (2, 32, 64), (2, 32, 64),
+    (2, 32), (4, 32)]
+
+
+def _thirteen_leaves(seed, m=None):
+    r = np.random.default_rng(seed)
+    lead = () if m is None else (m,)
+    return {f"l{i:02d}": r.standard_normal(lead + s, dtype=np.float32)
+            for i, s in enumerate(_TRANSFORMER_SHAPES)}
+
+
+def test_flat_layout_puts_leaves_on_16_bytes():
+    layout = TO.FlatLayout([s for s in _TRANSFORMER_SHAPES], 4)
+    assert all(off % 4 == 0 for off in layout.offsets)
+    assert layout.offsets[:3] == [0, 32, 96]    # 2 zeros after the 62
+    assert layout.size == 20_768                # 20,766 parameters
+    leaves = [torch.ones(s) for s in _TRANSFORMER_SHAPES]
+    flat = layout.flat(leaves)
+    assert flat.shape == (layout.size,) and float(flat.sum()) == 20_766
+    views = layout.views(flat)
+    assert all(v.data_ptr() == flat.data_ptr() + 4 * off
+               for v, off in zip(views, layout.offsets))
+    assert layout.buffer_of(views).data_ptr() == flat.data_ptr()
+    assert layout.buffer_of(leaves) is None
+    with pytest.raises(TypeError, match="one dtype"):
+        TO.FlatLayout.of([torch.ones(3), torch.ones(3).double()])
+
+
+def test_views_of_one_buffer_against_reference(monkeypatch):
+    """Params kept as views of one flat buffer and update rows written
+    into a wider buffer in another order (as the engine keeps them): the
+    flat form with `rows`, and the tree form on the views (read in place,
+    no `torch.cat`), against `repro.kernels.agg.ops.aggregate_params_tree`
+    on the stack in the weights' order."""
+    m = 6
+    params = _thirteen_leaves(0)
+    stack = _thirteen_leaves(1, m)
+    w = np.random.default_rng(2).uniform(size=m).astype(np.float32)
+    w /= w.sum()
+    ref = RO.aggregate_params_tree(params, stack, jnp.asarray(w))
+
+    leaves, structure = tree_flatten(params_from_numpy(params, "cpu"))
+    layout = TO.FlatLayout.of(leaves)
+    flat = layout.flat(leaves)
+    buf = torch.zeros(m + 2, layout.size + 64)
+    order = np.random.default_rng(3).permutation(m + 2)[:m]
+    rows = torch.from_numpy(order.astype(np.int32))
+    for j, row in enumerate(order):   # satellite j's update into its row
+        for v, leaf in zip(layout.views(buf[row, :layout.size]),
+                           tree_leaves(stack)):
+            v.copy_(torch.from_numpy(leaf[j]))
+    got = tree_unflatten(structure, layout.views(TO.aggregate_flat(
+        flat, buf[:, :layout.size], torch.from_numpy(w), rows)))
+
+    in_order = buf[:m, :layout.size]
+    in_order.copy_(buf[:, :layout.size][rows.long()])
+    cats = []
+    monkeypatch.setattr(torch, "cat", lambda *a, **k: cats.append(1))
+    got_tree = TO.aggregate_params_tree(
+        tree_unflatten(structure, layout.views(flat)),
+        tree_unflatten(structure, layout.views(in_order)),
+        torch.from_numpy(w))
+    assert not cats
+    for out in (got, got_tree):
+        for k, leaf in params_to_numpy(out).items():
+            # float32 sums of 6 products in another order
+            np.testing.assert_allclose(leaf, np.asarray(ref[k]), atol=1e-6,
+                                       err_msg=k)
+
+
+class _CudaLabelled(torch.Tensor):
+    """A CPU tensor that reports a CUDA device: it takes the wrapper down
+    its kernel path on a machine that has no card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda")
+
+
+def _fake_cuda(t):
+    return torch.Tensor._make_subclass(_CudaLabelled, t)
+
+
+class _FakeLaunch:
+    """A stand-in for `_library()`'s entry point: records its arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("ring_min_n", [None, 1])
+def test_one_launch_per_aggregation_of_a_tree(monkeypatch, ring_min_n):
+    """On CUDA tensors, an aggregation of the 13-leaf tree is one launch:
+    from views of one buffer it passes that buffer, the update rows'
+    pointer and row stride and the row indices; the design follows N (the
+    register design below `RING_MIN_N`, the ring from it on when the rows
+    are 16 bytes apart); a tree of separate leaves is flattened once, and
+    `weighted_aggregate_tree` is one launch too."""
+    fake = _FakeLaunch()
+    monkeypatch.setattr(TK, "_library", lambda: fake)
+    monkeypatch.setattr(TK, "_stream", lambda t: 77)
+    if ring_min_n is not None:
+        monkeypatch.setattr(TK, "RING_MIN_N", ring_min_n)
+    m, ld = 5, 20_800
+    layout = TO.FlatLayout(_TRANSFORMER_SHAPES, 4)
+    flat = _fake_cuda(torch.zeros(layout.size))
+    buf = _fake_cuda(torch.zeros(m + 3, ld))
+    updates = buf[:m + 3, :layout.size]
+    rows = _fake_cuda(torch.tensor([6, 0, 2, 7, 1], dtype=torch.int32))
+    w = _fake_cuda(torch.full((m,), 0.2))
+    before = launch_counts["weighted_aggregate"]
+    TO.aggregate_flat(flat, updates, w, rows)
+    (args,) = fake.calls
+    design = 0 if ring_min_n is None else 1
+    assert args == (flat.data_ptr(), buf.data_ptr(), w.data_ptr(),
+                    rows.data_ptr(), args[4], m, layout.size, ld, 0, 0,
+                    design, TK.RING_STAGES, TK.RING_TILE_BYTES, 77)
+    # rows 4 bytes * 20,801 apart are not on 16 bytes: the register design
+    odd = _fake_cuda(torch.zeros(m, ld + 1))[:, :layout.size]
+    TO.aggregate_flat(flat, odd, w)
+    assert fake.calls[-1][7] == ld + 1 and fake.calls[-1][10] == 0
+    assert fake.calls[-1][3] is None or fake.calls[-1][3] == 0
+
+    structure = tree_flatten(_thirteen_leaves(0))[1]
+    params = tree_unflatten(structure, layout.views(flat))
+    stack = tree_unflatten(structure, layout.views(buf[:m, :layout.size]))
+    TO.aggregate_params_tree(params, stack, w)
+    assert fake.calls[-1][:2] == (flat.data_ptr(), buf.data_ptr())
+    assert fake.calls[-1][7] == ld
+    separate = {k: _fake_cuda(v) for k, v in params_from_numpy(
+        _thirteen_leaves(0), "cpu").items()}
+    separate_stack = {k: _fake_cuda(v) for k, v in params_from_numpy(
+        _thirteen_leaves(1, m), "cpu").items()}
+    TO.aggregate_params_tree(separate, separate_stack, w)
+    TO.weighted_aggregate_tree(separate_stack, w)
+    assert len(fake.calls) == 5
+    assert fake.calls[-1][6:8] == (layout.size, layout.size)
+    assert launch_counts["weighted_aggregate"] == before + 5

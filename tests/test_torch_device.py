@@ -17,6 +17,7 @@ from repro_torch.fl.adapters import MlpFmowAdapter
 from repro_torch.fl.engine import EngineConfig, SimulationEngine
 from repro_torch.core import staleness as TS
 from repro_torch.kernels import launch_counts
+from repro_torch.kernels.agg import kernel as agg_kernel
 from repro_torch.kernels.agg.kernel import weighted_aggregate
 from repro_torch.kernels.agg.ref import weighted_aggregate_ref
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
@@ -162,6 +163,84 @@ def test_cuda_kernel_matches_plain_version_on_the_card():
         np.testing.assert_allclose(out.float().cpu().numpy(),
                                    ref.float().cpu().numpy(),
                                    rtol=tol, atol=tol)
+
+
+# (M, R, N, element offset of the updates, params dtype, updates dtype):
+# N on both sides of the ring's cut-off, with tails (N modulo the tile)
+# and unaligned leading columns, the main paths' flat models, N = 62 (all
+# edge columns on the ring), bfloat16 updates into float32 params and
+# bfloat16 both, and the paper's size (M = 191, DenseNet-161) in both
+# update types
+_F32, _BF16 = torch.float32, torch.bfloat16
+AGG_DESIGN_CASES = [
+    (20, 24, 62, 0, _F32, _F32), (20, 20, 4622, 0, _F32, _F32),
+    (20, 23, 4621, 1, _F32, _F32), (36, 40, 20768, 0, _F32, _F32),
+    (20, 26, agg_kernel.RING_MIN_N - 1, 1, _F32, _F32),
+    (20, 26, agg_kernel.RING_MIN_N + 4621, 3, _F32, _BF16),
+    (7, 9, agg_kernel.RING_MIN_N + 8191, 5, _BF16, _BF16),
+    (191, 191, 26_608_958, 0, _F32, _F32),
+    (191, 191, 26_608_958, 0, _F32, _BF16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,r,n,offset,pdt,udt", AGG_DESIGN_CASES)
+def test_agg_designs_bit_equal_on_the_card(m, r, n, offset, pdt, udt):
+    """The register design and the ring (default and other stages and
+    tiles) give the same bits on permuted rows of a wider buffer, each
+    within the float32 tolerance of the plain version (one rounding in
+    bfloat16 outputs), two calls alike, one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device with nvcc")
+    g = torch.Generator(device="cuda").manual_seed(n % 1000 + m)
+    ld = -(-(n + offset) // 64) * 64
+    buf = torch.randn(r, ld, generator=g, device="cuda").to(udt)
+    updates = buf[:, offset:offset + n]
+    rows = torch.randperm(r, generator=g, device="cuda")[:m].int()
+    p = torch.randn(n, generator=g, device="cuda").to(pdt)
+    w = torch.rand(m, generator=g, device="cuda")
+    w /= w.sum()
+    outs = []
+    for kw in (dict(design="register"), dict(design="ring"),
+               dict(design="ring", stages=2, tile_bytes=32768),
+               dict(design="ring")):
+        before = launch_counts["weighted_aggregate"]
+        outs.append(weighted_aggregate(p, updates, w, rows, **kw))
+        assert launch_counts["weighted_aggregate"] == before + 1
+    torch.cuda.synchronize()
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
+    assert outs[0].dtype == pdt and outs[0].shape == (n,)
+    ref = weighted_aggregate_ref(p, updates, w, rows)
+    del buf, updates
+    torch.testing.assert_close(outs[0].float(), ref.float(),
+                               **_card_tol(pdt))
+
+
+@pytest.mark.gpu
+def test_agg_ring_repeats_bitwise_over_stages_and_tiles():
+    """Every ring of 2-12 stages of 8, 16 and 32 KB a row, three calls
+    each, gives the register design's bits at the paper's size with
+    bfloat16 updates (where a ring whose stages were refilled before
+    their reads had finished gave wrong columns)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device with nvcc")
+    g = torch.Generator(device="cuda").manual_seed(19)
+    m, n = 191, 26_608_958
+    buf = torch.randn(m + 3, n + 2, generator=g, device="cuda").to(_BF16)
+    updates = buf[:, :n]
+    rows = torch.randperm(m + 3, generator=g, device="cuda")[:m].int()
+    p = torch.randn(n, generator=g, device="cuda")
+    w = torch.rand(m, generator=g, device="cuda")
+    w /= w.sum()
+    want = weighted_aggregate(p, updates, w, rows, design="register")
+    for tile in (8192, 16384, 32768):
+        for stages in (2, 3, 4, 6, 8, 12):
+            if not agg_kernel.ring_fits(stages, tile):
+                continue
+            for _ in range(3):
+                got = weighted_aggregate(p, updates, w, rows, design="ring",
+                                         stages=stages, tile_bytes=tile)
+                assert torch.equal(got, want), (stages, tile)
 
 
 def _card_tol(dtype, grad=False):

@@ -11,6 +11,7 @@ import json
 import jax
 import numpy as np
 import pytest
+import torch
 
 import repro.fl.api as RA
 import repro_torch.fl.api as TA
@@ -21,6 +22,7 @@ from repro_torch.core import connectivity as TCN
 from repro_torch.fl.callbacks import JsonlMetricsCallback as TJsonl
 from repro_torch.fl.engine import EngineConfig as TEC
 from repro_torch.fl.engine import SimulationEngine
+from repro_torch.tree import tree_leaves
 from repro_torch.weights import params_from_numpy, params_to_numpy
 
 NUM_VAL = 200
@@ -145,3 +147,35 @@ def test_engine_rejects_unported_layers(runs):
                              device="cpu", **{name: object()})
     with pytest.raises(NotImplementedError, match="later slice"):
         tfed.engine(device="cpu", mesh=object())
+
+
+def assert_views_of_one_buffer(engine):
+    """Every leaf of `engine.params` is a view of one flat buffer at the
+    engine's layout, whose elements between leaves are 0."""
+    leaves = tree_leaves(engine.params)
+    buf = engine.layout.buffer_of(leaves)
+    assert buf is not None and buf.shape == (engine.layout.size,)
+    assert all(leaf.untyped_storage().data_ptr()
+               == buf.untyped_storage().data_ptr() for leaf in leaves)
+    between = torch.ones(buf.shape, dtype=torch.bool)
+    for off, shape in zip(engine.layout.offsets, engine.layout.shapes):
+        between[off:off + int(np.prod(shape))] = False
+    assert not buf[between].any()
+    return buf
+
+
+def test_params_are_views_of_one_buffer(runs):
+    """After `prepare()` and after the run's aggregations the engine's
+    parameters are views of one buffer (each aggregation's output), and
+    the checkpoints it keeps are such trees too."""
+    (_, reng, _), (tfed, teng, _), _ = runs
+    assert teng.result.num_global_updates > 3
+    after = assert_views_of_one_buffer(teng)
+    fresh = tfed.engine(init_params=params_from_numpy(
+        jax.tree.map(np.asarray, reng.params), "cpu"), device="cpu")
+    fresh.prepare()
+    before = assert_views_of_one_buffer(fresh)
+    assert before.data_ptr() != after.data_ptr()
+    for v in teng.store.versions():
+        assert teng.layout.buffer_of(tree_leaves(teng.store.get(v))) \
+            is not None

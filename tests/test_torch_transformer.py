@@ -31,6 +31,7 @@ from repro_torch.data.pipeline import make_clients as t_clients
 from repro_torch.fl.adapters import TransformerFmowAdapter as TTf
 from repro_torch.fl.client import make_batched_client_update as t_batched
 from repro_torch.fl.engine import EngineConfig as TEC
+from repro_torch.tree import tree_leaves
 from repro_torch.weights import params_from_numpy, params_to_numpy
 
 K = 10
@@ -223,3 +224,23 @@ def test_federation_metrics_and_final_model_within_tolerance(runs):
     for k in final_r:
         np.testing.assert_allclose(final_t[k], final_r[k], atol=1e-5,
                                    err_msg=k)
+
+
+
+def test_federation_params_are_views_of_one_buffer(runs):
+    """After the run's aggregations the transformer's 13 leaves are views
+    of one flat buffer (the last aggregation's output), each on 16 bytes,
+    with zeros between them."""
+    (_, _), (teng, tres) = runs
+    assert tres.num_global_updates > 3
+    leaves = tree_leaves(teng.params)
+    buf = teng.layout.buffer_of(leaves)
+    assert len(leaves) == 13 and buf is not None
+    assert buf.shape == (teng.layout.size,)
+    assert all((leaf.data_ptr() - buf.data_ptr()) % 16 == 0
+               for leaf in leaves)
+    assert teng.layout.size > sum(leaf.numel() for leaf in leaves)
+    between = torch.ones(buf.shape, dtype=torch.bool)
+    for off, shape in zip(teng.layout.offsets, teng.layout.shapes):
+        between[off:off + int(np.prod(shape))] = False
+    assert not buf[between].any()
