@@ -22,7 +22,9 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      RMSNorm also the device and host time of a call and
      its kernels per call, two backward calls compared bit for bit, the
      other layouts' times at the zoo shape, and the host cost of the
-     pieces of a wrapper call; for attention the route (tensor cores or
+     pieces of a wrapper call, and at the path's shape the kernel's and
+     the float32 plain version's errors against float64 (`rmsnorm f64`);
+     for attention the route (tensor cores or
      CUDA cores) of both directions on every row, checked against the
      launch counts, the tensor-core backward's errors with P and dS in one
      bf16 part and in two, and at the path's and the zoo shape the device
@@ -51,7 +53,20 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      (`scripts/trace_aggregation.py`), aggregations of both paths traced
      (`aggregation trace`: kernels, copy kernels, device and host
      microseconds from the last client update to the new params);
-  6. one JSON line listing every ported kernel.
+  6. the FedSpace path (`fedspace` lines): (a) the quickstart world under
+     FedSpace with a histogram-only forest (no split on the status T)
+     through `Federation.from_experiment(exp).run()` on the card, launch
+     counts read around it (one aggregation launch per aggregation),
+     then on the CPU: counters and every re-plan's schedule equal; (b)
+     the quickstart's FedSpace row as a user runs it: phase 1 on the card
+     (its seconds, the regressor's in-sample R^2; the eq.-12 samples
+     generated twice, bit for bit alike, and the forest refitted on them
+     the federation's), the run on the card (wall, days to 35%, counters,
+     launches) and on the CPU with the same regressor: counters and
+     schedules equal; (c) one re-plan's `score_candidates` timed at the
+     quickstart's shape and the paper's (R 5000, K 191), with its device
+     events and time;
+  7. one JSON line listing every ported kernel.
 The last line is `{"ok": true,
 "device": {...}}`. Without a CUDA device, or away from the repository's
 sources, it exits nonzero and prints no result. Imports nothing of JAX or
@@ -439,6 +454,34 @@ def _rms_host_pieces(K, torch):
     return out
 
 
+def _rms_f64_errors(x, scale, dy, kernel, plain):
+    """The kernel's and the float32 plain version's errors against the
+    function computed in float64 from the same inputs, for y, rstd, dx and
+    dscale: `max_rel` is max |err| / max |f64 value|; `bias` is mean(err) /
+    mean(|err|), near 0 when the errors are rounding noise of either sign,
+    near 1 in size when an order of sums pushes them one way."""
+    xd, sd, dyd = x.double(), scale.double()[:, None, :], dy.double()
+    rstd = ((xd * xd).mean(-1, keepdim=True) + RMS_EPS).rsqrt()
+    xh = xd * rstd
+    gy = dyd * sd
+    exact = (xh * sd, rstd.reshape(-1),
+             rstd * (gy - xh * (gy * xh).mean(-1, keepdim=True)),
+             (dyd * xh).sum(-2))
+    out = {"shape": list(x.shape), "dtype": str(x.dtype)}
+    for name, k, p, e in zip(("y", "rstd", "dx", "dscale"), kernel, plain,
+                             exact):
+        top = float(e.abs().max())
+        row = {}
+        for who, got in (("kernel", k), ("plain_f32", p)):
+            err = got.double().reshape(e.shape) - e
+            row[who + "_max_rel"] = float(err.abs().max()) / top
+            mean_abs = float(err.abs().mean())
+            row[who + "_bias"] = float(err.mean()) / mean_abs \
+                if mean_abs else 0.0
+        out[name] = row
+    return out
+
+
 def check_rmsnorm(torch):
     """Phase 3: RMSNorm forward and backward against the plain version,
     with the host and device time of a call and its kernel count."""
@@ -471,6 +514,10 @@ def check_rmsnorm(torch):
                                     dt, grad=True)
         if not (torch.equal(dx, dx2) and torch.equal(ds, ds2)):
             raise AssertionError(f"{tag}: two backward calls differ")
+        if (G, R, D) == RMS_PATH and dts == "float32":
+            print("rmsnorm f64", json.dumps(_rms_f64_errors(
+                x, scale, dy, (y, rstd, dx, ds),
+                (y_ref, rstd_ref, dx_ref, ds_ref))), flush=True)
         big = x.numel() >= 1 << 24
         iters = 20 if big else 200
         n, b = x.numel(), x.element_size()
@@ -1282,6 +1329,251 @@ def check_client_update(torch, card, cpu, train):
                                      f"differs beyond tolerance")
 
 
+# The quickstart's FedSpace row (examples/quickstart.py): the schedule
+# search's knobs and phase 1's setup.
+FEDSPACE_PARAMS = {"I0": 24, "n_min": 4, "n_max": 8, "num_candidates": 500}
+FEDSPACE_SETUP = {"pretrain_rounds": 25, "clients_per_round": 16,
+                  "utility_samples": 120, "local_steps": 16,
+                  "client_lr": 1.0}
+T_FEATURE = 12           # the training status T among the 13 features
+
+
+def fedspace_experiment(params, setup=None):
+    """The quickstart world under FedSpace with `params` (and phase-1
+    `setup`)."""
+    import dataclasses
+    from repro_torch.fl.api import SchedulerConfig
+    return dataclasses.replace(
+        quickstart_experiment(), name="quickstart-fedspace",
+        scheduler=SchedulerConfig(kind="fedspace", params=params,
+                                  setup=setup or {}))
+
+
+class Replans:
+    """Records every re-plan of the FedSpace schedulers (global version,
+    status T, chosen schedule) by wrapping `search.fedspace_search`, which
+    the scheduler calls through its module, while the block runs."""
+
+    def __enter__(self):
+        from repro_torch.core import search
+        self.log, self._inner = [], search.fedspace_search
+
+        def recording(rng, C_window, state, ig, regressor, status, **kw):
+            out = self._inner(rng, C_window, state, ig, regressor, status,
+                              **kw)
+            self.log.append({"ig": int(ig), "status": float(status),
+                             "schedule": out.copy()})
+            return out
+        search.fedspace_search = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import search
+        search.fedspace_search = self._inner
+
+
+def _same_schedules(card, cpu, regressor=None):
+    """Every re-plan's schedule equal, card against CPU. On the first
+    difference, print both re-plans (their statuses) and the forest
+    threshold on T nearest to them, then fail."""
+    if len(card) == len(cpu) and all(
+            (a["schedule"] == b["schedule"]).all()
+            for a, b in zip(card, cpu)):
+        return
+    j = next((j for j, (a, b) in enumerate(zip(card, cpu))
+              if not (a["schedule"] == b["schedule"]).all()),
+             min(len(card), len(cpu)))
+    print(f"re-plans: card {len(card)}, CPU {len(cpu)}; first difference "
+          f"at re-plan {j}", flush=True)
+    for side, log in (("card", card), ("CPU", cpu)):
+        if j < len(log):
+            print(f"  {side}: ig {log[j]['ig']} status {log[j]['status']!r}"
+                  f" schedule {log[j]['schedule'].tolist()}", flush=True)
+    if regressor is not None and j < min(len(card), len(cpu)):
+        fa = regressor.arrays()
+        th = fa.thresh[fa.feature == T_FEATURE]
+        st = card[j]["status"]
+        near = float(th[abs(th - st).argmin()]) if th.size else None
+        print(f"  nearest forest threshold on T: {near!r} "
+              f"({th.size} splits on T)", flush=True)
+    raise AssertionError("FedSpace schedules differ, card against CPU")
+
+
+def _hist_forest(seed=3, s_max=8, n=400):
+    """A forest over staleness histograms whose training features all
+    carry status 1.0 (tests/test_hotpath_parity.py's fixture, fitted with
+    the port's forest): no split is on T, so a schedule cannot depend on
+    the float val loss."""
+    import numpy as np
+    from repro_torch.core.utility import RandomForestRegressor, featurize
+    rng = np.random.default_rng(seed)
+    hists = rng.integers(0, 25, (n, s_max + 1)).astype(np.float32)
+    X = featurize(hists, 1.0)
+    s = np.arange(s_max + 1, dtype=np.float32)
+    y = ((hists * (1.2 - 0.3 * s)).sum(1) / np.maximum(hists.sum(1), 1.0)
+         + 0.05 * rng.normal(size=n)).astype(np.float32)
+    return RandomForestRegressor(n_trees=20, max_depth=6, seed=seed).fit(X, y)
+
+
+def _fedspace_runs(torch, exp, card_fed, p0, tag):
+    """The run on the card (launch counts read around it), then the same
+    experiment on the CPU from `p0`; counters, schedules and final
+    accuracy compared. Returns (card result, launch counts)."""
+    import math
+    from repro_torch.fl.api import Federation
+    from repro_torch.kernels import launch_counts
+    launch_counts.clear()
+    t0 = time.perf_counter()
+    with Replans() as card:
+        res = card_fed.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    print(f"fedspace {tag} (cuda):", json.dumps(res.summary()), flush=True)
+    d = res.time_to_target_days
+    print(f"fedspace {tag} (cuda): wall {wall:.3f} s, days_to_35%="
+          f"{d if d else 'not reached'} updates={res.num_global_updates} "
+          f"idle={res.idle_connections}/{res.total_connections} "
+          f"staleness_hist={res.staleness_hist.tolist()}, re-plans "
+          f"{len(card.log)}, launches {counts}", flush=True)
+    _one_launch_per_aggregation(res, counts)
+    if not all(math.isfinite(a) for a in res.accuracy + res.val_loss):
+        raise AssertionError("non-finite accuracy or loss on the card")
+    t0 = time.perf_counter()
+    with Replans() as cpu_log:
+        cpu = Federation.from_experiment(exp, device="cpu").run(
+            init_params=p0)
+    print(f"fedspace {tag} (cpu): ", json.dumps(cpu.summary()),
+          f"wall {time.perf_counter() - t0:.3f} s", flush=True)
+    _same_counters(res, cpu)
+    _same_schedules(card.log, cpu_log.log, card_fed.scheduler.regressor)
+    print(f"fedspace {tag}: {len(card.log)} re-plans, schedules equal, card"
+          f" against CPU", flush=True)
+    _close_accuracy(res, cpu, 0.01)
+    return res, counts
+
+
+def run_fedspace_path(torch):
+    """Phase 6, the FedSpace path. (a) the quickstart world with a
+    histogram-only forest, card against CPU; (b) the quickstart's FedSpace
+    row as a user runs it: phase 1 on the card (its samples generated
+    twice, bit for bit alike), the run on the card, then on the CPU with
+    the same regressor; (c) the re-plan's cost. Returns the launch counts
+    of (b)'s card run."""
+    import numpy as np
+    from repro_torch.core.utility import RandomForestRegressor
+    from repro_torch.fl.api import Federation, SchedulerConfig
+    from repro_torch.fl.fedspace_setup import (phase1_samples,
+                                               pretrain_trajectory)
+    from repro_torch.weights import params_to_numpy
+
+    # (a)
+    exp = fedspace_experiment({**FEDSPACE_PARAMS,
+                               "regressor": _hist_forest()})
+    fed = Federation.from_experiment(exp)
+    p0 = params_to_numpy(fed.adapter.init(torch.Generator().manual_seed(
+        exp.seed)))
+    _fedspace_runs(torch, exp, fed, p0, "histogram forest")
+
+    # (b) phase 1 as the quickstart builds it: a FedBuff world, then
+    # with_scheduler
+    base = Federation.from_experiment(quickstart_experiment())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fs = base.with_scheduler(SchedulerConfig(
+        kind="fedspace", params=FEDSPACE_PARAMS, setup=FEDSPACE_SETUP))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    d = fs.scheduler_diag
+    print(f"fedspace phase 1 (cuda): {secs:.3f} s, regressor R^2="
+          f"{d['r2_in_sample']!r} on {d['n']} (s, T) -> dF samples, "
+          f"y_mean {d['y_mean']!r}, y_std {d['y_std']!r}", flush=True)
+    # phase 1 again, part by part: the samples twice, the forest refitted
+    setup, parts = FEDSPACE_SETUP, {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        parts.setdefault(name, []).append(time.perf_counter() - t0)
+        return out
+    traj = timed("pretrain", lambda: pretrain_trajectory(
+        fs.adapter, rounds=setup["pretrain_rounds"],
+        clients_per_round=setup["clients_per_round"],
+        local_steps=setup["local_steps"], client_lr=setup["client_lr"]))
+    kw = dict(n_samples=setup["utility_samples"],
+              local_steps=setup["local_steps"],
+              client_lr=setup["client_lr"])
+    X1, y1 = timed("samples", lambda: phase1_samples(fs.adapter, traj, **kw))
+    X2, y2 = timed("samples", lambda: phase1_samples(fs.adapter, traj, **kw))
+    if not (np.array_equal(X1, X2) and np.array_equal(y1, y2)):
+        raise AssertionError("phase-1 samples differ between two "
+                             "generations on the card")
+    refit = timed("forest_fit", lambda: RandomForestRegressor(seed=0).fit(
+        X1, y1)).arrays()
+    fitted = fs.scheduler.regressor.arrays()
+    if not all(np.array_equal(getattr(refit, f), getattr(fitted, f))
+               for f in ("feature", "thresh", "left", "right", "value")):
+        raise AssertionError("phase 1 repeated gives another forest")
+    print(f"fedspace phase 1 (cuda): samples ({X1.shape[0]} x "
+          f"{X1.shape[1]}) bit for bit alike in two generations, and the "
+          f"forest refitted on them is the federation's; seconds by part "
+          f"{json.dumps(parts)}", flush=True)
+    p0 = params_to_numpy(fs.adapter.init(torch.Generator().manual_seed(
+        fs.experiment.seed)))
+    row = fedspace_experiment({**FEDSPACE_PARAMS,
+                               "regressor": fs.scheduler.regressor})
+    res, counts = _fedspace_runs(torch, row, fs, p0, "quickstart row")
+
+    # (c)
+    time_replans(torch, fs.scheduler.regressor,
+                 res.val_loss[0] if res.val_loss else 4.0)
+    return counts
+
+
+def time_replans(torch, regressor, status):
+    """Phase 6 (c): one re-plan's `score_candidates` (CUDA events over a
+    few calls, after a warm-up), its device events and device time
+    (`torch.profiler`), at the quickstart's shape (R 500, I0 24, K 40)
+    and the paper's (R 5000, I0 24, K 191, the flock191 preset), from a
+    random mid-run state; and the marks buffer's bytes, R·I0·K int8."""
+    import numpy as np
+    from repro_torch.core import connectivity as CN
+    from repro_torch.core import search as SR
+    from repro_torch.core import staleness as SS
+    for name, spec, R, iters in (
+            ("quickstart", CN.ConstellationSpec(num_satellites=40), 500, 20),
+            ("paper", CN.constellation_preset("flock191"), 5000, 10)):
+        I0 = FEDSPACE_PARAMS["I0"]
+        C = CN.connectivity_sets(spec, days=0.25)[:I0]
+        K = C.shape[1]
+        r = np.random.default_rng(0)
+        ig = 20
+        state = SS.SatState(*(torch.as_tensor(
+            r.integers(-1, ig + 1, K).astype(np.int32), device="cuda")
+            for _ in range(3)))
+        cands = SR.random_candidates(r, I0, 4, 8, R)
+
+        def replan():
+            return SR.score_candidates(cands, C, state, ig, regressor,
+                                       status)
+        scores = replan()
+        if scores.shape != (R,) or not np.isfinite(scores).all():
+            raise AssertionError(f"re-plan scores at {name}: not {R} "
+                                 f"finite values")
+        ms = _time_ms(replan, iters)
+        host_us, dev_us, per_call, _, events, by_name = _host_and_device(
+            replan, iters)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        row = {"shape": name, "R": R, "I0": I0, "K": K, "ms": ms,
+               "host_us": host_us, "device_us": dev_us,
+               "device_events_per_replan": per_call,
+               "marks_bytes": R * I0 * K,
+               "profiled": f"{events} kernel events over {iters} calls",
+               "slowest_kernels_us_per_event": top}
+        print("fedspace replan", json.dumps(row), flush=True)
+
+
 # ptxas's report of a kernel, from its mangled name - <length><name>I<template
 # arguments>E - to its registers: the tensor-core kernels (hd, and for dk/dv
 # and dq whether P and dS are split) and the short-sequence kernels (type,
@@ -1390,6 +1682,8 @@ def main() -> int:
     done("transformer path")
     trace_aggregations_apart()
     done("aggregation traces")
+    paths["fedspace"] = run_fedspace_path(torch)
+    done("fedspace path")
 
     # 6. the kernels line. One aggregation of the quickstart (one launch
     # over its flat model at M=20, float32); one SGD step of a

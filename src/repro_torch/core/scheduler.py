@@ -1,16 +1,20 @@
 """Aggregation schedulers — the indicator a^i policies of Algorithm 1.
 
-Sync (eq. 5), Async (eq. 6), FedBuff (eq. 7) and a periodic baseline,
-behind one interface so the engine (`repro_torch.fl.engine`) is
-policy-agnostic. The port runs the per-window host loop, so a scheduler
-answers through `decide` alone (the reference's `device_plan` feeds its
-chunked fast loop, which the port does not have yet). FedSpace (§3) comes
-with a later slice.
+Sync (eq. 5), Async (eq. 6), FedBuff (eq. 7), a periodic baseline and
+FedSpace (§3: every I0 windows, an eq.-13 random search against the
+utility regressor û), behind one interface so the engine
+(`repro_torch.fl.engine`) is policy-agnostic. The port runs the
+per-window host loop, so a scheduler answers through `decide` alone (the
+reference's `device_plan` feeds its chunked fast loop, which comes with
+ROADMAP A.8).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 
+from repro_torch.core import search as SR
 from repro_torch.core import staleness as SS
 from repro_torch.fl.registry import SCHEDULERS, register_scheduler
 
@@ -92,6 +96,95 @@ class PeriodicScheduler(Scheduler):
 
     def decide(self, i, *, n_in_buffer, **_):
         return n_in_buffer > 0 and (i + 1) % self.period == 0
+
+
+@register_scheduler("fedspace")
+class FedSpaceScheduler(Scheduler):
+    """The paper's scheduler: every I0 windows, random-search a schedule for
+    the next I0 windows against the utility regressor û, using the known
+    future connectivity and current protocol state (eq. 13). The search
+    runs on the device of the engine's protocol state.
+
+    `n_min`/`n_max` None are inferred from û (`infer_n_range`, paper
+    §3.2) at each re-plan. The scheduler's rng (`np.random.default_rng(
+    seed)`) is drawn by `random_candidates` alone, once per re-plan, so
+    the candidate pools are the reference's. The replan service
+    (`service=`) and link-gated searches raise NotImplementedError
+    (ROADMAP A.10)."""
+    name = "fedspace"
+
+    def __init__(self, regressor, *, I0: int = 24, n_min: int = None,
+                 n_max: int = None, num_candidates: int = 5000,
+                 s_max: int = 8, seed: int = 0, service=None):
+        if service is not None:
+            raise SR._later("the replan service (FedSpaceScheduler(service="
+                         "...))", "replanning")
+        self.regressor = regressor
+        self.I0 = I0
+        self.n_min = n_min       # None => inferred from û (paper §3.2)
+        self.n_max = n_max
+        self.num_candidates = num_candidates
+        self.s_max = s_max
+        self.seed = seed
+        self.reset()
+
+    def reset(self):
+        self._rng = np.random.default_rng(self.seed)
+        self._schedule: Optional[np.ndarray] = None
+        self._window_start = -1
+
+    def _window_link(self, link, i):
+        """The run-level link gate sliced to the planning window: None
+        without link budgets; link gates raise (ROADMAP A.10)."""
+        if link is None:
+            return None
+        raise SR._later("link-gated FedSpace search", "link-budget")
+
+    @staticmethod
+    def _search_state(state, i, *, connectivity, link):
+        """The state the search rolls from: the post-upload state itself
+        without link budgets; the reference's grant inversion for link
+        gates raises (ROADMAP A.10)."""
+        if link is None:
+            return state
+        raise SR._later("link-gated FedSpace search", "link-budget")
+
+    def _ensure_schedule(self, i, *, state, ig, connectivity, status,
+                         link=None):
+        """(Re-)plan at I0 boundaries (eq. 13). `state` must be the
+        post-upload state at window i — that is what `decide` receives from
+        the engine, and what the search's simulator assumes."""
+        if self._schedule is not None and \
+                (i % self.I0 != 0 or self._window_start == i):
+            return
+        Cw = connectivity[i:i + self.I0]
+        if Cw.shape[0] < self.I0:   # pad the tail of the horizon
+            pad = np.zeros((self.I0 - Cw.shape[0], Cw.shape[1]), bool)
+            Cw = np.concatenate([Cw, pad], axis=0)
+        n_min, n_max = self.n_min, self.n_max
+        if n_min is None or n_max is None:
+            inf_min, inf_max = SR.infer_n_range(
+                self.regressor, float(Cw.mean(axis=1).sum()) / self.I0
+                * Cw.shape[1], self.I0, status, s_max=self.s_max,
+                K=Cw.shape[1])
+            n_min = n_min if n_min is not None else inf_min
+            n_max = n_max if n_max is not None else inf_max
+        search_state = self._search_state(state, i,
+                                          connectivity=connectivity,
+                                          link=link)
+        self._schedule = SR.fedspace_search(
+            self._rng, Cw, search_state, ig, self.regressor, status,
+            n_min=n_min, n_max=n_max, num_candidates=self.num_candidates,
+            s_max=self.s_max, link=self._window_link(link, i))
+        self._window_start = i
+
+    def decide(self, i, *, n_in_buffer, K, state, ig, connectivity, status,
+               link=None, **_):
+        self._ensure_schedule(i, state=state, ig=ig,
+                              connectivity=connectivity, status=status,
+                              link=link)
+        a = bool(self._schedule[i - self._window_start])
+        return a and n_in_buffer > 0
 
 
 def make_scheduler(name: str, **kw) -> Scheduler:

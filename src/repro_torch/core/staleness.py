@@ -12,14 +12,25 @@ Protocol semantics (Algorithm 1 + Appendix A):
   aggregation happened between its two previous contacts — eq. 10).
 
 The port of `repro.core.staleness` for geometry-only runs: the transitions
-here match the reference's exactly on integer state. Link-budget gating
-(`LinkGate`, the `progress` column), the ISL `relay` column, the compact
-staleness marks and the vectorised window simulators (`simulate_window`,
-`simulate_candidates`) come with later slices of the port.
+here match the reference's exactly on integer state, and are
+dtype-preserving, so int16-narrowed search states stay int16.
+`simulate_window` rolls them over a scheduling window (the reference's
+`lax.scan`, here a Python loop over the I0 windows) and
+`simulate_candidates` over a batch of candidate schedules, the candidate
+axis a leading batch dimension of the state (the reference's `vmap`): the
+inner loop of the FedSpace random search (eq. 13).
+
+Batching rule: the global version `ig` carries the batch dimensions. With
+a scalar `ig` the whole state is one protocol instance (the reference's
+un-vmapped call); with an `ig` of shape B the state is (*B, K), one
+instance per batch index, each with its own empty-buffer guard and
+counters (the reference under `vmap`). Link-budget gating (`LinkGate`,
+the `progress` column), the ISL `relay` column and the satellite-axis
+mesh (`axis_name`) come with the scenario-layer slice (ROADMAP A.10).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -62,97 +73,178 @@ def bootstrap_state(K: int, *, device=None) -> SatState:
 
 # ---------------------------------------------------------------------------
 # Algorithm-1 sub-transitions. The engine drives these three functions one
-# window at a time; `step` is their composition.
+# window at a time; `step` is their composition, and `simulate_window`
+# scans it.
 
 
-def upload_step(state: SatState, ig, connected):
+def _no_link(link=None, axis_name=None):
+    if link is not None or axis_name is not None:
+        what = "link gates (LinkGate)" if link is not None \
+            else "a sharded satellite axis (axis_name)"
+        raise NotImplementedError(
+            f"{what} are not ported yet: they come with the scenario-layer "
+            f"slice of the port (ROADMAP A.10)")
+
+
+def _batched(ig, ref):
+    """(ig, ig_b, nb): `ig` as a tensor of `ref`'s dtype and device,
+    the same with a unit dim for each state dim it lacks (to broadcast
+    against the state), and the number of batch dims it carries."""
+    ig = torch.as_tensor(ig, dtype=ref.dtype, device=ref.device)
+    nb = ig.dim()
+    return ig, ig.reshape(ig.shape + (1,) * (ref.dim() - nb)), nb
+
+
+def _count(mask, nb):
+    """int32 count of `mask` over all but its first `nb` dims."""
+    return mask.flatten(nb).sum(-1, dtype=torch.int32)
+
+
+def upload_step(state: SatState, ig, connected, link=None, *,
+                axis_name=None):
     """Phase 1 of a time index: connected satellites hand their pending
     update to the GS buffer; idle contacts (eq. 10) are counted.
 
     Masked `torch.where` updates over the dense (..., K) state,
-    dtype-preserving. `connected` is a (..., K) bool tensor.
+    dtype-preserving. `connected` is a (..., K) bool tensor. `ig` carries
+    the batch dims (module docstring). `link` and `axis_name` raise
+    NotImplementedError (ROADMAP A.10).
 
     Returns (new_state, info) with masks/counters on the device:
-      uploads (K,) bool, idle (K,) bool,
-      n_connected, n_idle, n_buffered — int32 scalars.
+      uploads (..., K) bool, idle (..., K) bool,
+      n_connected, n_idle, n_buffered — int32, one per batch index.
     """
+    _no_link(link, axis_name)
+    _, ig_b, nb = _batched(ig, state.version)
     has_pending = state.pending >= 0
     uploads = connected & has_pending
     buffered = torch.where(uploads, state.pending, state.buffered)
     pending = torch.where(uploads, -1, state.pending)
     # idle: connected, nothing to send, nothing new to fetch (eq. 10)
-    idle = connected & ~has_pending & (state.version == ig)
+    idle = connected & ~has_pending & (state.version == ig_b)
+    conn = connected.expand(idle.shape) if nb else connected
     info = {"uploads": uploads, "idle": idle,
-            "n_connected": connected.sum(dtype=torch.int32),
-            "n_idle": idle.sum(dtype=torch.int32),
-            "n_buffered": (buffered >= 0).sum(dtype=torch.int32)}
+            "n_connected": _count(conn, nb),
+            "n_idle": _count(idle, nb),
+            "n_buffered": _count(buffered >= 0, nb)}
     return SatState(state.version, pending, buffered), info
 
 
 def aggregate_step(state: SatState, ig, aggregate, *, s_max: int,
-                   collect: str = "hist"):
+                   collect: str = "hist", axis_name=None):
     """Phase 2: when a^i = 1 and the buffer is non-empty, consume the buffer
     and advance the global version (a no-op on an empty buffer — eq. 4 has
     nothing to sum; the global version must not advance spuriously).
 
     Args:
-      state: SatState (..., K).
-      ig: global round index (int or int32 scalar tensor).
-      aggregate: the schedule indicator a^i (bool or bool scalar tensor).
-      s_max: staleness histogram clip.
-      collect: ``"hist"`` (default) emits {hist (s_max+1,), n_aggregated,
-        max_staleness, aggregated (K,)}; ``"none"`` emits {} (transition
-        only — the engine keeps its own staleness bookkeeping).
+      state: SatState (..., K); any signed-int dtype (the transition is
+        dtype-preserving, so narrow-state callers stay narrow).
+      ig: global round index (int or int tensor; it carries the batch
+        dims, see the module docstring).
+      aggregate: the schedule indicator a^i (bool, or a bool tensor of
+        `ig`'s shape).
+      s_max: staleness histogram / marks clip.
+      collect: which diagnostics to emit —
+        * ``"hist"`` (default): {hist (..., s_max+1), n_aggregated,
+          max_staleness, aggregated (..., K)};
+        * ``"marks"``: {marks (..., K)} — each aggregated satellite's
+          clipped staleness, -1 for satellites not aggregated this index
+          (int8 when s_max <= 126; see `hist_from_marks`);
+        * ``"none"``: {} — the transition only.
+      axis_name: raises NotImplementedError (ROADMAP A.10).
 
-    Returns (new_state, new_ig, info); new_ig is an int32 scalar tensor.
+    Returns (new_state, new_ig, info); new_ig is a tensor of `ig`'s shape
+    in the state's dtype.
     """
-    if collect not in ("hist", "none"):
-        raise ValueError(f"collect must be 'hist' or 'none', got {collect!r}"
-                         " (staleness marks come with a later slice)")
-    device = state.buffered.device
+    _no_link(axis_name=axis_name)
+    if collect not in ("hist", "marks", "none"):
+        raise ValueError(f"collect must be 'hist', 'marks' or 'none', got "
+                         f"{collect!r}")
+    ig, ig_b, nb = _batched(ig, state.buffered)
     in_buffer = state.buffered >= 0
     aggregate = torch.as_tensor(aggregate, dtype=torch.bool,
-                                device=device) & in_buffer.any()
-    ig = torch.as_tensor(ig, dtype=state.buffered.dtype, device=device)
+                                device=ig.device) \
+        & in_buffer.flatten(nb).any(-1)
     new_ig = ig + aggregate.to(ig.dtype)
-    buffered = torch.where(aggregate, -1, state.buffered)
+    agg_b = aggregate.reshape(aggregate.shape
+                              + (1,) * (in_buffer.dim() - nb))
+    buffered = torch.where(agg_b, -1, state.buffered)
     new_state = SatState(state.version, state.pending, buffered)
     if collect == "none":
         return new_state, new_ig, {}
-    counted = in_buffer & aggregate
-    stale = torch.where(in_buffer, ig - state.buffered, 0)
+    counted = in_buffer & agg_b
+    if collect == "marks":
+        stale_c = (ig_b - state.buffered).clamp(0, s_max)
+        marks = torch.where(counted, stale_c, -1).to(marks_dtype(s_max))
+        return new_state, new_ig, {"marks": marks}
+    stale = torch.where(in_buffer, ig_b - state.buffered, 0)
     stale_c = stale.clamp(0, s_max)
-    levels = torch.arange(s_max + 1, dtype=stale_c.dtype, device=device)
+    levels = torch.arange(s_max + 1, dtype=stale_c.dtype,
+                          device=stale_c.device)
     hist = ((stale_c[..., None] == levels) & counted[..., None]).sum(
         dim=-2, dtype=torch.int32)
-    info = {"hist": hist, "n_aggregated": counted.sum(dtype=torch.int32),
-            "max_staleness": torch.where(counted, stale, 0).max(),
+    info = {"hist": hist, "n_aggregated": _count(counted, nb),
+            "max_staleness": torch.where(counted, stale, 0).flatten(
+                nb).amax(-1),
             "aggregated": counted}
     return new_state, new_ig, info
 
 
-def download_step(state: SatState, ig, connected):
+def marks_dtype(s_max: int):
+    """Narrowest dtype that can hold clipped staleness marks (-1..s_max)."""
+    return torch.int8 if s_max <= 126 else torch.int32
+
+
+def hist_from_marks(marks, *, s_max: int, dtype=torch.int32):
+    """Staleness histograms from aggregation `marks`, batched over any
+    leading axes: (..., K) -> (..., s_max+1).
+
+    `marks` holds each aggregated satellite's clipped staleness and -1
+    everywhere else (the ``collect="marks"`` output of `aggregate_step` /
+    `step`), so counting value matches recovers exactly the integer counts
+    the in-step ``"hist"`` path emits. (The reference counts in blocks of
+    eight with int8 partial sums, a CPU trick; the integers are the same.)
+    """
+    levels = torch.arange(s_max + 1, dtype=marks.dtype, device=marks.device)
+    return (marks[..., None] == levels).sum(dim=-2, dtype=dtype)
+
+
+def download_step(state: SatState, ig, connected, link=None):
     """Phase 3: connected satellites fetch the current global model and, if
     it is newer than what they last received, start a fresh local round.
+    Dtype-preserving; `ig` carries the batch dims; `link` raises
+    NotImplementedError (ROADMAP A.10).
 
     Returns (new_state, info) with the download mask on the device.
     """
-    ig = torch.as_tensor(ig, dtype=state.version.dtype,
-                         device=state.version.device)
-    done = connected & (state.version < ig)
-    version = torch.where(done, ig, state.version)
-    pending = torch.where(done, ig, state.pending)
+    _no_link(link)
+    _, ig_b, _ = _batched(ig, state.version)
+    done = connected & (state.version < ig_b)
+    version = torch.where(done, ig_b, state.version)
+    pending = torch.where(done, ig_b, state.pending)
     return SatState(version, pending, state.buffered), {"downloads": done}
 
 
 def step(state: SatState, ig, connected, aggregate, *, s_max: int,
-         collect: str = "hist"):
+         collect: str = "hist", link=None, axis_name=None):
     """One time index of the protocol: upload ∘ aggregate ∘ download.
 
+    Args:
+      state: SatState (..., K); any signed-int dtype (dtype-preserving).
+      ig: global round index (carries the batch dims).
+      connected: (K,) or (..., K) bool — C_i.
+      aggregate: a^i, bool or a bool tensor of `ig`'s shape.
+      s_max: staleness histogram clip.
+      collect: ``"hist"`` (default), ``"marks"`` or ``"none"`` (see
+        `aggregate_step`).
+      link, axis_name: raise NotImplementedError (ROADMAP A.10).
+
     Returns (new_state, new_ig, info) where info (collect="hist") has:
-      hist: (s_max+1,) counts of aggregated gradients per clipped staleness
-      n_aggregated, n_idle, max_staleness (only meaningful when aggregate)
+      hist: (..., s_max+1) counts of aggregated gradients per clipped
+      staleness; n_aggregated, n_idle, max_staleness (only meaningful when
+      aggregating); under "marks" and "none", `aggregate_step`'s info.
     """
+    _no_link(link, axis_name)
     state, up = upload_step(state, ig, connected)
     state, new_ig, agg = aggregate_step(state, ig, aggregate, s_max=s_max,
                                         collect=collect)
@@ -162,3 +254,58 @@ def step(state: SatState, ig, connected, aggregate, *, s_max: int,
     info = {"hist": agg["hist"], "n_aggregated": agg["n_aggregated"],
             "n_idle": up["n_idle"], "max_staleness": agg["max_staleness"]}
     return state, new_ig, info
+
+
+def simulate_window(C_window, a, state: SatState, ig, *, s_max: int = 8,
+                    lite: bool = False, collect: Optional[str] = None,
+                    link=None, axis_name=None):
+    """Roll the protocol over a scheduling window.
+
+    Args:
+      C_window: (I0, K) bool future connectivity (deterministic!).
+      a: (..., I0) {0,1} aggregation schedules; leading dims are a batch
+        of candidates, each rolled from the same `state` and `ig`.
+      state, ig: protocol state (K,) and global version at window start.
+      lite: emit only the staleness histograms.
+      collect: overrides `lite` when given — ``"hist"`` (= lite=False),
+        ``"marks"`` (infos carry only marks (..., I0, K), recovered into
+        histograms by `hist_from_marks`), or ``"none"`` (infos empty).
+      link, axis_name: raise NotImplementedError (ROADMAP A.10).
+
+    Returns (final_state (..., K), final_ig (...), infos) with infos
+    stacked over I0 after the batch dims: hist (..., I0, s_max+1) and,
+    unless lite, n_aggregated, n_idle, max_staleness (..., I0) — or marks
+    (..., I0, K) under collect="marks".
+    """
+    _no_link(link, axis_name)
+    keep = ("hist",) if collect is None and lite else None
+    collect = collect or "hist"
+    C_window = torch.as_tensor(C_window, dtype=torch.bool,
+                               device=state.version.device)
+    a = torch.as_tensor(a, device=C_window.device) != 0
+    batch = a.shape[:-1]
+    state = SatState(*(x.expand(batch + x.shape) for x in state))
+    ig = torch.as_tensor(ig, dtype=state.version.dtype,
+                         device=C_window.device).expand(batch)
+    steps = []
+    for i in range(C_window.shape[0]):
+        state, ig, info = step(state, ig, C_window[i], a[..., i],
+                               s_max=s_max, collect=collect)
+        steps.append(info if keep is None
+                     else {k: info[k] for k in keep})
+    infos = {k: torch.stack([s[k] for s in steps], dim=len(batch))
+             for k in (steps[0] if steps else {})}
+    return state, ig, infos
+
+
+def simulate_candidates(C_window, candidates, state: SatState, ig, *,
+                        s_max: int = 8, lite: bool = False,
+                        collect: Optional[str] = None, link=None,
+                        axis_name=None):
+    """`simulate_window` over candidate schedules (R, I0): the candidate
+    axis is a leading batch dimension of the rolled state (the
+    reference's `vmap`). Returns (states (R, K), igs (R,), infos with a
+    leading R axis)."""
+    return simulate_window(C_window, candidates, state, ig, s_max=s_max,
+                           lite=lite, collect=collect, link=link,
+                           axis_name=axis_name)

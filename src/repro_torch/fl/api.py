@@ -18,10 +18,14 @@ x training/link options, every component referenced by registry name
     Federation.from_experiment(exp, device="cpu").run()  # on the CPU
 
 A world is built on one device: "cuda" unless the caller asks for the CPU,
-and building raises when no CUDA device is present. The parts of the
-reference this slice does not have yet — FedSpace scheduling, link
-budgets and uplink compression, ISLs, faults — raise NotImplementedError
-naming their slice; nothing silently runs something else instead.
+and building raises when no CUDA device is present. A FedSpace scheduler
+(`SchedulerConfig(kind="fedspace")`) runs its phase 1 — pretrain a source
+trajectory, generate the eq.-12 samples, fit û — on that device while the
+world is built (the forest's fit on the host), unless `params` hands it a
+ready `"regressor"`. The parts of the reference the port does not have
+yet — link budgets and uplink compression, ISLs, faults — raise
+NotImplementedError naming their slice; nothing silently runs something
+else instead.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ import repro_torch.core.scheduler  # noqa: F401 — registers the schedulers
 import repro_torch.fl.adapters  # noqa: F401 — registers the built-in adapters
 from repro_torch.device import resolve_device
 from repro_torch.fl.engine import EngineConfig, SimResult, SimulationEngine
+from repro_torch.fl.fedspace_setup import build_utility_regressor
 from repro_torch.fl.registry import (ADAPTERS, PARTITIONS, SCHEDULERS,
                                      register_partition)
 
@@ -123,7 +128,9 @@ class AdapterConfig:
 class SchedulerConfig:
     kind: str = "fedbuff"                  # registry key
     params: Dict = field(default_factory=dict)
-    # FedSpace phase-1 knobs; FedSpace comes with a later slice
+    # FedSpace phase-1 knobs (pretrain_rounds, utility_samples,
+    # local_steps, client_lr, ...) consumed by build_utility_regressor
+    # when kind == "fedspace" and no regressor is supplied in params.
     setup: Dict = field(default_factory=dict)
 
 
@@ -238,7 +245,8 @@ class Federation:
     data, adapter, scheduler — ready to produce `SimulationEngine`s."""
 
     def __init__(self, *, experiment: FLExperiment, spec, C: np.ndarray,
-                 data, adapter, device, scheduler=None):
+                 data, adapter, device, scheduler=None,
+                 _regressor_cache: Optional[Dict] = None):
         self.experiment = experiment
         self.spec = spec
         self.C = C
@@ -246,6 +254,11 @@ class Federation:
         self.adapter = adapter
         self.device = resolve_device(device)
         self.scheduler = scheduler
+        self.scheduler_diag: dict = {}
+        # FedSpace phase-1 (regressor, diag) keyed by setup knobs, shared
+        # across with_scheduler clones of this world
+        self._regressor_cache: Dict = ({} if _regressor_cache is None
+                                       else _regressor_cache)
 
     # -- construction -------------------------------------------------------
 
@@ -272,14 +285,29 @@ class Federation:
                                  **exp.adapter.params)
         fed = cls(experiment=exp, spec=spec, C=C, data=data,
                   adapter=adapter, device=device)
-        fed.scheduler = fed._build_scheduler(exp)
+        fed.scheduler, fed.scheduler_diag = fed._build_scheduler(exp)
         return fed
 
     def _build_scheduler(self, exp: FLExperiment):
+        """(scheduler, diagnostics): FedSpace without a ready regressor
+        runs phase 1 (paper §3.2) on the world's adapter first, once per
+        setup — the (regressor, diag) pair is cached and shared with
+        `with_scheduler` clones."""
         cfg = exp.scheduler
-        if cfg.kind == "fedspace":
-            raise _later("the FedSpace scheduler", "FedSpace-scheduling")
-        return SCHEDULERS.build(cfg.kind, **cfg.params)
+        if cfg.kind == "fedspace" and "regressor" not in cfg.params:
+            # s_max must agree between regressor training and schedule
+            # search — resolve once, apply to both phases
+            s_max = cfg.params.get("s_max", cfg.setup.get("s_max", 8))
+            setup = {"seed": exp.seed, **cfg.setup, "s_max": s_max}
+            key = repr(sorted(setup.items()))
+            if key not in self._regressor_cache:
+                self._regressor_cache[key] = build_utility_regressor(
+                    self.adapter, **setup)
+            reg, diag = self._regressor_cache[key]
+            params = {"seed": exp.seed, **cfg.params, "s_max": s_max,
+                      "regressor": reg}
+            return SCHEDULERS.build("fedspace", **params), diag
+        return SCHEDULERS.build(cfg.kind, **cfg.params), {}
 
     def connectivity_summary(self, *, windows_per_day: int = 96) -> dict:
         """Scalar Fig.-2 connectivity statistics for this world's C
@@ -294,14 +322,16 @@ class Federation:
     def with_scheduler(self, scheduler: Union[str, SchedulerConfig],
                        **params) -> "Federation":
         """Same world, different aggregation policy — for scheduler
-        comparisons without rebuilding constellation/data."""
+        comparisons without rebuilding constellation/data (or, for
+        FedSpace variants with identical `setup`, the utility regressor)."""
         cfg = (SchedulerConfig(kind=scheduler, params=params)
                if isinstance(scheduler, str) else scheduler)
         exp = dataclasses.replace(self.experiment, scheduler=cfg)
         fed = Federation(experiment=exp, spec=self.spec, C=self.C,
                          data=self.data, adapter=self.adapter,
-                         device=self.device)
-        fed.scheduler = fed._build_scheduler(exp)
+                         device=self.device,
+                         _regressor_cache=self._regressor_cache)
+        fed.scheduler, fed.scheduler_diag = fed._build_scheduler(exp)
         return fed
 
     # -- running ------------------------------------------------------------

@@ -743,3 +743,132 @@ def test_each_backward_takes_the_other_forwards_o_and_lse():
                     assert not a.isnan().any()
                     torch.testing.assert_close(a.float(), b.float(),
                                                **_card_tol(dt, True))
+
+
+# --------------------------------------------------------------------------
+# FedSpace scheduling on the card
+
+
+def _hist_forest(seed=3, s_max=8, n=400):
+    """A forest over staleness histograms at status 1.0 (the fixture of
+    tests/test_hotpath_parity.py, fitted with the port's own forest): no
+    split is on T, so a schedule cannot depend on the float val loss."""
+    from repro_torch.core.utility import RandomForestRegressor, featurize
+    rng = np.random.default_rng(seed)
+    hists = rng.integers(0, 25, (n, s_max + 1)).astype(np.float32)
+    X = featurize(hists, 1.0)
+    s = np.arange(s_max + 1, dtype=np.float32)
+    y = ((hists * (1.2 - 0.3 * s)).sum(1) / np.maximum(hists.sum(1), 1.0)
+         + 0.05 * rng.normal(size=n)).astype(np.float32)
+    return RandomForestRegressor(n_trees=20, max_depth=6, seed=seed).fit(X, y)
+
+
+def _tiny_fedspace_run(device, rf, monkeypatch):
+    """The tiny world of tests/test_hotpath_parity.py (16 satellites, 1
+    day) under FedSpace(I0 8, 64 candidates, seed 11), 64 windows; returns
+    (result, the re-plans' schedules)."""
+    from repro_torch.core import search as TSR
+    from repro_torch.core.scheduler import FedSpaceScheduler
+    log = []
+    inner = TSR.fedspace_search
+
+    def recording(*args, **kw):
+        out = inner(*args, **kw)
+        log.append(np.asarray(out).copy())
+        return out
+    monkeypatch.setattr(TSR, "fedspace_search", recording)
+    try:
+        C = TCN.connectivity_sets(TCN.ConstellationSpec(num_satellites=16),
+                                  days=1.0)
+        adapter = MlpFmowAdapter(SyntheticFmow(FmowSpec(num_train=800,
+                                                        num_val=200)),
+                                 make_clients(iid_partition(800, 16, 0)),
+                                 device=device)
+        res = SimulationEngine(
+            C, adapter, FedSpaceScheduler(rf, I0=8, num_candidates=64,
+                                          seed=11),
+            EngineConfig(eval_every=8, max_windows=64,
+                         stop_at_target=False), device=device).run()
+    finally:
+        monkeypatch.undo()
+    return res, log
+
+
+@pytest.mark.gpu
+def test_fedspace_run_on_the_card_matches_the_cpu(monkeypatch):
+    """Counters, staleness histogram and every re-plan's schedule exact,
+    card against CPU, with one aggregation launch per aggregation."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device with nvcc")
+    rf = _hist_forest()
+    launch_counts.clear()
+    card, card_log = _tiny_fedspace_run("cuda", rf, monkeypatch)
+    assert launch_counts["weighted_aggregate"] == card.num_global_updates > 3
+    cpu, cpu_log = _tiny_fedspace_run("cpu", rf, monkeypatch)
+    for name in ("num_global_updates", "num_aggregated_gradients",
+                 "idle_connections", "total_connections", "windows_run",
+                 "eval_windows"):
+        assert getattr(card, name) == getattr(cpu, name), name
+    np.testing.assert_array_equal(card.staleness_hist, cpu.staleness_hist)
+    assert len(card_log) == len(cpu_log) == 8
+    for a, b in zip(card_log, cpu_log):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_allclose(card.accuracy, cpu.accuracy,
+                               atol=1.0 / 200 + 1e-6)
+
+
+@pytest.mark.gpu
+def test_phase1_samples_repeat_bit_for_bit_on_the_card():
+    """Two generations of the eq.-12 samples on one trajectory on the
+    card give the same (X, y) bits: the accumulation has a fixed order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device with nvcc")
+    from repro_torch.fl.fedspace_setup import (phase1_samples,
+                                               pretrain_trajectory)
+    adapter = MlpFmowAdapter(SyntheticFmow(FmowSpec(num_train=800,
+                                                    num_val=200)),
+                             make_clients(iid_partition(800, 16, 0)),
+                             device="cuda")
+    traj = pretrain_trajectory(adapter, rounds=6, clients_per_round=8,
+                               local_steps=4, client_lr=1.0, seed=0)
+    kw = dict(n_samples=48, s_max=8, clients_per_sample=16, local_steps=4,
+              client_lr=1.0, seed=0)
+    X1, y1 = phase1_samples(adapter, traj, **kw)
+    X2, y2 = phase1_samples(adapter, traj, **kw)
+    np.testing.assert_array_equal(X1, X2)
+    np.testing.assert_array_equal(y1, y2)
+    assert np.abs(y1).max() > 0
+
+
+@pytest.mark.gpu
+def test_the_search_keeps_its_tensors_on_the_card():
+    """A re-plan on a world on the card makes no tensor on the CPU but the
+    (R,) score vector it brings back."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device with nvcc")
+    from torch.overrides import TorchFunctionMode
+    from repro_torch.core.scheduler import FedSpaceScheduler
+
+    class CpuTensors(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.made = []
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            outs = out if isinstance(out, (tuple, list)) else (out,)
+            if any(isinstance(t, torch.Tensor) and t.device.type == "cpu"
+                   for t in outs):
+                self.made.append(getattr(func, "__name__", str(func)))
+            return out
+
+    C = TCN.connectivity_sets(TCN.ConstellationSpec(num_satellites=16),
+                              days=1.0)
+    state = TS.bootstrap_state(16, device="cuda")
+    sched = FedSpaceScheduler(_hist_forest(), I0=24, n_min=4, n_max=8,
+                              num_candidates=500)
+    with CpuTensors() as mode:
+        sched.decide(0, n_in_buffer=1, K=16, state=state, ig=0,
+                     connectivity=C, status=1.0)
+    assert sched._schedule is not None and sched._schedule.sum() >= 4
+    assert set(mode.made) == {"cpu"}, mode.made

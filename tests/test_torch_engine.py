@@ -124,7 +124,6 @@ def test_with_scheduler_shares_the_world(runs):
 
 
 @pytest.mark.parametrize("change,slice_name", [
-    (dict(scheduler=TA.SchedulerConfig(kind="fedspace")), "FedSpace"),
     (dict(link=TA.LinkConfig(model_mb=300.0, uplink_mbps=20.0)),
      "link-budget"),
     (dict(link=TA.LinkConfig(gs_capacity=2)), "link-budget"),

@@ -121,6 +121,106 @@ def test_initial_states_and_compensation():
 
 
 def test_unported_collect_modes_raise():
-    with pytest.raises(ValueError, match="marks"):
-        TS.aggregate_step(TS.bootstrap_state(3, device="cpu"), 0, True,
-                          s_max=8, collect="marks")
+    """Every collect mode of the reference is ported ("hist", "marks",
+    "none"); any other raises, naming them, and so do link gates and a
+    sharded satellite axis, naming their slice."""
+    st = TS.bootstrap_state(3, device="cpu")
+    with pytest.raises(ValueError, match="'marks' or 'none'"):
+        TS.aggregate_step(st, 0, True, s_max=8, collect="lite")
+    conn = torch.ones(3, dtype=torch.bool)
+    for call in (lambda: TS.step(st, 0, conn, True, s_max=8, link=object()),
+                 lambda: TS.step(st, 0, conn, True, s_max=8, axis_name="k"),
+                 lambda: TS.upload_step(st, 0, conn, object()),
+                 lambda: TS.download_step(st, 0, conn, object()),
+                 lambda: TS.simulate_window(np.ones((2, 3), bool),
+                                            np.ones(2), st, 0,
+                                            link=object())):
+        with pytest.raises(NotImplementedError, match="A.10"):
+            call()
+
+
+# --------------------------------------------------------------------------
+# staleness marks and the window simulators
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_hist_from_marks_matches_reference(seed):
+    r = np.random.default_rng(seed)
+    s_max = int(r.choice([2, 8, 130]))
+    shape = (int(r.integers(1, 5)), int(r.integers(1, 4)),
+             int(r.integers(1, 40)))
+    marks = r.integers(-1, s_max + 1, shape).astype(
+        np.int8 if s_max <= 126 else np.int32)
+    assert TS.marks_dtype(s_max) == (torch.int8 if s_max <= 126
+                                     else torch.int32)
+    for dt_r, dt_t in ((jnp.int32, torch.int32), (jnp.int16, torch.int16)):
+        ref = RS.hist_from_marks(jnp.asarray(marks), s_max=s_max, dtype=dt_r)
+        got = TS.hist_from_marks(torch.as_tensor(marks), s_max=s_max,
+                                 dtype=dt_t)
+        assert got.dtype == dt_t
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def _window_scenario(seed, dtype):
+    """A random window (C, candidates) and a random mid-run state of
+    `dtype`, for both packages."""
+    r = np.random.default_rng(1000 + seed)
+    K, I0, R = int(r.integers(1, 17)), int(r.integers(1, 13)), \
+        int(r.integers(1, 40))
+    ig = int(r.integers(0, 9))
+    cols = [r.integers(-1, ig + 1, K).astype(dtype) for _ in range(3)]
+    C = r.random((I0, K)) < r.uniform(0.1, 0.9)
+    cands = (r.random((R, I0)) < r.uniform(0.1, 0.9)).astype(np.int32)
+    s_max = int(r.choice([2, 4, 8]))
+    return (C, cands, s_max, ig,
+            RS.SatState(*(jnp.asarray(c) for c in cols)),
+            TS.SatState(*(torch.as_tensor(c) for c in cols)))
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int16])
+@pytest.mark.parametrize("collect", ["hist", "marks", "none", "lite"])
+@pytest.mark.parametrize("seed", range(3))
+def test_simulate_candidates_matches_reference(seed, collect, dtype):
+    """States, global versions, histograms and marks exact, in the
+    state's dtype (an int16-narrowed state stays int16, marks are int8)."""
+    C, cands, s_max, ig, rst, tst = _window_scenario(seed, dtype)
+    kw = {"lite": True} if collect == "lite" else {"collect": collect}
+    rfin, rig, rinfo = RS.simulate_candidates(
+        jnp.asarray(C), jnp.asarray(cands), rst, jnp.asarray(ig, dtype),
+        s_max=s_max, **kw)
+    tfin, tig, tinfo = TS.simulate_candidates(
+        C, cands, tst, torch.tensor(ig, dtype=tst.version.dtype),
+        s_max=s_max, **kw)
+    for name in ("version", "pending", "buffered"):
+        a, b = np.asarray(getattr(rfin, name)), getattr(tfin, name).numpy()
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(b, a, err_msg=name)
+    np.testing.assert_array_equal(tig.numpy(), np.asarray(rig))
+    assert tig.numpy().dtype == np.asarray(rig).dtype
+    assert set(tinfo) == set(rinfo)
+    for k in rinfo:
+        a, b = np.asarray(rinfo[k]), tinfo[k].numpy()
+        assert a.dtype == b.dtype and a.shape == b.shape, k
+        np.testing.assert_array_equal(b, a, err_msg=k)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_simulate_window_and_marks_match_reference(seed):
+    """One schedule rolled without a batch axis, and the marks recovered
+    into the in-step histograms."""
+    C, cands, s_max, ig, rst, tst = _window_scenario(seed, np.int32)
+    a = cands[0]
+    rfin, rig, rinfo = RS.simulate_window(jnp.asarray(C), jnp.asarray(a),
+                                          rst, jnp.int32(ig), s_max=s_max)
+    tfin, tig, tinfo = TS.simulate_window(C, a, tst, ig, s_max=s_max)
+    _same_state(rfin, tfin)
+    assert int(tig) == int(rig) and tig.dim() == 0
+    assert set(tinfo) == set(rinfo)
+    for k in rinfo:
+        np.testing.assert_array_equal(tinfo[k].numpy(),
+                                      np.asarray(rinfo[k]), err_msg=k)
+    _, _, minfo = TS.simulate_window(C, a, tst, ig, s_max=s_max,
+                                     collect="marks")
+    np.testing.assert_array_equal(
+        TS.hist_from_marks(minfo["marks"], s_max=s_max).numpy(),
+        tinfo["hist"].numpy())
