@@ -66,7 +66,22 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      schedules equal; (c) one re-plan's `score_candidates` timed at the
      quickstart's shape and the paper's (R 5000, K 191), with its device
      events and time;
-  7. one JSON line listing every ported kernel.
+  7. the DenseNet path (`densenet` lines), Part A of
+     examples/satellite_fl_train.py (48 satellites, 2 days, the DenseNet
+     adapter's widths with the first block frozen): (a) under FedBuff
+     (M 8) on the card, launch counts read around it (one aggregation
+     launch per aggregation), then on the CPU from the same initial
+     model: counters equal, the frozen leaves bit for bit the initial
+     model on both devices, the final models and accuracies as near as
+     a one-rounding nudge of the initial model moves the card's own; (b)
+     Part A as a user runs it, FedSpace with phase 1 on the card (its
+     seconds by part, R^2), the run (wall, counters, launches), then on
+     the CPU with the forest carried across: counters and every re-plan's
+     schedule equal, or parted only on a forest split on the status T,
+     both values printed (ROADMAP C13); (c) one client update at M 8 and
+     M 20 held leaf by leaf against the CPU's and repeated bit for bit on
+     the card, then traced (`densenet client step`);
+  8. one JSON line listing every ported kernel.
 The last line is `{"ok": true,
 "device": {...}}`. Without a CUDA device, or away from the repository's
 sources, it exits nonzero and prints no result. Imports nothing of JAX or
@@ -96,6 +111,8 @@ BF16_TC_FLOP_PER_S = 989e12
 # gaps), and the transformer payload (20,766 parameters in 20,768).
 QUICKSTART_N = 4_622
 TRANSFORMER_N = 20_768
+DENSENET_N = 12_512                        # Part A's DenseNet, 28 leaves
+DENSENET_M = 8                             # fedbuff M of the DenseNet path
 PAPER_N = 26_608_958                       # DenseNet-161, 62-class head
 PAPER_M = 191                              # flock191 satellites
 MAIN_PATH_M = 20                           # fedbuff M of the quickstart
@@ -181,8 +198,9 @@ def check_aggregation(torch):
     from repro_torch.kernels.agg import kernel as K
     from repro_torch.kernels.agg.ref import weighted_aggregate_ref
     g = torch.Generator(device="cuda").manual_seed(0)
-    shapes = [(m, n) for n in (QUICKSTART_N, TRANSFORMER_N)
-              for m in (1, MAIN_PATH_M, 40)] + [(PAPER_M, PAPER_N)]
+    shapes = [(m, n) for n in (QUICKSTART_N, TRANSFORMER_N, DENSENET_N)
+              for m in (1, MAIN_PATH_M, 40)] + [(DENSENET_M, DENSENET_N),
+                                                (PAPER_M, PAPER_N)]
     rows_out = []
     for m, n in shapes:
         for udt in (torch.float32, torch.bfloat16):
@@ -1174,20 +1192,29 @@ def trace_aggregation(torch, exp, traced=3):
             "by_name": by_name}
 
 
-def trace_client_update(torch, adapter, train, runs=5):
-    """One batched client update of the transformer path (the first 20
-    satellites, `local_steps` SGD steps at the path's lr), traced with
-    `torch.profiler` after a warm-up: kernels, copy kernels and device
-    microseconds per SGD step, and the wall of a step from `runs` untraced
-    updates (host clock, ending in a synchronise), with the busy share
-    (device time over wall). The profiler drops a few kernel events on the
-    H100 machines, so the kernel counts are a floor."""
+def _trainable_mask(adapter, params):
+    """The adapter's frozen-parameter mask, as the engine builds it."""
+    return adapter.trainable_mask(params) \
+        if hasattr(adapter, "trainable_mask") else None
+
+
+def trace_client_update(torch, adapter, train, runs=5, m=MAIN_PATH_M):
+    """One batched client update of a path (the first `m` satellites,
+    `local_steps` SGD steps at the path's lr, with the adapter's mask),
+    traced with `torch.profiler` after a warm-up: kernels, copy kernels
+    and device microseconds per SGD step (the slowest kernels' by name),
+    and the wall of a step from `runs` untraced updates (host clock,
+    ending in a synchronise), with the busy share (device time over
+    wall). The profiler drops a few kernel events on the H100 machines,
+    so the kernel counts are a floor."""
     from repro_torch.fl.client import make_batched_client_update
     params = adapter.init(torch.Generator().manual_seed(0))
-    batch, _ = adapter.client_batch_many(list(range(MAIN_PATH_M)), 0,
-                                         train.batch_size, train.local_steps)
-    update = make_batched_client_update(adapter, local_steps=train.local_steps,
-                                        lr=train.client_lr)
+    batch, rows = adapter.client_batch_many(list(range(m)), 0,
+                                            train.batch_size,
+                                            train.local_steps)
+    update = make_batched_client_update(
+        adapter, local_steps=train.local_steps, lr=train.client_lr,
+        trainable_mask=_trainable_mask(adapter, params))
     batch = tuple(batch)
     update(params, batch)
     torch.cuda.synchronize()
@@ -1208,14 +1235,17 @@ def trace_client_update(torch, adapter, train, runs=5):
     steps = train.local_steps
     dev_us = sum(t for _, _, t in events) / steps
     wall_ms = sorted(walls)[len(walls) // 2]
-    return {"satellites": MAIN_PATH_M, "sgd_steps": steps,
+    return {"satellites": len(rows), "sgd_steps": steps,
             "kernels_per_step": sum(c for _, c, _ in events) / steps,
             "copy_kernels_per_step": sum(c for n, c, _ in events
                                          if _is_copy(n)) / steps,
             "device_us_per_step": dev_us, "wall_ms_per_step": walls,
             "busy_share": dev_us / (wall_ms * 1e3),
             "kernels_by_name": {n[:120]: c for n, c, _ in sorted(
-                events, key=lambda e: -e[1])}}
+                events, key=lambda e: -e[1])},
+            "device_us_per_step_by_name": {n[:120]: t / steps for n, _, t in
+                                           sorted(events,
+                                                  key=lambda e: -e[2])[:8]}}
 
 
 def trace_attention_call(torch, iters=200):
@@ -1278,36 +1308,49 @@ def trace_attention_call(torch, iters=200):
                                          if _is_copy(n)) / traced}
 
 
-def check_client_update(torch, card, cpu, train):
-    """The transformer adapter's batched client update at the path's shape
-    (the first 20 satellites, lr 1.0) on the card and on the CPU, from the
-    same parameters and batches, compared leaf by leaf: the ops' autograd
-    functions (kernels both ways) against autograd of the plain versions.
-    It runs after the path's launch counts were read."""
+def check_client_update(torch, card, cpu, train, m=MAIN_PATH_M,
+                        tols=(STEP_TOL, UPDATE_TOL)):
+    """A path adapter's batched client update (the first `m` satellites,
+    at the path's lr, with the adapter's mask) on the card and on the
+    CPU, from the same parameters and batches, compared leaf by leaf
+    within `tols` (one step, `local_steps` steps): on the transformer path
+    the ops' autograd functions (kernels both ways) against autograd of
+    the plain versions. The card's update is run twice and must repeat
+    bit for bit. It runs after the path's launch counts were read."""
     import numpy as np
     from repro_torch.fl.client import make_batched_client_update
     from repro_torch.tree import tree_leaves, tree_map
     from repro_torch.weights import params_from_numpy, params_to_numpy
     params = params_to_numpy(cpu.init(torch.Generator().manual_seed(0)))
+    mask = _trainable_mask(cpu, params)
     runs = []
     for adapter in (card, cpu):
         batch, rows = adapter.client_batch_many(
-            list(range(MAIN_PATH_M)), 0, train.batch_size,
-            train.local_steps)
+            list(range(m)), 0, train.batch_size, train.local_steps)
         runs.append((adapter, rows, batch))
     (_, rows, batch), (_, rows_cpu, batch_cpu) = runs
     if rows != rows_cpu or not all(torch.equal(a.cpu(), b)
                                    for a, b in zip(batch, batch_cpu)):
         raise AssertionError("the card's and the CPU's batches differ")
-    for steps, tol in ((1, STEP_TOL), (train.local_steps, UPDATE_TOL)):
+    for steps, tol in zip((1, train.local_steps), tols):
         def update(adapter, batch, start):
             return params_to_numpy(make_batched_client_update(
-                adapter, local_steps=steps, lr=train.client_lr)(
+                adapter, local_steps=steps, lr=train.client_lr,
+                trainable_mask=mask)(
                     params_from_numpy(start, adapter.device),
                     tuple(b[:, :steps] for b in batch)))
 
         got, want = (update(adapter, batch, params)
                      for adapter, _, batch in runs)
+        again = update(card, batch, params)
+        if not all(np.array_equal(a, b) for a, b in zip(
+                tree_leaves(got), tree_leaves(again))):
+            raise AssertionError(f"two card updates of {steps} steps "
+                                 f"differ")
+        if mask is not None and any(
+                m_ == 0.0 and (a.any() or b.any()) for m_, a, b in zip(
+                    tree_leaves(mask), tree_leaves(got), tree_leaves(want))):
+            raise AssertionError("a frozen leaf moved")
         err = tree_map(lambda a, b: float(abs(a - b).max()), got, want)
         # each device's own spread: its parameters moved by one rounding
         # (the same nudge on both), against its own update unnudged
@@ -1318,7 +1361,8 @@ def check_client_update(torch, card, cpu, train):
             tree_leaves(update(adapter, b_, nudged)), tree_leaves(ref)))
             for adapter, b_, ref in ((cpu, batch_cpu, want),
                                      (card, batch, got)))
-        print(f"client update ({len(rows)} satellites, {steps} steps): "
+        print(f"client update ({len(rows)} satellites, {steps} steps, "
+              f"two card calls bit for bit alike): "
               f"max |card - CPU| per leaf {json.dumps(err)}, tolerance "
               f"rtol {tol}, atol {tol}; the spread under a 1e-7 relative "
               f"nudge: CPU {spread}, card {card_spread}", flush=True)
@@ -1336,6 +1380,7 @@ FEDSPACE_SETUP = {"pretrain_rounds": 25, "clients_per_round": 16,
                   "utility_samples": 120, "local_steps": 16,
                   "client_lr": 1.0}
 T_FEATURE = 12           # the training status T among the 13 features
+C13_BAND = 1e-5          # a forest split on T this near a re-plan's T
 
 
 def fedspace_experiment(params, setup=None):
@@ -1372,14 +1417,17 @@ class Replans:
         search.fedspace_search = self._inner
 
 
-def _same_schedules(card, cpu, regressor=None):
-    """Every re-plan's schedule equal, card against CPU. On the first
-    difference, print both re-plans (their statuses) and the forest
-    threshold on T nearest to them, then fail."""
+def _same_schedules(card, cpu, regressor=None, t_split_ok=False):
+    """Every re-plan's schedule equal, card against CPU: returns None. On
+    the first difference, print both re-plans (their statuses) and the
+    forest threshold on T nearest to them, then fail; with `t_split_ok`
+    return that re-plan's index instead when the threshold shows the
+    cause (ROADMAP C13): it lies within `C13_BAND` of the re-plan's T on
+    either device, or between the two."""
     if len(card) == len(cpu) and all(
             (a["schedule"] == b["schedule"]).all()
             for a, b in zip(card, cpu)):
-        return
+        return None
     j = next((j for j, (a, b) in enumerate(zip(card, cpu))
               if not (a["schedule"] == b["schedule"]).all()),
              min(len(card), len(cpu)))
@@ -1396,6 +1444,13 @@ def _same_schedules(card, cpu, regressor=None):
         near = float(th[abs(th - st).argmin()]) if th.size else None
         print(f"  nearest forest threshold on T: {near!r} "
               f"({th.size} splits on T)", flush=True)
+        lo, hi = sorted((st, cpu[j]["status"]))
+        cause = th[(th >= lo - C13_BAND) & (th <= hi + C13_BAND)]
+        if t_split_ok and cause.size:
+            print(f"C13: the schedules part at re-plan {j} on the forest's "
+                  f"split at T = {float(cause[0])!r}; the card's T "
+                  f"{st!r}, the CPU's {cpu[j]['status']!r}", flush=True)
+            return j
     raise AssertionError("FedSpace schedules differ, card against CPU")
 
 
@@ -1574,6 +1629,246 @@ def time_replans(torch, regressor, status):
         print("fedspace replan", json.dumps(row), flush=True)
 
 
+# Part A of examples/satellite_fl_train.py: the paper's model family at the
+# DenseNet adapter's own widths (28 leaves, N = 12,512), the first block
+# frozen (paper §4.1), 48 satellites over 2 days, 144 windows.
+DENSENET_WIDTHS = {"growth": 8, "blocks": (2, 2, 2), "stem": 16,
+                   "frozen_blocks": 1}
+DENSENET_FEDSPACE = {"I0": 24, "n_min": 4, "n_max": 8, "num_candidates": 300}
+DENSENET_SETUP = {"pretrain_rounds": 10, "clients_per_round": 8,
+                  "utility_samples": 40, "clients_per_sample": 6,
+                  "local_steps": 8, "client_lr": 0.3}
+# The card's run against the CPU's is chaotic: a ReLU input that rounds to
+# 0 on one device and not on the other switches off that element's
+# gradient, and the run's aggregations carry the difference on, as they
+# carry a nudge of the initial model by one rounding (1e-7 relative) on
+# one device. So the card is held to the CPU against that spread, measured
+# on the card in the same call: its final model's drift from the CPU's
+# (|a - b| / |b - p0|), and the largest gap between their accuracies, at
+# most `CHAOS_FACTOR` times the card's own under the nudge (the
+# accuracies also within one argmax flip of 600).
+CHAOS_FACTOR = 3.0
+# One step and 8 steps of a DenseNet client update at lr 0.3, card against
+# CPU: one such ReLU moves a leaf by ~1.4e-4 a step, and 8-20 satellites
+# hold many; `check_client_update` prints beside the difference how far
+# each device's own update moves when its parameters move by one rounding.
+DENSENET_STEP_TOL = 5e-3
+DENSENET_UPDATE_TOL = 2e-2
+
+
+def densenet_experiment(scheduler):
+    """Part A's world under `scheduler` (no target accuracy, so the run
+    length cannot depend on floats)."""
+    from repro_torch.fl.api import (AdapterConfig, ConstellationConfig,
+                                    DatasetConfig, FLExperiment,
+                                    PartitionConfig)
+    from repro_torch.fl.engine import EngineConfig
+    return FLExperiment(
+        name="satellite_fl_densenet",
+        constellation=ConstellationConfig(num_satellites=48, days=2.0),
+        dataset=DatasetConfig(num_train=3000, num_val=600, image_size=16,
+                              noise=1.0),
+        partition=PartitionConfig(kind="noniid"),
+        adapter=AdapterConfig(kind="densenet", params=DENSENET_WIDTHS),
+        scheduler=scheduler,
+        train=EngineConfig(local_steps=8, client_lr=0.3, eval_every=24,
+                           max_windows=144))
+
+
+class Phase1Parts:
+    """Seconds of FedSpace's phase 1 by part while the block runs (each
+    ending in a synchronise): the pretrain, the eq.-12 samples and the
+    forest's fit (`fit_utility_regressor` less its samples), by wrapping
+    the functions `build_utility_regressor` calls through its module."""
+
+    NAMES = ("pretrain_trajectory", "phase1_samples", "fit_utility_regressor")
+
+    def __enter__(self):
+        import torch
+        from repro_torch.fl import fedspace_setup as FS
+        self.seconds = dict.fromkeys(self.NAMES, 0.0)
+        self._inner = {n: getattr(FS, n) for n in self.NAMES}
+
+        def timed(name, fn):
+            def run(*args, **kw):
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                self.seconds[name] += time.perf_counter() - t0
+                return out
+            return run
+        for name, fn in self._inner.items():
+            setattr(FS, name, timed(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.fl import fedspace_setup as FS
+        for name, fn in self._inner.items():
+            setattr(FS, name, fn)
+
+    def parts(self):
+        s = self.seconds
+        return {"pretrain": s["pretrain_trajectory"],
+                "samples": s["phase1_samples"],
+                "fit": s["fit_utility_regressor"] - s["phase1_samples"]}
+
+
+def _drift(got, want, start) -> float:
+    """|got - want| / |want - start| over the flattened leaves."""
+    import numpy as np
+    flat = [np.concatenate([np.ravel(x) for x in t])
+            for t in (got, want, start)]
+    return float(np.linalg.norm(flat[0] - flat[1])
+                 / np.linalg.norm(flat[1] - flat[2]))
+
+
+def run_densenet_path(torch):
+    """Phase 7, the DenseNet path (Part A of
+    examples/satellite_fl_train.py). (a) Part A's world under FedBuff
+    (M 8) on the card, launch counts read around it, again from the
+    initial model nudged by one rounding, then on the CPU from the same
+    initial model: counters and staleness histogram equal, the frozen
+    leaves bit for bit the initial model on both devices, the card's
+    final model and accuracies as near the CPU's as `CHAOS_FACTOR` times
+    the nudge moves them on the card; (b) Part A as a user runs
+    it, FedSpace with phase 1 on the card (its seconds by part, R^2), the
+    run (wall, counters, launches), then on the CPU with the same forest
+    carried across: counters and every re-plan's schedule equal, or parted
+    only on a forest split on T (ROADMAP C13); (c) one client update at M
+    8 and M 20, card against CPU and twice on the card, then traced.
+    Returns the launch counts of (a)'s and (b)'s card runs."""
+    import math
+    import numpy as np
+    from repro_torch.fl.api import Federation, SchedulerConfig
+    from repro_torch.kernels import launch_counts
+    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.weights import forest_from_arrays, params_to_numpy
+    counts = {}
+
+    # (a)
+    exp = densenet_experiment(SchedulerConfig(kind="fedbuff",
+                                              params={"M": DENSENET_M}))
+    fed = Federation.from_experiment(exp)
+    p0 = params_to_numpy(fed.adapter.init(torch.Generator().manual_seed(
+        exp.seed)))
+    launch_counts.clear()
+    t0 = time.perf_counter()
+    eng = fed.engine(init_params=p0)
+    res = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts["densenet fedbuff"] = dict(launch_counts)
+    print("densenet fedbuff (cuda):", json.dumps(res.summary()), flush=True)
+    print(f"densenet fedbuff (cuda): wall {wall:.3f} s, windows "
+          f"{res.windows_run}, launches {counts['densenet fedbuff']}",
+          flush=True)
+    _one_launch_per_aggregation(res, counts["densenet fedbuff"])
+    if not all(math.isfinite(a) for a in res.accuracy + res.val_loss):
+        raise AssertionError("non-finite accuracy or loss on the card")
+    r = np.random.default_rng(0)
+    nudged = tree_map(lambda a: (a * (1 + 1e-7 * r.standard_normal(
+        a.shape))).astype(a.dtype), p0)
+    t0 = time.perf_counter()
+    nudged_eng = fed.engine(init_params=nudged)
+    nudged_res = nudged_eng.run()
+    torch.cuda.synchronize()
+    print(f"densenet fedbuff (cuda, nudged): wall "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    cpu_fed = Federation.from_experiment(exp, device="cpu")
+    cpu_eng = cpu_fed.engine(init_params=p0, device="cpu")
+    cpu = cpu_eng.run()
+    print("densenet fedbuff (cpu): ", json.dumps(cpu.summary()),
+          f"wall {time.perf_counter() - t0:.3f} s", flush=True)
+    _same_counters(res, cpu)
+    _same_counters(res, nudged_res)
+    start = tree_leaves(p0)
+    card_final, cpu_final, nudged_final = (
+        tree_leaves(params_to_numpy(e.params))
+        for e in (eng, cpu_eng, nudged_eng))
+    frozen = [i for i, m in enumerate(tree_leaves(
+        fed.adapter.trainable_mask(p0))) if m == 0.0]
+    if not frozen or not all(np.array_equal(f[i], start[i]) for i in frozen
+                             for f in (card_final, cpu_final)):
+        raise AssertionError("a frozen leaf moved")
+    drift = _drift(card_final, cpu_final, start)
+    spread = _drift(nudged_final, card_final, start)
+    gap = max(abs(a - b) for a, b in zip(res.accuracy, cpu.accuracy))
+    acc_spread = max(abs(a - b) for a, b in zip(res.accuracy,
+                                                nudged_res.accuracy))
+    print(f"densenet fedbuff: {len(frozen)} frozen leaves bit for bit the "
+          f"initial model on both devices; |card - CPU| / |CPU - p0| = "
+          f"{drift!r}, the card's own under a 1e-7 nudge {spread!r}; "
+          f"accuracies card {res.accuracy}, CPU {cpu.accuracy}, nudged "
+          f"card {nudged_res.accuracy}: largest gap {gap!r}, the card's "
+          f"own {acc_spread!r} (factor {CHAOS_FACTOR})", flush=True)
+    if drift > CHAOS_FACTOR * spread or \
+            gap > CHAOS_FACTOR * acc_spread + 1 / 600 + 1e-6:
+        raise AssertionError("the card's run drifts from the CPU's beyond "
+                             "its own spread")
+
+    # (b)
+    exp = densenet_experiment(SchedulerConfig(
+        kind="fedspace", params=DENSENET_FEDSPACE, setup=DENSENET_SETUP))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with Phase1Parts() as phase1:
+        fs = Federation.from_experiment(exp)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    d = fs.scheduler_diag
+    print(f"densenet phase 1 (cuda): the world built in {secs:.3f} s, "
+          f"phase 1 by part {json.dumps(phase1.parts())}; regressor R^2="
+          f"{d['r2_in_sample']!r} on {d['n']} (s, T) -> dF samples, y_mean "
+          f"{d['y_mean']!r}, y_std {d['y_std']!r}", flush=True)
+    launch_counts.clear()
+    t0 = time.perf_counter()
+    with Replans() as card:
+        res = fs.run(init_params=p0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts["densenet fedspace"] = dict(launch_counts)
+    print("densenet fedspace (cuda):", json.dumps(res.summary()), flush=True)
+    print(f"densenet fedspace (cuda): wall {wall:.3f} s, re-plans "
+          f"{len(card.log)}, launches {counts['densenet fedspace']}",
+          flush=True)
+    _one_launch_per_aggregation(res, counts["densenet fedspace"])
+    if not all(math.isfinite(a) for a in res.accuracy + res.val_loss):
+        raise AssertionError("non-finite accuracy or loss on the card")
+    reg = fs.scheduler.regressor
+    fa = reg.arrays()
+    carried = forest_from_arrays(fa.feature, fa.thresh, fa.left, fa.right,
+                                 fa.value, fa.depth,
+                                 n_features=reg.n_features_)
+    cpu_exp = densenet_experiment(SchedulerConfig(
+        kind="fedspace", params={**DENSENET_FEDSPACE, "regressor": carried}))
+    t0 = time.perf_counter()
+    with Replans() as cpu_log:
+        cpu = Federation.from_experiment(cpu_exp, device="cpu").run(
+            init_params=p0)
+    print("densenet fedspace (cpu): ", json.dumps(cpu.summary()),
+          f"wall {time.perf_counter() - t0:.3f} s", flush=True)
+    both = list(zip(card.log, cpu_log.log))
+    print(f"densenet fedspace: T at each re-plan, card and CPU: "
+          f"{[(a['status'], b['status']) for a, b in both]}; "
+          f"{int((fa.feature == T_FEATURE).sum())} forest splits on T",
+          flush=True)
+    # the runs' accuracies move apart as (a)'s do: printed, not held
+    if _same_schedules(card.log, cpu_log.log, reg, t_split_ok=True) is None:
+        _same_counters(res, cpu)
+        print(f"densenet fedspace: {len(card.log)} re-plans, schedules and "
+              f"counters equal, card against CPU", flush=True)
+
+    # (c)
+    for m in (DENSENET_M, MAIN_PATH_M):
+        check_client_update(torch, fed.adapter, cpu_fed.adapter, exp.train,
+                            m=m, tols=(DENSENET_STEP_TOL,
+                                       DENSENET_UPDATE_TOL))
+        step = trace_client_update(torch, fed.adapter, exp.train, m=m)
+        print("densenet client step", json.dumps(step), flush=True)
+    return counts
+
+
 # ptxas's report of a kernel, from its mangled name - <length><name>I<template
 # arguments>E - to its registers: the tensor-core kernels (hd, and for dk/dv
 # and dq whether P and dS are split) and the short-sequence kernels (type,
@@ -1684,6 +1979,8 @@ def main() -> int:
     done("aggregation traces")
     paths["fedspace"] = run_fedspace_path(torch)
     done("fedspace path")
+    paths.update(run_densenet_path(torch))
+    done("densenet path")
 
     # 6. the kernels line. One aggregation of the quickstart (one launch
     # over its flat model at M=20, float32); one SGD step of a
@@ -1707,6 +2004,13 @@ def main() -> int:
         "work": "one quickstart aggregation: one launch over N = 4,622 at "
                 "M = 20, float32",
     }]
+    (r,) = [r for r in agg_rows if r["n"] == DENSENET_N
+            and r["m"] == DENSENET_M and r["updates"] == "float32"]
+    kernels[0]["densenet"] = {
+        "work": "one DenseNet aggregation: one launch over N = 12,512 at "
+                "M = 8, float32",
+        **{k: r[k] for k in ("design", "max_abs_err", "bound_ms", "bound_by",
+                             "plain_ms", "library_ms")}, "ms": r["kernel_ms"]}
     path_shapes = (
         (rms_rows, "rmsnorm", 5, "src/repro_torch/kernels/rmsnorm/csrc/"
          "rmsnorm.cu", "src/repro/kernels/rmsnorm/kernel.py:28",

@@ -2,9 +2,9 @@
 deterministic client batches). Parameters are (nested) dicts of tensors on
 the adapter's device, mirroring the reference's pytrees key for key.
 
-The port of `repro.fl.adapters` holds the quickstart's MLP adapter and
-the transformer payload adapter, whose RMSNorm and attention run in the
-port's kernels; the DenseNet adapter comes with a later slice.
+The port of `repro.fl.adapters`: the quickstart's MLP adapter, the
+paper's DenseNet adapter (with its frozen-block mask), and the transformer
+payload adapter, whose RMSNorm and attention run in the port's kernels.
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ from repro_torch.fl.registry import register_adapter
 from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
 from repro_torch.kernels.rmsnorm.ops import rmsnorm as rmsnorm_op
 from repro_torch.models import attention as A
+from repro_torch.models import densenet as DN
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as TF
 from repro_torch.tree import tree_map
@@ -140,6 +141,73 @@ class MlpFmowAdapter:
     def val_loss(self, params, max_n: int = 2048) -> float:
         X, y = self.eval_batch(max_n)
         return float(self.loss(params, (X, y)))
+
+
+@register_adapter("densenet")
+class DenseNetFmowAdapter(MlpFmowAdapter):
+    """The paper's model family: a DenseNet-style CNN over the (H, W, 3)
+    images, with an optional frozen prefix (transfer learning, §4.1).
+
+    Every train image is rendered once when the adapter is built (each
+    sample's noise is seeded by its index, so the rendering is the
+    reference's per-batch one, bit for bit) and held on the device, where
+    the MLP adapter's batch plumbing gathers the client batches. The
+    convolutions are cuDNN's on the card, in full float32 and with a
+    fixed algorithm: TF32 is switched off for convolutions and matmuls,
+    and cuDNN is made deterministic (no benchmark-chosen algorithms), so
+    the card computes the reference's float32 products and two runs on it
+    agree bit for bit."""
+
+    name = "densenet"
+
+    def __init__(self, data: SyntheticFmow, clients: List[ClientDataset],
+                 growth: int = 8, blocks=(2, 2, 2), stem: int = 16,
+                 frozen_blocks: int = 0, val_n: int = 1024, *, device):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        self.data = data
+        self.clients = clients
+        self.growth, self.blocks, self.stem = growth, tuple(blocks), stem
+        self.frozen_blocks = frozen_blocks
+        self.device = torch.device(device)
+        self._X_train = torch.as_tensor(
+            data.images(np.arange(data.spec.num_train), "train"),
+            device=self.device)
+        self._y_train = torch.as_tensor(data.train_labels,
+                                        device=self.device)
+        n_val = min(val_n, data.spec.num_val)
+        self._X_val = torch.as_tensor(data.images(np.arange(n_val), "val"),
+                                      device=self.device)
+        self._y_val = torch.as_tensor(data.val_labels[:n_val],
+                                      device=self.device)
+
+    def init(self, generator: torch.Generator):
+        """Random initial model drawn from `generator` (CPU), with the
+        reference's tree: the same keys, shapes and layouts, other numbers
+        (see `repro_torch.weights`)."""
+        params = DN.densenet_init(generator, num_classes=NUM_CLASSES,
+                                  growth=self.growth, blocks=self.blocks,
+                                  stem=self.stem)
+        return tree_map(lambda t: t.to(self.device), params)
+
+    def trainable_mask(self, params):
+        return DN.frozen_mask(params, self.frozen_blocks)
+
+    def apply(self, params, X):
+        return DN.densenet_apply(params, X)
+
+    # the reference evaluates on the first 1024 validation images at most,
+    # so the utility sampler's batched loss sees the batch `val_loss` does
+    def eval_batch(self, max_n: int = 1024):
+        return super().eval_batch(max_n)
+
+    def accuracy(self, params, max_n: int = 1024) -> float:
+        return super().accuracy(params, max_n)
+
+    def val_loss(self, params, max_n: int = 1024) -> float:
+        return super().val_loss(params, max_n)
 
 
 @register_adapter("transformer")

@@ -195,6 +195,10 @@ class FLExperiment:
     faults: Optional[object] = None
     seed: int = 0
 
+    def describe(self) -> dict:
+        """The full experiment as a nested dict (for logs/manifests)."""
+        return dataclasses.asdict(self)
+
 
 def _later(what: str, slice_: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet: it comes with "

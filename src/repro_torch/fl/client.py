@@ -8,19 +8,24 @@ per call) and `make_batched_client_update` (a stack of satellites per call
 satellite axis out as a leading batch dimension of the parameters: each
 step differentiates the sum of the per-satellite losses, whose gradient
 with respect to satellite m's parameters is satellite m's own gradient.
-Frozen-parameter masks (`trainable_mask`, the DenseNet adapter's) come
-with the DenseNet slice.
+A `trainable_mask` (a tree of floats shaped like the parameters' tree, the
+DenseNet adapter's frozen-block mask) multiplies each gradient before the
+SGD step, so a leaf masked by 0 keeps its value and its delta is exactly
+0.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.tree import tree_flatten, tree_leaves, tree_map, \
+    tree_unflatten
 
 _LATER = "uplink compression comes with the compression slice of the port"
 
 
-def _make_update_fn(adapter, *, lr: float):
+def _make_update_fn(adapter, *, lr: float, trainable_mask=None):
+    masks = None if trainable_mask is None else tree_leaves(trainable_mask)
+
     def update_fn(params, batches, *, step_axis: int = 0, out=None):
         """params: tree of tensors (with a leading satellite axis when
         batched); batches: tuple of tensors whose `step_axis` indexes the E
@@ -34,6 +39,8 @@ def _make_update_fn(adapter, *, lr: float):
             loss = adapter.loss(tree_unflatten(structure, leaves),
                                 batch).sum()
             grads = torch.autograd.grad(loss, leaves)
+            if masks is not None:
+                grads = [g * m for g, m in zip(grads, masks)]
             with torch.no_grad():
                 leaves = [w - lr * g for w, g in zip(leaves, grads)]
         final = tree_unflatten(structure, leaves)
@@ -45,10 +52,12 @@ def _make_update_fn(adapter, *, lr: float):
     return update_fn
 
 
-def make_client_update(adapter, *, local_steps: int, lr: float):
+def make_client_update(adapter, *, local_steps: int, lr: float,
+                       trainable_mask=None):
     """Returns update_fn(base_params, client_idx, round_rng) -> g_k
-    (dict delta)."""
-    update_fn = _make_update_fn(adapter, lr=lr)
+    (tree delta)."""
+    update_fn = _make_update_fn(adapter, lr=lr,
+                                trainable_mask=trainable_mask)
 
     def client_update(base_params, client_idx: int, round_rng: int,
                       batch_size: int = 32):
@@ -62,7 +71,7 @@ def make_client_update(adapter, *, local_steps: int, lr: float):
 
 
 def make_batched_client_update(adapter, *, local_steps: int, lr: float,
-                               uplink_topk: float = 0.0,
+                               trainable_mask=None, uplink_topk: float = 0.0,
                                uplink_int8: bool = False):
     """Returns update_many(base_params, batches, out=None) -> stacked g_k.
 
@@ -72,7 +81,8 @@ def make_batched_client_update(adapter, *, local_steps: int, lr: float,
     deltas are written there and `out` is returned."""
     if uplink_topk or uplink_int8:
         raise NotImplementedError(_LATER)
-    update_fn = _make_update_fn(adapter, lr=lr)
+    update_fn = _make_update_fn(adapter, lr=lr,
+                                trainable_mask=trainable_mask)
 
     def update_many(base_params, batches, out=None):
         m = batches[0].shape[0]

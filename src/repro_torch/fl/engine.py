@@ -238,9 +238,11 @@ class SimulationEngine:
         self.layout = FlatLayout.of(leaves)
         self.params = self._view(self.layout.flat(leaves))
         self._updates = None      # the update buffer, made at first use
+        mask = self.adapter.trainable_mask(params) \
+            if hasattr(self.adapter, "trainable_mask") else None
         self._batched_update = make_batched_client_update(
             self.adapter, local_steps=cfg.local_steps, lr=cfg.client_lr,
-            uplink_topk=cfg.uplink_topk,
+            trainable_mask=mask, uplink_topk=cfg.uplink_topk,
             uplink_int8=bool(cfg.uplink_int8))
 
         self.store = CheckpointStore(keep_in_memory=cfg.s_max + 26)

@@ -7,7 +7,9 @@ The paper uses the same task's dataset as the source D^s (its §4.3
 simplification); so does this module — the adapter provides both the
 source trajectory training and the client updates. Everything but the
 regressor's fit runs on the adapter's device; the fit is numpy on the host
-(the forest) or PyTorch on the host (the MLP).
+(the forest) or PyTorch on the host (the MLP). As in the reference, the
+pretrain and the samples' client updates train every parameter: an
+adapter's `trainable_mask` applies to the engine's client updates only.
 """
 from __future__ import annotations
 

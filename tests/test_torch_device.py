@@ -872,3 +872,40 @@ def test_the_search_keeps_its_tensors_on_the_card():
                      connectivity=C, status=1.0)
     assert sched._schedule is not None and sched._schedule.sum() >= 4
     assert set(mode.made) == {"cpu"}, mode.made
+
+
+@pytest.mark.gpu
+def test_densenet_client_update_on_the_card():
+    """A masked batched DenseNet client update (Part-A widths, 8
+    satellites, 4 steps at lr 0.3) on the card: within tolerance of the
+    CPU's from the same parameters and batches (a ReLU input rounding to 0
+    on one device and not the other moves a leaf by ~1e-4 a step), frozen
+    deltas exactly 0, and two calls bit for bit alike (cuDNN made
+    deterministic, TF32 off, by the adapter)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device with nvcc")
+    from repro_torch.fl.adapters import DenseNetFmowAdapter
+    from repro_torch.fl.client import make_batched_client_update
+    from repro_torch.tree import tree_leaves
+    from repro_torch.weights import params_from_numpy, params_to_numpy
+    data = SyntheticFmow(FmowSpec(num_train=600, num_val=64, noise=1.0))
+    clients = make_clients(iid_partition(600, 8, 0))
+    widths = dict(growth=8, blocks=(2, 2, 2), stem=16, frozen_blocks=1)
+    cpu = DenseNetFmowAdapter(data, clients, device="cpu", **widths)
+    card = DenseNetFmowAdapter(data, clients, device="cuda", **widths)
+    p0 = params_to_numpy(cpu.init(torch.Generator().manual_seed(0)))
+    outs = []
+    for adapter in (card, card, cpu):
+        batch, rows = adapter.client_batch_many(list(range(8)), 0, 32, 4)
+        assert rows == list(range(8))
+        params = params_from_numpy(p0, adapter.device)
+        update = make_batched_client_update(
+            adapter, local_steps=4, lr=0.3,
+            trainable_mask=adapter.trainable_mask(params))
+        outs.append(tree_leaves(update(params, batch)))
+    mask = tree_leaves(cpu.trainable_mask(p0))
+    for a, b, c, m in zip(*outs, mask):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a.cpu(), c, rtol=1e-2, atol=1e-2)
+        if m == 0.0:
+            assert not a.any() and not c.any()
