@@ -81,7 +81,19 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      both values printed (ROADMAP C13); (c) one client update at M 8 and
      M 20 held leaf by leaf against the CPU's and repeated bit for bit on
      the card, then traced (`densenet client step`);
-  8. one JSON line listing every ported kernel.
+  8. the scenarios (`scenarios` lines), link budgets and inter-satellite
+     links through the repo's examples: (a) every policy of
+     examples/scheduler_comparison.py (starlink40, 384 windows, its
+     ISLConfig) on the card and on the CPU, FedSpace with phase 1 on the
+     card (its seconds) and the forest carried to the CPU; (b) the
+     binding cell of examples/isl_comparison.py (starlink40 over sparse1
+     under a finite budget; its blocked share): fedbuff, intra_plane,
+     isl_async and FedSpace's link-gated search, card against CPU, with
+     the final `progress` and `relay` columns; counters, histograms and
+     columns equal, FedSpace's re-plans under ROADMAP C13, one
+     aggregation launch per aggregation in every run; (c) a re-plan's ms
+     with and without the gate;
+  9. one JSON line listing every ported kernel.
 The last line is `{"ok": true,
 "device": {...}}`. Without a CUDA device, or away from the repository's
 sources, it exits nonzero and prints no result. Imports nothing of JAX or
@@ -1869,6 +1881,269 @@ def run_densenet_path(torch):
     return counts
 
 
+# The scenarios phase: link budgets and inter-satellite links, through the
+# worlds of the repo's own examples. (a) examples/scheduler_comparison.py
+# as written: starlink40, 4 days (384 windows), 6000/1200 samples at noise
+# 2.2, non-IID, the MLP at hidden 48, E 16 at lr 1.0, eval every 24, the
+# ISLConfig(100 Mbit/s, 600 MB, epoch 24), all 7 policies; (b) the binding
+# cell of examples/isl_comparison.py: starlink40 over sparse1, 2 days (192
+# windows), 4000/800 samples, the MLP at its default width (64), E 8 at lr
+# 1.0, eval every 48, LinkConfig(20, 100, 600 MB, one satellite a station:
+# need_up 4, need_dn 1), fedbuff M 12, intra_plane and isl_async, plus
+# FedSpace on the same budget (the link-gated search) with (a)'s forest.
+SCENARIO_POLICIES = (("sync", {}), ("async", {}), ("fedbuff", {"M": 20}),
+                     ("periodic", {"period": 4}), ("intra_plane", {}),
+                     ("isl_async", {}))
+SCENARIO_FEDSPACE = {"I0": 24, "n_min": 4, "n_max": 8, "num_candidates": 800}
+SCENARIO_SETUP = {"pretrain_rounds": 30, "clients_per_round": 16,
+                  "utility_samples": 150, "local_steps": 16,
+                  "client_lr": 1.0}
+ISL_CELL_POLICIES = (("fedbuff", {"M": 12}), ("intra_plane", {}),
+                     ("isl_async", {}))
+# Accuracy card against CPU, at every evaluation: within 0.01 (as the
+# quickstart path); where a run is chaotic (one update an aggregation at lr
+# 1.0 carries a rounding difference on and grows it: ROADMAP C16) and the
+# gap is wider, within CHAOS_FACTOR times the gap a nudge of the initial
+# model by one rounding makes on the card, plus one argmax flip.
+SCENARIO_ACC_TOL = 0.01
+
+
+def scheduler_comparison_experiment():
+    """examples/scheduler_comparison.py's world, as written."""
+    from repro_torch.fl.api import (AdapterConfig, ConstellationConfig,
+                                    DatasetConfig, FLExperiment, ISLConfig,
+                                    PartitionConfig, SchedulerConfig)
+    from repro_torch.fl.engine import EngineConfig
+    return FLExperiment(
+        name="scheduler_comparison",
+        constellation=ConstellationConfig(preset="starlink40", days=4.0),
+        dataset=DatasetConfig(num_train=6000, num_val=1200, noise=2.2),
+        partition=PartitionConfig(kind="noniid"),
+        adapter=AdapterConfig(kind="mlp", params={"hidden": 48}),
+        scheduler=SchedulerConfig(kind="sync"),
+        train=EngineConfig(local_steps=16, client_lr=1.0, eval_every=24,
+                           max_windows=384),
+        isl=ISLConfig(isl_mbps=100.0, model_mb=600.0, epoch=24))
+
+
+def isl_cell_experiment():
+    """examples/isl_comparison.py's binding cell: starlink40 over sparse1
+    under the finite budget."""
+    from repro_torch.fl.api import (ConstellationConfig, DatasetConfig,
+                                    FLExperiment, ISLConfig, LinkConfig,
+                                    SchedulerConfig)
+    from repro_torch.fl.engine import EngineConfig
+    return FLExperiment(
+        name="isl_comparison",
+        constellation=ConstellationConfig(preset="starlink40",
+                                          ground="sparse1", days=2.0),
+        dataset=DatasetConfig(num_train=4000, num_val=800, noise=2.2),
+        scheduler=SchedulerConfig(kind="fedbuff", params={"M": 12}),
+        train=EngineConfig(local_steps=8, client_lr=1.0, eval_every=48,
+                           max_windows=192),
+        link=LinkConfig(uplink_mbps=20.0, downlink_mbps=100.0,
+                        model_mb=600.0, gs_capacity=1),
+        isl=ISLConfig(isl_mbps=100.0, model_mb=600.0, epoch=24))
+
+
+def _columns(eng):
+    """The engine's protocol state as host lists, the link and ISL
+    columns among them (None where the run has none)."""
+    return {name: (None if getattr(eng, name) is None
+                   else getattr(eng, name).tolist())
+            for name in ("version", "pending", "buffered_base",
+                         "transfer_progress", "relay_units")}
+
+
+def _scenario_pair(torch, tag, card_fed, cpu_fed, p0, counts,
+                   regressor=None):
+    """One policy: the card's run (launch counts read around it, wall),
+    then the CPU's from the same initial model; every counter, the
+    staleness histogram and the final protocol columns equal (for
+    FedSpace, every re-plan under the C13 rule, and the rest where the
+    schedules agree), the accuracies within `SCENARIO_ACC_TOL` or the
+    card's own chaos. Returns (card result, card wall, CPU wall)."""
+    import math
+    import numpy as np
+    from repro_torch.kernels import launch_counts
+    from repro_torch.tree import tree_map
+    launch_counts.clear()
+    t0 = time.perf_counter()
+    with Replans() as card_log:
+        eng = card_fed.engine(init_params=p0)
+        res = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mine = dict(launch_counts)
+    for k, v in mine.items():
+        counts[k] = counts.get(k, 0) + v
+    print(f"scenarios {tag} (cuda):", json.dumps(res.summary()), flush=True)
+    print(f"scenarios {tag} (cuda): wall {wall:.3f} s, windows "
+          f"{res.windows_run}, re-plans {len(card_log.log)}, launches "
+          f"{mine}", flush=True)
+    _one_launch_per_aggregation(res, mine)
+    if not all(math.isfinite(a) for a in res.accuracy + res.val_loss):
+        raise AssertionError("non-finite accuracy or loss on the card")
+    t0 = time.perf_counter()
+    with Replans() as cpu_log:
+        cpu_eng = cpu_fed.engine(init_params=p0, device=cpu_fed.device)
+        cpu = cpu_eng.run()
+    cpu_wall = time.perf_counter() - t0
+    print(f"scenarios {tag} (cpu): {json.dumps(cpu.summary())} wall "
+          f"{cpu_wall:.3f} s", flush=True)
+    card_cols, cpu_cols = _columns(eng), _columns(cpu_eng)
+    print(f"scenarios {tag}: final progress card "
+          f"{card_cols['transfer_progress']} CPU "
+          f"{cpu_cols['transfer_progress']}; relay card "
+          f"{card_cols['relay_units']} CPU {cpu_cols['relay_units']}",
+          flush=True)
+    if regressor is not None:
+        if _same_schedules(card_log.log, cpu_log.log, regressor,
+                           t_split_ok=True) is not None:
+            return res, wall, cpu_wall
+        print(f"scenarios {tag}: {len(card_log.log)} re-plans, schedules "
+              f"equal, card against CPU", flush=True)
+    _same_counters(res, cpu)
+    if card_cols != cpu_cols:
+        raise AssertionError(f"scenarios {tag}: protocol columns differ")
+    gap = max(abs(a - b) for a, b in zip(res.accuracy, cpu.accuracy))
+    if gap <= SCENARIO_ACC_TOL:
+        print(f"scenarios {tag}: counters, histogram and columns equal; "
+              f"accuracies within {gap!r} (tolerance {SCENARIO_ACC_TOL})",
+              flush=True)
+        return res, wall, cpu_wall
+    r = np.random.default_rng(0)
+    nudged = tree_map(lambda a: (a * (1 + 1e-7 * r.standard_normal(
+        a.shape))).astype(a.dtype), p0)
+    nres = card_fed.engine(init_params=nudged).run()
+    spread = max(abs(a - b) for a, b in zip(res.accuracy, nres.accuracy))
+    print(f"scenarios {tag}: counters, histogram and columns equal; "
+          f"accuracies card {res.accuracy} CPU {cpu.accuracy} nudged card "
+          f"{nres.accuracy}: gap {gap!r}, the card's own {spread!r} "
+          f"(factor {CHAOS_FACTOR})", flush=True)
+    if gap > CHAOS_FACTOR * spread + \
+            1 / card_fed.experiment.dataset.num_val + 1e-6:
+        raise AssertionError(f"scenarios {tag}: accuracy gap beyond the "
+                             f"card's own spread")
+    return res, wall, cpu_wall
+
+
+def time_gated_replans(torch, fed, regressor, status, iters=20):
+    """One re-plan's `score_candidates` at (b)'s shape (R 800, I0 24, K 40)
+    on the card, CUDA events over `iters` calls after a warm-up, with the
+    budget's gate over its served connectivity and without one over the
+    geometric, from one random mid-run state."""
+    import numpy as np
+    from repro_torch.core import search as SR
+    from repro_torch.core import staleness as SS
+    b = fed.link_budget
+    I0, R = SCENARIO_FEDSPACE["I0"], SCENARIO_FEDSPACE["num_candidates"]
+    K = b.served.shape[1]
+    r = np.random.default_rng(0)
+    ig = 20
+    cols = [torch.as_tensor(r.integers(-1, ig + 1, K).astype(np.int32),
+                            device=fed.device) for _ in range(3)]
+    progress = torch.as_tensor(r.integers(0, b.need_up, K).astype(np.int32),
+                               device=fed.device)
+    cands = SR.random_candidates(r, I0, 4, 8, R)
+    gate = SS.LinkGate(b.grants[:I0], b.need_up, b.need_dn)
+    row = {"R": R, "I0": I0, "K": K}
+    for name, C, state, link in (
+            ("gated", b.served[:I0], SS.SatState(*cols, progress=progress),
+             gate),
+            ("geometry", b.visible[:I0], SS.SatState(*cols), None)):
+        def replan():
+            return SR.score_candidates(cands, C, state, ig, regressor,
+                                       status, link=link)
+        if not np.isfinite(replan()).all():
+            raise AssertionError(f"{name} re-plan scores not finite")
+        row[f"{name}_ms"] = _time_ms(replan, iters)
+    print("scenarios replan", json.dumps(row), flush=True)
+
+
+def run_scenarios_path(torch):
+    """Phase 8, the scenarios (`scenarios` lines): (a) every policy of
+    examples/scheduler_comparison.py on its world, card against CPU
+    (`_scenario_pair`), FedSpace with phase 1 on the card (its seconds)
+    and the CPU with the forest carried across; (b) the binding cell of
+    examples/isl_comparison.py (its blocked share), the three policies and
+    FedSpace under the budget, card against CPU, the final `progress` and
+    `relay` columns printed; (c) a re-plan's time with and without the
+    gate. Returns the launch counts summed over the card's runs."""
+    from repro_torch.fl.api import Federation, SchedulerConfig
+    from repro_torch.weights import forest_from_arrays, params_to_numpy
+    counts, walls = {}, {}
+    t_phase = time.perf_counter()
+
+    # (a)
+    exp = scheduler_comparison_experiment()
+    base = Federation.from_experiment(exp)
+    cpu_base = Federation.from_experiment(exp, device="cpu")
+    p0 = params_to_numpy(base.adapter.init(torch.Generator().manual_seed(
+        exp.seed)))
+    for name, kw in SCENARIO_POLICIES:
+        _, card, cpu = _scenario_pair(
+            torch, f"(a) {name}", base.with_scheduler(name, **kw),
+            cpu_base.with_scheduler(name, **kw), p0, counts)
+        walls[f"(a) {name}"] = (card, cpu)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with Phase1Parts() as phase1:
+        fs = base.with_scheduler(SchedulerConfig(
+            "fedspace", params=SCENARIO_FEDSPACE, setup=SCENARIO_SETUP))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    d = fs.scheduler_diag
+    print(f"scenarios (a) phase 1 (cuda): {secs:.3f} s, by part "
+          f"{json.dumps(phase1.parts())}; regressor R^2="
+          f"{d['r2_in_sample']!r} on {d['n']} samples", flush=True)
+    reg = fs.scheduler.regressor
+    fa = reg.arrays()
+    carried = forest_from_arrays(fa.feature, fa.thresh, fa.left, fa.right,
+                                 fa.value, fa.depth,
+                                 n_features=reg.n_features_)
+    fs_params = {**SCENARIO_FEDSPACE, "regressor": carried}
+    res, card, cpu = _scenario_pair(
+        torch, "(a) fedspace", fs,
+        cpu_base.with_scheduler(SchedulerConfig("fedspace",
+                                                params=fs_params)),
+        p0, counts, regressor=reg)
+    walls["(a) fedspace"] = (card, cpu)
+    status = res.val_loss[0] if res.val_loss else 4.0
+
+    # (b)
+    exp = isl_cell_experiment()
+    cell = Federation.from_experiment(exp)
+    cpu_cell = Federation.from_experiment(exp, device="cpu")
+    b = cell.link_budget
+    print(f"scenarios (b): starlink40 over sparse1, need_up {b.need_up}, "
+          f"need_dn {b.need_dn}, blocked_fraction {b.blocked_fraction()!r}"
+          f" (CPU {cpu_cell.link_budget.blocked_fraction()!r}), relay "
+          f"windows {cell.isl.relay_windows}", flush=True)
+    p0 = params_to_numpy(cell.adapter.init(torch.Generator().manual_seed(
+        exp.seed)))
+    for name, kw in ISL_CELL_POLICIES:
+        _, card, cpu = _scenario_pair(
+            torch, f"(b) {name}", cell.with_scheduler(name, **kw),
+            cpu_cell.with_scheduler(name, **kw), p0, counts)
+        walls[f"(b) {name}"] = (card, cpu)
+    fs_card = {**SCENARIO_FEDSPACE, "regressor": reg}
+    _, card, cpu = _scenario_pair(
+        torch, "(b) fedspace",
+        cell.with_scheduler(SchedulerConfig("fedspace", params=fs_card)),
+        cpu_cell.with_scheduler(SchedulerConfig("fedspace",
+                                                params=fs_params)),
+        p0, counts, regressor=reg)
+    walls["(b) fedspace"] = (card, cpu)
+
+    # (c)
+    time_gated_replans(torch, cell, reg, status)
+    print("scenarios walls (card s, CPU s)", json.dumps(walls), flush=True)
+    print(f"scenarios: phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"scenarios": counts}
+
+
 # ptxas's report of a kernel, from its mangled name - <length><name>I<template
 # arguments>E - to its registers: the tensor-core kernels (hd, and for dk/dv
 # and dq whether P and dS are split) and the short-sequence kernels (type,
@@ -1981,6 +2256,8 @@ def main() -> int:
     done("fedspace path")
     paths.update(run_densenet_path(torch))
     done("densenet path")
+    paths.update(run_scenarios_path(torch))
+    done("scenarios path")
 
     # 6. the kernels line. One aggregation of the quickstart (one launch
     # over its flat model at M=20, float32); one SGD step of a

@@ -23,15 +23,15 @@ with `constellation_preset`.
 
 This is the port's own numpy copy of the JAX package's geometry layer
 (`repro.core.connectivity`), so both packages derive bit-identical
-connectivity from one spec. The per-station link-budget layer
+connectivity from one spec, and of its per-station link-budget layer
 (`LinkBudget`, `station_windows`, `resolve_contention`,
-`transfer_windows`, `link_budget`) is not here yet: it comes with the
-link-budget slice of the port.
+`transfer_windows`, `link_budget`), so both derive the same served
+contacts and grants.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -281,6 +281,159 @@ def connectivity_stats(C: np.ndarray, windows_per_day: int = 96) -> dict:
         "nk_mean": float(contacts_per_day.mean()),
         "sizes": sizes, "contacts_per_day": contacts_per_day,
     }
+
+
+# ---------------------------------------------------------------------------
+# Link budgets: per-window transfer progress under finite link rates and
+# per-ground-station contact capacity.
+#
+# The geometry layer above answers "can satellite k talk to ANY station in
+# window i?" — a contact is then a free, instantaneous model transfer. The
+# layer below keeps the per-station axis and turns each window into a
+# *transfer budget*: how many propagation substeps of contact satellite k
+# gets at the one station it is deterministically assigned to, after
+# stations with more visible satellites than concurrent-contact capacity
+# turn the surplus away. The engine and the eq.-13 schedule search consume
+# the result (`LinkBudget`) through `repro_torch.core.staleness.LinkGate`:
+# an upload/download completes only after enough contact windows
+# accumulate.
+
+
+@dataclass(frozen=True)
+class LinkBudget:
+    """Capacity-resolved transfer layer derived from station visibility.
+
+    Fields (all windows x K unless noted):
+      visible: raw geometric connectivity — bit-identical to
+        `connectivity_sets` for the same spec/horizon.
+      served: effective connectivity after contention — the satellite holds
+        an assigned station contact this window. ``visible & ~served`` are
+        the contacts turned away at capacity-saturated stations.
+      assign: assigned station index per window (int32, -1 = unserved).
+      grants: contact units (visible substeps at the assigned station) per
+        window (int32, 0 when unserved).
+      need_up / need_dn: units a full model upload / download takes
+        (0 = instantaneous; see `transfer_windows`).
+
+    Infinite capacity and zero latency (``gs_capacity=0`` and both needs 0)
+    make `served == visible` and gate nothing — the engine and the search
+    then reproduce the geometry-only trajectories bit for bit.
+    """
+    visible: np.ndarray
+    served: np.ndarray
+    assign: np.ndarray
+    grants: np.ndarray
+    need_up: int
+    need_dn: int
+
+    @property
+    def num_windows(self) -> int:
+        return self.served.shape[0]
+
+    def blocked_fraction(self) -> float:
+        """Fraction of geometric contacts turned away by contention."""
+        vis = int(self.visible.sum())
+        return float((self.visible & ~self.served).sum()) / max(vis, 1)
+
+
+def station_windows(spec: ConstellationSpec, *, t0_s: float = 900.0,
+                    days: float = 5.0, substep_s: float = 60.0,
+                    time_chunk: int = 128) -> np.ndarray:
+    """(num_windows, K, G) int32: visible propagation substeps per window
+    per satellite-station pair — the per-pair contact-time matrix the
+    contention/transfer layer is derived from. Computed in window-aligned
+    time blocks (same blocking idea as `visibility`), so peak memory stays
+    O(block * K * G); `(station_windows(...) > 0).any(-1)` is bit-identical
+    to `connectivity_sets` for the same arguments."""
+    num_windows = int(round(days * 86400.0 / t0_s))
+    per = int(round(t0_s / substep_s))
+    K, G = spec.num_satellites, len(spec.ground_stations)
+    wchunk = max(1, int(time_chunk) // per)         # windows per block
+    counts = np.empty((num_windows, K, G), np.int32)
+    for w0 in range(0, num_windows, wchunk):
+        w1 = min(w0 + wchunk, num_windows)
+        times = np.arange(w0 * per, w1 * per) * substep_s
+        vis = _station_visibility_block(spec, times)    # (block*per, K, G)
+        counts[w0:w1] = vis.reshape(w1 - w0, per, K, G).sum(
+            axis=1, dtype=np.int32)
+    return counts
+
+
+def resolve_contention(counts: np.ndarray, capacity: int = 0) -> np.ndarray:
+    """Assign each satellite to at most one station per window, stations to
+    at most `capacity` satellites: (num_windows, K) int32 station index,
+    -1 = unserved.
+
+    Deterministic, state-independent rule (so the schedule search and the
+    engine see the same effective connectivity without simulating each
+    other): per window, stations claim satellites in station-index order;
+    each station claims its unclaimed visible satellites longest-contact
+    first (ties: lowest satellite index), up to `capacity`. ``capacity <=
+    0`` means unlimited — every visible satellite is served by its
+    longest-contact station (ties: lowest station index), so the served
+    mask equals raw visibility."""
+    counts = np.asarray(counts)
+    nw, K, G = counts.shape
+    assign = np.full((nw, K), -1, np.int32)
+    if capacity <= 0:
+        vis = counts.max(axis=2) > 0
+        best = counts.argmax(axis=2).astype(np.int32)
+        assign[vis] = best[vis]
+        return assign
+    for i in range(nw):
+        taken = np.zeros(K, bool)
+        for g in range(G):
+            c = counts[i, :, g]
+            cand = np.flatnonzero((c > 0) & ~taken)
+            if cand.size == 0:
+                continue
+            # longest contact first, satellite index breaking ties
+            pick = cand[np.lexsort((cand, -c[cand]))][:capacity]
+            assign[i, pick] = g
+            taken[pick] = True
+    return assign
+
+
+def transfer_windows(rate_mbps: float, size_mb: float,
+                     substep_s: float = 60.0) -> int:
+    """Contact units (propagation substeps) a `size_mb`-megabyte transfer
+    takes at `rate_mbps` megabits/s. 0 — the instantaneous sentinel — when
+    either the rate or the size is unconstrained (<= 0)."""
+    if rate_mbps <= 0 or size_mb <= 0:
+        return 0
+    return int(np.ceil(size_mb * 8.0 / rate_mbps / substep_s))
+
+
+def link_budget(spec: ConstellationSpec, *, days: float,
+                uplink_mbps: float = 0.0, downlink_mbps: float = 0.0,
+                model_mb: float = 0.0, gs_capacity: int = 0,
+                t0_s: float = 900.0, substep_s: float = 60.0,
+                counts: Optional[np.ndarray] = None,
+                uplink_mb: Optional[float] = None) -> LinkBudget:
+    """Derive the capacity-resolved transfer layer for a constellation:
+    station-level contact times (`station_windows`), deterministic
+    contention (`resolve_contention`), and the per-direction unit needs
+    (`transfer_windows`). The zero sentinels (rates/model size 0 =
+    instantaneous, capacity 0 = unlimited) degrade each constraint
+    independently; with all of them zero the budget gates nothing.
+
+    `uplink_mb` overrides the *uploaded* payload size (default: the full
+    `model_mb`); the downlink always carries the full model. `counts`
+    accepts a precomputed `station_windows` result."""
+    if counts is None:
+        counts = station_windows(spec, t0_s=t0_s, days=days,
+                                 substep_s=substep_s)
+    assign = resolve_contention(counts, gs_capacity)
+    served = assign >= 0
+    grants = np.where(
+        served, np.take_along_axis(counts, np.maximum(assign, 0)[..., None],
+                                   axis=2)[..., 0], 0).astype(np.int32)
+    up_mb = model_mb if uplink_mb is None else uplink_mb
+    return LinkBudget(
+        visible=counts.max(axis=2) > 0, served=served, assign=assign,
+        grants=grants,
+        need_up=transfer_windows(uplink_mbps, up_mb, substep_s),
+        need_dn=transfer_windows(downlink_mbps, model_mb, substep_s))
 
 
 # ---------------------------------------------------------------------------

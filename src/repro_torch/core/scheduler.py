@@ -1,8 +1,9 @@
 """Aggregation schedulers — the indicator a^i policies of Algorithm 1.
 
-Sync (eq. 5), Async (eq. 6), FedBuff (eq. 7), a periodic baseline and
+Sync (eq. 5), Async (eq. 6), FedBuff (eq. 7), a periodic baseline,
 FedSpace (§3: every I0 windows, an eq.-13 random search against the
-utility regressor û), behind one interface so the engine
+utility regressor û) and the two ISL policies (sink relaying,
+`intra_plane`; gossip, `isl_async`), behind one interface so the engine
 (`repro_torch.fl.engine`) is policy-agnostic. The port runs the
 per-window host loop, so a scheduler answers through `decide` alone (the
 reference's `device_plan` feeds its chunked fast loop, which comes with
@@ -13,7 +14,9 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
+from repro_torch.core import isl as ISL
 from repro_torch.core import search as SR
 from repro_torch.core import staleness as SS
 from repro_torch.fl.registry import SCHEDULERS, register_scheduler
@@ -23,8 +26,18 @@ class Scheduler:
     """Aggregation-policy interface: the indicator a^i of Algorithm 1,
     asked once per window through `decide`. Schedulers are registered by
     name (`repro_torch.fl.registry.SCHEDULERS`) and built with
-    `make_scheduler`."""
+    `make_scheduler`.
+
+    `isl_mode` declares the ISL transition the policy is built on —
+    ``"sink"`` (intra-plane relay toward elected sink satellites),
+    ``"gossip"`` (asynchronous neighbour version exchange) or None
+    (ground-only). The engine activates it only when the run also carries
+    an ISL runtime (`repro_torch.core.isl.ISL`, from `FLExperiment.isl`),
+    and binds that runtime to the `isl` attribute before `reset()`;
+    ground-only schedulers in an ISL world run the unmodified protocol."""
     name = "base"
+    isl_mode = None      # "sink" | "gossip" | None (ground-only)
+    isl = None           # the resolved ISL runtime, bound by the engine
 
     def reset(self):
         """Clear per-run state. The engine calls this once in `prepare()`;
@@ -43,11 +56,13 @@ class Scheduler:
           K: constellation size.
           state: the post-upload `SatState` on the run's device (read-only).
           ig: current global version.
-          connectivity: the full (num_windows, K) bool matrix.
+          connectivity: the full (num_windows, K) bool matrix — under a
+            link budget the effective (served) one.
           status: training status T (val loss at the last eval).
-          link: always None in the port so far (link budgets come with a
-            later slice); kept so schedulers share the reference's
-            signature.
+          link: the run's `LinkGate` (grant (num_windows, K) host array
+            and the unit needs) when the run models a link budget, else
+            None; schedulers that simulate the future (FedSpace) gate
+            their simulation with it.
 
         Returns True to aggregate at this window (the engine additionally
         requires a non-empty buffer).
@@ -108,9 +123,10 @@ class FedSpaceScheduler(Scheduler):
     `n_min`/`n_max` None are inferred from û (`infer_n_range`, paper
     §3.2) at each re-plan. The scheduler's rng (`np.random.default_rng(
     seed)`) is drawn by `random_candidates` alone, once per re-plan, so
-    the candidate pools are the reference's. The replan service
-    (`service=`) and link-gated searches raise NotImplementedError
-    (ROADMAP A.10)."""
+    the candidate pools are the reference's. Under a link budget the
+    search rolls the candidates through the same per-window grants the
+    engine applies. The replan service (`service=`) raises
+    NotImplementedError (the replanning slice, ROADMAP A.10)."""
     name = "fedspace"
 
     def __init__(self, regressor, *, I0: int = 24, n_min: int = None,
@@ -134,26 +150,48 @@ class FedSpaceScheduler(Scheduler):
         self._window_start = -1
 
     def _window_link(self, link, i):
-        """The run-level link gate sliced to the planning window: None
-        without link budgets; link gates raise (ROADMAP A.10)."""
+        """Slice the run-level link gate to the planning window [i, i+I0),
+        zero-padding the horizon tail like the connectivity slice."""
         if link is None:
             return None
-        raise SR._later("link-gated FedSpace search", "link-budget")
+        Gw = np.asarray(link.grant)[i:i + self.I0]
+        if Gw.shape[0] < self.I0:
+            Gw = np.concatenate(
+                [Gw, np.zeros((self.I0 - Gw.shape[0], Gw.shape[1]),
+                              Gw.dtype)], axis=0)
+        return SS.LinkGate(Gw, link.need_up, link.need_dn)
 
     @staticmethod
     def _search_state(state, i, *, connectivity, link):
-        """The state the search rolls from: the post-upload state itself
-        without link budgets; the reference's grant inversion for link
-        gates raises (ROADMAP A.10)."""
-        if link is None:
+        """Invert window i's already-applied upload-grant accumulation.
+
+        The search receives the *post-upload* state at window i (what
+        `decide` sees) and its rollout re-simulates window i from the top,
+        upload included. Without gating that re-run is idempotent: every
+        connected pending update already left for the buffer. With gating
+        a mid-upload satellite keeps `pending`, and its `progress` already
+        holds window i's grant: the rollout would add it a second time and
+        predict every in-flight upload one grant early. Subtracting the
+        grant from exactly the connected satellites that are still
+        pending (completed uploads reset progress and drop pending) makes
+        the rollout's `upload_step` land on the engine's state."""
+        if link is None or state.progress is None:
             return state
-        raise SR._later("link-gated FedSpace search", "link-budget")
+        device = state.progress.device
+        conn = torch.as_tensor(np.asarray(connectivity[i], bool),
+                               device=device)
+        grant = torch.as_tensor(np.asarray(link.grant[i]),
+                                dtype=state.progress.dtype, device=device)
+        undo = torch.where(conn & (state.pending >= 0), grant, 0)
+        return state._replace(progress=state.progress - undo)
 
     def _ensure_schedule(self, i, *, state, ig, connectivity, status,
                          link=None):
         """(Re-)plan at I0 boundaries (eq. 13). `state` must be the
         post-upload state at window i — that is what `decide` receives from
-        the engine, and what the search's simulator assumes."""
+        the engine, and what the search's simulator assumes. Under a link
+        budget `connectivity` is the effective matrix and the rollouts are
+        gated by the grants of `link`."""
         if self._schedule is not None and \
                 (i % self.I0 != 0 or self._window_start == i):
             return
@@ -185,6 +223,62 @@ class FedSpaceScheduler(Scheduler):
                               link=link)
         a = bool(self._schedule[i - self._window_start])
         return a and n_in_buffer > 0
+
+
+@register_scheduler("intra_plane")
+class IntraPlaneScheduler(Scheduler):
+    """Sink-satellite scheduling over intra-plane ISLs (arXiv 2302.13447):
+    every plane relays its members' updates along the ring to an elected
+    sink, which uplinks them in one ground pass; the GS aggregates once
+    every *reachable* satellite's update has arrived.
+
+    `M` overrides the aggregation threshold; the default (None) resolves
+    it, once, to the number of satellites in planes with at least one
+    effective ground contact over the run (`isl.reachable_count` on the
+    connectivity `decide` receives) — a sync barrier over the satellites
+    that can contribute at all. Without an ISL runtime the scheduler is a
+    sync-over-K barrier on physical contacts."""
+    name = "intra_plane"
+    isl_mode = "sink"
+
+    def __init__(self, M: Optional[int] = None):
+        self.M = M
+        self.reset()
+
+    def reset(self):
+        self._M_resolved: Optional[int] = None
+
+    def _threshold(self, connectivity, K) -> int:
+        if self.M is not None:
+            return self.M
+        if self._M_resolved is None:
+            if self.isl is None:
+                self._M_resolved = K
+            else:
+                self._M_resolved = max(
+                    ISL.reachable_count(self.isl.topology, connectivity), 1)
+        return self._M_resolved
+
+    def decide(self, i, *, n_in_buffer, K, connectivity, **_):
+        return n_in_buffer >= self._threshold(connectivity, K)
+
+
+@register_scheduler("isl_async")
+class IslAsyncScheduler(Scheduler):
+    """Asynchronous FL over intra-plane gossip (arXiv 2206.00307): ring
+    neighbours exchange models between ground contacts (the engine's
+    gossip transition), satellites upload at their own physical contacts,
+    and the GS aggregates as soon as `M` updates are buffered (default 1,
+    fully asynchronous). The gossip hop period comes from the run's
+    `ISLConfig`."""
+    name = "isl_async"
+    isl_mode = "gossip"
+
+    def __init__(self, M: int = 1):
+        self.M = max(int(M), 1)
+
+    def decide(self, i, *, n_in_buffer, **_):
+        return n_in_buffer >= self.M
 
 
 def make_scheduler(name: str, **kw) -> Scheduler:

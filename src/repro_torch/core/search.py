@@ -9,11 +9,13 @@ are then rolled through the protocol on the device of the search state
 (`repro_torch.core.staleness.simulate_candidates`, the candidate axis a
 batch dimension), and the staleness marks, histograms, features and the
 forest walk stay there. The only transfer back per chunk is the (R,)
-score vector.
+score vector. Under a link budget the rollouts are gated by the same
+per-window grants the engine applies (`link=`, a `LinkGate` of (I0, K)
+grants), so candidates are scored against transfers that can complete.
 
 The replan service's incremental scan (`scan_candidates`,
-`step_candidates`) and the satellite-axis mesh come with the
-scenario-layer slice (ROADMAP A.10).
+`step_candidates`) comes with the replanning slice, and the
+satellite-axis mesh with the mesh slice (ROADMAP A.10).
 """
 from __future__ import annotations
 
@@ -58,11 +60,14 @@ def event_positions(candidates: np.ndarray):
     return idx.astype(np.int32), mask
 
 
-def _simulate_marks(C_window, candidates, state, ig, *, s_max: int):
+def _simulate_marks(C_window, candidates, state, ig, link=None, *,
+                    s_max: int):
     """Staleness marks (R, I0, K) of each candidate's rollout, on the
-    state's device."""
+    state's device; `link` an optional device `LinkGate` (grant
+    (I0, K))."""
     _, _, infos = SS.simulate_candidates(C_window, candidates, state, ig,
-                                         s_max=s_max, collect="marks")
+                                         s_max=s_max, collect="marks",
+                                         link=link)
     return infos["marks"]
 
 
@@ -80,12 +85,15 @@ def _event_features(marks, idx, status, *, s_max: int):
 def _narrow_state(state: SS.SatState, ig: int, horizon: int):
     """int16 copy of (state, ig) when every version the window can produce
     fits (half the bytes a rolled step moves, the same marks), int32
-    otherwise."""
+    otherwise. The `progress` and `relay` columns (if attached) stay
+    int32: they only meet int32 grants, needs and hop counts, never the
+    version columns."""
     if ig + horizon < np.iinfo(np.int16).max - 1:
         dt = torch.int16
     else:
         dt = torch.int32
-    return (SS.SatState(*(x.to(dt) for x in state)),
+    return (SS.SatState(*(x.to(dt) for x in state[:3]), state.progress,
+                        state.relay),
             torch.tensor(ig, dtype=dt, device=state.version.device))
 
 
@@ -121,21 +129,27 @@ def score_candidates(candidates: np.ndarray, C_window: np.ndarray,
       s_max: staleness clip — must match the regressor's feature width.
       chunk_rows: candidates rolled per batch (None = auto-sized so the
         marks buffer stays ~64 MB); per-candidate results are unchanged.
-      link, mesh: raise NotImplementedError (ROADMAP A.10).
+      link: optional `LinkGate` (grant (I0, K), any array-like) gating the
+        rolled transfers, so candidates are scored against the effective,
+        capacity-constrained connectivity; `state.progress` must be
+        attached when given.
+      mesh: raises NotImplementedError (the mesh slice, ROADMAP A.10).
 
     Returns: (R,) float32 predicted utility sums.
     """
-    if link is not None:
-        raise _later("link-gated search (LinkGate)", "link-budget")
     if mesh is not None:
         raise _later("the satellite-axis mesh", "mesh")
     device = state.version.device
+    if link is not None:
+        link = SS.LinkGate(torch.as_tensor(link.grant, dtype=torch.int32,
+                                           device=device),
+                           int(link.need_up), int(link.need_dn))
     predict_device = getattr(regressor, "predict_device", None)
     if predict_device is None:
         _, _, infos = SS.simulate_candidates(
             np.asarray(C_window, bool), np.asarray(candidates), state,
             torch.tensor(ig, dtype=torch.int32, device=device),
-            s_max=s_max, lite=True)
+            s_max=s_max, lite=True, link=link)
         hist = infos["hist"].cpu().numpy()              # (R, I0, s_max+1)
         Rn, I0, F = hist.shape
         feats = featurize(hist.reshape(Rn * I0, F), status)
@@ -157,7 +171,8 @@ def score_candidates(candidates: np.ndarray, C_window: np.ndarray,
     scores = np.empty(R, np.float32)
     for c0 in range(0, R, chunk_rows):
         rows = slice(c0, min(c0 + chunk_rows, R))
-        marks = _simulate_marks(Cw, cands_d[rows], st, igd, s_max=s_max)
+        marks = _simulate_marks(Cw, cands_d[rows], st, igd, link,
+                                s_max=s_max)
         feats = _event_features(marks, idx_d[rows], status, s_max=s_max)
         util = predict_device(feats).reshape(-1, idx.shape[1])
         scores[rows] = (util * mask_d[rows]).sum(dim=1).cpu().numpy()

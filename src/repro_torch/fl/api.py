@@ -22,10 +22,13 @@ and building raises when no CUDA device is present. A FedSpace scheduler
 (`SchedulerConfig(kind="fedspace")`) runs its phase 1 — pretrain a source
 trajectory, generate the eq.-12 samples, fit û — on that device while the
 world is built (the forest's fit on the host), unless `params` hands it a
-ready `"regressor"`. The parts of the reference the port does not have
-yet — link budgets and uplink compression, ISLs, faults — raise
-NotImplementedError naming their slice; nothing silently runs something
-else instead.
+ready `"regressor"`. A constrained `LinkConfig` resolves to a
+`LinkBudget` (finite rates, model size, per-station capacity) and an
+`ISLConfig` to the ISL runtime (sink relaying and gossip for the
+`intra_plane` and `isl_async` schedulers), both shared by
+`with_scheduler` clones. The parts of the reference the port does not
+have yet — uplink compression, faults — raise NotImplementedError naming
+their slice; nothing silently runs something else instead.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from typing import Dict, Optional, Sequence, Union
 import numpy as np
 
 from repro_torch.core import connectivity as CN
+from repro_torch.core.isl import ISLConfig, build_isl
 from repro_torch.data.fmow import FmowSpec, SyntheticFmow
 from repro_torch.data.partition import iid_partition, noniid_partition
 from repro_torch.data.pipeline import make_clients
@@ -48,8 +52,8 @@ from repro_torch.fl.registry import (ADAPTERS, PARTITIONS, SCHEDULERS,
                                      register_partition)
 
 __all__ = ["ConstellationConfig", "DatasetConfig", "PartitionConfig",
-           "AdapterConfig", "SchedulerConfig", "LinkConfig", "FLExperiment",
-           "Federation"]
+           "AdapterConfig", "SchedulerConfig", "LinkConfig", "ISLConfig",
+           "FLExperiment", "Federation"]
 
 
 # --------------------------------------------------------------------------
@@ -141,8 +145,12 @@ class LinkConfig:
     concurrent-contact capacity), with the reference's fields and
     validation. Every field uses 0 as its "unconstrained" sentinel; the
     default is the geometry-only model — a contact window is a free,
-    instantaneous transfer — which is all this slice of the port runs.
-    Anything else raises in `Federation.from_experiment`."""
+    instantaneous transfer. Setting `model_mb` with a rate makes a transfer
+    span ``ceil(model_mb * 8 / rate_mbps / substep)`` contact substeps, and
+    `gs_capacity` bounds how many satellites one station serves at once;
+    `Federation.from_experiment` resolves such a config to a
+    `repro_torch.core.connectivity.LinkBudget`. Compression raises there
+    (the compression slice)."""
     uplink_topk: float = 0.0      # >0: top-k+int8 compressed uplink
     uplink_int8: bool = False     # dense int8 uplink (when no top-k)
     uplink_mbps: float = 0.0      # sat->GS rate; 0 = unconstrained
@@ -179,9 +187,11 @@ class FLExperiment:
     adapter x scheduler x training/link options, every component selected
     by registry name. Build and run it with
     `Federation.from_experiment(exp).run()`. `seed` is the experiment-wide
-    default that unset partition/train seeds fall back to. `isl` and
-    `faults` mirror the reference's fields; anything but None raises until
-    the port has those layers."""
+    default that unset partition/train seeds fall back to. `isl` (an
+    `ISLConfig`) is resolved against the constellation's planes; it changes
+    only runs whose scheduler declares an `isl_mode`. `faults` mirrors the
+    reference's field; anything but None raises until the port has that
+    layer."""
     name: str = ""
     constellation: ConstellationConfig = field(
         default_factory=ConstellationConfig)
@@ -191,7 +201,7 @@ class FLExperiment:
     scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
     train: EngineConfig = field(default_factory=EngineConfig)
     link: LinkConfig = field(default_factory=LinkConfig)
-    isl: Optional[object] = None
+    isl: Optional[ISLConfig] = None
     faults: Optional[object] = None
     seed: int = 0
 
@@ -206,10 +216,7 @@ def _later(what: str, slice_: str) -> NotImplementedError:
 
 
 def _check_supported(exp: FLExperiment) -> None:
-    """Raise for every part of `exp` this slice of the port cannot run."""
-    if exp.link.constrained:
-        raise _later("a constrained LinkConfig (link budgets)",
-                     "link-budget")
+    """Raise for every part of `exp` the port cannot run yet."""
     train = exp.train
     topk = train.uplink_topk if train.uplink_topk is not None \
         else exp.link.uplink_topk
@@ -218,8 +225,6 @@ def _check_supported(exp: FLExperiment) -> None:
     if topk or int8:
         raise _later("uplink compression (uplink_topk / uplink_int8)",
                      "compression")
-    if exp.isl is not None:
-        raise _later("FLExperiment.isl (inter-satellite links)", "ISL")
     if exp.faults is not None:
         raise _later("FLExperiment.faults (fault injection)", "faults")
 
@@ -249,8 +254,8 @@ class Federation:
     data, adapter, scheduler — ready to produce `SimulationEngine`s."""
 
     def __init__(self, *, experiment: FLExperiment, spec, C: np.ndarray,
-                 data, adapter, device, scheduler=None,
-                 _regressor_cache: Optional[Dict] = None):
+                 data, adapter, device, scheduler=None, link_budget=None,
+                 isl=None, _regressor_cache: Optional[Dict] = None):
         self.experiment = experiment
         self.spec = spec
         self.C = C
@@ -259,6 +264,11 @@ class Federation:
         self.device = resolve_device(device)
         self.scheduler = scheduler
         self.scheduler_diag: dict = {}
+        # the resolved LinkBudget of a constrained LinkConfig (None =
+        # geometry-only links) and the ISL runtime of an ISLConfig (None =
+        # satellites talk only to ground stations)
+        self.link_budget = link_budget
+        self.isl = isl
         # FedSpace phase-1 (regressor, diag) keyed by setup knobs, shared
         # across with_scheduler clones of this world
         self._regressor_cache: Dict = ({} if _regressor_cache is None
@@ -272,11 +282,27 @@ class Federation:
         """Wire a world from an `FLExperiment` on `device`: resolve the
         constellation (preset or ad hoc) to connectivity, build dataset/
         partition/clients/adapter from their registries, then the
-        scheduler. `device=None` means "cuda" and raises when no CUDA
-        device is present; pass "cpu" to build on the CPU."""
+        scheduler. A constrained `LinkConfig` is resolved to the
+        `LinkBudget` over the same spec and horizon, and C is its `visible`
+        matrix (bit for bit `connectivity_sets`); an `ISLConfig` to the
+        ISL runtime (`build_isl`). `device=None` means "cuda" and raises
+        when no CUDA device is present; pass "cpu" to build on the CPU."""
         device = resolve_device(device)
         _check_supported(exp)
-        spec, C = exp.constellation.build()
+        budget = None
+        if exp.link.constrained:
+            spec = exp.constellation.build_spec()
+            lk = exp.link
+            # no compression here (it raises above), so the uplink carries
+            # the full model: the reference's bytes ratio is 1.0
+            budget = CN.link_budget(
+                spec, days=exp.constellation.days,
+                uplink_mbps=lk.uplink_mbps, downlink_mbps=lk.downlink_mbps,
+                model_mb=lk.model_mb, gs_capacity=lk.gs_capacity,
+                uplink_mb=lk.model_mb)
+            C = budget.visible
+        else:
+            spec, C = exp.constellation.build()
         data = SyntheticFmow(exp.dataset.to_spec())
         pseed = exp.partition.seed if exp.partition.seed is not None \
             else exp.seed
@@ -287,8 +313,10 @@ class Federation:
         adapter = ADAPTERS.build(exp.adapter.kind, data,
                                  make_clients(parts), device=device,
                                  **exp.adapter.params)
+        isl = build_isl(spec, exp.isl) if exp.isl is not None else None
         fed = cls(experiment=exp, spec=spec, C=C, data=data,
-                  adapter=adapter, device=device)
+                  adapter=adapter, device=device, link_budget=budget,
+                  isl=isl)
         fed.scheduler, fed.scheduler_diag = fed._build_scheduler(exp)
         return fed
 
@@ -333,7 +361,8 @@ class Federation:
         exp = dataclasses.replace(self.experiment, scheduler=cfg)
         fed = Federation(experiment=exp, spec=self.spec, C=self.C,
                          data=self.data, adapter=self.adapter,
-                         device=self.device,
+                         device=self.device, link_budget=self.link_budget,
+                         isl=self.isl,
                          _regressor_cache=self._regressor_cache)
         fed.scheduler, fed.scheduler_diag = fed._build_scheduler(exp)
         return fed
@@ -346,8 +375,9 @@ class Federation:
         (optionally with callbacks / a custom initial model). `device=None`
         means "cuda" and raises when no CUDA device is present; a device
         other than the world's raises, since the adapter's data lives
-        there. `mesh` is the reference's satellite-axis sharding; anything
-        but None raises until the port has it."""
+        there. The world's link budget and ISL runtime go with it. `mesh` is
+        the reference's satellite-axis sharding; anything but None raises
+        until the port has it (the mesh slice)."""
         # explicitly-set train fields win; unset (None) ones fall back to
         # the experiment-wide seed / LinkConfig compression settings
         exp = self.experiment
@@ -361,7 +391,8 @@ class Federation:
                                   uplink_int8=int8)
         return SimulationEngine(self.C, self.adapter, self.scheduler, cfg,
                                 callbacks=callbacks, init_params=init_params,
-                                device=device, mesh=mesh)
+                                device=device, link_budget=self.link_budget,
+                                isl=self.isl, mesh=mesh)
 
     def run(self, *, callbacks: Sequence = (),
             init_params=None) -> SimResult:

@@ -13,8 +13,19 @@ the model, the checkpoints and the client data on the run's device. One
 small device-to-host read per window brings back the upload counters the
 scheduler decides on. The reference's chunked fast loop (jitted scans
 between aggregation events) is a JAX `scan` idiom; its PyTorch
-counterpart (a CUDA graph) is a later slice, as are link budgets, ISLs,
-faults and the satellite-axis mesh.
+counterpart (a CUDA graph) is ROADMAP A.8, and the reference asserts that
+both of its loops give the same bits, so the host loop is the contract.
+
+Finite link budgets (`repro_torch.core.connectivity.LinkBudget`, built
+by `Federation` from a constrained `LinkConfig`) run through the same
+transitions: the engine then runs on the capacity-resolved (served)
+connectivity and gates every upload and download on the accumulated
+grants (`LinkGate`). Inter-satellite links (`repro_torch.core.isl.ISL`)
+compose in front of them when the scheduler declares an `isl_mode`: sink
+relaying ("sink") or neighbour gossip ("gossip"). The grants, sink plans
+and neighbour arrays are put on the device once per run (sink plans once
+per election epoch). Faults and the satellite-axis mesh raise
+NotImplementedError naming their slices (ROADMAP A.10).
 """
 from __future__ import annotations
 
@@ -26,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.ckpt.checkpoint import CheckpointStore
+from repro_torch.core import isl as ISL
 from repro_torch.core import staleness as SS
 from repro_torch.core.aggregation import aggregation_weights
 from repro_torch.core.scheduler import Scheduler
@@ -121,16 +133,32 @@ class EngineConfig:
                 f"EngineConfig.uplink_topk must be in (0, 1], got {v}")
 
 
-def _tile(C: np.ndarray, cfg: EngineConfig) -> np.ndarray:
-    """Tile the connectivity to the requested horizon per
-    `cfg.repeat_connectivity` (0 = auto: cover `max_windows`)."""
+def _tile(C: np.ndarray, cfg: EngineConfig, link_budget=None):
+    """(C, grants): the run's connectivity — the link budget's `served`
+    matrix when one is given — and its grants (None without a budget),
+    tiled to the requested horizon per `cfg.repeat_connectivity` (0 =
+    auto: cover `max_windows`)."""
+    grants = None
+    if link_budget is not None:
+        C = link_budget.served
+        grants = np.asarray(link_budget.grants, np.int32)
     repeat = cfg.repeat_connectivity
     if repeat == 0:
         need = cfg.max_windows or C.shape[0]
         repeat = max(1, -(-int(need) // C.shape[0]))
     if repeat > 1:
         C = np.concatenate([C] * repeat, axis=0)
-    return np.asarray(C, bool)
+        if grants is not None:
+            grants = np.concatenate([grants] * repeat, axis=0)
+    return np.asarray(C, bool), grants
+
+
+def _sink_gate(gate, sink):
+    """The link gate gathered at each satellite's sink: the plane's
+    transfer rides the sink's contact units (None passes through)."""
+    if gate is None:
+        return None
+    return gate._replace(grant=gate.grant[..., sink])
 
 
 class SimulationEngine:
@@ -153,9 +181,18 @@ class SimulationEngine:
         `config.seed`).
       device: where the run lives. None means "cuda", and raises when no
         CUDA device is present; pass "cpu" to run on the CPU.
-      link_budget, isl, faults, mesh: accepted for the reference's
-        signature; anything but None raises NotImplementedError (later
-        slices of the port).
+      link_budget: optional `repro_torch.core.connectivity.LinkBudget`.
+        The engine then runs on its `served` matrix (replacing `C`; the
+        schedulers plan on it too), the satellites carry the `progress`
+        column, and every upload and download is gated on the accumulated
+        grants. A trivial budget (unlimited capacity, zero needs) gives
+        the bits of `link_budget=None`.
+      isl: optional `repro_torch.core.isl.ISL` runtime. It takes effect
+        only when the scheduler declares an `isl_mode` ("sink" or
+        "gossip"); ground-only schedulers run the unmodified protocol, so
+        with/without-ISL comparisons share one world.
+      faults, mesh: anything but None raises NotImplementedError (the
+        faults and mesh slices, ROADMAP A.10).
     """
 
     def __init__(self, C: np.ndarray, adapter, scheduler: Scheduler,
@@ -163,12 +200,12 @@ class SimulationEngine:
                  callbacks: Sequence = (), init_params=None, device=None,
                  link_budget=None, isl=None, faults=None, mesh=None,
                  **overrides):
-        for name, value in (("link_budget", link_budget), ("isl", isl),
-                            ("faults", faults), ("mesh", mesh)):
+        for name, value in (("faults", faults), ("mesh", mesh)):
             if value is not None:
                 raise NotImplementedError(
                     f"SimulationEngine({name}=...) is not ported yet: it "
-                    f"comes with a later slice of the port")
+                    f"comes with the {name} slice of the port (ROADMAP "
+                    f"A.10)")
         self.device = resolve_device(device)
         if adapter.device != self.device:
             raise ValueError(f"adapter lives on {adapter.device}, the run "
@@ -182,7 +219,9 @@ class SimulationEngine:
                          else cfg.uplink_topk),
             uplink_int8=bool(cfg.uplink_int8))
         self.config = cfg
-        self.C = _tile(C, cfg)
+        self.link_budget = link_budget
+        self.isl = isl
+        self.C, self._grants = _tile(C, cfg, link_budget)
         self.adapter = adapter
         self.scheduler = scheduler
         self.callbacks = list(callbacks)
@@ -217,11 +256,32 @@ class SimulationEngine:
         """Host mirror of the GS buffer's per-satellite base versions."""
         return self.state.buffered.cpu().numpy()
 
+    @property
+    def transfer_progress(self) -> Optional[np.ndarray]:
+        """Host mirror of each satellite's in-progress transfer units (None
+        unless the run models a link budget)."""
+        p = self.state.progress
+        return None if p is None else p.cpu().numpy()
+
+    @property
+    def relay_units(self) -> Optional[np.ndarray]:
+        """Host mirror of each satellite's accumulated ISL hop units (None
+        unless the run relays through sink satellites)."""
+        r = self.state.relay
+        return None if r is None else r.cpu().numpy()
+
     def prepare(self) -> None:
         """Initialize run state (model, client-update functions, checkpoint
         store, protocol state on the device). `run` calls this; tests call
         it directly to drive individual protocol steps."""
         cfg = self.config
+        # ISL runs only when both the runtime and a scheduler-declared mode
+        # are present; the scheduler reads the runtime (its topology)
+        # through its `isl` attribute, bound before reset()
+        mode = getattr(self.scheduler, "isl_mode", None)
+        self._isl = self.isl if mode is not None else None
+        self._isl_mode = mode if self._isl is not None else None
+        self.scheduler.isl = self._isl
         self.scheduler.reset()
         self._stop_requested = False
         if self._init_params is None:
@@ -248,8 +308,35 @@ class SimulationEngine:
         self.store = CheckpointStore(keep_in_memory=cfg.s_max + 26)
         self.store.put(0, self.params)
         self.ig = 0
-        # every satellite holds w^0 with a pending round on it (Alg. 1 init)
-        self.state = SS.bootstrap_state(self.K, device=self.device)
+        # every satellite holds w^0 with a pending round on it (Alg. 1
+        # init); link-budget runs carry the in-progress-transfer column,
+        # sink-relay runs the relay column
+        linked = self.link_budget is not None
+        self.state = SS.bootstrap_state(self.K, progress=linked,
+                                        relay=self._isl_mode == "sink",
+                                        device=self.device)
+        # the run's link gate: host grants for the schedulers, the same on
+        # the device (one copy per run) for the transitions
+        self._link = self._grants_dev = None
+        if linked:
+            b = self.link_budget
+            self._link = SS.LinkGate(self._grants, int(b.need_up),
+                                     int(b.need_dn))
+            self._grants_dev = torch.as_tensor(
+                self._grants[:self.num_windows], device=self.device)
+        # ISL device arrays: sink plans per election epoch (made at the
+        # epoch's first window), the gossip neighbours once per run
+        self._sink_cache = {}
+        self._gossip_dev = None
+        if self._isl_mode == "gossip":
+            topo = self._isl.topology
+            idx = np.arange(self.K)
+            cross = self._isl.cross_plane
+            self._gossip_dev = tuple(
+                torch.as_tensor(np.asarray(a, np.int64), device=self.device)
+                for a in (topo.nxt, topo.prv,
+                          topo.left if cross else idx,
+                          topo.right if cross else idx))
         self.result = SimResult(scheme=self.scheduler.name,
                                 target_acc=cfg.target_acc)
         self.result.staleness_hist = np.zeros(cfg.s_max + 1, np.int64)
@@ -294,13 +381,49 @@ class SimulationEngine:
 
     # -------------------------------------------------------- protocol steps
 
+    def _gate(self, i: int):
+        """The device `LinkGate` of window i (None without a link
+        budget): a row of the run's grants on the device."""
+        if self._link is None:
+            return None
+        return SS.LinkGate(self._grants_dev[i], self._link.need_up,
+                           self._link.need_dn)
+
+    def _sink_plan(self, i: int):
+        """Device (sink (K,) int64, need_hops (K,) int32) of window i's
+        election epoch, elected once per epoch from the run's effective
+        connectivity."""
+        ep = self._isl.epoch
+        e = i // ep
+        if e not in self._sink_cache:
+            sink, need = self._isl.sink_plan(self.C[e * ep:(e + 1) * ep])
+            self._sink_cache[e] = (
+                torch.as_tensor(sink.astype(np.int64), device=self.device),
+                torch.as_tensor(need, device=self.device))
+        return self._sink_cache[e]
+
     def on_uploads(self, i: int, conn: np.ndarray) -> int:
         """Connected satellites hand their pending update to the GS buffer
-        (the shared `upload_step` transition on the device). Returns the
-        buffer occupancy."""
+        (the shared `upload_step` transition on the device, gated on the
+        window's grants under a link budget). Under sink relaying the ring
+        relay advances first and the upload runs on sink-indexed effective
+        connectivity; under gossip, the neighbour exchange runs before it
+        (at every hop period). Returns the buffer occupancy."""
         res = self.result
         conn_dev = torch.as_tensor(np.asarray(conn, bool), device=self.device)
-        self.state, info = SS.upload_step(self.state, self.ig, conn_dev)
+        gate = self._gate(i)
+        if self._isl_mode == "sink":
+            sink, need = self._sink_plan(i)
+            self.state, arrived = ISL.relay_step(self.state, need)
+            conn_dev = ISL.sink_connectivity(conn_dev, sink, arrived,
+                                             self.state.pending)
+            gate = _sink_gate(gate, sink)
+        elif self._isl_mode == "gossip" and \
+                i % max(self._isl.relay_windows, 1) == 0:     # a hop window
+            self.state, _ = ISL.gossip_step(self.state, *self._gossip_dev,
+                                            True)
+        self.state, info = SS.upload_step(self.state, self.ig, conn_dev,
+                                          gate)
         n_conn, n_idle, n_buf = torch.stack(
             [info["n_connected"], info["n_idle"], info["n_buffered"]]
         ).tolist()
@@ -312,7 +435,7 @@ class SimulationEngine:
         """Ask the scheduler for the aggregation indicator a^i."""
         return self.scheduler.decide(
             i, n_in_buffer=n_buf, K=self.K, state=self.state, ig=self.ig,
-            connectivity=self.C, status=self.status, link=None)
+            connectivity=self.C, status=self.status, link=self._link)
 
     def on_aggregate(self, i: int) -> None:
         """Apply the staleness-compensated buffered update (eq. 4).
@@ -433,9 +556,23 @@ class SimulationEngine:
 
     def on_downloads(self, i: int, conn: np.ndarray) -> None:
         """Connected satellites fetch the current global model and start a
-        fresh local round on it (the shared `download_step` transition)."""
+        fresh local round on it (the shared `download_step` transition,
+        gated on the window's grants under a link budget). Under sink
+        relaying the plane downloads through its sink's contact (the relay
+        advanced at the upload already) and fresh rounds reset the relay
+        counter."""
         conn_dev = torch.as_tensor(np.asarray(conn, bool), device=self.device)
-        self.state, _ = SS.download_step(self.state, self.ig, conn_dev)
+        gate = self._gate(i)
+        if self._isl_mode != "sink":
+            self.state, _ = SS.download_step(self.state, self.ig, conn_dev,
+                                             gate)
+            return
+        sink, need = self._sink_plan(i)
+        eff = ISL.sink_connectivity(conn_dev, sink, self.state.relay >= need,
+                                    self.state.pending)
+        self.state, dn = SS.download_step(self.state, self.ig, eff,
+                                          _sink_gate(gate, sink))
+        self.state = ISL.reset_relay(self.state, dn["downloads"])
 
     # --------------------------------------------------------------- eval
 

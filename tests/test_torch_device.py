@@ -909,3 +909,62 @@ def test_densenet_client_update_on_the_card():
         torch.testing.assert_close(a.cpu(), c, rtol=1e-2, atol=1e-2)
         if m == 0.0:
             assert not a.any() and not c.any()
+
+
+def _scenario_exp(kind, **params):
+    """tests/test_torch_isl.py's tiny world: 12 satellites in 3 polar
+    planes over the 4-station network, 18 hours, under a binding budget
+    (need_up 4, one satellite a station) with one-window ISL hops."""
+    shell = TCN.Shell(12, 3, 560_000.0, 97.6)
+    return TA.FLExperiment(
+        constellation=TA.ConstellationConfig(
+            num_satellites=12, days=0.75, ground="mid4",
+            spec_overrides={"shells": (shell,), "min_elevation_deg": 25.0}),
+        dataset=TA.DatasetConfig(num_train=600, num_val=200, noise=2.2),
+        partition=TA.PartitionConfig(kind="noniid"),
+        adapter=TA.AdapterConfig(kind="mlp", params={"hidden": 16}),
+        scheduler=TA.SchedulerConfig(kind, params=params),
+        train=EngineConfig(local_steps=2, client_lr=0.5, eval_every=24,
+                           stop_at_target=False),
+        link=TA.LinkConfig(uplink_mbps=20.0, downlink_mbps=100.0,
+                           model_mb=600.0, gs_capacity=1),
+        isl=TA.ISLConfig(isl_mbps=100.0, model_mb=600.0, epoch=24))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,params", [("fedbuff", {"M": 3}),
+                                         ("intra_plane", {}),
+                                         ("isl_async", {})])
+def test_budget_and_isl_runs_on_the_card_match_the_cpu(kind, params):
+    """A run under the link budget (fedbuff) and the two ISL runs: every
+    counter, the staleness histogram and the protocol columns (`progress`,
+    `relay`) card against CPU, one aggregation launch per aggregation."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device with nvcc")
+    from repro_torch.weights import params_to_numpy
+    exp = _scenario_exp(kind, **params)
+    card_fed = TA.Federation.from_experiment(exp)
+    p0 = params_to_numpy(card_fed.adapter.init(
+        torch.Generator().manual_seed(0)))
+    launch_counts.clear()
+    card = card_fed.engine(init_params=p0)
+    cres = card.run()
+    assert launch_counts["weighted_aggregate"] == \
+        cres.num_global_updates >= 3
+    cpu = TA.Federation.from_experiment(exp, device="cpu").engine(
+        init_params=p0, device="cpu")
+    pres = cpu.run()
+    for name in ("num_global_updates", "num_aggregated_gradients",
+                 "idle_connections", "total_connections", "windows_run",
+                 "eval_windows"):
+        assert getattr(cres, name) == getattr(pres, name), name
+    np.testing.assert_array_equal(cres.staleness_hist, pres.staleness_hist)
+    for name in ("version", "pending", "buffered_base", "transfer_progress"):
+        np.testing.assert_array_equal(getattr(card, name),
+                                      getattr(cpu, name), err_msg=name)
+    if kind == "intra_plane":
+        np.testing.assert_array_equal(card.relay_units, cpu.relay_units)
+    else:
+        assert card.relay_units is None and cpu.relay_units is None
+    np.testing.assert_allclose(cres.accuracy, pres.accuracy,
+                               atol=1.0 / 200 + 1e-6)

@@ -124,12 +124,15 @@ def test_with_scheduler_shares_the_world(runs):
 
 
 @pytest.mark.parametrize("change,slice_name", [
-    (dict(link=TA.LinkConfig(model_mb=300.0, uplink_mbps=20.0)),
-     "link-budget"),
-    (dict(link=TA.LinkConfig(gs_capacity=2)), "link-budget"),
+    # link budgets and ISLs are ported; compressed uplinks over a budget
+    # and faults in an ISL world still raise
+    (dict(link=TA.LinkConfig(model_mb=300.0, uplink_mbps=20.0,
+                             uplink_topk=0.25)), "compression"),
+    (dict(link=TA.LinkConfig(gs_capacity=2, uplink_int8=True)),
+     "compression"),
     (dict(link=TA.LinkConfig(uplink_topk=0.25)), "compression"),
     (dict(train=TEC(uplink_int8=True)), "compression"),
-    (dict(isl=object()), "ISL"),
+    (dict(isl=TA.ISLConfig(), faults=object()), "faults"),
     (dict(faults=object()), "faults"),
 ])
 def test_unported_options_raise_naming_their_slice(change, slice_name):
@@ -140,11 +143,11 @@ def test_unported_options_raise_naming_their_slice(change, slice_name):
 
 def test_engine_rejects_unported_layers(runs):
     _, (tfed, _, _), _ = runs
-    for name in ("link_budget", "isl", "faults", "mesh"):
-        with pytest.raises(NotImplementedError, match="later slice"):
+    for name in ("faults", "mesh"):
+        with pytest.raises(NotImplementedError, match=f"{name} slice"):
             SimulationEngine(tfed.C, tfed.adapter, tfed.scheduler,
                              device="cpu", **{name: object()})
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(NotImplementedError, match="mesh slice"):
         tfed.engine(device="cpu", mesh=object())
 
 

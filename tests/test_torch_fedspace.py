@@ -14,6 +14,7 @@ import pytest
 
 import repro.core.scheduler as RSched
 import repro_torch.core.search as TSR
+import repro_torch.core.staleness as TS
 import repro_torch.fl.api as TA
 from repro.core import connectivity as RCN
 from repro.core.scheduler import FedSpaceScheduler as RFedSpace
@@ -205,11 +206,13 @@ def test_service_and_link_raise_naming_their_slices(fed):
     sched = TFedSpace(fed.scheduler.regressor, I0=4, num_candidates=8)
     eng = fed.engine(device="cpu")
     eng.prepare()
-    with pytest.raises(NotImplementedError, match="link-budget"):
-        sched.decide(0, n_in_buffer=1, K=eng.K, state=eng.state, ig=0,
-                     connectivity=eng.C, status=1.0, link=object())
-    with pytest.raises(NotImplementedError, match="link-budget"):
-        sched._window_link(object(), 0)
-    with pytest.raises(NotImplementedError, match="link-budget"):
-        sched._search_state(eng.state, 0, connectivity=eng.C,
-                            link=object())
+    # the link-gated search is ported: a gate slices to the planning
+    # window, and a state without the progress column rolls as it is
+    grants = np.ones(eng.C.shape, np.int32)
+    gate = sched._window_link(TS.LinkGate(grants, 2, 1), 0)
+    assert gate.grant.shape == (4, eng.K) and gate.need_up == 2
+    assert sched._search_state(eng.state, 0, connectivity=eng.C,
+                               link=gate) is eng.state
+    assert sched.decide(0, n_in_buffer=1, K=eng.K, state=TS.bootstrap_state(
+        eng.K, progress=True, device="cpu"), ig=0, connectivity=eng.C,
+        status=1.0, link=TS.LinkGate(grants, 2, 1)) in (True, False)

@@ -122,19 +122,23 @@ def test_initial_states_and_compensation():
 
 def test_unported_collect_modes_raise():
     """Every collect mode of the reference is ported ("hist", "marks",
-    "none"); any other raises, naming them, and so do link gates and a
-    sharded satellite axis, naming their slice."""
+    "none"); any other raises, naming them, and so does a sharded
+    satellite axis, naming its slice (link gates are ported:
+    tests/test_torch_link_budget.py)."""
     st = TS.bootstrap_state(3, device="cpu")
     with pytest.raises(ValueError, match="'marks' or 'none'"):
         TS.aggregate_step(st, 0, True, s_max=8, collect="lite")
     conn = torch.ones(3, dtype=torch.bool)
-    for call in (lambda: TS.step(st, 0, conn, True, s_max=8, link=object()),
+    for call in (lambda: TS.aggregate_step(st, 0, True, s_max=8,
+                                           axis_name="k"),
                  lambda: TS.step(st, 0, conn, True, s_max=8, axis_name="k"),
-                 lambda: TS.upload_step(st, 0, conn, object()),
-                 lambda: TS.download_step(st, 0, conn, object()),
+                 lambda: TS.upload_step(st, 0, conn, axis_name="k"),
+                 lambda: TS.simulate_candidates(np.ones((2, 3), bool),
+                                                np.ones((2, 2)), st, 0,
+                                                axis_name="k"),
                  lambda: TS.simulate_window(np.ones((2, 3), bool),
                                             np.ones(2), st, 0,
-                                            link=object())):
+                                            axis_name="k")):
         with pytest.raises(NotImplementedError, match="A.10"):
             call()
 
