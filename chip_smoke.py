@@ -84,7 +84,8 @@ Phases, each of which fails the script (nonzero exit) when it fails:
   8. the scenarios (`scenarios` lines), link budgets and inter-satellite
      links through the repo's examples: (a) every policy of
      examples/scheduler_comparison.py (starlink40, 384 windows, its
-     ISLConfig) on the card and on the CPU, FedSpace with phase 1 on the
+     ISLConfig; the chaos-held async and isl_async over the first 96) on
+     the card and on the CPU, FedSpace with phase 1 on the
      card (its seconds) and the forest carried to the CPU; (b) the
      binding cell of examples/isl_comparison.py (starlink40 over sparse1
      under a finite budget; its blocked share): fedbuff, intra_plane,
@@ -93,7 +94,19 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      columns equal, FedSpace's re-plans under ROADMAP C13, one
      aggregation launch per aggregation in every run; (c) a re-plan's ms
      with and without the gate;
-  9. one JSON line listing every ported kernel.
+  9. the fault study (`faults` lines), examples/fault_study.py's world
+     (starlink40 over dense12, 192 windows, its budget and ISLs) and its
+     five fault worlds: (a) the 15 sweepable cells (sync, fedbuff,
+     intra_plane) through `sweep_engines` (the call `run_sweep` makes) on
+     the card and on the CPU, every outcome equal, the card's window loops
+     under `torch.cuda.set_sync_debug_mode("error")`, groups and walls
+     printed, and three cells run one by one through the card's `.run()`,
+     equal to the sweep; (b) FedSpace under each fault world and under
+     churn40 as an oracle, phase 1 once on the card and the forest carried
+     to the CPU, card against CPU as in the scenarios; (c) the traces'
+     numbers (alive satellites at the end, contacts and grant units
+     removed);
+  10. one JSON line listing every ported kernel.
 The last line is `{"ok": true,
 "device": {...}}`. Without a CUDA device, or away from the repository's
 sources, it exits nonzero and prints no result. Imports nothing of JAX or
@@ -124,6 +137,9 @@ BF16_TC_FLOP_PER_S = 989e12
 QUICKSTART_N = 4_622
 TRANSFORMER_N = 20_768
 DENSENET_N = 12_512                        # Part A's DenseNet, 28 leaves
+FAULT_N = 6_144     # the fault study's and the ISL cell's MLP, F=32 -> 64
+                    # -> 62 (6,142 parameters)
+FAULT_M = 10                               # fedbuff/intra_plane M there
 DENSENET_M = 8                             # fedbuff M of the DenseNet path
 PAPER_N = 26_608_958                       # DenseNet-161, 62-class head
 PAPER_M = 191                              # flock191 satellites
@@ -212,6 +228,8 @@ def check_aggregation(torch):
     g = torch.Generator(device="cuda").manual_seed(0)
     shapes = [(m, n) for n in (QUICKSTART_N, TRANSFORMER_N, DENSENET_N)
               for m in (1, MAIN_PATH_M, 40)] + [(DENSENET_M, DENSENET_N),
+                                                (FAULT_M, FAULT_N),
+                                                (MAIN_PATH_M, FAULT_N),
                                                 (PAPER_M, PAPER_N)]
     rows_out = []
     for m, n in shapes:
@@ -1900,12 +1918,27 @@ SCENARIO_SETUP = {"pretrain_rounds": 30, "clients_per_round": 16,
                   "client_lr": 1.0}
 ISL_CELL_POLICIES = (("fedbuff", {"M": 12}), ("intra_plane", {}),
                      ("isl_async", {}))
+# (a)'s chaos-held policies (an aggregation nearly every window, each run
+# also held against a nudged card run) run the world's first simulated day,
+# which keeps the whole script well inside its time limit.
+SCENARIO_SHORT = {"async": 96, "isl_async": 96}
 # Accuracy card against CPU, at every evaluation: within 0.01 (as the
 # quickstart path); where a run is chaotic (one update an aggregation at lr
 # 1.0 carries a rounding difference on and grows it: ROADMAP C16) and the
 # gap is wider, within CHAOS_FACTOR times the gap a nudge of the initial
 # model by one rounding makes on the card, plus one argmax flip.
 SCENARIO_ACC_TOL = 0.01
+
+
+def _first_windows(fed, windows):
+    """`fed` with its runs cut to their first `windows` windows: the same
+    world, a shorter horizon."""
+    import copy
+    import dataclasses
+    out = copy.copy(fed)
+    out.experiment = dataclasses.replace(fed.experiment, train=(
+        dataclasses.replace(fed.experiment.train, max_windows=windows)))
+    return out
 
 
 def scheduler_comparison_experiment():
@@ -1957,9 +1990,10 @@ def _columns(eng):
 
 def _scenario_pair(torch, tag, card_fed, cpu_fed, p0, counts,
                    regressor=None):
-    """One policy: the card's run (launch counts read around it, wall),
-    then the CPU's from the same initial model; every counter, the
-    staleness histogram and the final protocol columns equal (for
+    """One policy (`tag` leads its lines): the card's run (launch counts
+    read around it, wall), then the CPU's from the same initial model;
+    every counter, the staleness histogram and the final protocol columns
+    equal (for
     FedSpace, every re-plan under the C13 rule, and the rest where the
     schedules agree), the accuracies within `SCENARIO_ACC_TOL` or the
     card's own chaos. Returns (card result, card wall, CPU wall)."""
@@ -1977,8 +2011,8 @@ def _scenario_pair(torch, tag, card_fed, cpu_fed, p0, counts,
     mine = dict(launch_counts)
     for k, v in mine.items():
         counts[k] = counts.get(k, 0) + v
-    print(f"scenarios {tag} (cuda):", json.dumps(res.summary()), flush=True)
-    print(f"scenarios {tag} (cuda): wall {wall:.3f} s, windows "
+    print(f"{tag} (cuda):", json.dumps(res.summary()), flush=True)
+    print(f"{tag} (cuda): wall {wall:.3f} s, windows "
           f"{res.windows_run}, re-plans {len(card_log.log)}, launches "
           f"{mine}", flush=True)
     _one_launch_per_aggregation(res, mine)
@@ -1989,10 +2023,10 @@ def _scenario_pair(torch, tag, card_fed, cpu_fed, p0, counts,
         cpu_eng = cpu_fed.engine(init_params=p0, device=cpu_fed.device)
         cpu = cpu_eng.run()
     cpu_wall = time.perf_counter() - t0
-    print(f"scenarios {tag} (cpu): {json.dumps(cpu.summary())} wall "
+    print(f"{tag} (cpu): {json.dumps(cpu.summary())} wall "
           f"{cpu_wall:.3f} s", flush=True)
     card_cols, cpu_cols = _columns(eng), _columns(cpu_eng)
-    print(f"scenarios {tag}: final progress card "
+    print(f"{tag}: final progress card "
           f"{card_cols['transfer_progress']} CPU "
           f"{cpu_cols['transfer_progress']}; relay card "
           f"{card_cols['relay_units']} CPU {cpu_cols['relay_units']}",
@@ -2001,14 +2035,14 @@ def _scenario_pair(torch, tag, card_fed, cpu_fed, p0, counts,
         if _same_schedules(card_log.log, cpu_log.log, regressor,
                            t_split_ok=True) is not None:
             return res, wall, cpu_wall
-        print(f"scenarios {tag}: {len(card_log.log)} re-plans, schedules "
+        print(f"{tag}: {len(card_log.log)} re-plans, schedules "
               f"equal, card against CPU", flush=True)
     _same_counters(res, cpu)
     if card_cols != cpu_cols:
-        raise AssertionError(f"scenarios {tag}: protocol columns differ")
+        raise AssertionError(f"{tag}: protocol columns differ")
     gap = max(abs(a - b) for a, b in zip(res.accuracy, cpu.accuracy))
     if gap <= SCENARIO_ACC_TOL:
-        print(f"scenarios {tag}: counters, histogram and columns equal; "
+        print(f"{tag}: counters, histogram and columns equal; "
               f"accuracies within {gap!r} (tolerance {SCENARIO_ACC_TOL})",
               flush=True)
         return res, wall, cpu_wall
@@ -2017,13 +2051,13 @@ def _scenario_pair(torch, tag, card_fed, cpu_fed, p0, counts,
         a.shape))).astype(a.dtype), p0)
     nres = card_fed.engine(init_params=nudged).run()
     spread = max(abs(a - b) for a, b in zip(res.accuracy, nres.accuracy))
-    print(f"scenarios {tag}: counters, histogram and columns equal; "
+    print(f"{tag}: counters, histogram and columns equal; "
           f"accuracies card {res.accuracy} CPU {cpu.accuracy} nudged card "
           f"{nres.accuracy}: gap {gap!r}, the card's own {spread!r} "
           f"(factor {CHAOS_FACTOR})", flush=True)
     if gap > CHAOS_FACTOR * spread + \
             1 / card_fed.experiment.dataset.num_val + 1e-6:
-        raise AssertionError(f"scenarios {tag}: accuracy gap beyond the "
+        raise AssertionError(f"{tag}: accuracy gap beyond the "
                              f"card's own spread")
     return res, wall, cpu_wall
 
@@ -2082,9 +2116,13 @@ def run_scenarios_path(torch):
     p0 = params_to_numpy(base.adapter.init(torch.Generator().manual_seed(
         exp.seed)))
     for name, kw in SCENARIO_POLICIES:
+        card_w, cpu_w = base, cpu_base
+        if name in SCENARIO_SHORT:
+            card_w, cpu_w = (_first_windows(w, SCENARIO_SHORT[name])
+                             for w in (base, cpu_base))
         _, card, cpu = _scenario_pair(
-            torch, f"(a) {name}", base.with_scheduler(name, **kw),
-            cpu_base.with_scheduler(name, **kw), p0, counts)
+            torch, f"scenarios (a) {name}", card_w.with_scheduler(name, **kw),
+            cpu_w.with_scheduler(name, **kw), p0, counts)
         walls[f"(a) {name}"] = (card, cpu)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2104,7 +2142,7 @@ def run_scenarios_path(torch):
                                  n_features=reg.n_features_)
     fs_params = {**SCENARIO_FEDSPACE, "regressor": carried}
     res, card, cpu = _scenario_pair(
-        torch, "(a) fedspace", fs,
+        torch, "scenarios (a) fedspace", fs,
         cpu_base.with_scheduler(SchedulerConfig("fedspace",
                                                 params=fs_params)),
         p0, counts, regressor=reg)
@@ -2124,12 +2162,12 @@ def run_scenarios_path(torch):
         exp.seed)))
     for name, kw in ISL_CELL_POLICIES:
         _, card, cpu = _scenario_pair(
-            torch, f"(b) {name}", cell.with_scheduler(name, **kw),
+            torch, f"scenarios (b) {name}", cell.with_scheduler(name, **kw),
             cpu_cell.with_scheduler(name, **kw), p0, counts)
         walls[f"(b) {name}"] = (card, cpu)
     fs_card = {**SCENARIO_FEDSPACE, "regressor": reg}
     _, card, cpu = _scenario_pair(
-        torch, "(b) fedspace",
+        torch, "scenarios (b) fedspace",
         cell.with_scheduler(SchedulerConfig("fedspace", params=fs_card)),
         cpu_cell.with_scheduler(SchedulerConfig("fedspace",
                                                 params=fs_params)),
@@ -2142,6 +2180,283 @@ def run_scenarios_path(torch):
     print(f"scenarios: phase {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return {"scenarios": counts}
+
+
+# examples/fault_study.py's world, as written: starlink40 over dense12, 2
+# days (192 windows), 4000/800 samples at noise 2.2, the MLP at its default
+# width (64), E 8 at lr 1.0, eval every 48, LinkConfig(20, 100, 600 MB, two
+# satellites a station), ISLConfig(100 Mbit/s, 600 MB, epoch 24); its five
+# fault worlds; sync, fedbuff M 10 and intra_plane M 10 through the sweep,
+# and FedSpace (I0 24, 4-8 aggregations, 512 candidates; phase 1 of 10
+# rounds of 12 clients and 60 samples at E 8, lr 1.0) run one by one.
+FAULT_K, FAULT_G, FAULT_WINDOWS = 40, 12, 192
+FAULT_SWEEPABLE = (("sync", {}), ("fedbuff", {"M": FAULT_M}),
+                   ("intra_plane", {"M": FAULT_M}))
+FAULT_FEDSPACE = {"I0": 24, "n_min": 4, "n_max": 8, "num_candidates": 512}
+FAULT_SETUP = {"pretrain_rounds": 10, "clients_per_round": 12,
+               "utility_samples": 60, "local_steps": 8, "client_lr": 1.0}
+# one sequential `.run()` a policy and a fault kind, held to the sweep
+FAULT_SEQUENTIAL = (("churn40", "fedbuff"), ("blackout", "intra_plane"),
+                    ("weather", "sync"))
+
+
+def fault_scenarios():
+    """examples/fault_study.py's five fault worlds, in its order."""
+    from repro_torch.core.faults import random_churn, station_blackout
+    from repro_torch.fl.api import FaultConfig
+    K, G, W = FAULT_K, FAULT_G, FAULT_WINDOWS
+    return (("clean", FaultConfig()),
+            ("churn20", FaultConfig(deorbit=random_churn(K, W, 0.20,
+                                                         seed=0))),
+            ("churn40", FaultConfig(deorbit=random_churn(K, W, 0.40,
+                                                         seed=0))),
+            ("blackout", FaultConfig(outages=station_blackout(G, 64, 128))),
+            ("weather", FaultConfig(rate_scale_min=0.25, rate_scale_max=1.0,
+                                    seed=1)))
+
+
+def fault_study_experiment():
+    """examples/fault_study.py's base world, as written."""
+    from repro_torch.fl.api import (ConstellationConfig, DatasetConfig,
+                                    FLExperiment, ISLConfig, LinkConfig,
+                                    SchedulerConfig)
+    from repro_torch.fl.engine import EngineConfig
+    return FLExperiment(
+        name="fault_study",
+        constellation=ConstellationConfig(preset="starlink40",
+                                          ground="dense12", days=2.0),
+        dataset=DatasetConfig(num_train=4000, num_val=800, noise=2.2),
+        scheduler=SchedulerConfig(kind="fedbuff", params={"M": FAULT_M}),
+        train=EngineConfig(local_steps=8, client_lr=1.0, eval_every=48,
+                           max_windows=FAULT_WINDOWS),
+        link=LinkConfig(uplink_mbps=20.0, downlink_mbps=100.0,
+                        model_mb=600.0, gs_capacity=2),
+        isl=ISLConfig(isl_mbps=100.0, model_mb=600.0, epoch=24))
+
+
+class SweepLoops:
+    """While the block runs: the number of window loops (groups) the
+    sweep runs, each loop on the card under
+    `torch.cuda.set_sync_debug_mode("error")`, so that a host read inside
+    it fails."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.fl import sweep
+        self.groups, self._loop = 0, sweep._window_loop
+
+        def loop(cols, **kw):
+            self.groups += 1
+            on_card = cols["C"].is_cuda
+            if on_card:
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                if self.groups == 1:      # the guard is live: a read fails
+                    try:
+                        cols["C"][0, 0, 0].item()
+                    except RuntimeError:
+                        pass
+                    else:
+                        raise AssertionError("sync debug mode let .item() "
+                                             "through")
+            try:
+                return self._loop(cols, **kw)
+            finally:
+                if on_card:
+                    torch.cuda.set_sync_debug_mode("default")
+        sweep._window_loop = loop
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.fl import sweep
+        sweep._window_loop = self._loop
+
+
+class Phase1Count:
+    """Counts the FedSpace phase-1 builds `Federation` runs while the block
+    runs (`build_utility_regressor`, called through `fl/api.py`)."""
+
+    def __enter__(self):
+        from repro_torch.fl import api
+        self.calls, self._inner = 0, api.build_utility_regressor
+
+        def counted(*args, **kw):
+            self.calls += 1
+            return self._inner(*args, **kw)
+        api.build_utility_regressor = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.fl import api
+        api.build_utility_regressor = self._inner
+
+
+def _fault_row(res):
+    """examples/fault_study.py's row numbers: idle %, updates, gradients,
+    mean staleness."""
+    hist = res.staleness_hist
+    stale = sum(s * int(n) for s, n in enumerate(hist)) / max(
+        int(hist.sum()), 1)
+    return {"idle_pct": 100.0 * res.idle_connections
+            / max(res.total_connections, 1),
+            "updates": res.num_global_updates,
+            "grads": res.num_aggregated_gradients, "stale": stale}
+
+
+def _same_outcomes(card, cpu, tag):
+    """Two sweep outcomes (or a run and an outcome) equal in every
+    counter, the histogram and the final columns."""
+    for name in ("num_global_updates", "num_aggregated_gradients",
+                 "idle_connections", "total_connections", "windows_run"):
+        a, b = getattr(card.result, name), getattr(cpu.result, name)
+        if a != b:
+            raise AssertionError(f"{tag}: {name} {a} against {b}")
+    if card.result.staleness_hist.tolist() != \
+            cpu.result.staleness_hist.tolist():
+        raise AssertionError(f"{tag}: staleness histograms differ")
+    for name in ("version", "pending", "buffered"):
+        if getattr(card, name).tolist() != getattr(cpu, name).tolist():
+            raise AssertionError(f"{tag}: final {name} differs")
+
+
+def run_faults_path(torch):
+    """Phase 9, the fault study (`faults` lines), examples/fault_study.py's
+    world on the card against the CPU: (a) the 15 sweepable cells through
+    `sweep_engines` on both (groups, walls; every outcome equal; the card's
+    window loops under the sync guard; no kernel launched), and three
+    cells run one by one through the card's `.run()`, held to the sweep;
+    (b) FedSpace under each fault world (blind) and under churn40 as an
+    oracle, phase 1 once on the card and the forest carried to the CPU
+    (`_scenario_pair`: counters, columns, schedules under C13, one
+    aggregation launch per aggregation); (c) the traces' numbers. Returns
+    the launch counts summed over the card's runs."""
+    import dataclasses
+    from types import SimpleNamespace
+    import numpy as np
+    from repro_torch.fl.api import Federation, SchedulerConfig
+    from repro_torch.fl.sweep import sweep_engines
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.agg.ops import FlatLayout
+    from repro_torch.tree import tree_leaves
+    from repro_torch.weights import forest_from_arrays, params_to_numpy
+    t_phase = time.perf_counter()
+    exp = fault_study_experiment()
+    scen = fault_scenarios()
+    clean = Federation.from_experiment(exp)
+    cpu_clean = Federation.from_experiment(exp, device="cpu")
+    worlds = {n: clean.with_faults(c) for n, c in scen}
+    cpu_worlds = {n: cpu_clean.with_faults(c) for n, c in scen}
+
+    # (c) the traces: alive satellites at the end, contacts and grant
+    # units the faults remove from the served world
+    W = FAULT_WINDOWS
+    for name, _ in scen:
+        eng, cpu_eng = worlds[name].engine(), cpu_worlds[name].engine(
+            device="cpu")
+        if not (np.array_equal(eng.C, cpu_eng.C)
+                and np.array_equal(eng._grants, cpu_eng._grants)):
+            raise AssertionError(f"faults (c) {name}: the executed worlds "
+                                 f"differ, card against CPU")
+        tr = worlds[name].faults
+        row = {"alive_at_end": FAULT_K if tr is None
+               else int(tr.alive[W - 1].sum()),
+               "contacts_removed": 1 - eng.C[:W].sum()
+               / eng._plan_C[:W].sum(),
+               "grant_loss": 1 - eng._grants[:W].sum()
+               / eng._plan_grants[:W].sum()}
+        print(f"faults (c) {name}:", json.dumps(
+            {k: float(v) for k, v in row.items()}), flush=True)
+
+    # (a) the sweep, card then CPU
+    cells = [(n, kind, kw) for n, _ in scen for kind, kw in FAULT_SWEEPABLE]
+    swept = {}
+    for side, ws in (("cuda", worlds), ("cpu", cpu_worlds)):
+        launch_counts.clear()
+        with SweepLoops() as loops:
+            t0 = time.perf_counter()
+            # `run_sweep` is this call over the worlds' engines; its
+            # outcomes keep the final columns compared below
+            swept[side] = sweep_engines([
+                w.engine(device=w.device) for w in
+                (ws[n].with_scheduler(kind, **kw) for n, kind, kw in cells)])
+            if side == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if side == "cuda" and sum(launch_counts.values()):
+            raise AssertionError(f"the sweep launched kernels: "
+                                 f"{dict(launch_counts)}")
+        print(f"faults (a) sweep ({side}): {len(cells)} cells in "
+              f"{loops.groups} groups, wall {wall:.3f} s"
+              + (", window loops under sync debug mode 'error'"
+                 if side == "cuda" else ""), flush=True)
+    for (n, kind, _), card, cpu in zip(cells, swept["cuda"], swept["cpu"]):
+        _same_outcomes(card, cpu, f"faults (a) {n} {kind}")
+        print(f"faults (a) {n} {kind}:", json.dumps(_fault_row(card.result)),
+              flush=True)
+    print(f"faults (a): {len(cells)} outcomes equal, card against CPU",
+          flush=True)
+    counts = {}
+    init = clean.adapter.init(torch.Generator().manual_seed(exp.seed))
+    n = FlatLayout.of(tree_leaves(init)).size
+    if n != FAULT_N:
+        raise AssertionError(f"the fault study's flat model holds {n}, "
+                             f"check_aggregation's FAULT_N {FAULT_N}")
+    p0 = params_to_numpy(init)
+    for name, kind in FAULT_SEQUENTIAL:
+        kw = dict(FAULT_SWEEPABLE)[kind]
+        launch_counts.clear()
+        t0 = time.perf_counter()
+        eng = worlds[name].with_scheduler(kind, **kw).engine(init_params=p0)
+        res = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        mine = dict(launch_counts)
+        for k, v in mine.items():
+            counts[k] = counts.get(k, 0) + v
+        _one_launch_per_aggregation(res, mine)
+        (out,) = [o for (n, k, _), o in zip(cells, swept["cuda"])
+                  if (n, k) == (name, kind)]
+        _same_outcomes(SimpleNamespace(result=res, version=eng.version,
+                                       pending=eng.pending,
+                                       buffered=eng.buffered_base), out,
+                       f"faults (a) {name} {kind} run")
+        print(f"faults (a) {name} {kind} (cuda) run: wall {wall:.3f} s, "
+              f"{res.num_global_updates} aggregations, launches {mine}; "
+              f"equal to the sweep", flush=True)
+
+    # (b) FedSpace under the faults: phase 1 once, on the card
+    walls = {}
+    fs_cfg = SchedulerConfig("fedspace", params=FAULT_FEDSPACE,
+                             setup=FAULT_SETUP)
+    with Phase1Count() as phase1:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reg = clean.with_scheduler(fs_cfg).scheduler.regressor
+        torch.cuda.synchronize()
+        print(f"faults (b) phase 1 (cuda): {time.perf_counter() - t0:.3f} s",
+              flush=True)
+        fa = reg.arrays()
+        carried = forest_from_arrays(fa.feature, fa.thresh, fa.left,
+                                     fa.right, fa.value, fa.depth,
+                                     n_features=reg.n_features_)
+        cpu_cfg = SchedulerConfig("fedspace", params={
+            **FAULT_FEDSPACE, "regressor": carried})
+        runs = [(n, c) for n, c in scen] + [
+            ("churn40 oracle", dataclasses.replace(dict(scen)["churn40"],
+                                                   oracle=True))]
+        for label, cfg in runs:
+            _, card, cpu = _scenario_pair(
+                torch, f"faults (b) {label}",
+                clean.with_faults(cfg).with_scheduler(fs_cfg),
+                cpu_clean.with_faults(cfg).with_scheduler(cpu_cfg), p0,
+                counts, regressor=reg)
+            walls[label] = (card, cpu)
+    if phase1.calls != 1:
+        raise AssertionError(f"phase 1 ran {phase1.calls} times")
+    print("faults (b) walls (card s, CPU s)", json.dumps(walls), flush=True)
+    print(f"faults: phase 1 ran once; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"faults": counts}
 
 
 # ptxas's report of a kernel, from its mangled name - <length><name>I<template
@@ -2258,6 +2573,8 @@ def main() -> int:
     done("densenet path")
     paths.update(run_scenarios_path(torch))
     done("scenarios path")
+    paths.update(run_faults_path(torch))
+    done("faults path")
 
     # 6. the kernels line. One aggregation of the quickstart (one launch
     # over its flat model at M=20, float32); one SGD step of a

@@ -1,15 +1,57 @@
-"""Version-indexed global-model store: the FL server keeps the bases that
-buffered and pending satellites still train from (w^{i-s} for s <= s_max).
+"""Parameter trees on npz, and the version-indexed global-model store the
+FL server keeps the bases in that buffered and pending satellites still
+train from (w^{i-s} for s <= s_max).
 
-The port of `repro.ckpt.checkpoint.CheckpointStore`, memory-only: stored
-models are parameter dicts left on the run's device, so fetching a base
-costs no transfer. The reference's disk spill, npz save/load and its
-device ring (`DeviceCheckpointStore`, a JAX buffer-donation idiom) are not
-ported yet.
+The port of `repro.ckpt.checkpoint`: `save_pytree`/`load_pytree` write
+and read the reference's npz layout — one array per leaf under its
+path-joined key ("a/b", list items by index) — so a file written by
+either package loads into the other's tree. The `CheckpointStore` is
+memory-only: stored models are parameter dicts left on the run's device,
+so fetching a base costs no transfer. The reference's disk spill and its
+device ring (`DeviceCheckpointStore`, a JAX buffer-donation idiom) are
+not ported yet.
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
+from repro_torch.tree import tree_flatten, tree_unflatten
+
+
+def _paths(tree, prefix=""):
+    """(key, leaf) pairs in the tree's leaf order, keys joined by "/" as
+    the reference joins its pytree paths."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _paths(tree[k], f"{prefix}{k}/")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _paths(v, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def save_pytree(path: str, tree) -> None:
+    """Save a tree of tensors to `path` as an npz of path-keyed leaves
+    (parent directories are created; `load_pytree` restores it)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, **{k: v.detach().cpu().numpy()
+                      for k, v in _paths(tree)})
+
+
+def load_pytree(path: str, like) -> Any:
+    """Restore into the structure of `like`, a tree of tensors (shapes
+    must match): each leaf takes the dtype and device of `like`'s."""
+    data = np.load(path)
+    _, structure = tree_flatten(like)
+    return tree_unflatten(structure, [
+        torch.as_tensor(np.asarray(data[key])).to(
+            device=leaf.device, dtype=leaf.dtype).reshape(leaf.shape)
+        for key, leaf in _paths(like)])
 
 
 class CheckpointStore:

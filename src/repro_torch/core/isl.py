@@ -189,7 +189,8 @@ class ISL:
         """``(sink (K,), need_hops (K,))`` int32 for one election epoch,
         from the epoch's effective connectivity slice: `elect_sinks`, and
         ring distances scaled by the hop latency. `alive` (a fault run's
-        mask) raises: it comes with the faults slice."""
+        (K,) mask, alive at some window of the epoch) restricts the
+        election to live satellites."""
         sink = elect_sinks(C_epoch, self.topology, alive=alive)
         need = self.topology.ring_distance(sink) * self.relay_windows
         return sink, need.astype(np.int32)
@@ -203,13 +204,6 @@ def build_isl(spec: ConstellationSpec, config: ISLConfig) -> ISL:
                cross_plane=config.cross_plane)
 
 
-def _faults_later(alive):
-    if alive is not None:
-        raise NotImplementedError(
-            "an alive mask (fault injection) is not ported yet: it comes "
-            "with the faults slice of the port (ROADMAP A.10)")
-
-
 def elect_sinks(C_epoch: np.ndarray, topo: ISLTopology, *,
                 alive=None) -> np.ndarray:
     """Per-plane sink election (2302.13447 §III): the member whose first
@@ -221,20 +215,25 @@ def elect_sinks(C_epoch: np.ndarray, topo: ISLTopology, *,
     Args:
       C_epoch: (W, K) bool — the epoch's (effective) connectivity slice.
       topo: the ring topology whose `plane` grouping scopes the election.
-      alive: raises NotImplementedError (the faults slice).
+      alive: optional (K,) bool candidate mask (`repro_torch.core.faults`):
+        dead satellites are never elected; an all-dead plane falls back to
+        its full membership (no member of it can act).
 
     Returns (K,) int32: each satellite's elected sink (always in its plane).
     """
-    _faults_later(alive)
     C_epoch = np.asarray(C_epoch, bool)
     W = C_epoch.shape[0]
     has = C_epoch.any(axis=0)
     first = np.where(has, C_epoch.argmax(axis=0), W)     # W = "never"
     total = C_epoch.sum(axis=0)
     sink = np.empty(topo.plane.shape[0], np.int32)
+    alive = None if alive is None else np.asarray(alive, bool)
     for p in np.unique(topo.plane):
         m = np.flatnonzero(topo.plane == p)
-        best = m[np.lexsort((m, -total[m], first[m]))][0]
+        cand = m if alive is None else m[alive[m]]
+        if cand.size == 0:
+            cand = m
+        best = cand[np.lexsort((cand, -total[cand], first[cand]))][0]
         sink[m] = best
     return sink
 
@@ -251,7 +250,17 @@ def reachable_count(topo: ISLTopology, C: np.ndarray) -> int:
 # ---------------------------------------------------------------------------
 # ISL transitions over the protocol state, on its device. They take the
 # batch dims of the state like the Algorithm-1 transitions (a (..., K)
-# state, index arrays of K global satellite indices).
+# state, index arrays of K global satellite indices: one (K,) row for the
+# whole batch, or one row per batch index, as the sweep's variants carry).
+
+
+def _take(x, idx):
+    """``x[..., idx]`` along the satellite axis. `idx` is one (K,) row of
+    global indices, or carries batch dims of its own (one row each)."""
+    if idx.dim() == 1:
+        return x[..., idx]
+    x, idx = torch.broadcast_tensors(x, idx)
+    return torch.take_along_dim(x, idx, dim=-1)
 
 
 def relay_step(state, need_hops):
@@ -279,7 +288,7 @@ def sink_connectivity(conn, sink, arrived, pending, *, axis_name=None):
     global satellite indices (int64); `axis_name` raises (the mesh
     slice)."""
     SS._no_mesh(axis_name)
-    return conn[..., sink] & (arrived | (pending < 0))
+    return _take(conn, sink) & (arrived | (pending < 0))
 
 
 def gossip_step(state, nxt, prv, left, right, do_hop, alive=None, *,
@@ -291,15 +300,17 @@ def gossip_step(state, nxt, prv, left, right, do_hop, alive=None, *,
     training on it — `download_step`'s restart-on-newer-model rule with
     the neighbour in place of the GS.
 
-    `nxt`, `prv`, `left`, `right` are (K,) int64 global indices; `do_hop`
-    a bool, or a bool tensor with one value per batch index of the state.
-    `alive` and `axis_name` raise NotImplementedError (the faults and
-    mesh slices). Returns ``(state, adopted)``."""
-    _faults_later(alive)
+    `nxt`, `prv`, `left`, `right` are int64 global indices, (K,) or one
+    row per batch index; `do_hop` a bool, or a bool tensor with one value
+    per batch index of the state. `alive` (a fault run's (..., K) bool
+    mask) removes dead satellites from the exchange: they offer nothing
+    (their version reads as -1) and adopt nothing. `axis_name` raises
+    NotImplementedError (the mesh slice). Returns ``(state, adopted)``."""
     SS._no_mesh(axis_name)
     v = state.version
-    nbv = torch.maximum(torch.maximum(v[..., nxt], v[..., prv]),
-                        torch.maximum(v[..., left], v[..., right]))
+    vn = v if alive is None else torch.where(alive, v, -1)
+    nbv = torch.maximum(torch.maximum(_take(vn, nxt), _take(vn, prv)),
+                        torch.maximum(_take(vn, left), _take(vn, right)))
     adopted = nbv > v
     if isinstance(do_hop, bool):
         if not do_hop:
@@ -308,6 +319,8 @@ def gossip_step(state, nxt, prv, left, right, do_hop, alive=None, *,
         hop = torch.as_tensor(do_hop, dtype=torch.bool, device=v.device)
         adopted = adopted & hop.reshape(hop.shape
                                         + (1,) * (v.dim() - hop.dim()))
+    if alive is not None:
+        adopted = adopted & alive
     return state._replace(version=torch.where(adopted, nbv, v),
                           pending=torch.where(adopted, nbv,
                                               state.pending)), adopted

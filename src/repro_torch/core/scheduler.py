@@ -4,10 +4,13 @@ Sync (eq. 5), Async (eq. 6), FedBuff (eq. 7), a periodic baseline,
 FedSpace (§3: every I0 windows, an eq.-13 random search against the
 utility regressor û) and the two ISL policies (sink relaying,
 `intra_plane`; gossip, `isl_async`), behind one interface so the engine
-(`repro_torch.fl.engine`) is policy-agnostic. The port runs the
-per-window host loop, so a scheduler answers through `decide` alone (the
-reference's `device_plan` feeds its chunked fast loop, which comes with
-ROADMAP A.8).
+(`repro_torch.fl.engine`) is policy-agnostic. The engine runs the
+per-window host loop and asks `decide`. The policies whose indicator
+holds for the whole run also offer `device_plan`: a module-level torch
+indicator and its arguments, which the batched sweep
+(`repro_torch.fl.sweep`) evaluates on the device for a whole group of
+variants at once (the reference's contract with ``horizon=None``; the
+engine's chunked loop over it is ROADMAP A.8).
 """
 from __future__ import annotations
 
@@ -20,6 +23,32 @@ from repro_torch.core import isl as ISL
 from repro_torch.core import search as SR
 from repro_torch.core import staleness as SS
 from repro_torch.fl.registry import SCHEDULERS, register_scheduler
+
+
+# Device-side aggregation indicators, evaluated by the sweep once per
+# window for a whole group of variants. Module-level (stable identity), so
+# variants of one kind share one group; instance knobs (K, M, the period)
+# travel in `args`. `n_buf` and `args` may carry a leading variant axis, and
+# `t` is the absolute window index.
+
+def _sync_indicator(t, n_buf, args):
+    return n_buf >= args                       # args = K
+
+
+def _async_indicator(t, n_buf, args):
+    return n_buf > 0
+
+
+def _fedbuff_indicator(t, n_buf, args):
+    return n_buf >= args                       # args = M
+
+
+def _periodic_indicator(t, n_buf, args):
+    return (n_buf > 0) & ((t + 1) % args == 0)  # args = period
+
+
+def _int32(x):
+    return torch.tensor(x, dtype=torch.int32)
 
 
 class Scheduler:
@@ -38,6 +67,9 @@ class Scheduler:
     name = "base"
     isl_mode = None      # "sink" | "gossip" | None (ground-only)
     isl = None           # the resolved ISL runtime, bound by the engine
+    # True for a policy that re-plans mid-run against the training status
+    # (FedSpace): no device plan holds for the rest of its run
+    replans = False
 
     def reset(self):
         """Clear per-run state. The engine calls this once in `prepare()`;
@@ -69,6 +101,21 @@ class Scheduler:
         """
         raise NotImplementedError
 
+    def device_plan(self, i: int, *, K: int, state: SS.SatState, ig: int,
+                    connectivity: np.ndarray, status: float, link=None,
+                    **_):
+        """``(indicator_fn, args, None)`` when one device-side indicator
+        decides every window from `i` to the end of the run, else None
+        (the default: the policy answers through `decide` alone).
+        ``indicator_fn(t, n_buf, args)`` is a module-level torch function
+        (its identity groups the sweep's variants); `args` a tree of int32
+        tensors, stacked over the variants of a group; `t` the absolute
+        window and `n_buf` the post-upload buffer occupancy, both possibly
+        with a leading variant axis. Its decisions equal `decide`'s for
+        the same windows. Keywords as `decide`'s (the plan view, under a
+        blind fault trace)."""
+        return None
+
 
 @register_scheduler("sync")
 class SyncScheduler(Scheduler):
@@ -78,6 +125,9 @@ class SyncScheduler(Scheduler):
     def decide(self, i, *, n_in_buffer, K, **_):
         return n_in_buffer >= K
 
+    def device_plan(self, i, *, K, **_):
+        return _sync_indicator, _int32(K), None
+
 
 @register_scheduler("async")
 class AsyncScheduler(Scheduler):
@@ -86,6 +136,9 @@ class AsyncScheduler(Scheduler):
 
     def decide(self, i, *, n_in_buffer, **_):
         return n_in_buffer > 0
+
+    def device_plan(self, i, **_):
+        return _async_indicator, _int32(0), None
 
 
 @register_scheduler("fedbuff")
@@ -98,6 +151,9 @@ class FedBuffScheduler(Scheduler):
 
     def decide(self, i, *, n_in_buffer, **_):
         return n_in_buffer >= self.M
+
+    def device_plan(self, i, **_):
+        return _fedbuff_indicator, _int32(self.M), None
 
 
 @register_scheduler("periodic")
@@ -112,6 +168,9 @@ class PeriodicScheduler(Scheduler):
     def decide(self, i, *, n_in_buffer, **_):
         return n_in_buffer > 0 and (i + 1) % self.period == 0
 
+    def device_plan(self, i, **_):
+        return _periodic_indicator, _int32(self.period), None
+
 
 @register_scheduler("fedspace")
 class FedSpaceScheduler(Scheduler):
@@ -125,9 +184,12 @@ class FedSpaceScheduler(Scheduler):
     seed)`) is drawn by `random_candidates` alone, once per re-plan, so
     the candidate pools are the reference's. Under a link budget the
     search rolls the candidates through the same per-window grants the
-    engine applies. The replan service (`service=`) raises
-    NotImplementedError (the replanning slice, ROADMAP A.10)."""
+    engine applies. It re-plans mid-run against the training status, so
+    it offers no device plan and the sweep refuses it (`replans`). The
+    replan service (`service=`) raises NotImplementedError (the
+    replanning slice, ROADMAP A.10)."""
     name = "fedspace"
+    replans = True
 
     def __init__(self, regressor, *, I0: int = 24, n_min: int = None,
                  n_max: int = None, num_candidates: int = 5000,
@@ -262,6 +324,10 @@ class IntraPlaneScheduler(Scheduler):
     def decide(self, i, *, n_in_buffer, K, connectivity, **_):
         return n_in_buffer >= self._threshold(connectivity, K)
 
+    def device_plan(self, i, *, K, connectivity, **_):
+        return _fedbuff_indicator, \
+            _int32(self._threshold(connectivity, K)), None
+
 
 @register_scheduler("isl_async")
 class IslAsyncScheduler(Scheduler):
@@ -279,6 +345,9 @@ class IslAsyncScheduler(Scheduler):
 
     def decide(self, i, *, n_in_buffer, **_):
         return n_in_buffer >= self.M
+
+    def device_plan(self, i, **_):
+        return _fedbuff_indicator, _int32(self.M), None
 
 
 def make_scheduler(name: str, **kw) -> Scheduler:

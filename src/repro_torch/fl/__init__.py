@@ -1,12 +1,11 @@
 """Public surface of `repro_torch.fl`, the federated-learning layer of the
 port: registries, adapters, client training, the per-window engine,
-callbacks and the declarative API, under the reference's 27 names.
+callbacks, `run_simulation` and the declarative API, under the
+reference's 27 names.
 
 Attribute access is lazy (PEP 562), as in `repro.fl`: the lower
 `repro_torch.core` layer imports `repro_torch.fl.registry`, and must not
 drag in the adapter and engine modules, which import `repro_torch.core`.
-A name whose module is not ported yet raises NotImplementedError naming
-the slice that brings it.
 """
 from __future__ import annotations
 
@@ -22,7 +21,7 @@ _LAZY = {
     "SimResult": "repro_torch.fl.engine",
     "SimulationEngine": "repro_torch.fl.engine",
     "T0_MINUTES": "repro_torch.fl.engine",
-    "run_simulation": None,
+    "run_simulation": "repro_torch.fl.simulation",
     # declarative experiment layer
     "AdapterConfig": "repro_torch.fl.api",
     "ConstellationConfig": "repro_torch.fl.api",
@@ -34,10 +33,10 @@ _LAZY = {
     "SchedulerConfig": "repro_torch.fl.api",
     # callbacks
     "Callback": "repro_torch.fl.callbacks",
-    "CheckpointCallback": None,
-    "EarlyStopCallback": None,
+    "CheckpointCallback": "repro_torch.fl.callbacks",
+    "EarlyStopCallback": "repro_torch.fl.callbacks",
     "JsonlMetricsCallback": "repro_torch.fl.callbacks",
-    "ProgressCallback": None,
+    "ProgressCallback": "repro_torch.fl.callbacks",
     # registries
     "ADAPTERS": "repro_torch.fl.registry",
     "PARTITIONS": "repro_torch.fl.registry",
@@ -56,10 +55,6 @@ def __getattr__(name: str):
     except KeyError:
         raise AttributeError(
             f"module 'repro_torch.fl' has no attribute {name!r}") from None
-    if module is None:
-        raise NotImplementedError(
-            f"repro_torch.fl.{name} is not ported yet: it comes with the "
-            f"sweeps-and-callbacks slice of the port (ROADMAP A.10)")
     return getattr(importlib.import_module(module), name)
 
 

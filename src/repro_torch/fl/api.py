@@ -26,9 +26,12 @@ ready `"regressor"`. A constrained `LinkConfig` resolves to a
 `LinkBudget` (finite rates, model size, per-station capacity) and an
 `ISLConfig` to the ISL runtime (sink relaying and gossip for the
 `intra_plane` and `isl_async` schedulers), both shared by
-`with_scheduler` clones. The parts of the reference the port does not
-have yet — uplink compression, faults — raise NotImplementedError naming
-their slice; nothing silently runs something else instead.
+`with_scheduler` clones. A non-trivial `FaultConfig` resolves to a
+`FaultTrace` (`repro_torch.core.faults`); `with_faults` re-resolves only
+the trace over the same world, so fault grids share one world and one
+phase 1. The part of the reference the port does not have yet — uplink
+compression — raises NotImplementedError naming its slice; nothing
+silently runs something else instead.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ from typing import Dict, Optional, Sequence, Union
 import numpy as np
 
 from repro_torch.core import connectivity as CN
+from repro_torch.core.faults import FaultConfig, fault_trace
 from repro_torch.core.isl import ISLConfig, build_isl
 from repro_torch.data.fmow import FmowSpec, SyntheticFmow
 from repro_torch.data.partition import iid_partition, noniid_partition
@@ -53,7 +57,7 @@ from repro_torch.fl.registry import (ADAPTERS, PARTITIONS, SCHEDULERS,
 
 __all__ = ["ConstellationConfig", "DatasetConfig", "PartitionConfig",
            "AdapterConfig", "SchedulerConfig", "LinkConfig", "ISLConfig",
-           "FLExperiment", "Federation"]
+           "FaultConfig", "FLExperiment", "Federation"]
 
 
 # --------------------------------------------------------------------------
@@ -189,9 +193,11 @@ class FLExperiment:
     `Federation.from_experiment(exp).run()`. `seed` is the experiment-wide
     default that unset partition/train seeds fall back to. `isl` (an
     `ISLConfig`) is resolved against the constellation's planes; it changes
-    only runs whose scheduler declares an `isl_mode`. `faults` mirrors the
-    reference's field; anything but None raises until the port has that
-    layer."""
+    only runs whose scheduler declares an `isl_mode`. `faults` (a
+    `FaultConfig`: churn, station outages, weather) is resolved to a
+    deterministic per-window `FaultTrace` against this constellation and
+    horizon, shared by `with_scheduler` clones; None, or a trivial config,
+    is the fault-free world."""
     name: str = ""
     constellation: ConstellationConfig = field(
         default_factory=ConstellationConfig)
@@ -202,7 +208,7 @@ class FLExperiment:
     train: EngineConfig = field(default_factory=EngineConfig)
     link: LinkConfig = field(default_factory=LinkConfig)
     isl: Optional[ISLConfig] = None
-    faults: Optional[object] = None
+    faults: Optional[FaultConfig] = None
     seed: int = 0
 
     def describe(self) -> dict:
@@ -225,8 +231,6 @@ def _check_supported(exp: FLExperiment) -> None:
     if topk or int8:
         raise _later("uplink compression (uplink_topk / uplink_int8)",
                      "compression")
-    if exp.faults is not None:
-        raise _later("FLExperiment.faults (fault injection)", "faults")
 
 
 # --------------------------------------------------------------------------
@@ -255,7 +259,9 @@ class Federation:
 
     def __init__(self, *, experiment: FLExperiment, spec, C: np.ndarray,
                  data, adapter, device, scheduler=None, link_budget=None,
-                 isl=None, _regressor_cache: Optional[Dict] = None):
+                 isl=None, faults=None,
+                 _regressor_cache: Optional[Dict] = None,
+                 _counts_cache: Optional[Dict] = None):
         self.experiment = experiment
         self.spec = spec
         self.C = C
@@ -269,10 +275,18 @@ class Federation:
         # satellites talk only to ground stations)
         self.link_budget = link_budget
         self.isl = isl
+        # the resolved FaultTrace of a non-trivial FaultConfig (None = a
+        # fault-free world)
+        self.faults = faults
         # FedSpace phase-1 (regressor, diag) keyed by setup knobs, shared
-        # across with_scheduler clones of this world
+        # across with_scheduler and with_faults clones of this world
         self._regressor_cache: Dict = ({} if _regressor_cache is None
                                        else _regressor_cache)
+        # per-station contact counts (`CN.station_windows`), resolved at
+        # most once per world and shared by its clones: a fault trace with
+        # outages or a link budget needs them
+        self._counts_cache: Dict = ({} if _counts_cache is None
+                                    else _counts_cache)
 
     # -- construction -------------------------------------------------------
 
@@ -285,24 +299,42 @@ class Federation:
         scheduler. A constrained `LinkConfig` is resolved to the
         `LinkBudget` over the same spec and horizon, and C is its `visible`
         matrix (bit for bit `connectivity_sets`); an `ISLConfig` to the
-        ISL runtime (`build_isl`). `device=None` means "cuda" and raises
-        when no CUDA device is present; pass "cpu" to build on the CPU."""
+        ISL runtime (`build_isl`); a non-trivial `FaultConfig` to its
+        `FaultTrace`, with the per-station contact counts it needs
+        computed once (and shared with the budget). `device=None` means
+        "cuda" and raises when no CUDA device is present; pass "cpu" to
+        build on the CPU."""
         device = resolve_device(device)
         _check_supported(exp)
-        budget = None
+        budget = counts = None
+        fcfg = exp.faults
+        if fcfg is not None and fcfg.trivial:
+            fcfg = None           # a trivial config is no faults at all
+        days = exp.constellation.days
         if exp.link.constrained:
             spec = exp.constellation.build_spec()
             lk = exp.link
+            if fcfg is not None:
+                # the trace's station reach needs the per-station counts:
+                # one propagation sweep shared with the budget
+                counts = CN.station_windows(spec, days=days)
             # no compression here (it raises above), so the uplink carries
             # the full model: the reference's bytes ratio is 1.0
             budget = CN.link_budget(
-                spec, days=exp.constellation.days,
+                spec, days=days,
                 uplink_mbps=lk.uplink_mbps, downlink_mbps=lk.downlink_mbps,
                 model_mb=lk.model_mb, gs_capacity=lk.gs_capacity,
-                uplink_mb=lk.model_mb)
+                counts=counts, uplink_mb=lk.model_mb)
             C = budget.visible
         else:
             spec, C = exp.constellation.build()
+            if fcfg is not None and fcfg.outages:
+                # outages on station-collapsed geometry need the counts to
+                # know which contacts die
+                counts = CN.station_windows(spec, days=days)
+        faults = None if fcfg is None else fault_trace(
+            fcfg, C.shape[0], K=spec.num_satellites,
+            num_stations=len(spec.ground_stations), counts=counts)
         data = SyntheticFmow(exp.dataset.to_spec())
         pseed = exp.partition.seed if exp.partition.seed is not None \
             else exp.seed
@@ -316,7 +348,9 @@ class Federation:
         isl = build_isl(spec, exp.isl) if exp.isl is not None else None
         fed = cls(experiment=exp, spec=spec, C=C, data=data,
                   adapter=adapter, device=device, link_budget=budget,
-                  isl=isl)
+                  isl=isl, faults=faults)
+        if counts is not None:
+            fed._counts_cache["station_windows"] = counts
         fed.scheduler, fed.scheduler_diag = fed._build_scheduler(exp)
         return fed
 
@@ -359,11 +393,41 @@ class Federation:
         cfg = (SchedulerConfig(kind=scheduler, params=params)
                if isinstance(scheduler, str) else scheduler)
         exp = dataclasses.replace(self.experiment, scheduler=cfg)
+        return self._clone(exp, self.faults)
+
+    def with_faults(self, faults: Optional[FaultConfig]) -> "Federation":
+        """Same world — constellation, links, data, adapter, scheduler
+        config — under another fault scenario: only the per-window
+        `FaultTrace` is resolved again (None or a trivial config clears
+        the faults). The per-station counts, the adapter and FedSpace's
+        phase 1 (`_regressor_cache`) are shared, so a fault grid builds
+        one world and runs phase 1 once."""
+        fcfg = faults
+        if fcfg is not None and fcfg.trivial:
+            fcfg = None
+        exp = dataclasses.replace(self.experiment, faults=faults)
+        counts = None
+        if fcfg is not None and (self.link_budget is not None
+                                 or fcfg.outages):
+            counts = self._counts_cache.get("station_windows")
+            if counts is None:
+                counts = CN.station_windows(
+                    self.spec, days=exp.constellation.days)
+                self._counts_cache["station_windows"] = counts
+        trace = None if fcfg is None else fault_trace(
+            fcfg, self.C.shape[0], K=self.spec.num_satellites,
+            num_stations=len(self.spec.ground_stations), counts=counts)
+        return self._clone(exp, trace)
+
+    def _clone(self, exp: FLExperiment, faults) -> "Federation":
+        """This world under `exp`'s scheduler and the fault trace
+        `faults`, sharing everything else (and the caches)."""
         fed = Federation(experiment=exp, spec=self.spec, C=self.C,
                          data=self.data, adapter=self.adapter,
                          device=self.device, link_budget=self.link_budget,
-                         isl=self.isl,
-                         _regressor_cache=self._regressor_cache)
+                         isl=self.isl, faults=faults,
+                         _regressor_cache=self._regressor_cache,
+                         _counts_cache=self._counts_cache)
         fed.scheduler, fed.scheduler_diag = fed._build_scheduler(exp)
         return fed
 
@@ -375,7 +439,8 @@ class Federation:
         (optionally with callbacks / a custom initial model). `device=None`
         means "cuda" and raises when no CUDA device is present; a device
         other than the world's raises, since the adapter's data lives
-        there. The world's link budget and ISL runtime go with it. `mesh` is
+        there. The world's link budget, ISL runtime and fault trace go with
+        it. `mesh` is
         the reference's satellite-axis sharding; anything but None raises
         until the port has it (the mesh slice)."""
         # explicitly-set train fields win; unset (None) ones fall back to
@@ -392,7 +457,7 @@ class Federation:
         return SimulationEngine(self.C, self.adapter, self.scheduler, cfg,
                                 callbacks=callbacks, init_params=init_params,
                                 device=device, link_budget=self.link_budget,
-                                isl=self.isl, mesh=mesh)
+                                isl=self.isl, faults=self.faults, mesh=mesh)
 
     def run(self, *, callbacks: Sequence = (),
             init_params=None) -> SimResult:

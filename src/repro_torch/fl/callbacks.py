@@ -8,14 +8,15 @@ early stop; it never mutates protocol state. Events (all optional):
     on_aggregate_end(engine, window, info)     # info: ig, n_aggregated, ...
     on_eval(engine, window, metrics)           # metrics: accuracy, ...
     on_run_end(engine, result)
-
-The reference's checkpoint, early-stop and progress callbacks are not
-ported yet.
 """
 from __future__ import annotations
 
 import json
 import os
+import time
+from typing import Optional
+
+from repro_torch.ckpt.checkpoint import save_pytree
 
 
 class Callback:
@@ -69,3 +70,65 @@ class JsonlMetricsCallback(Callback):
     def _write(self, obj: dict):
         self._f.write(json.dumps(obj) + "\n")
         self._f.flush()
+
+
+class CheckpointCallback(Callback):
+    """Persist the global model every `every` global updates (and at run
+    end) as npz trees under `directory` (`save_pytree`: the reference's
+    file names and keys)."""
+
+    def __init__(self, directory: str, every: int = 10):
+        self.directory = directory
+        self.every = max(1, every)
+
+    def on_aggregate_end(self, engine, window, info):
+        if info["ig"] % self.every == 0:
+            self._save(engine, info["ig"])
+
+    def on_run_end(self, engine, result):
+        self._save(engine, engine.ig)
+
+    def _save(self, engine, ig: int):
+        save_pytree(os.path.join(self.directory, f"model_v{ig:06d}.npz"),
+                    engine.params)
+
+
+class EarlyStopCallback(Callback):
+    """Stop when validation accuracy has not improved by `min_delta` for
+    `patience` consecutive evals."""
+
+    def __init__(self, patience: int = 5, min_delta: float = 0.0):
+        self.patience = patience
+        self.min_delta = min_delta
+        self.best: Optional[float] = None
+        self.stale_evals = 0
+
+    def on_run_begin(self, engine):
+        self.best, self.stale_evals = None, 0
+
+    def on_eval(self, engine, window, metrics):
+        acc = metrics["accuracy"]
+        if self.best is None or acc > self.best + self.min_delta:
+            self.best, self.stale_evals = acc, 0
+        else:
+            self.stale_evals += 1
+            if self.stale_evals >= self.patience:
+                engine.request_stop()
+
+
+class ProgressCallback(Callback):
+    """Human-readable one-liners per eval (quickstart/launcher UX)."""
+
+    def __init__(self, prefix: str = ""):
+        self.prefix = prefix
+        self._t0 = None
+
+    def on_run_begin(self, engine):
+        self._t0 = time.time()
+
+    def on_eval(self, engine, window, metrics):
+        print(f"{self.prefix}[{engine.scheduler.name}] day "
+              f"{metrics['day']:5.2f}  acc={metrics['accuracy']:.3f}  "
+              f"val_loss={metrics['val_loss']:.3f}  "
+              f"updates={metrics['global_updates']}  "
+              f"({time.time() - self._t0:.0f}s)", flush=True)

@@ -24,21 +24,30 @@ grants (`LinkGate`). Inter-satellite links (`repro_torch.core.isl.ISL`)
 compose in front of them when the scheduler declares an `isl_mode`: sink
 relaying ("sink") or neighbour gossip ("gossip"). The grants, sink plans
 and neighbour arrays are put on the device once per run (sink plans once
-per election epoch). Faults and the satellite-axis mesh raise
-NotImplementedError naming their slices (ROADMAP A.10).
+per election epoch).
+
+Fault injection (`repro_torch.core.faults`, `faults=` a `FaultTrace`)
+splits the world in two views (`resolve_run_artifacts`): the run executes
+on the fault-masked connectivity and grants, while the scheduler plans on
+the clean ones unless the trace is an oracle's. Reviving satellites
+re-enter through `fault_reset` before each window's upload, and the alive
+mask keeps dead satellites out of the sink relay and gossip. The masks go
+to the device once per run. The satellite-axis mesh raises
+NotImplementedError naming its slice (ROADMAP A.10).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.ckpt.checkpoint import CheckpointStore
-from repro_torch.core import isl as ISL
+from repro_torch.core import faults as FT
 from repro_torch.core import staleness as SS
+from repro_torch.core import transfers as TR
 from repro_torch.core.aggregation import aggregation_weights
 from repro_torch.core.scheduler import Scheduler
 from repro_torch.device import resolve_device
@@ -133,15 +142,32 @@ class EngineConfig:
                 f"EngineConfig.uplink_topk must be in (0, 1], got {v}")
 
 
-def _tile(C: np.ndarray, cfg: EngineConfig, link_budget=None):
-    """(C, grants): the run's connectivity — the link budget's `served`
-    matrix when one is given — and its grants (None without a budget),
-    tiled to the requested horizon per `cfg.repeat_connectivity` (0 =
-    auto: cover `max_windows`)."""
-    grants = None
+class RunArtifacts(NamedTuple):
+    """The resolved world arrays one run executes on: the effective
+    connectivity/grants (`C`/`grants`), the scheduler-facing planning view
+    (`plan_C`/`plan_grants` — the same objects unless a blind fault trace
+    splits them), and the horizon-extended `FaultTrace`."""
+    C: np.ndarray
+    grants: Optional[np.ndarray]
+    plan_C: np.ndarray
+    plan_grants: Optional[np.ndarray]
+    trace: Optional[FT.FaultTrace]
+
+
+def resolve_run_artifacts(C, cfg: EngineConfig, *, link_budget=None,
+                          faults=None) -> RunArtifacts:
+    """Resolve raw world inputs into `RunArtifacts`: substitute the link
+    budget's capacity-resolved `served` matrix, tile the connectivity (and
+    grants) to the requested horizon per `cfg.repeat_connectivity` (0 =
+    auto: cover `max_windows`), extend the fault trace over the tiled
+    length, and split the plan view from the executed view (clean against
+    masked under a blind trace, the same objects under none or an oracle).
+    The sweep (`repro_torch.fl.sweep`) reads an engine's resolution."""
+    grants = assign = None
     if link_budget is not None:
         C = link_budget.served
         grants = np.asarray(link_budget.grants, np.int32)
+        assign = np.asarray(link_budget.assign, np.int32)
     repeat = cfg.repeat_connectivity
     if repeat == 0:
         need = cfg.max_windows or C.shape[0]
@@ -150,15 +176,20 @@ def _tile(C: np.ndarray, cfg: EngineConfig, link_budget=None):
         C = np.concatenate([C] * repeat, axis=0)
         if grants is not None:
             grants = np.concatenate([grants] * repeat, axis=0)
-    return np.asarray(C, bool), grants
-
-
-def _sink_gate(gate, sink):
-    """The link gate gathered at each satellite's sink: the plane's
-    transfer rides the sink's contact units (None passes through)."""
-    if gate is None:
-        return None
-    return gate._replace(grant=gate.grant[..., sink])
+            assign = np.concatenate([assign] * repeat, axis=0)
+    C = np.asarray(C, bool)
+    plan_C, plan_grants = C, grants
+    trace = None if faults is None else faults.extended(C.shape[0])
+    if trace is None:
+        exec_C, exec_grants = C, grants
+    elif link_budget is not None:
+        exec_C, exec_grants = FT.mask_served(C, grants, assign, trace)
+    else:
+        exec_C = C & trace.mask[:C.shape[0]]
+        exec_grants = None
+    if trace is not None and trace.oracle:
+        plan_C, plan_grants = exec_C, exec_grants
+    return RunArtifacts(exec_C, exec_grants, plan_C, plan_grants, trace)
 
 
 class SimulationEngine:
@@ -191,8 +222,16 @@ class SimulationEngine:
         only when the scheduler declares an `isl_mode` ("sink" or
         "gossip"); ground-only schedulers run the unmodified protocol, so
         with/without-ISL comparisons share one world.
-      faults, mesh: anything but None raises NotImplementedError (the
-        faults and mesh slices, ROADMAP A.10).
+      faults: optional `repro_torch.core.faults.FaultTrace` (resolved by
+        `Federation` from `FLExperiment.faults`). The run then executes on
+        the fault-masked artifacts — dead satellites lose every contact
+        and their part in the sink relay and gossip, grants are
+        weather-rescaled, reviving satellites re-enter through
+        `fault_reset`'s forced re-download — while the scheduler plans on
+        the clean connectivity and grants unless the trace is an
+        oracle's. `faults=None` keeps every run as it is without faults.
+      mesh: anything but None raises NotImplementedError (the mesh slice,
+        ROADMAP A.10).
     """
 
     def __init__(self, C: np.ndarray, adapter, scheduler: Scheduler,
@@ -200,12 +239,10 @@ class SimulationEngine:
                  callbacks: Sequence = (), init_params=None, device=None,
                  link_budget=None, isl=None, faults=None, mesh=None,
                  **overrides):
-        for name, value in (("faults", faults), ("mesh", mesh)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"SimulationEngine({name}=...) is not ported yet: it "
-                    f"comes with the {name} slice of the port (ROADMAP "
-                    f"A.10)")
+        if mesh is not None:
+            raise NotImplementedError(
+                "SimulationEngine(mesh=...) is not ported yet: it comes "
+                "with the mesh slice of the port (ROADMAP A.10)")
         self.device = resolve_device(device)
         if adapter.device != self.device:
             raise ValueError(f"adapter lives on {adapter.device}, the run "
@@ -221,7 +258,12 @@ class SimulationEngine:
         self.config = cfg
         self.link_budget = link_budget
         self.isl = isl
-        self.C, self._grants = _tile(C, cfg, link_budget)
+        self.faults = faults
+        art = resolve_run_artifacts(C, cfg, link_budget=link_budget,
+                                    faults=faults)
+        self.C, self._grants = art.C, art.grants
+        self._plan_C, self._plan_grants = art.plan_C, art.plan_grants
+        self._trace = art.trace
         self.adapter = adapter
         self.scheduler = scheduler
         self.callbacks = list(callbacks)
@@ -315,15 +357,32 @@ class SimulationEngine:
         self.state = SS.bootstrap_state(self.K, progress=linked,
                                         relay=self._isl_mode == "sink",
                                         device=self.device)
-        # the run's link gate: host grants for the schedulers, the same on
-        # the device (one copy per run) for the transitions
-        self._link = self._grants_dev = None
+        # the run's link gates: the executed grants on the device (one
+        # copy per run) for the transitions, and host gates for the
+        # schedulers — the executed one, and the plan view they decide on
+        # (a blind fault run's clean grants)
+        self._link = self._plan_link = self._grants_dev = None
         if linked:
             b = self.link_budget
             self._link = SS.LinkGate(self._grants, int(b.need_up),
                                      int(b.need_dn))
+            self._plan_link = self._link \
+                if self._plan_grants is self._grants \
+                else SS.LinkGate(self._plan_grants, int(b.need_up),
+                                 int(b.need_dn))
             self._grants_dev = torch.as_tensor(
                 self._grants[:self.num_windows], device=self.device)
+        # fault masks on the device, one copy per run (None without a
+        # trace); `_alive` stays on the host for the sink elections
+        self._alive = self._alive_dev = self._revive_dev = None
+        if self._trace is not None:
+            self._alive = np.asarray(self._trace.alive[:self.num_windows],
+                                     bool)
+            self._alive_dev = torch.as_tensor(self._alive,
+                                              device=self.device)
+            self._revive_dev = torch.as_tensor(
+                np.asarray(self._trace.revive[:self.num_windows], bool),
+                device=self.device)
         # ISL device arrays: sink plans per election epoch (made at the
         # epoch's first window), the gossip neighbours once per run
         self._sink_cache = {}
@@ -392,15 +451,30 @@ class SimulationEngine:
     def _sink_plan(self, i: int):
         """Device (sink (K,) int64, need_hops (K,) int32) of window i's
         election epoch, elected once per epoch from the run's effective
-        connectivity."""
+        connectivity (among the satellites alive at some window of the
+        epoch, in a fault run)."""
         ep = self._isl.epoch
         e = i // ep
         if e not in self._sink_cache:
-            sink, need = self._isl.sink_plan(self.C[e * ep:(e + 1) * ep])
+            alive_e = None if self._alive is None else \
+                self._alive[e * ep:(e + 1) * ep].any(axis=0)
+            sink, need = self._isl.sink_plan(self.C[e * ep:(e + 1) * ep],
+                                             alive=alive_e)
             self._sink_cache[e] = (
                 torch.as_tensor(sink.astype(np.int64), device=self.device),
                 torch.as_tensor(need, device=self.device))
         return self._sink_cache[e]
+
+    def _transfer_operands(self, i: int) -> dict:
+        """Window i's operands of both transfer halves
+        (`core/transfers.py`): the alive mask of a fault run, the sink
+        plan of a sink-relay run."""
+        kw = {}
+        if self._alive_dev is not None:
+            kw["alive"] = self._alive_dev[i]
+        if self._isl_mode == "sink":
+            kw["sink"], kw["need_hops"] = self._sink_plan(i)
+        return kw
 
     def on_uploads(self, i: int, conn: np.ndarray) -> int:
         """Connected satellites hand their pending update to the GS buffer
@@ -408,22 +482,20 @@ class SimulationEngine:
         window's grants under a link budget). Under sink relaying the ring
         relay advances first and the upload runs on sink-indexed effective
         connectivity; under gossip, the neighbour exchange runs before it
-        (at every hop period). Returns the buffer occupancy."""
+        (at every hop period). In a fault run the window's reviving
+        satellites re-enter first (`fault_reset`), and dead ones neither
+        gossip nor ride their sink's contact. Returns the buffer
+        occupancy."""
         res = self.result
         conn_dev = torch.as_tensor(np.asarray(conn, bool), device=self.device)
-        gate = self._gate(i)
-        if self._isl_mode == "sink":
-            sink, need = self._sink_plan(i)
-            self.state, arrived = ISL.relay_step(self.state, need)
-            conn_dev = ISL.sink_connectivity(conn_dev, sink, arrived,
-                                             self.state.pending)
-            gate = _sink_gate(gate, sink)
-        elif self._isl_mode == "gossip" and \
+        kw = self._transfer_operands(i)
+        if self._trace is not None:
+            kw["revive"] = self._revive_dev[i]
+        if self._isl_mode == "gossip" and \
                 i % max(self._isl.relay_windows, 1) == 0:     # a hop window
-            self.state, _ = ISL.gossip_step(self.state, *self._gossip_dev,
-                                            True)
-        self.state, info = SS.upload_step(self.state, self.ig, conn_dev,
-                                          gate)
+            kw["gossip"] = self._gossip_dev + (True,)
+        self.state, info = TR.window_upload(self.state, self.ig, conn_dev,
+                                            self._gate(i), **kw)
         n_conn, n_idle, n_buf = torch.stack(
             [info["n_connected"], info["n_idle"], info["n_buffered"]]
         ).tolist()
@@ -432,10 +504,13 @@ class SimulationEngine:
         return n_buf
 
     def on_decide(self, i: int, n_buf: int) -> bool:
-        """Ask the scheduler for the aggregation indicator a^i."""
+        """Ask the scheduler for the aggregation indicator a^i. It plans on
+        the plan view (`_plan_C`, `_plan_link`): under a blind fault trace
+        the clean world, while the run executes the masked one."""
         return self.scheduler.decide(
             i, n_in_buffer=n_buf, K=self.K, state=self.state, ig=self.ig,
-            connectivity=self.C, status=self.status, link=self._link)
+            connectivity=self._plan_C, status=self.status,
+            link=self._plan_link)
 
     def on_aggregate(self, i: int) -> None:
         """Apply the staleness-compensated buffered update (eq. 4).
@@ -559,20 +634,12 @@ class SimulationEngine:
         fresh local round on it (the shared `download_step` transition,
         gated on the window's grants under a link budget). Under sink
         relaying the plane downloads through its sink's contact (the relay
-        advanced at the upload already) and fresh rounds reset the relay
-        counter."""
+        advanced at the upload already; dead satellites, in a fault run,
+        download nothing) and fresh rounds reset the relay counter."""
         conn_dev = torch.as_tensor(np.asarray(conn, bool), device=self.device)
-        gate = self._gate(i)
-        if self._isl_mode != "sink":
-            self.state, _ = SS.download_step(self.state, self.ig, conn_dev,
-                                             gate)
-            return
-        sink, need = self._sink_plan(i)
-        eff = ISL.sink_connectivity(conn_dev, sink, self.state.relay >= need,
-                                    self.state.pending)
-        self.state, dn = SS.download_step(self.state, self.ig, eff,
-                                          _sink_gate(gate, sink))
-        self.state = ISL.reset_relay(self.state, dn["downloads"])
+        self.state = TR.window_download(self.state, self.ig, conn_dev,
+                                        self._gate(i),
+                                        **self._transfer_operands(i))
 
     # --------------------------------------------------------------- eval
 

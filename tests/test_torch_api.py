@@ -1,8 +1,7 @@
 """The public surface of `repro_torch.fl` against `repro.fl`: the same 27
-exported names, each of which resolves to the port's object or raises
-NotImplementedError naming the slice that brings it, and
-`FLExperiment.describe()` equal to the reference's for the quickstart
-experiment of examples/quickstart.py."""
+exported names, each of which resolves to the port's object (none is left
+unported: `UNPORTED` is empty), and `FLExperiment.describe()` equal to the
+reference's for the quickstart experiment of examples/quickstart.py."""
 import pytest
 
 import repro.fl as R
@@ -12,8 +11,7 @@ import repro_torch.fl.api as TA
 from repro.fl.engine import EngineConfig as REC
 from repro_torch.fl.engine import EngineConfig as TEC
 
-UNPORTED = {"run_simulation", "CheckpointCallback", "EarlyStopCallback",
-            "ProgressCallback"}
+UNPORTED = set()
 
 
 def test_export_lists_are_equal():

@@ -968,3 +968,89 @@ def test_budget_and_isl_runs_on_the_card_match_the_cpu(kind, params):
         assert card.relay_units is None and cpu.relay_units is None
     np.testing.assert_allclose(cres.accuracy, pres.accuracy,
                                atol=1.0 / 200 + 1e-6)
+
+
+FAULTS = dict(deorbit=((1, 10), (5, 20), (9, 30)), launch=((5, 40), (11, 25)),
+              outages=((0, 30, 50),), rate_scale_min=0.5,
+              rate_scale_max=1.0, seed=2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,params", [("fedbuff", {"M": 3}),
+                                         ("intra_plane", {"M": 6}),
+                                         ("isl_async", {})])
+def test_faulted_runs_on_the_card_match_the_cpu(kind, params):
+    """Churn, launches, an outage and weather under the budget, with sink
+    relaying and gossip: every counter, the histogram and the protocol
+    columns card against CPU, one aggregation launch per aggregation."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device with nvcc")
+    from repro_torch.weights import params_to_numpy
+    faults = TA.FaultConfig(**FAULTS)
+    card_fed = TA.Federation.from_experiment(_scenario_exp(kind, **params))
+    card_fed = card_fed.with_faults(faults)
+    assert card_fed.device.type == "cuda"
+    p0 = params_to_numpy(card_fed.adapter.init(
+        torch.Generator().manual_seed(0)))
+    launch_counts.clear()
+    card = card_fed.engine(init_params=p0)
+    cres = card.run()
+    assert launch_counts["weighted_aggregate"] == \
+        cres.num_global_updates >= 3
+    cpu = TA.Federation.from_experiment(
+        _scenario_exp(kind, **params), device="cpu").with_faults(
+        faults).engine(init_params=p0, device="cpu")
+    pres = cpu.run()
+    for name in ("num_global_updates", "num_aggregated_gradients",
+                 "idle_connections", "total_connections", "windows_run"):
+        assert getattr(cres, name) == getattr(pres, name), name
+    np.testing.assert_array_equal(cres.staleness_hist, pres.staleness_hist)
+    for name in ("version", "pending", "buffered_base", "transfer_progress",
+                 "relay_units"):
+        a, b = getattr(card, name), getattr(cpu, name)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+@pytest.mark.gpu
+def test_sweep_on_the_card_matches_the_cpu_without_a_host_sync():
+    """The six sweepable policies, clean and faulted, through `run_sweep`
+    on the card (its window loops under sync debug mode "error") and on
+    the CPU: every outcome equal, no kernel launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device with nvcc")
+    from repro_torch.fl import sweep
+    policies = [("sync", {}), ("async", {}), ("fedbuff", {"M": 3}),
+                ("periodic", {"period": 3}), ("intra_plane", {"M": 6}),
+                ("isl_async", {})]
+    sides = {}
+    for device in ("cuda", "cpu"):
+        base = TA.Federation.from_experiment(_scenario_exp("sync"),
+                                             device=device)
+        worlds = [base.with_faults(f).with_scheduler(k, **p)
+                  for f in (None, TA.FaultConfig(**FAULTS))
+                  for k, p in policies]
+        engines = [w.engine(device=w.device) for w in worlds]
+        inner = sweep._window_loop
+
+        def guarded(cols, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return inner(cols, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        launch_counts.clear()
+        sweep._window_loop = guarded if device == "cuda" else inner
+        try:
+            sides[device] = sweep.sweep_engines(engines)
+        finally:
+            sweep._window_loop = inner
+        assert not sum(launch_counts.values())
+    for a, b in zip(sides["cuda"], sides["cpu"]):
+        assert a.result.summary() == b.result.summary()
+        for name in ("version", "pending", "buffered"):
+            np.testing.assert_array_equal(getattr(a, name),
+                                          getattr(b, name), err_msg=name)
+    assert len({o.result.num_global_updates for o in sides["cuda"]}) > 3

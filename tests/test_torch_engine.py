@@ -16,9 +16,12 @@ import torch
 import repro.fl.api as RA
 import repro_torch.fl.api as TA
 from repro.core import connectivity as RCN
+from repro.core import faults as RFT
 from repro.fl.callbacks import JsonlMetricsCallback as RJsonl
 from repro.fl.engine import EngineConfig as REC
+from repro.fl.engine import SimulationEngine as RSE
 from repro_torch.core import connectivity as TCN
+from repro_torch.core import faults as TFT
 from repro_torch.fl.callbacks import JsonlMetricsCallback as TJsonl
 from repro_torch.fl.engine import EngineConfig as TEC
 from repro_torch.fl.engine import SimulationEngine
@@ -124,16 +127,14 @@ def test_with_scheduler_shares_the_world(runs):
 
 
 @pytest.mark.parametrize("change,slice_name", [
-    # link budgets and ISLs are ported; compressed uplinks over a budget
-    # and faults in an ISL world still raise
+    # link budgets, ISLs and faults are ported; compressed uplinks (over a
+    # budget or not) still raise
     (dict(link=TA.LinkConfig(model_mb=300.0, uplink_mbps=20.0,
                              uplink_topk=0.25)), "compression"),
     (dict(link=TA.LinkConfig(gs_capacity=2, uplink_int8=True)),
      "compression"),
     (dict(link=TA.LinkConfig(uplink_topk=0.25)), "compression"),
     (dict(train=TEC(uplink_int8=True)), "compression"),
-    (dict(isl=TA.ISLConfig(), faults=object()), "faults"),
-    (dict(faults=object()), "faults"),
 ])
 def test_unported_options_raise_naming_their_slice(change, slice_name):
     exp = dataclasses.replace(_exp(TA, TEC), **change)
@@ -141,14 +142,52 @@ def test_unported_options_raise_naming_their_slice(change, slice_name):
         TA.Federation.from_experiment(exp, device="cpu")
 
 
+@pytest.mark.parametrize("isl,faults", [
+    # these two options raised until the faults slice; they now resolve
+    # the reference's trace and executed connectivity
+    (True, dict(deorbit=((3, 5), (7, 12)), outages=((0, 8, 20),))),
+    (False, dict(deorbit=((3, 5),), launch=((3, 30), (9, 4)),
+                 rate_scale_min=0.5, rate_scale_max=0.5)),
+])
+def test_fault_options_resolve_the_reference_world(isl, faults):
+    worlds = []
+    for api, ec in ((RA, REC), (TA, TEC)):
+        exp = dataclasses.replace(
+            _exp(api, ec), faults=api.FaultConfig(**faults),
+            isl=api.ISLConfig() if isl else None)
+        kw = {} if api is RA else {"device": "cpu"}
+        fed = api.Federation.from_experiment(exp, **kw)
+        worlds.append((fed, fed.engine(**kw)))
+    (rfed, reng), (tfed, teng) = worlds
+    for f in ("alive", "station_up", "rate_scale", "revive"):
+        np.testing.assert_array_equal(getattr(tfed.faults, f),
+                                      getattr(rfed.faults, f), err_msg=f)
+    assert (tfed.faults.reach is None) == (rfed.faults.reach is None)
+    assert (tfed.isl is None) == (not isl)
+    np.testing.assert_array_equal(teng.C, reng.C)
+    np.testing.assert_array_equal(teng._plan_C, reng._plan_C)
+    assert (teng.C < teng._plan_C).any()          # the faults bite
+    assert tfed.experiment.describe() == rfed.experiment.describe()
+
+
 def test_engine_rejects_unported_layers(runs):
-    _, (tfed, _, _), _ = runs
-    for name in ("faults", "mesh"):
-        with pytest.raises(NotImplementedError, match=f"{name} slice"):
-            SimulationEngine(tfed.C, tfed.adapter, tfed.scheduler,
-                             device="cpu", **{name: object()})
+    """The mesh still raises; a fault trace (which raised until the faults
+    slice) builds the reference's executed and planned connectivity."""
+    (rfed, _, _), (tfed, _, _), _ = runs
+    with pytest.raises(NotImplementedError, match="mesh slice"):
+        SimulationEngine(tfed.C, tfed.adapter, tfed.scheduler,
+                         device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="mesh slice"):
         tfed.engine(device="cpu", mesh=object())
+    W, K = tfed.C.shape
+    cfg = dict(deorbit=((2, 4), (9, 0)), oracle=False)
+    reng = RSE(rfed.C, rfed.adapter, rfed.scheduler,
+               faults=RFT.fault_trace(RFT.FaultConfig(**cfg), W, K=K))
+    teng = SimulationEngine(
+        tfed.C, tfed.adapter, tfed.scheduler, device="cpu",
+        faults=TFT.fault_trace(TFT.FaultConfig(**cfg), W, K=K))
+    np.testing.assert_array_equal(teng.C, reng.C)
+    assert teng._plan_C is tfed.C and not teng.C[:, 9].any()
 
 
 def assert_views_of_one_buffer(engine):

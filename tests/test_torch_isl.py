@@ -251,21 +251,33 @@ def test_batched_isl_transitions_match_vmapped_reference(seed):
 
 
 def test_faults_and_mesh_raise_naming_their_slices():
-    _, tst = _state(np.random.default_rng(0), 4)
+    """The mesh still raises. The alive mask raised until the faults
+    slice: gossip and the sink plan now take it as the reference does."""
+    rst, tst = _state(np.random.default_rng(0), 4)
     idx = torch.arange(4)
-    with pytest.raises(NotImplementedError, match="faults slice"):
-        TI.gossip_step(tst, idx, idx, idx, idx, True,
-                       alive=torch.ones(4, dtype=torch.bool))
+    nxt = np.array([1, 2, 3, 0])
+    alive = np.array([True, False, True, True])
+    ref, radopt = RI.gossip_step(rst, jnp.asarray(nxt), jnp.asarray(nxt),
+                                 jnp.arange(4), jnp.arange(4),
+                                 jnp.bool_(True), alive=jnp.asarray(alive))
+    got, tadopt = TI.gossip_step(tst, torch.as_tensor(nxt),
+                                 torch.as_tensor(nxt), idx, idx, True,
+                                 alive=torch.as_tensor(alive))
+    _same_state(ref, got)
+    _same(radopt, tadopt, "adopted")
     with pytest.raises(NotImplementedError, match="mesh slice"):
         TI.gossip_step(tst, idx, idx, idx, idx, True, axis_name="sat")
     with pytest.raises(NotImplementedError, match="mesh slice"):
         TI.sink_connectivity(torch.ones(4, dtype=torch.bool), idx,
                              torch.ones(4, dtype=torch.bool), tst.pending,
                              axis_name="sat")
-    topo = TI.identity_topology(4)
-    with pytest.raises(NotImplementedError, match="faults slice"):
-        TI.ISL(topology=topo).sink_plan(np.ones((2, 4), bool),
-                                        alive=np.ones(4, bool))
+    C = np.array([[False, True, True, False], [True, True, False, True]])
+    for ref, got in zip(
+            RI.ISL(topology=RI.identity_topology(4)).sink_plan(
+                C, alive=alive),
+            TI.ISL(topology=TI.identity_topology(4)).sink_plan(
+                C, alive=alive)):
+        np.testing.assert_array_equal(got, ref)
 
 
 # ---------------------------------------------------------------------------
@@ -451,7 +463,20 @@ def test_isl_world_raises_without_a_card():
 
 
 def test_faults_with_isl_still_raise():
-    with pytest.raises(NotImplementedError, match="faults"):
-        TA.Federation.from_experiment(
-            dataclasses.replace(_exp(TA, TEC), faults=object()),
-            device="cpu")
+    """Raised until the faults slice: an ISL world under a budget now
+    resolves the reference's fault trace and sink plans (the alive mask in
+    the election)."""
+    faults = dict(deorbit=((0, 3), (5, 10)), launch=((5, 40),),
+                  outages=((1, 20, 30),))
+    rfed = RA.Federation.from_experiment(dataclasses.replace(
+        _exp(RA, REC), faults=RA.FaultConfig(**faults)))
+    tfed = TA.Federation.from_experiment(dataclasses.replace(
+        _exp(TA, TEC), faults=TA.FaultConfig(**faults)), device="cpu")
+    assert tfed.isl is not None and tfed.faults.reach is not None
+    for f in ("alive", "station_up", "reach", "revive"):
+        np.testing.assert_array_equal(getattr(tfed.faults, f),
+                                      getattr(rfed.faults, f), err_msg=f)
+    alive = tfed.faults.alive[:24].any(axis=0)
+    for ref, got in zip(rfed.isl.sink_plan(rfed.C[:24], alive=alive),
+                        tfed.isl.sink_plan(tfed.C[:24], alive=alive)):
+        np.testing.assert_array_equal(got, ref)
