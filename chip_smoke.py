@@ -70,7 +70,8 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      examples/satellite_fl_train.py (48 satellites, 2 days, the DenseNet
      adapter's widths with the first block frozen): (a) under FedBuff
      (M 8) on the card, launch counts read around it (one aggregation
-     launch per aggregation), then on the CPU from the same initial
+     launch per aggregation), then over its first half day (48 of 144
+     windows) on the card and on the CPU from the same initial
      model: counters equal, the frozen leaves bit for bit the initial
      model on both devices, the final models and accuracies as near as
      a one-rounding nudge of the initial model moves the card's own; (b)
@@ -106,7 +107,30 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      to the CPU, card against CPU as in the scenarios; (c) the traces'
      numbers (alive satellites at the end, contacts and grant units
      removed);
-  10. one JSON line listing every ported kernel.
+  10. the compression phase (`compression` lines): (a) the top-k 0.25
+     and dense int8 uplink roundtrips card against CPU on seeded update
+     rows of the transformer payload's leaves at M 20 and Part A's
+     DenseNet's at M 8 (kept index sets equal, values within one quantum,
+     frozen leaves 0), then both timed on one flat leaf of the paper's
+     size (M 20, N 26,608,958) beside one read and one write of it; (b)
+     part (b) of the `payloads` section of benchmarks/hotpaths.py, 12
+     runs card and CPU: every counter equal, need_up lower with
+     compression, need_dn unchanged, the aggregated-gradient counts
+     shifted, one aggregation launch per aggregation, RMSNorm and
+     attention in the transformer cells;
+  11. the replan phase (`replan` lines): (a) the `replan` section of
+     benchmarks/hotpaths.py at its serving shape (K 1000, R 20000, I0 24,
+     8 windows) on the card, every answer a full rescan's schedule, at
+     least one delta; warm delta, full-rescan and `maintain()` ms, and
+     each answer's device events and ms (`torch.profiler`); (b) K 40, R
+     2000, I0 12 card against CPU: pools, stats, modes, schedules equal;
+     (c) the quickstart's FedSpace row routed through a `ReplanService`
+     on the card, equal to the unrouted run, its `replan_stats`;
+  12. the cli phase (`cli` line): `python -m repro_torch.launch.fl_train`
+     (the verify recipe's fast smoke) as a subprocess on the card: exit
+     0, the summary, one JSONL line per evaluation, one aggregation
+     launch per aggregation, the integers of the CPU's in-process run;
+  13. one JSON line listing every ported kernel.
 The last line is `{"ok": true,
 "device": {...}}`. Without a CUDA device, or away from the repository's
 sources, it exits nonzero and prints no result. Imports nothing of JAX or
@@ -1684,6 +1708,9 @@ CHAOS_FACTOR = 3.0
 # each device's own update moves when its parameters move by one rounding.
 DENSENET_STEP_TOL = 5e-3
 DENSENET_UPDATE_TOL = 2e-2
+# (a)'s card against CPU runs over the first half day (48 of 144
+# windows); the card's full run keeps its wall and launches
+DENSENET_SHORT = 48
 
 
 def densenet_experiment(scheduler):
@@ -1755,10 +1782,12 @@ def _drift(got, want, start) -> float:
 def run_densenet_path(torch):
     """Phase 7, the DenseNet path (Part A of
     examples/satellite_fl_train.py). (a) Part A's world under FedBuff
-    (M 8) on the card, launch counts read around it, again from the
-    initial model nudged by one rounding, then on the CPU from the same
-    initial model: counters and staleness histogram equal, the frozen
-    leaves bit for bit the initial model on both devices, the card's
+    (M 8) on the card, launch counts read around it, its frozen leaves
+    bit for bit the initial model; then over the first DENSENET_SHORT
+    windows on the card, again from the initial model nudged by one
+    rounding, and on the CPU from the same initial model: counters and
+    staleness histogram equal, the frozen leaves bit for bit the initial
+    model on both devices, the card's
     final model and accuracies as near the CPU's as `CHAOS_FACTOR` times
     the nudge moves them on the card; (b) Part A as a user runs
     it, FedSpace with phase 1 on the card (its seconds by part, R^2), the
@@ -1795,31 +1824,42 @@ def run_densenet_path(torch):
     _one_launch_per_aggregation(res, counts["densenet fedbuff"])
     if not all(math.isfinite(a) for a in res.accuracy + res.val_loss):
         raise AssertionError("non-finite accuracy or loss on the card")
+    start = tree_leaves(p0)
+    frozen = [i for i, m in enumerate(tree_leaves(
+        fed.adapter.trainable_mask(p0))) if m == 0.0]
+    full_final = tree_leaves(params_to_numpy(eng.params))
+    if not frozen or not all(np.array_equal(full_final[i], start[i])
+                             for i in frozen):
+        raise AssertionError("a frozen leaf moved on the card")
+    # card against CPU over the first DENSENET_SHORT windows (the CPU's
+    # whole run took 95-150 s)
+    short = _first_windows(fed, DENSENET_SHORT)
+    eng = short.engine(init_params=p0)
+    res = eng.run()
     r = np.random.default_rng(0)
     nudged = tree_map(lambda a: (a * (1 + 1e-7 * r.standard_normal(
         a.shape))).astype(a.dtype), p0)
     t0 = time.perf_counter()
-    nudged_eng = fed.engine(init_params=nudged)
+    nudged_eng = short.engine(init_params=nudged)
     nudged_res = nudged_eng.run()
     torch.cuda.synchronize()
-    print(f"densenet fedbuff (cuda, nudged): wall "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    print(f"densenet fedbuff (cuda, first {DENSENET_SHORT} windows, "
+          f"nudged): wall {time.perf_counter() - t0:.3f} s", flush=True)
     t0 = time.perf_counter()
     cpu_fed = Federation.from_experiment(exp, device="cpu")
-    cpu_eng = cpu_fed.engine(init_params=p0, device="cpu")
+    cpu_eng = _first_windows(cpu_fed, DENSENET_SHORT).engine(
+        init_params=p0, device="cpu")
     cpu = cpu_eng.run()
-    print("densenet fedbuff (cpu): ", json.dumps(cpu.summary()),
+    print(f"densenet fedbuff (cpu, first {DENSENET_SHORT} windows): ",
+          json.dumps(cpu.summary()),
           f"wall {time.perf_counter() - t0:.3f} s", flush=True)
     _same_counters(res, cpu)
     _same_counters(res, nudged_res)
-    start = tree_leaves(p0)
     card_final, cpu_final, nudged_final = (
         tree_leaves(params_to_numpy(e.params))
         for e in (eng, cpu_eng, nudged_eng))
-    frozen = [i for i, m in enumerate(tree_leaves(
-        fed.adapter.trainable_mask(p0))) if m == 0.0]
-    if not frozen or not all(np.array_equal(f[i], start[i]) for i in frozen
-                             for f in (card_final, cpu_final)):
+    if not all(np.array_equal(f[i], start[i]) for i in frozen
+               for f in (card_final, cpu_final)):
         raise AssertionError("a frozen leaf moved")
     drift = _drift(card_final, cpu_final, start)
     spread = _drift(nudged_final, card_final, start)
@@ -2459,6 +2499,463 @@ def run_faults_path(torch):
     return {"faults": counts}
 
 
+# The compression phase. (a) the uplink roundtrips card against CPU on
+# update trees of the paths' payloads (the transformer's leaves at M 20,
+# Part A's DenseNet at M 8, its frozen leaves 0), then timed on one flat
+# leaf of the paper's size; (b) part (b) of the `payloads` section of
+# benchmarks/hotpaths.py as written: starlink40 over sparse1, 2 days (192
+# windows), LinkConfig(20, 100, model MB, one satellite a station),
+# 600/200 samples, E 2, {mlp hidden 64 at 300 MB, transformer default at
+# 600 MB} x {off, top-k 0.25, int8} x {fedbuff M 2, async}, card and CPU.
+COMPRESSION_TOPK = 0.25
+STUDY_MODELS = (("mlp", {"hidden": 64}, 300.0), ("transformer", {}, 600.0))
+STUDY_COMPRESSION = (("off", {}), ("topk25", {"uplink_topk": 0.25}),
+                     ("int8", {"uplink_int8": True}))
+STUDY_SCHEDULERS = (("fedbuff", {"M": 2}), ("async", {}))
+
+
+def _payload_leaves(torch, kind, params):
+    """The leaves (tree order) of a payload's initial model on the CPU,
+    and the trainable mask's flags (None without one)."""
+    import repro_torch.fl.adapters  # noqa: F401 — registers the adapters
+    from repro_torch.data.fmow import FmowSpec, SyntheticFmow
+    from repro_torch.data.partition import iid_partition
+    from repro_torch.data.pipeline import make_clients
+    from repro_torch.fl.registry import ADAPTERS
+    from repro_torch.tree import tree_leaves
+    image = {"image_size": 16} if kind == "densenet" else {}
+    data = SyntheticFmow(FmowSpec(num_train=64, num_val=16, **image))
+    adapter = ADAPTERS.build(kind, data,
+                             make_clients(iid_partition(64, 4, 0)),
+                             device="cpu", **params)
+    p = adapter.init(torch.Generator().manual_seed(0))
+    if not hasattr(adapter, "trainable_mask"):
+        return tree_leaves(p), None
+    return tree_leaves(p), [float(m) for m in tree_leaves(
+        adapter.trainable_mask(p))]
+
+
+def _roundtrip_pair(torch, name, leaves, flags, m):
+    """Both roundtrips of seeded (m, n) update rows of every leaf, card
+    against CPU: the kept index sets equal, the dequantized values within
+    one quantum, frozen leaves (flag 0, their rows 0) exactly 0. Returns
+    the largest difference over the leaves, in quanta."""
+    import numpy as np
+    from repro_torch.fl import compression as TC
+    r = np.random.default_rng(7)
+    worst = 0.0
+    for j, leaf in enumerate(leaves):
+        n = leaf.numel()
+        rows = r.standard_normal((m, n)).astype(np.float32) * 0.01
+        frozen = flags is not None and flags[j] == 0.0
+        if frozen:
+            rows[:] = 0.0
+        cpu_in = torch.as_tensor(rows)
+        card_in = cpu_in.to("cuda")
+        k = max(1, int(n * COMPRESSION_TOPK))
+        keep = [TC._topk_mask(x.abs(), k).cpu() for x in (card_in, cpu_in)]
+        if not torch.equal(*keep):
+            raise AssertionError(f"{name} leaf {j}: kept index sets differ")
+        scale = (cpu_in.abs().amax(dim=1, keepdim=True).clamp_min(1e-12)
+                 / 127.0)
+        for fn in (lambda x: TC.roundtrip_rows(x, COMPRESSION_TOPK),
+                   TC.roundtrip_int8_rows):
+            a, b = fn(card_in).cpu(), fn(cpu_in)
+            quanta = float(((a - b).abs() / scale).max())
+            worst = max(worst, quanta)
+            if quanta > 1.0:
+                raise AssertionError(f"{name} leaf {j}: {quanta} quanta "
+                                     f"apart")
+            if frozen and (a.any() or b.any()):
+                raise AssertionError(f"{name} frozen leaf {j} moved")
+    return worst
+
+
+def study_experiment(kind, params, model_mb, scheduler, sched_params,
+                     compression):
+    """One cell of the bytes-on-the-wire study (benchmarks/hotpaths.py's
+    `_payload_exp` at the study's settings)."""
+    from repro_torch.fl.api import (AdapterConfig, ConstellationConfig,
+                                    DatasetConfig, FLExperiment, LinkConfig,
+                                    SchedulerConfig)
+    from repro_torch.fl.engine import EngineConfig
+    return FLExperiment(
+        constellation=ConstellationConfig(num_satellites=10, days=2.0,
+                                          preset="starlink40",
+                                          ground="sparse1"),
+        dataset=DatasetConfig(num_train=600, num_val=200),
+        adapter=AdapterConfig(kind=kind, params=dict(params)),
+        scheduler=SchedulerConfig(kind=scheduler,
+                                  params=dict(sched_params)),
+        train=EngineConfig(eval_every=192, max_windows=192, local_steps=2),
+        link=LinkConfig(uplink_mbps=20.0, downlink_mbps=100.0,
+                        model_mb=model_mb, gs_capacity=1, **compression))
+
+
+def _add(total, counts):
+    for key, v in counts.items():
+        total[key] = total.get(key, 0) + v
+
+
+def run_compression_path(torch):
+    """The compression phase, (a) and (b) above. Returns the launch counts
+    of the study's card runs."""
+    import math
+    from repro_torch.fl import compression as TC
+    from repro_torch.fl.api import Federation
+    from repro_torch.kernels import launch_counts
+    t_phase = time.perf_counter()
+    # (a)
+    for name, kind, params, m in (
+            ("transformer", "transformer", {}, MAIN_PATH_M),
+            ("densenet", "densenet", DENSENET_WIDTHS, DENSENET_M)):
+        leaves, flags = _payload_leaves(torch, kind, params)
+        worst = _roundtrip_pair(torch, name, leaves, flags, m)
+        print(f"compression (a) {name}: {len(leaves)} leaves at M {m}, "
+              f"N {sum(x.numel() for x in leaves)}: kept index sets equal "
+              f"card and CPU, largest difference {worst!r} quanta"
+              + ("" if flags is None else
+                 f", {flags.count(0.0)} frozen leaves 0 on both"),
+              flush=True)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((MAIN_PATH_M, PAPER_N), generator=g, device="cuda")
+    bound = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    for label, fn in (
+            (f"top-k {COMPRESSION_TOPK}",
+             lambda: TC.roundtrip_rows(x, COMPRESSION_TOPK)),
+            ("int8", lambda: TC.roundtrip_int8_rows(x))):
+        ms = _time_ms(fn, 5)
+        print("compression (a) paper", json.dumps({
+            "roundtrip": label, "M": MAIN_PATH_M, "N": PAPER_N,
+            "bytes": x.numel() * 4, "ms": ms, "bound_ms": bound,
+            "bound_by": "bytes", "share_of_bound": bound / ms}),
+            flush=True)
+    del x
+    torch.cuda.empty_cache()
+
+    # (b)
+    counts, cells = {}, {}
+    for kind, params, mb in STUDY_MODELS:
+        for cname, comp in STUDY_COMPRESSION:
+            for sname, skw in STUDY_SCHEDULERS:
+                tag = f"{kind}/{cname}/{sname}"
+                exp = study_experiment(kind, params, mb, sname, skw, comp)
+                launch_counts.clear()
+                t0 = time.perf_counter()
+                fed = Federation.from_experiment(exp)
+                res = fed.run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                c = dict(launch_counts)
+                _add(counts, c)
+                _one_launch_per_aggregation(res, c)
+                if kind == "transformer" and not all(c.get(k) for k in (
+                        "rmsnorm", "rmsnorm_bwd", "flash_attention",
+                        "flash_attention_bwd")):
+                    raise AssertionError(f"{tag}: RMSNorm and attention "
+                                         f"not launched: {c}")
+                if not all(math.isfinite(a) for a in res.accuracy
+                           + res.val_loss):
+                    raise AssertionError(f"{tag}: non-finite on the card")
+                t0 = time.perf_counter()
+                cpu = Federation.from_experiment(exp, device="cpu").run()
+                cpu_wall = time.perf_counter() - t0
+                _same_counters(res, cpu)
+                b = fed.link_budget
+                cells[tag] = {
+                    "need_up": b.need_up, "need_dn": b.need_dn,
+                    "bytes_ratio": TC.uplink_bytes_ratio(
+                        comp.get("uplink_topk", 0.0),
+                        int8=comp.get("uplink_int8", False)),
+                    "global_updates": res.num_global_updates,
+                    "aggregated_gradients": res.num_aggregated_gradients,
+                    "idle_fraction": res.idle_connections
+                    / max(res.total_connections, 1),
+                    "accuracy_card": res.accuracy[-1],
+                    "accuracy_cpu": cpu.accuracy[-1],
+                    "wall_card_s": wall, "wall_cpu_s": cpu_wall,
+                    "launches": c}
+                print(f"compression (b) {tag}", json.dumps(cells[tag]),
+                      flush=True)
+    models = [k for k, _, _ in STUDY_MODELS]
+    scheds = [s for s, _ in STUDY_SCHEDULERS]
+    for mname in models:
+        for s in scheds:
+            off = cells[f"{mname}/off/{s}"]
+            for cname in ("topk25", "int8"):
+                cell = cells[f"{mname}/{cname}/{s}"]
+                if not cell["need_up"] < off["need_up"]:
+                    raise AssertionError(f"{mname}/{cname}/{s}: need_up "
+                                         f"{cell['need_up']} not below "
+                                         f"{off['need_up']}")
+                if cell["need_dn"] != off["need_dn"]:
+                    raise AssertionError(f"{mname}/{cname}/{s}: need_dn "
+                                         f"moved")
+    if not any(cells[f"{m}/{c}/{s}"]["aggregated_gradients"]
+               != cells[f"{m}/off/{s}"]["aggregated_gradients"]
+               for m in models for c in ("topk25", "int8") for s in scheds):
+        raise AssertionError("compression shifted no aggregated-gradient "
+                             "count")
+    print(f"compression (b): 12 cells card = CPU in every counter and "
+          f"histogram, need_up lower with compression in every model and "
+          f"scheduler, need_dn unchanged; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"compression": counts}
+
+
+# The replan phase: the serving shape of the `replan` section of
+# benchmarks/hotpaths.py (K 1000, R 20000, I0 24, 4-8 aggregations,
+# min_pool 256, 8 consecutive windows of Bernoulli(0.15) connectivity)
+# on the card; a small shape card against CPU; and the quickstart's
+# FedSpace row routed through a service.
+REPLAN_SERVING = {"K": 1000, "R": 20_000, "I0": 24, "min_pool": 256}
+REPLAN_SMALL = {"K": 40, "R": 2000, "I0": 12, "min_pool": 64}
+REPLAN_STEPS = 8
+
+
+def _search_forest(s_max=8, n_trees=40, seed=0):
+    """benchmarks/hotpaths.py's `_fit_search_regressor`, fitted by the
+    port: a forest over simulator staleness histograms against a
+    count-utility curve."""
+    import numpy as np
+    from repro_torch.core.utility import RandomForestRegressor, featurize
+    rng = np.random.default_rng(seed)
+    hists = rng.integers(0, 25, (600, s_max + 1)).astype(np.float32)
+    X = featurize(hists, 1.0)
+    s = np.arange(s_max + 1, dtype=np.float32)
+    y = ((hists * (1.2 - 0.3 * s)).sum(1)
+         / np.maximum(hists.sum(1), 1.0)
+         + 0.05 * rng.normal(size=len(X))).astype(np.float32)
+    return RandomForestRegressor(n_trees=n_trees, max_depth=6,
+                                 seed=seed).fit(X, y)
+
+
+def _serve(torch, rf, shape, device, *, gate=False, profile=False):
+    """REPLAN_STEPS consecutive re-plans of one service on `device` (the
+    benchmark's seeds: connectivity 0, service 3, draws 7), each answer
+    realized against the true protocol state. With `gate`, each answer is
+    held against a full `score_candidates` + `select_candidate` rescan of
+    the live pool; answers, rescans and `maintain()` are timed on the host
+    clock (each ends with the scores on the host or a synchronise); with
+    `profile`, each answer is traced instead. Returns the log (mode,
+    reason, plan, pool) per step, the stats and the timings."""
+    import numpy as np
+    from repro_torch.core import staleness as SS
+    from repro_torch.core.search import score_candidates, select_candidate
+    from repro_torch.fl.replan import ReplanService
+    K, R, I0 = shape["K"], shape["R"], shape["I0"]
+    C = np.random.default_rng(0).random((I0 + REPLAN_STEPS, K)) < 0.15
+    svc = ReplanService(rf, I0=I0, num_candidates=R, n_min=4, n_max=8,
+                        seed=3, min_pool=shape["min_pool"])
+    state = SS.bootstrap_state(K, device=device)
+    ig, draw = 0, np.random.default_rng(7)
+    log, times = [], {"delta": [], "full": [], "maintain": [], "rescan": [],
+                      "trace": [], "pool": []}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for i in range(REPLAN_STEPS):
+        Cw = C[i:i + I0]
+        if profile:
+            with torch.profiler.profile(activities=acts) as prof:
+                plan = svc.replan(i, Cw, state, ig, 1.0, rng=draw)
+                torch.cuda.synchronize()
+            seen = _device_events(prof)
+            times["trace"].append({
+                "mode": svc.last_mode,
+                "device_events": sum(c for _, c, _ in seen) or None,
+                "device_ms": sum(t for _, _, t in seen) / 1e3 or None})
+        else:
+            t0 = time.perf_counter()
+            plan = svc.replan(i, Cw, state, ig, 1.0, rng=draw)
+            times[svc.last_mode].append(time.perf_counter() - t0)
+        log.append((svc.last_mode, svc.last_reason, plan.tolist(),
+                    svc.pool.tolist()))
+        times["pool"].append(len(svc.pool))
+        if gate:
+            pool = svc.pool
+            t0 = time.perf_counter()
+            scores = score_candidates(pool, Cw, state, ig, rf, 1.0)
+            w = select_candidate(pool, scores)
+            times["rescan"].append(time.perf_counter() - t0)
+            if not np.array_equal(plan, pool[w]):
+                raise AssertionError(f"re-plan {i} ({svc.last_mode}) is not "
+                                     f"the full rescan's schedule")
+        if svc.last_mode == "delta":
+            t0 = time.perf_counter()
+            svc.maintain()
+            if device != "cpu":
+                torch.cuda.synchronize()
+            times["maintain"].append(time.perf_counter() - t0)
+        state, g, _ = SS.step(state, ig,
+                              torch.as_tensor(C[i], device=device),
+                              bool(plan[0]), s_max=8, collect="none")
+        ig = int(g)
+    stats = dict(svc.stats, invalidated=dict(svc.stats["invalidated"]))
+    return log, stats, times
+
+
+def _warm_ms(samples):
+    """The least sample after the first (the first pays warm-up), ms."""
+    return None if not samples else min(samples[1:] or samples) * 1e3
+
+
+def run_replan_path(torch):
+    """The replan phase: (a) the serving shape on the card, every answer a
+    full rescan's bit for bit, timed, then traced answer by answer; (b)
+    the small shape card against CPU; (c) the quickstart's FedSpace row
+    routed through a service, against the unrouted card run. Returns the
+    launch counts of (c)'s card runs."""
+    from repro_torch.fl.api import Federation, SchedulerConfig
+    from repro_torch.fl.replan import ReplanService
+    from repro_torch.kernels import launch_counts
+    from repro_torch.weights import params_to_numpy
+    t_phase = time.perf_counter()
+    rf = _search_forest()
+    # (a)
+    log, stats, times = _serve(torch, rf, REPLAN_SERVING, "cuda", gate=True)
+    modes = [m for m, *_ in log]
+    if "delta" not in modes:
+        raise AssertionError("no re-plan took the delta path")
+    traced_log, _, traced = _serve(torch, rf, REPLAN_SERVING, "cuda",
+                                   profile=True)
+    if [p for _, _, p, _ in traced_log] != [p for _, _, p, _ in log]:
+        raise AssertionError("the traced re-plans differ from the timed")
+    print("replan (a) serving", json.dumps({
+        **REPLAN_SERVING, "steps": REPLAN_STEPS, "modes": modes,
+        "stats": stats, "warm_delta_ms": _warm_ms(times["delta"]),
+        "full_answer_ms": _warm_ms(times["full"]),
+        "warm_full_rescan_ms": _warm_ms(times["rescan"]),
+        "maintain_ms": _warm_ms(times["maintain"]),
+        "delta_answers_ms": [t * 1e3 for t in times["delta"]],
+        "rescans_ms": [t * 1e3 for t in times["rescan"]],
+        "pool_rows": times["pool"], "traced": traced["trace"]}),
+        flush=True)
+    print(f"replan (a): {modes.count('delta')} of {REPLAN_STEPS} answers "
+          f"delta, every answer the full rescan's schedule on the card",
+          flush=True)
+
+    # (b)
+    sides = {d: _serve(torch, rf, REPLAN_SMALL, d, gate=True)[:2]
+             for d in ("cuda", "cpu")}
+    if sides["cuda"] != sides["cpu"]:
+        raise AssertionError("replan (b): card and CPU services differ")
+    print(f"replan (b) K {REPLAN_SMALL['K']} R {REPLAN_SMALL['R']} I0 "
+          f"{REPLAN_SMALL['I0']}: pools, stats "
+          f"{json.dumps(sides['cpu'][1])}, modes "
+          f"{[m for m, *_ in sides['cpu'][0]]} and schedules equal, card "
+          f"against CPU", flush=True)
+
+    # (c) the quickstart's FedSpace row, unrouted and routed, on the card
+    base = Federation.from_experiment(quickstart_experiment())
+    fs = base.with_scheduler(SchedulerConfig(
+        kind="fedspace", params=FEDSPACE_PARAMS, setup=FEDSPACE_SETUP))
+    reg = fs.scheduler.regressor
+    p0 = params_to_numpy(fs.adapter.init(torch.Generator().manual_seed(
+        fs.experiment.seed)))
+    counts = {}
+    launch_counts.clear()
+    with Replans() as plain_log:
+        plain = fs.run(init_params=p0)
+    torch.cuda.synchronize()
+    _one_launch_per_aggregation(plain, dict(launch_counts))
+    _add(counts, launch_counts)
+    svc = ReplanService(reg, I0=FEDSPACE_PARAMS["I0"],
+                        num_candidates=FEDSPACE_PARAMS["num_candidates"])
+    routed_fed = fs.with_scheduler(SchedulerConfig(
+        kind="fedspace", params={**FEDSPACE_PARAMS, "regressor": reg,
+                                 "service": svc}))
+    routed_log, inner = [], svc.replan
+
+    def recording(*args, **kw):
+        out = inner(*args, **kw)
+        routed_log.append(out.tolist())
+        return out
+    svc.replan = recording
+    launch_counts.clear()
+    t0 = time.perf_counter()
+    routed = routed_fed.run(init_params=p0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _one_launch_per_aggregation(routed, dict(launch_counts))
+    _add(counts, launch_counts)
+    _same_counters(routed, plain)
+    if [p["schedule"].tolist() for p in plain_log.log] != routed_log:
+        raise AssertionError("routed re-plans differ from the unrouted")
+    if routed.accuracy != plain.accuracy or routed.val_loss != plain.val_loss:
+        raise AssertionError("routed accuracies differ from the unrouted")
+    print(f"replan (c) quickstart row routed (cuda): wall {wall:.3f} s, "
+          f"{len(routed_log)} re-plans, schedules, counters and accuracies "
+          f"equal to the unrouted card run; replan_stats "
+          f"{json.dumps(routed.replan_stats)}", flush=True)
+    print(f"replan: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"replan": counts}
+
+
+# The cli phase: the verify recipe's fast FL smoke through the CLI, as a
+# subprocess on the card. A wrapper runs the module as `python -m` does
+# (`runpy`, the same argv) and prints the launch counts after it.
+CLI_ARGS = ["--scheduler", "fedbuff", "--satellites", "16", "--days", "0.5",
+            "--num-train", "800", "--M", "4"]
+CLI_WRAPPER = ("import json, runpy; "
+               "from repro_torch.kernels import launch_counts; "
+               "runpy.run_module('repro_torch.launch.fl_train', "
+               "run_name='__main__', alter_sys=True); "
+               "print('launch counts', json.dumps(dict(launch_counts)))")
+
+
+def run_cli_path(torch):
+    """The cli phase: `python -m repro_torch.launch.fl_train` with
+    CLI_ARGS on the card; its exit code, summary, JSONL and launches, and
+    its integers against the same `build_experiment` run in-process on the
+    CPU. Returns the subprocess's launch counts."""
+    import os
+    import tempfile
+    from repro_torch.fl.api import Federation
+    from repro_torch.launch import fl_train
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        jsonl = os.path.join(tmp, "m.jsonl")
+        out = os.path.join(tmp, "out.json")
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", CLI_WRAPPER, *CLI_ARGS,
+             "--metrics-jsonl", jsonl, "--out", out],
+            capture_output=True, text=True, env=env, cwd=tmp, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], flush=True)
+            raise AssertionError(f"the CLI exited {proc.returncode}")
+        text = proc.stdout
+        tail = text.rindex("launch counts ")
+        counts = json.loads(text[tail + len("launch counts "):])
+        summary = json.loads(text[text.index("\n{") + 1:tail])
+        events = [json.loads(x) for x in open(jsonl)]
+        with open(out) as f:
+            saved = json.load(f)
+    evals = [e for e in events if e["event"] == "eval"]
+    if saved["summary"] != summary or not evals or \
+            len(evals) != len(saved["eval_windows"]):
+        raise AssertionError("the CLI's summary, --out and JSONL disagree")
+    if not summary["global_updates"] or \
+            counts.get("weighted_aggregate") != summary["global_updates"]:
+        raise AssertionError(f"expected one agg launch per aggregation, got "
+                             f"{counts} for {summary['global_updates']}")
+    args = fl_train.parser().parse_args(CLI_ARGS + ["--device", "cpu"])
+    cpu = Federation.from_experiment(fl_train.build_experiment(args),
+                                     device="cpu").run().summary()
+    for key in ("scheme", "global_updates", "aggregated_gradients",
+                "idle_connections", "total_connections", "staleness_hist",
+                "time_to_target_days"):
+        if summary[key] != cpu[key]:
+            raise AssertionError(f"cli {key}: card {summary[key]}, CPU "
+                                 f"{cpu[key]}")
+    print(f"cli (cuda): exit 0 in {wall:.3f} s, {len(evals)} JSONL evals, "
+          f"summary {json.dumps(summary)}, launches {json.dumps(counts)}; "
+          f"integers equal the CPU's in-process run", flush=True)
+    return {"cli": counts}
+
+
 # ptxas's report of a kernel, from its mangled name - <length><name>I<template
 # arguments>E - to its registers: the tensor-core kernels (hd, and for dk/dv
 # and dq whether P and dS are split) and the short-sequence kernels (type,
@@ -2575,6 +3072,12 @@ def main() -> int:
     done("scenarios path")
     paths.update(run_faults_path(torch))
     done("faults path")
+    paths.update(run_compression_path(torch))
+    done("compression path")
+    paths.update(run_replan_path(torch))
+    done("replan path")
+    paths.update(run_cli_path(torch))
+    done("cli path")
 
     # 6. the kernels line. One aggregation of the quickstart (one launch
     # over its flat model at M=20, float32); one SGD step of a

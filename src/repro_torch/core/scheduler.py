@@ -185,18 +185,29 @@ class FedSpaceScheduler(Scheduler):
     the candidate pools are the reference's. Under a link budget the
     search rolls the candidates through the same per-window grants the
     engine applies. It re-plans mid-run against the training status, so
-    it offers no device plan and the sweep refuses it (`replans`). The
-    replan service (`service=`) raises NotImplementedError (the
-    replanning slice, ROADMAP A.10)."""
+    it offers no device plan and the sweep refuses it (`replans`).
+
+    `service` (a `repro_torch.fl.replan.ReplanService` with the same I0,
+    s_max and pool size) routes every re-plan through the service: the
+    same draw (the scheduler's rng), scorer and selection, so the
+    schedules are the unrouted ones, while the service keeps its rollout
+    cache and regressor across requests."""
     name = "fedspace"
     replans = True
 
     def __init__(self, regressor, *, I0: int = 24, n_min: int = None,
                  n_max: int = None, num_candidates: int = 5000,
                  s_max: int = 8, seed: int = 0, service=None):
-        if service is not None:
-            raise SR._later("the replan service (FedSpaceScheduler(service="
-                         "...))", "replanning")
+        if service is not None and (service.I0 != I0
+                                    or service.s_max != s_max
+                                    or service.num_candidates
+                                    != num_candidates):
+            raise ValueError(
+                "ReplanService knobs must match the scheduler: service "
+                f"(I0={service.I0}, s_max={service.s_max}, "
+                f"R={service.num_candidates}) vs scheduler (I0={I0}, "
+                f"s_max={s_max}, R={num_candidates})")
+        self.service = service
         self.regressor = regressor
         self.I0 = I0
         self.n_min = n_min       # None => inferred from û (paper §3.2)
@@ -210,6 +221,8 @@ class FedSpaceScheduler(Scheduler):
         self._rng = np.random.default_rng(self.seed)
         self._schedule: Optional[np.ndarray] = None
         self._window_start = -1
+        if self.service is not None:
+            self.service.invalidate("reset")
 
     def _window_link(self, link, i):
         """Slice the run-level link gate to the planning window [i, i+I0),
@@ -272,10 +285,17 @@ class FedSpaceScheduler(Scheduler):
         search_state = self._search_state(state, i,
                                           connectivity=connectivity,
                                           link=link)
-        self._schedule = SR.fedspace_search(
-            self._rng, Cw, search_state, ig, self.regressor, status,
-            n_min=n_min, n_max=n_max, num_candidates=self.num_candidates,
-            s_max=self.s_max, link=self._window_link(link, i))
+        if self.service is not None:
+            self._schedule = self.service.replan(
+                i, Cw, search_state, ig, status,
+                link=self._window_link(link, i), rng=self._rng,
+                n_min=n_min, n_max=n_max)
+        else:
+            self._schedule = SR.fedspace_search(
+                self._rng, Cw, search_state, ig, self.regressor, status,
+                n_min=n_min, n_max=n_max,
+                num_candidates=self.num_candidates, s_max=self.s_max,
+                link=self._window_link(link, i))
         self._window_start = i
 
     def decide(self, i, *, n_in_buffer, K, state, ig, connectivity, status,

@@ -13,9 +13,14 @@ score vector. Under a link budget the rollouts are gated by the same
 per-window grants the engine applies (`link=`, a `LinkGate` of (I0, K)
 grants), so candidates are scored against transfers that can complete.
 
-The replan service's incremental scan (`scan_candidates`,
-`step_candidates`) comes with the replanning slice, and the
-satellite-axis mesh with the mesh slice (ROADMAP A.10).
+The replan service (`repro_torch.fl.replan.ReplanService`) builds on
+`scan_candidates`, which also keeps each candidate's per-event utilities
+and final rollout state, and `step_candidates`, one window over
+per-candidate states. Both reductions a score is made of add in a fixed
+order (the forest's mean over trees in `utility`, the masked event sum
+here, `_event_sum`), so a row's score has the same bits whether it is
+scored alone or with others: a delta re-plan equals a full rescan. The
+satellite-axis mesh comes with the mesh slice (ROADMAP A.10).
 """
 from __future__ import annotations
 
@@ -60,15 +65,56 @@ def event_positions(candidates: np.ndarray):
     return idx.astype(np.int32), mask
 
 
-def _simulate_marks(C_window, candidates, state, ig, link=None, *,
-                    s_max: int):
+def _simulate_marks_state(C_window, candidates, state, ig, link=None, *,
+                          s_max: int):
     """Staleness marks (R, I0, K) of each candidate's rollout, on the
-    state's device; `link` an optional device `LinkGate` (grant
-    (I0, K))."""
-    _, _, infos = SS.simulate_candidates(C_window, candidates, state, ig,
-                                         s_max=s_max, collect="marks",
-                                         link=link)
-    return infos["marks"]
+    state's device (`link` an optional device `LinkGate`, grant (I0, K)),
+    with each candidate's final rollout state and global version: the
+    frontier the replan service caches so that its next re-plan rolls
+    only the newly revealed window."""
+    fstate, fig, infos = SS.simulate_candidates(C_window, candidates, state,
+                                                ig, s_max=s_max,
+                                                collect="marks", link=link)
+    return infos["marks"], fstate, fig
+
+
+def step_candidates(states, igs, connected, bits, link=None, *,
+                    s_max: int):
+    """One protocol window over per-candidate states: the delta scan of a
+    newly revealed window.
+
+    Every candidate carries its own frontier state and version (the rollout
+    state cached from the previous re-plan), takes its own aggregation bit
+    for the window, and shares the window's connectivity column and link
+    gate. It is `staleness.step` with the candidate axis as the batch
+    axis, so the marks and the advanced states are the ones a full rescan
+    computes at its last window.
+
+    Args:
+      states: `SatState` (R, K), any signed-int dtype.
+      igs: (R,) per-candidate global version, the states' dtype.
+      connected: (K,) bool, the revealed window's connectivity column.
+      bits: (R,) {0,1}, each candidate's aggregation bit at that window.
+      link: optional `LinkGate` with a (K,) grant shared by every
+        candidate, or None.
+
+    Returns (marks (R, K), new_states, new_igs).
+    """
+    st, g, info = SS.step(states, igs, connected, bits != 0, s_max=s_max,
+                          collect="marks", link=link)
+    return info["marks"], st, g
+
+
+def _event_sum(util, mask):
+    """Per-row sum of `util * mask` (R, n_cap), added column by column
+    from the left: the bits of a row do not depend on how many rows are
+    reduced together (a library reduction may change its order with the
+    row count on the card)."""
+    masked = util * mask
+    total = masked[:, 0].clone()
+    for j in range(1, masked.shape[1]):
+        total += masked[:, j]
+    return total, masked
 
 
 def _event_features(marks, idx, status, *, s_max: int):
@@ -117,6 +163,7 @@ def score_candidates(candidates: np.ndarray, C_window: np.ndarray,
     marks; histograms, featurization and regression run once after it, at
     each candidate's aggregation windows only (a=0 windows contribute
     exactly 0 to eq. 13). The only transfer back is the (R,) score vector.
+    That pipeline is `scan_candidates`', whose scores this returns.
     Regressors with only `.predict` (e.g. test oracles) take the legacy
     full-histogram host path.
 
@@ -139,27 +186,57 @@ def score_candidates(candidates: np.ndarray, C_window: np.ndarray,
     """
     if mesh is not None:
         raise _later("the satellite-axis mesh", "mesh")
+    if getattr(regressor, "predict_device", None) is not None:
+        return scan_candidates(candidates, C_window, state, ig, regressor,
+                               status, s_max=s_max, chunk_rows=chunk_rows,
+                               link=link)[0]
     device = state.version.device
     if link is not None:
         link = SS.LinkGate(torch.as_tensor(link.grant, dtype=torch.int32,
                                            device=device),
                            int(link.need_up), int(link.need_dn))
-    predict_device = getattr(regressor, "predict_device", None)
-    if predict_device is None:
-        _, _, infos = SS.simulate_candidates(
-            np.asarray(C_window, bool), np.asarray(candidates), state,
-            torch.tensor(ig, dtype=torch.int32, device=device),
-            s_max=s_max, lite=True, link=link)
-        hist = infos["hist"].cpu().numpy()              # (R, I0, s_max+1)
-        Rn, I0, F = hist.shape
-        feats = featurize(hist.reshape(Rn * I0, F), status)
-        util = regressor.predict(feats).reshape(Rn, I0)
-        agg_mask = np.asarray(candidates, np.float32)
-        return (util * agg_mask).sum(axis=1)
+    _, _, infos = SS.simulate_candidates(
+        np.asarray(C_window, bool), np.asarray(candidates), state,
+        torch.tensor(ig, dtype=torch.int32, device=device),
+        s_max=s_max, lite=True, link=link)
+    hist = infos["hist"].cpu().numpy()              # (R, I0, s_max+1)
+    Rn, I0, F = hist.shape
+    feats = featurize(hist.reshape(Rn * I0, F), status)
+    util = regressor.predict(feats).reshape(Rn, I0)
+    agg_mask = np.asarray(candidates, np.float32)
+    return (util * agg_mask).sum(axis=1)
 
+
+def scan_candidates(candidates: np.ndarray, C_window: np.ndarray,
+                    state: SS.SatState, ig: int, regressor, status: float,
+                    *, s_max: int = 8, chunk_rows: Optional[int] = None,
+                    link=None):
+    """`score_candidates`' device pipeline, which also keeps the
+    per-candidate artifacts the replan service caches
+    (`repro_torch.fl.replan`). The regressor must expose `predict_device`
+    (a host-path regressor has no device artifacts).
+
+    Returns (scores (R,) float32 numpy, artifacts), artifacts a dict:
+      win_util: (R, I0) float32 tensor on the state's device — each
+        candidate's predicted per-event utility at its aggregation windows,
+        0 elsewhere (padded event slots fall on a=0 windows, so no real
+        event is overwritten).
+      end_state: `SatState` (R, K) on the state's device — each
+        candidate's rollout state after the last window (the frontier the
+        next delta step advances). It stays there: at the serving shape,
+        R 20000 x K 1000 x 3 int16 columns is 120 MB.
+      end_ig: (R,) tensor, each candidate's final global version.
+      state_dtype: the narrowed rollout dtype (np.int16 or np.int32), for
+        the delta path's narrowing guard.
+    """
+    device = state.version.device
     cands = np.asarray(candidates)
     R, I0 = cands.shape
     K = C_window.shape[1]
+    if link is not None:
+        link = SS.LinkGate(torch.as_tensor(link.grant, dtype=torch.int32,
+                                           device=device),
+                           int(link.need_up), int(link.need_dn))
     idx, mask = event_positions(cands)
     Cw = torch.as_tensor(np.asarray(C_window, bool), device=device)
     cands_d = torch.as_tensor(cands, device=device)
@@ -169,14 +246,29 @@ def score_candidates(candidates: np.ndarray, C_window: np.ndarray,
     if chunk_rows is None:
         chunk_rows = max(256, (64 << 20) // max(I0 * K, 1))
     scores = np.empty(R, np.float32)
+    win_util = torch.zeros((R, I0), dtype=torch.float32, device=device)
+    end_states, end_igs = [], []
+    predict_device = regressor.predict_device
     for c0 in range(0, R, chunk_rows):
         rows = slice(c0, min(c0 + chunk_rows, R))
-        marks = _simulate_marks(Cw, cands_d[rows], st, igd, link,
-                                s_max=s_max)
+        marks, fstate, fig = _simulate_marks_state(
+            Cw, cands_d[rows], st, igd, link, s_max=s_max)
         feats = _event_features(marks, idx_d[rows], status, s_max=s_max)
         util = predict_device(feats).reshape(-1, idx.shape[1])
-        scores[rows] = (util * mask_d[rows]).sum(dim=1).cpu().numpy()
-    return scores
+        total, masked = _event_sum(util, mask_d[rows])
+        scores[rows] = total.cpu().numpy()
+        win_util[rows].scatter_(1, idx_d[rows], masked)
+        end_states.append(fstate)
+        end_igs.append(fig)
+    end_state = SS.SatState(*(
+        None if end_states[0][j] is None
+        else torch.cat([s[j] for s in end_states])
+        for j in range(len(end_states[0]))))
+    return scores, {"win_util": win_util, "end_state": end_state,
+                    "end_ig": torch.cat(end_igs),
+                    "state_dtype": np.dtype(np.int16)
+                    if st.version.dtype == torch.int16
+                    else np.dtype(np.int32)}
 
 
 def infer_n_range(regressor, uploads_per_window: float, I0: int,

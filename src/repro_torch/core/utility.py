@@ -333,8 +333,16 @@ class RandomForestRegressor:
 
     def predict_device(self, X: torch.Tensor) -> torch.Tensor:
         """Prediction on a feature tensor, on its device (the search feeds
-        simulator histograms straight in with no host round-trip)."""
-        return self.leaf_values_device(X).mean(dim=0)
+        simulator histograms straight in with no host round-trip). The mean
+        over trees adds the trees' values one tree at a time, in tree
+        order, then divides: a row's prediction has the same bits however
+        many rows are predicted together (the replan service's delta
+        re-plan scores a few rows, a full rescan thousands)."""
+        leaves = self.leaf_values_device(X)
+        total = leaves[0].clone()
+        for t in range(1, leaves.shape[0]):
+            total += leaves[t]
+        return total / leaves.shape[0]
 
 
 # ---------------------------------------------------------------------------

@@ -29,9 +29,12 @@ ready `"regressor"`. A constrained `LinkConfig` resolves to a
 `with_scheduler` clones. A non-trivial `FaultConfig` resolves to a
 `FaultTrace` (`repro_torch.core.faults`); `with_faults` re-resolves only
 the trace over the same world, so fault grids share one world and one
-phase 1. The part of the reference the port does not have yet — uplink
-compression — raises NotImplementedError naming its slice; nothing
-silently runs something else instead.
+phase 1. Uplink compression (`LinkConfig`/`EngineConfig` `uplink_topk`,
+`uplink_int8`; train fields win) shrinks the budget's upload size by
+`repro_torch.fl.compression.uplink_bytes_ratio` and runs the roundtrip in
+the client update. A FedSpace scheduler routes its re-plans through a
+`repro_torch.fl.replan.ReplanService` when `params` hands it one
+(`"service"`).
 """
 from __future__ import annotations
 
@@ -50,6 +53,7 @@ from repro_torch.data.pipeline import make_clients
 import repro_torch.core.scheduler  # noqa: F401 — registers the schedulers
 import repro_torch.fl.adapters  # noqa: F401 — registers the built-in adapters
 from repro_torch.device import resolve_device
+from repro_torch.fl.compression import uplink_bytes_ratio
 from repro_torch.fl.engine import EngineConfig, SimResult, SimulationEngine
 from repro_torch.fl.fedspace_setup import build_utility_regressor
 from repro_torch.fl.registry import (ADAPTERS, PARTITIONS, SCHEDULERS,
@@ -153,8 +157,8 @@ class LinkConfig:
     span ``ceil(model_mb * 8 / rate_mbps / substep)`` contact substeps, and
     `gs_capacity` bounds how many satellites one station serves at once;
     `Federation.from_experiment` resolves such a config to a
-    `repro_torch.core.connectivity.LinkBudget`. Compression raises there
-    (the compression slice)."""
+    `repro_torch.core.connectivity.LinkBudget`, whose upload carries the
+    compressed update (`uplink_bytes_ratio` of the resolved settings)."""
     uplink_topk: float = 0.0      # >0: top-k+int8 compressed uplink
     uplink_int8: bool = False     # dense int8 uplink (when no top-k)
     uplink_mbps: float = 0.0      # sat->GS rate; 0 = unconstrained
@@ -216,21 +220,12 @@ class FLExperiment:
         return dataclasses.asdict(self)
 
 
-def _later(what: str, slice_: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: it comes with "
-                               f"the {slice_} slice of the port")
-
-
-def _check_supported(exp: FLExperiment) -> None:
-    """Raise for every part of `exp` the port cannot run yet."""
-    train = exp.train
-    topk = train.uplink_topk if train.uplink_topk is not None \
-        else exp.link.uplink_topk
-    int8 = train.uplink_int8 if train.uplink_int8 is not None \
-        else exp.link.uplink_int8
-    if topk or int8:
-        raise _later("uplink compression (uplink_topk / uplink_int8)",
-                     "compression")
+def _compression(exp: FLExperiment):
+    """(uplink_topk, uplink_int8) of `exp`: explicitly-set train fields win
+    over `LinkConfig`'s."""
+    tk, i8 = exp.train.uplink_topk, exp.train.uplink_int8
+    return (tk if tk is not None else exp.link.uplink_topk,
+            bool(i8 if i8 is not None else exp.link.uplink_int8))
 
 
 # --------------------------------------------------------------------------
@@ -305,7 +300,6 @@ class Federation:
         "cuda" and raises when no CUDA device is present; pass "cpu" to
         build on the CPU."""
         device = resolve_device(device)
-        _check_supported(exp)
         budget = counts = None
         fcfg = exp.faults
         if fcfg is not None and fcfg.trivial:
@@ -318,13 +312,15 @@ class Federation:
                 # the trace's station reach needs the per-station counts:
                 # one propagation sweep shared with the budget
                 counts = CN.station_windows(spec, days=days)
-            # no compression here (it raises above), so the uplink carries
-            # the full model: the reference's bytes ratio is 1.0
+            # uploads carry compressed updates: the upload size shrinks by
+            # the analytic bytes ratio (1.0 uncompressed, need_up as it was)
+            topk, int8 = _compression(exp)
             budget = CN.link_budget(
                 spec, days=days,
                 uplink_mbps=lk.uplink_mbps, downlink_mbps=lk.downlink_mbps,
                 model_mb=lk.model_mb, gs_capacity=lk.gs_capacity,
-                counts=counts, uplink_mb=lk.model_mb)
+                counts=counts,
+                uplink_mb=lk.model_mb * uplink_bytes_ratio(topk, int8=int8))
             C = budget.visible
         else:
             spec, C = exp.constellation.build()
@@ -448,10 +444,7 @@ class Federation:
         exp = self.experiment
         cfg = exp.train
         seed = cfg.seed if cfg.seed is not None else exp.seed
-        topk = cfg.uplink_topk if cfg.uplink_topk is not None \
-            else exp.link.uplink_topk
-        int8 = cfg.uplink_int8 if cfg.uplink_int8 is not None \
-            else exp.link.uplink_int8
+        topk, int8 = _compression(exp)
         cfg = dataclasses.replace(cfg, seed=seed, uplink_topk=topk,
                                   uplink_int8=int8)
         return SimulationEngine(self.C, self.adapter, self.scheduler, cfg,

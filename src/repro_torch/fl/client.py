@@ -11,16 +11,18 @@ with respect to satellite m's parameters is satellite m's own gradient.
 A `trainable_mask` (a tree of floats shaped like the parameters' tree, the
 DenseNet adapter's frozen-block mask) multiplies each gradient before the
 SGD step, so a leaf masked by 0 keeps its value and its delta is exactly
-0.
+0. The batched form optionally applies the uplink compression roundtrip
+(`repro_torch.fl.compression`) to each satellite's delta, leaf by leaf,
+where it was written: in the rows of the engine's update buffer, so the
+aggregation still reads one flat buffer.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.fl.compression import roundtrip_int8_rows, roundtrip_rows
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map, \
     tree_unflatten
-
-_LATER = "uplink compression comes with the compression slice of the port"
 
 
 def _make_update_fn(adapter, *, lr: float, trainable_mask=None):
@@ -78,16 +80,32 @@ def make_batched_client_update(adapter, *, local_steps: int, lr: float,
     `batches` is the per-satellite batch tuple stacked on a leading axis M
     (then the E local steps); the base model is shared and broadcast to
     the M satellites. With `out` (a tree of (M, *shape) tensors) the
-    deltas are written there and `out` is returned."""
-    if uplink_topk or uplink_int8:
-        raise NotImplementedError(_LATER)
+    deltas are written there and `out` is returned.
+
+    `uplink_topk > 0` (or `uplink_int8`) applies the top-k/int8 (or
+    dense-int8) uplink roundtrip to each satellite's delta, per leaf, in
+    place. Top-k takes precedence over dense int8; with neither the deltas
+    are untouched."""
     update_fn = _make_update_fn(adapter, lr=lr,
                                 trainable_mask=trainable_mask)
+    if uplink_topk:
+        def compress(rows):
+            return roundtrip_rows(rows, uplink_topk)
+    elif uplink_int8:
+        compress = roundtrip_int8_rows
+    else:
+        compress = None
 
     def update_many(base_params, batches, out=None):
         m = batches[0].shape[0]
         stacked = tree_map(lambda v: v.expand(m, *v.shape).clone(),
                            base_params)
-        return update_fn(stacked, batches, step_axis=1, out=out)
+        u = update_fn(stacked, batches, step_axis=1, out=out)
+        if compress is not None:
+            with torch.no_grad():
+                for leaf in tree_leaves(u):
+                    rows = leaf.view(m, -1)
+                    rows.copy_(compress(rows))
+        return u
 
     return update_many

@@ -69,8 +69,9 @@ class SimResult:
     `idle_connections`/`total_connections` (eq.-10 idleness accounting),
     `num_global_updates` (aggregations), `num_aggregated_gradients`,
     `windows_run`, and `time_to_target_days`/`target_acc` when a target
-    accuracy was set. `replan_stats` stays None until the port has
-    FedSpace's replan service. `days(window)` converts a window index to
+    accuracy was set. `replan_stats` holds the full/delta/invalidated
+    counts of the scheduler's replan service, None without one.
+    `days(window)` converts a window index to
     simulated days; `summary()` returns the JSON-friendly digest."""
     scheme: str
     accuracy: List[float] = field(default_factory=list)
@@ -414,6 +415,13 @@ class SimulationEngine:
                 if stop or self._stop_requested:
                     break
         finally:
+            service = getattr(self.scheduler, "service", None)
+            if service is not None:
+                self.result.replan_stats = {
+                    "full": service.stats["full"],
+                    "delta": service.stats["delta"],
+                    "invalidated": dict(service.stats["invalidated"]),
+                }
             # always emitted (even on a mid-run exception) so callbacks
             # holding resources — open files, sockets — can release them
             self._emit("on_run_end", self.result)

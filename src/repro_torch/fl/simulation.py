@@ -35,9 +35,8 @@ def run_simulation(C: np.ndarray, adapter, scheduler: Scheduler, *,
                    ) -> SimResult:
     """Run one scheme over the connectivity sequence C (I, K) on `device`
     (None means "cuda", and raises when no CUDA device is present; the
-    adapter must live there). `uplink_topk` > 0 raises the client
-    update's NotImplementedError when the run starts (the compression
-    slice)."""
+    adapter must live there). `uplink_topk` > 0 runs the top-k + int8
+    uplink roundtrip on every client update."""
     config = EngineConfig(
         local_steps=local_steps, batch_size=batch_size,
         client_lr=client_lr, server_lr=server_lr, alpha=alpha,

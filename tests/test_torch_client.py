@@ -99,9 +99,56 @@ def test_single_client_update_matches(adapters):
                                    atol=1e-5, err_msg=name)
 
 
-def test_compressed_uplink_is_not_ported_yet(adapters):
-    _, port, _ = adapters
-    with pytest.raises(NotImplementedError, match="compression"):
-        t_batched(port, local_steps=2, lr=1.0, uplink_topk=0.25)
-    with pytest.raises(NotImplementedError, match="compression"):
-        t_batched(port, local_steps=2, lr=1.0, uplink_int8=True)
+@pytest.mark.parametrize("compression", [dict(uplink_topk=0.25),
+                                         dict(uplink_int8=True)])
+def test_compressed_uplink_matches_the_reference(adapters, compression):
+    """The batched update with the uplink roundtrip (it raised until the
+    compression slice): the port's roundtrip of the reference's raw
+    updates is the reference's compressed update bit for bit; the port's
+    own compressed update, written in place into `out`, is its raw update
+    roundtripped, and within one quantum of the reference's."""
+    from repro.fl.compression import roundtrip as r_rt
+    from repro.fl.compression import roundtrip_int8 as r_rt8
+    from repro_torch.fl.compression import roundtrip as t_rt
+    from repro_torch.fl.compression import roundtrip_int8 as t_rt8
+    ref, port, p0 = adapters
+    ids = list(range(K))
+    rb, rows = ref.client_batch_many(ids, 23, 32, 4)
+    tb, _ = port.client_batch_many(ids, 23, 32, 4)
+    kw = dict(local_steps=4, lr=1.0)
+    raw_r = jax.tree.map(np.asarray, r_batched(ref, **kw)(p0, rb))
+    comp_r = jax.tree.map(np.asarray, r_batched(ref, **kw, **compression)(
+        p0, rb))
+    tp = params_from_numpy(p0, "cpu")
+    raw_t = t_batched(port, **kw)(tp, tb)
+    out = {k: torch.full_like(v, 7.0) for k, v in raw_t.items()}
+    got = t_batched(port, **kw, **compression)(tp, tb, out=out)
+    assert all(got[k] is out[k] for k in out)      # written in place
+
+    def port_rt(tree):
+        if "uplink_topk" in compression:
+            return t_rt(tree, compression["uplink_topk"])[0]
+        return t_rt8(tree)[0]
+
+    def ref_rt(tree):
+        if "uplink_topk" in compression:
+            return r_rt(tree, compression["uplink_topk"])[0]
+        return r_rt8(tree)[0]
+    for m in range(len(rows)):
+        one_r = {k: v[m] for k, v in raw_r.items()}
+        crossed = port_rt({k: torch.tensor(v) for k, v in one_r.items()})
+        mine = port_rt({k: v[m] for k, v in raw_t.items()})
+        for k in p0:
+            np.testing.assert_array_equal(crossed[k].numpy(),
+                                          comp_r[k][m], err_msg=k)
+            np.testing.assert_array_equal(got[k][m].numpy(),
+                                          mine[k].numpy(), err_msg=k)
+            # the raw updates part by ~1e-6 (test above); after
+            # quantization that is at most one code apart
+            scale = np.abs(one_r[k]).max() / 127.0
+            np.testing.assert_allclose(got[k][m].numpy(), comp_r[k][m],
+                                       atol=1.01 * scale + 2e-5,
+                                       err_msg=k)
+    assert np.array_equal(np.asarray(ref_rt({k: v[0] for k, v in
+                                             raw_r.items()})["w1"]),
+                          comp_r["w1"][0])

@@ -1054,3 +1054,71 @@ def test_sweep_on_the_card_matches_the_cpu_without_a_host_sync():
             np.testing.assert_array_equal(getattr(a, name),
                                           getattr(b, name), err_msg=name)
     assert len({o.result.num_global_updates for o in sides["cuda"]}) > 3
+
+
+def _hist_forest_torch(seed=0, n=200, s_max=8):
+    """A port forest over staleness histograms (no jax in this file: the
+    card's machine has none)."""
+    from repro_torch.core.utility import RandomForestRegressor, featurize
+    rng = np.random.default_rng(seed)
+    hists = rng.integers(0, 25, (n, s_max + 1)).astype(np.float32)
+    s = np.arange(s_max + 1, dtype=np.float32)
+    y = ((hists * (1.2 - 0.3 * s)).sum(1) / np.maximum(hists.sum(1), 1.0)
+         + 0.05 * rng.normal(size=n)).astype(np.float32)
+    return RandomForestRegressor(n_trees=12, max_depth=5, seed=seed).fit(
+        featurize(hists, 1.0), y)
+
+
+@pytest.mark.gpu
+def test_replan_delta_equals_full_rescan_on_the_card():
+    """The replan service on the card: every answer, delta or full, is a
+    full `score_candidates` + `select_candidate` rescan of the live pool on
+    the card, and the pools, stats and schedules are the CPU service's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device with nvcc")
+    from repro_torch.core.search import score_candidates, select_candidate
+    from repro_torch.fl.replan import ReplanService
+    rf = _hist_forest_torch()
+    K, I0, R = 120, 16, 3000
+    C = np.random.default_rng(1).random((I0 + 8, K)) < 0.2
+    sides = {}
+    for device in ("cuda", "cpu"):
+        svc = ReplanService(rf, I0=I0, num_candidates=R, n_min=3, n_max=7,
+                            seed=3, min_pool=64)
+        state = TS.bootstrap_state(K, device=device)
+        ig, log = 0, []
+        for i in range(8):
+            Cw = C[i:i + I0]
+            plan = svc.replan(i, Cw, state, ig, 1.0,
+                              rng=np.random.default_rng(20 + i))
+            pool = svc.pool
+            scores = score_candidates(pool, Cw, state, ig, rf, 1.0)
+            assert np.array_equal(plan, pool[select_candidate(pool,
+                                                              scores)])
+            log.append((svc.last_mode, plan.tolist(), pool.tolist()))
+            svc.maintain()
+            state, g, _ = TS.step(state, ig, torch.as_tensor(C[i],
+                                                             device=device),
+                                  bool(plan[0]), s_max=8, collect="none")
+            ig = int(g)
+        sides[device] = (log, svc.stats)
+    assert sides["cuda"] == sides["cpu"]
+    assert [m for m, *_ in sides["cuda"][0]].count("delta") >= 1
+
+
+@pytest.mark.gpu
+def test_spilled_version_reloads_onto_the_card(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device with nvcc")
+    from repro_torch.ckpt.checkpoint import CheckpointStore
+    store = CheckpointStore(str(tmp_path), keep_in_memory=2, spill_every=2)
+    for v in range(6):
+        store.put(v, {"w": torch.full((3, 4), float(v), device="cuda"),
+                      "blocks": [torch.arange(5.0, device="cuda") * v]})
+    del store._mem[2]
+    got = store.get(2)
+    assert got["w"].device.type == "cuda"
+    assert got["blocks"][0].device.type == "cuda"
+    assert torch.equal(got["w"], torch.full((3, 4), 2.0, device="cuda"))
+    assert torch.equal(got["blocks"][0], torch.arange(5.0, device="cuda")
+                       * 2)

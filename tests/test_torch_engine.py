@@ -127,8 +127,8 @@ def test_with_scheduler_shares_the_world(runs):
 
 
 @pytest.mark.parametrize("change,slice_name", [
-    # link budgets, ISLs and faults are ported; compressed uplinks (over a
-    # budget or not) still raise
+    # compressed uplinks (over a budget or not), which raised until the
+    # compression slice
     (dict(link=TA.LinkConfig(model_mb=300.0, uplink_mbps=20.0,
                              uplink_topk=0.25)), "compression"),
     (dict(link=TA.LinkConfig(gs_capacity=2, uplink_int8=True)),
@@ -137,9 +137,33 @@ def test_with_scheduler_shares_the_world(runs):
     (dict(train=TEC(uplink_int8=True)), "compression"),
 ])
 def test_unported_options_raise_naming_their_slice(change, slice_name):
-    exp = dataclasses.replace(_exp(TA, TEC), **change)
-    with pytest.raises(NotImplementedError, match=slice_name):
-        TA.Federation.from_experiment(exp, device="cpu")
+    """Compressed uplinks raised until the slice named `slice_name`; each
+    of these configs now builds and runs, through the budget's `need_up`
+    and the client update's roundtrip, and gives the reference's
+    integers from the reference's initial model."""
+    outcomes, p0 = [], None
+    for api, ec in ((RA, REC), (TA, TEC)):
+        kw = {} if api is RA else {"device": "cpu"}
+        # the same config in the package's own classes
+        exp = dataclasses.replace(_exp(api, ec), **{
+            k: getattr(api, type(v).__name__)(**dataclasses.asdict(v))
+            for k, v in change.items()})
+        fed = api.Federation.from_experiment(exp, **kw)
+        if p0 is None:
+            p0 = jax.tree.map(np.asarray, fed.adapter.init(
+                jax.random.PRNGKey(0)))
+        eng = fed.engine(init_params=p0 if api is RA
+                         else params_from_numpy(p0, "cpu"), **kw)
+        res = eng.run()
+        outcomes.append((
+            None if fed.link_budget is None
+            else (fed.link_budget.need_up, fed.link_budget.need_dn),
+            res.num_global_updates, res.num_aggregated_gradients,
+            res.idle_connections, res.total_connections,
+            res.staleness_hist.tolist(), eng.ig, eng.version.tolist(),
+            eng.pending.tolist(), eng.buffered_base.tolist()))
+    assert outcomes[1] == outcomes[0]
+    assert outcomes[1][1] > 0                     # the run aggregated
 
 
 @pytest.mark.parametrize("isl,faults", [

@@ -201,9 +201,16 @@ def test_fedspace_without_a_card_raises_by_default():
 
 
 def test_service_and_link_raise_naming_their_slices(fed):
-    with pytest.raises(NotImplementedError, match="replanning"):
-        TFedSpace(fed.scheduler.regressor, service=object())
-    sched = TFedSpace(fed.scheduler.regressor, I0=4, num_candidates=8)
+    """The replan service and the link gate raised until their slices: a
+    service whose knobs differ from the scheduler's is refused with the
+    reference's ValueError, a matching one routes the re-plans."""
+    from repro_torch.fl.replan import ReplanService
+    reg = fed.scheduler.regressor
+    with pytest.raises(ValueError, match="ReplanService knobs must match"):
+        TFedSpace(reg, I0=4, num_candidates=8,
+                  service=ReplanService(reg, I0=8, num_candidates=8))
+    svc = ReplanService(reg, I0=4, num_candidates=8)
+    sched = TFedSpace(reg, I0=4, num_candidates=8, service=svc)
     eng = fed.engine(device="cpu")
     eng.prepare()
     # the link-gated search is ported: a gate slices to the planning
@@ -216,3 +223,4 @@ def test_service_and_link_raise_naming_their_slices(fed):
     assert sched.decide(0, n_in_buffer=1, K=eng.K, state=TS.bootstrap_state(
         eng.K, progress=True, device="cpu"), ig=0, connectivity=eng.C,
         status=1.0, link=TS.LinkGate(grants, 2, 1)) in (True, False)
+    assert svc.stats["full"] == 1 and svc.pool.shape == (8, 4)

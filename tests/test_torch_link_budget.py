@@ -545,8 +545,17 @@ def test_budget_world_raises_without_a_card():
 
 
 def test_compression_with_a_budget_still_raises():
-    exp = _exp(TA, TEC, TA.SchedulerConfig("fedbuff", params={"M": 3}))
-    exp = dataclasses.replace(exp, link=TA.LinkConfig(uplink_topk=0.25,
-                                                      **LINK))
-    with pytest.raises(NotImplementedError, match="compression"):
-        TA.Federation.from_experiment(exp, device="cpu")
+    """Compression over a budget raised until the compression slice; the
+    budget now carries the compressed upload (need_up 4 -> 2 at top-k 0.25,
+    600 MB x 0.3125), the reference's needs and grants."""
+    got = []
+    for api, ec in ((RA, REC), (TA, TEC)):
+        exp = _exp(api, ec, api.SchedulerConfig("fedbuff", params={"M": 3}))
+        exp = dataclasses.replace(exp, link=api.LinkConfig(uplink_topk=0.25,
+                                                           **LINK))
+        kw = {} if api is RA else {"device": "cpu"}
+        b = api.Federation.from_experiment(exp, **kw).link_budget
+        got.append((b.need_up, b.need_dn, np.asarray(b.grants)))
+    (rup, rdn, rgrant), (tup, tdn, tgrant) = got
+    assert (tup, tdn) == (rup, rdn) and tup < 4
+    np.testing.assert_array_equal(tgrant, rgrant)

@@ -87,13 +87,20 @@ def test_run_simulation_equals_reference(worlds, sched, kw):
 
 def test_run_simulation_without_a_card_raises_and_topk_names_its_slice(
         worlds):
-    _, tfed, _ = worlds
+    """Without a card the default device raises; `uplink_topk` (which
+    raised until the compression slice) runs compressed, with the
+    reference's counters."""
+    rfed, tfed, p0 = worlds
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             trun(tfed.C, tfed.adapter, tmake("async"))
-    with pytest.raises(NotImplementedError, match="compression slice"):
-        trun(tfed.C, tfed.adapter, tmake("async"), uplink_topk=0.25,
-             device="cpu")
+    rres = rrun(rfed.C, rfed.adapter, rmake("fedbuff", M=4),
+                init_params=p0, uplink_topk=0.25, **KW)
+    tres = trun(tfed.C, tfed.adapter, tmake("fedbuff", M=4),
+                init_params=params_from_numpy(p0, "cpu"), device="cpu",
+                uplink_topk=0.25, **KW)
+    _same_results(rres, tres)
+    assert tres.num_global_updates >= 3
 
 
 def _lines(text):
