@@ -35,7 +35,11 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      and evaluation calls and a sweep at S = 8 and 32) has its device and
      host time, one kernel a call either way, and the older CUDA-core
      kernels' time on the same inputs (their device time too at the
-     path's shapes); then one attention call of the path as the adapter
+     path's shapes); the model zoo's decode calls (`flash decode` rows:
+     one query a head at Sk 1-576, and as the path makes them, the 4
+     query heads of a kv head as 4 rows; forward only, SDPA beside them)
+     and its RMSNorm shapes (qwen3-8b's prefill and decode norms,
+     mamba2-370m's); then one attention call of the path as the adapter
      makes it, traced: the two short kernels and no copy;
   4. the quickstart path: the FedBuff federation of examples/quickstart.py
      (MLP payload) through `Federation.from_experiment(exp).run()` on the
@@ -130,7 +134,24 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      (the verify recipe's fast smoke) as a subprocess on the card: exit
      0, the summary, one JSONL line per evaluation, one aggregation
      launch per aggregation, the integers of the CPU's in-process run;
-  13. one JSON line listing every ported kernel.
+  13. the zoo phase (`zoo` lines), the model zoo's serving path
+     (`repro_torch.launch.steps`, `models/transformer.py`): (a) the three
+     reduced archs of examples/serve_decode.py and qwen3-8b's, its serve
+     loop on the card and on the CPU in float32 from the same parameters:
+     greedy tokens equal, every step's logits and the final caches within
+     `ZOO_F32_TOL`; (b) qwen3-8b at full width in bfloat16 drawn on the
+     card: the prefill step at B 1 x S 2048 (its ms, 36 tensor-core
+     attention launches) against the same forward with the plain versions
+     swapped in by this script (`PlainVersions`), within
+     `QWEN_BF16_REL_TOL`; the serve loop at B 8 (a 512-token prompt
+     stepped, 64 tokens generated, a 2,048-slot cache): ms a decode step,
+     tokens/s, launches a step, peak memory, four steps traced (kernels,
+     copy kernels, device µs, busy share), and row 0's logits after the
+     stepped prompt against a prefill of it; (c) mamba2-370m at full
+     width in float32, 16 of its 48 layers: the chunked prefill of 2,048
+     tokens against the same prompt stepped through `ssm_decode`, within
+     `MAMBA_REL_TOL`;
+  14. one JSON line listing every ported kernel.
 The last line is `{"ok": true,
 "device": {...}}`. Without a CUDA device, or away from the repository's
 sources, it exits nonzero and prints no result. Imports nothing of JAX or
@@ -393,6 +414,18 @@ RMS_SHAPES = [(RMS_PATH, "float32", 0), ((1, 8000, 32), "float32", 0)] + [
     ((2, 100, 256), "float32", 1), ((8, 1000, 1024), "float32", 0),
     ((1, 16, 20_000), "float32", 0), ((2, 40, 32_768), "bfloat16", 0),
     ((3, 300, 4_100), "float32", 1)]
+# The zoo's shapes: qwen3-8b's prefill (B 1 x S 2048) block norm
+# and qk-norm (2048 tokens x 32 heads of 128), its decode step at B 8
+# (block norm, qk-norm of 8 x 32 heads), mamba2-370m's out_norm over its
+# inner width 2048 at S 2048 and its block norm at one token.
+RMS_ZOO_DECODE = (1, 8, 4096)
+RMS_ZOO_SHAPES = [((1, 2048, 4096), "bfloat16", 0),
+                  ((1, 65536, 128), "bfloat16", 0),
+                  (RMS_ZOO_DECODE, "bfloat16", 0),
+                  ((1, 256, 128), "bfloat16", 0),
+                  ((1, 2048, 2048), "float32", 0),
+                  ((1, 1, 1024), "float32", 0)]
+RMS_SHAPES += RMS_ZOO_SHAPES
 RMS_EPS = 1e-6
 
 
@@ -932,6 +965,91 @@ def check_flash(torch):
             print("flash", json.dumps(row), flush=True)
             rows.append(row)
         del q, k, v, do, o, lse, o_ref, lse_ref, grads, grads_ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+# The zoo's decode calls, forward only (serving takes no
+# gradient), non-causal over the cache's prefix: qwen3-8b's heads at B 8
+# as one query against Sk keys (the layout a decode step has, G = 4 query
+# heads a kv head), the same calls as the path makes them (the G query
+# heads of a kv head as G query rows of one head: (B, K, G, hd) against
+# (B, K, Sk, hd)), gemma3-12b's hd 240 (padded to 256, the CUDA cores) in
+# the path's form, and the reduced float32 configs' (4 heads over 2, hd
+# 64: the short kernels).
+FLASH_DECODE_ONE = [(8, 32, 8, 1, sk, 128, False, 0, "bfloat16")
+                    for sk in (1, 2, 63, 64, 65, 257, 512, 576)]
+FLASH_DECODE_PATH = (8, 8, 8, 4, 576, 128, False, 0, "bfloat16")
+FLASH_DECODE = FLASH_DECODE_ONE + [
+    (8, 8, 8, 4, sk, 128, False, 0, "bfloat16") for sk in (1, 64, 65, 512)] \
+    + [FLASH_DECODE_PATH, (8, 8, 8, 2, 576, 240, False, 0, "bfloat16"),
+       (4, 2, 2, 2, 31, 64, False, 0, "float32")]
+
+
+def check_flash_decode(torch):
+    """Phase 3: the decode calls' forward against the plain version, with
+    SDPA's time beside it, the route checked against the launch counts;
+    at the path's last step (Sk 576) also its device time and kernels a
+    call."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention.ref import attention_fwd_ref
+    g = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for shape in FLASH_DECODE:
+        B, H, KH, sq, sk, hd, causal, window, dts = shape
+        dt = getattr(torch, dts)
+        q = torch.randn(B, H, sq, hd, generator=g, device="cuda").to(dt)
+        k = torch.randn(B, KH, sk, hd, generator=g, device="cuda").to(dt)
+        v = torch.randn(B, KH, sk, hd, generator=g, device="cuda").to(dt)
+        kw = dict(causal=causal, window=window)
+        width = K.padded_head_dim(hd)
+        route = K.route(dt, width)
+        short = K.short_fits(H // KH, sq, sk, width, dt)
+        before = dict(launch_counts)
+        o, lse = K.flash_attention(q, k, v, **kw)
+        for name, want in ((K.NAME_TC, route == "tc"),
+                           (K.NAME_SHORT, short)):
+            if launch_counts[name] - before.get(name, 0) != want:
+                raise AssertionError(f"{shape}: route {route}, short "
+                                     f"{short}, but {launch_counts[name]} "
+                                     f"{name} launches")
+        o_ref, lse_ref = attention_fwd_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        tag = (f"flash decode B={B} H={H} K={KH} Sq={sq} Sk={sk} hd={hd} "
+               f"{dts}")
+        err, tol = _compare(tag, (o,), (o_ref,), dt)
+        err = max(err, _compare(tag + " lse", (lse,), (lse_ref,),
+                                torch.float32)[0])
+        b = q.element_size()
+        bound = _bound(2 * q.numel() * b + 2 * k.numel() * b + 4 * B * H * sq,
+                       4 * hd * B * H * sq * sk, BF16_TC_FLOP_PER_S)
+        row = {"kernel": "flash_attention", "B": B, "H": H, "K": KH,
+               "Sq": sq, "Sk": sk, "hd": hd, "causal": causal,
+               "window": window, "dtype": dts,
+               "route": "short" if short else route, "max_abs_err": err,
+               "tol": tol,
+               "kernel_ms": _time_ms(lambda: K.flash_attention(q, k, v, **kw),
+                                     100),
+               "plain_ms": _time_ms(lambda: attention_fwd_ref(q, k, v, **kw),
+                                    100),
+               "library_ms": _time_ms(
+                   lambda: F.scaled_dot_product_attention(
+                       q, k, v, enable_gqa=True), 100),
+               "bound_ms": bound[0], "bound_by": bound[1]}
+        row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+        if shape == FLASH_DECODE_PATH:
+            host_us, dev_us, per_call, names, events, _ = _host_and_device(
+                lambda: K.flash_attention(q, k, v, **kw), 100)
+            if per_call != 1 or len(names) != 1 or TC_KERNEL not in names[0]:
+                raise AssertionError(f"{tag}: {per_call} kernels per call "
+                                     f"({names}), not one tensor-core kernel")
+            row.update(device_us=dev_us, host_us=host_us,
+                       launches_per_call=per_call, kernels_seen=names,
+                       profiled=f"{events} kernel events over 100 calls")
+        print("flash decode", json.dumps(row), flush=True)
+        rows.append(row)
     torch.cuda.empty_cache()
     return rows
 
@@ -2956,6 +3074,407 @@ def run_cli_path(torch):
     return {"cli": counts}
 
 
+# The zoo phase: examples/serve_decode.py's three reduced archs and
+# qwen3-8b's, card against the port on the CPU (float32); qwen3-8b at full
+# width in bfloat16 (configs/qwen3_8b.py: 36 layers, d_model 4096, 32/8
+# heads, hd 128, d_ff 12,288, vocabulary 151,936; ~8.19 B parameters, 16.4
+# GB) drawn on the card; mamba2-370m at full width in float32, cut in
+# depth.
+ZOO_REDUCED = ("gemma3-12b", "mamba2-370m", "mixtral-8x7b", "qwen3-8b")
+ZOO_SERVE = (4, 8, 24, 64)          # batch, prompt, generated, cache
+# float32 card against CPU through two layers: the kernels' and the
+# products' order of sums against the plain versions' (the CPU tests hold
+# the port to the reference at 2e-5; 1e-4 leaves the card's GEMMs room)
+ZOO_F32_TOL = 1e-4
+QWEN_PREFILL = (1, 2048)            # batch, sequence
+QWEN_SERVE = (8, 512, 64, 2048)     # batch, prompt stepped, generated, cache
+# bfloat16 against bfloat16 through qwen3-8b's 36 layers, relative L2 of
+# the next-token logits: a rounding of one unit (2**-8 relative) where the
+# two computations part in each layer's output, added up layer after layer
+# in the worst case: 36 * 2**-8 = 0.1406. Stated before the first run.
+QWEN_BF16_REL_TOL = 36 * 2 ** -8
+# mamba2-370m at full width in float32, its depth cut from 48 SSD layers
+# to 16: stepping 2,048 tokens through all 48 took 68 s of host-issued
+# kernels (33 ms a token, measured on one H100), most of the phase's
+# 120 s. Chunked prefill against the recurrence stepped token by token,
+# relative L2 over every position's logits (2.1e-6 at 4 layers, S 512, on
+# the CPU; 1.1e-5 at 48 layers, S 2048, on the card)
+MAMBA_S = 2048
+MAMBA_LAYERS = 16
+MAMBA_REL_TOL = 1e-4
+ZOO_TRACED_STEPS = 4
+
+
+class PlainVersions:
+    """Within the block, the zoo's RMSNorm and attention calls go to their
+    kernels' plain versions (`kernels/*/ref.py`) on the card: the
+    functions the models look up in the ops modules are swapped for the
+    duration, by this script, not by a switch in the package."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ops as F
+        from repro_torch.kernels.flash_attention.ref import attention_ref
+        from repro_torch.kernels.rmsnorm import ops as R
+        from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+        def bshd(q, k, v, *, causal=True, window=0):
+            return attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), causal=causal,
+                                 window=window).transpose(1, 2)
+        self._saved = [(R, "rmsnorm", R.rmsnorm),
+                       (F, "flash_attention", F.flash_attention),
+                       (F, "flash_attention_bshd", F.flash_attention_bshd)]
+        R.rmsnorm = rmsnorm_ref
+        F.flash_attention = attention_ref
+        F.flash_attention_bshd = bshd
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def _rel_l2(got, want):
+    got, want = got.float(), want.float()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def _top2_gap(logits):
+    top = logits.float().topk(2, dim=-1).values
+    return (top[..., 0] - top[..., 1])
+
+
+def _zoo_serve(torch, params, cfg, prompt, gen, cache, dtype):
+    """examples/serve_decode.py's loop: the prompt stepped, `gen` tokens
+    generated greedily. Returns (tokens (B, gen), every step's logits,
+    the state)."""
+    from repro_torch.models import transformer as T
+    state = T.init_decode_state(params, cfg, prompt.shape[0], cache, dtype)
+    logits = []
+    with torch.inference_mode():
+        for t in range(prompt.shape[1]):
+            lg, state = T.decode_step(params, prompt[:, t:t + 1], state, cfg)
+            logits.append(lg[:, 0])
+        out = []
+        for _ in range(gen - 1):
+            tok = torch.argmax(logits[-1], dim=-1).to(torch.int32)[:, None]
+            out.append(tok)
+            lg, state = T.decode_step(params, tok, state, cfg)
+            logits.append(lg[:, 0])
+        out.append(torch.argmax(logits[-1], dim=-1).to(torch.int32)[:, None])
+    return torch.cat(out, dim=1), torch.stack(logits, dim=1), state
+
+
+def _same_greedy(card, cpu, logits, tol, tag):
+    """Greedy tokens equal; where a row parts, the CPU's top-2 gap at that
+    step (`logits`: the CPU's, every step) is within twice the logits'
+    tolerance (a near tie), and the row is not compared further. Returns
+    the rows that parted."""
+    parted = []
+    p0 = logits.shape[1] - card.shape[1]
+    for b in range(card.shape[0]):
+        diff = (card[b] != cpu[b]).nonzero()
+        if len(diff):
+            t = int(diff[0])
+            gap = float(_top2_gap(logits[b, p0 + t]))
+            if gap >= 2 * tol:
+                raise AssertionError(f"{tag}: row {b} parts at token {t} "
+                                     f"with a top-2 gap of {gap}")
+            parted.append((b, t, gap))
+    return parted
+
+
+def _zoo_reduced(torch, counts):
+    """(a) Each reduced arch's serve loop on the card and on the CPU from
+    the same parameters (drawn on the CPU): tokens, every step's logits
+    and the final caches."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves, tree_map
+    B, P, G, C = ZOO_SERVE
+    for arch in ZOO_REDUCED:
+        cfg = get_config(arch).reduced()
+        cpu = T.init_params(0, cfg, device="cpu")
+        card = tree_map(lambda t: t.cuda(), cpu)
+        prompt = torch.randint(0, cfg.vocab_size, (B, P),
+                               generator=torch.Generator().manual_seed(1))
+        launch_counts.clear()
+        t0 = time.perf_counter()
+        tok_k, lg_k, st_k = _zoo_serve(torch, card, cfg, prompt.cuda(), G, C,
+                                       torch.float32)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts.update(launch_counts)
+        got = dict(launch_counts)
+        tok_c, lg_c, st_c = _zoo_serve(torch, cpu, cfg, prompt, G, C,
+                                       torch.float32)
+        parted = _same_greedy(tok_k.cpu(), tok_c, lg_c, ZOO_F32_TOL, arch)
+        rows = [b for b in range(B) if b not in {p[0] for p in parted}]
+        lg_err = (lg_k.cpu()[rows] - lg_c[rows]).abs().max().item()
+        cache_err = max((a.cpu() - b).abs().max().item() for a, b in zip(
+            tree_leaves(st_k["caches"]), tree_leaves(st_c["caches"]))) \
+            if not parted else None
+        if lg_err > ZOO_F32_TOL or (cache_err or 0) > ZOO_F32_TOL:
+            raise AssertionError(f"zoo (a) {arch}: logits {lg_err}, caches "
+                                 f"{cache_err} beyond {ZOO_F32_TOL}")
+        if not got.get("rmsnorm") or (("ssm" not in cfg.layer_kinds)
+                                      != bool(got.get("flash_attention"))):
+            raise AssertionError(f"zoo (a) {arch}: launches {got}")
+        print("zoo (a)", json.dumps({
+            "arch": cfg.name, "batch": B, "prompt": P, "generated": G,
+            "cache": C, "tokens_equal": not parted, "parted": parted,
+            "max_abs_err_logits": lg_err, "max_abs_err_caches": cache_err,
+            "tol": ZOO_F32_TOL, "card_wall_s": wall,
+            "index": st_k["index"], "launches": got}), flush=True)
+
+
+def _trace_decode(torch, params, cfg, state, tok, steps):
+    """`steps` decode steps traced: kernels, copy kernels and device
+    microseconds a step, the wall of a step (host clock over the same
+    steps untraced, ending in a synchronise) and the busy share. The
+    steps write cache slots past the caller's index, which it never
+    reads."""
+    from repro_torch.models import transformer as T
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            _, state = T.decode_step(params, tok, state, cfg)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / steps * 1e3
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(steps):
+                _, state = T.decode_step(params, tok, state, cfg)
+            torch.cuda.synchronize()
+    events = _device_events(prof)
+    if not events:
+        raise AssertionError("torch.profiler shows no device time")
+    dev_us = sum(t for _, _, t in events) / steps
+    return {"steps": steps, "wall_ms_per_step": wall_ms,
+            "kernels_per_step": sum(c for _, c, _ in events) / steps,
+            "copy_kernels_per_step": sum(c for n, c, _ in events
+                                         if _is_copy_kernel(n)) / steps,
+            "device_us_per_step": dev_us,
+            "busy_share": dev_us / (wall_ms * 1e3),
+            "device_us_per_step_by_name": {n[:100]: t / steps for n, _, t in
+                                           sorted(events,
+                                                  key=lambda e: -e[2])[:8]},
+            "kernels_by_name": {n[:100]: c / steps for n, c, _ in sorted(
+                events, key=lambda e: -e[1])[:12]}}
+
+
+def _trace_decode_attention(torch, cfg, state, g):
+    """One decode step's attention call as `attention_decode` makes it, on
+    layer 0's cache after the serve loop: the query heads of a kv head as
+    query rows against the cache's prefix (strided in B), which the
+    wrapper copies. Its kernels and copy kernels a call, device and host
+    microseconds."""
+    from repro_torch.kernels.flash_attention import ops as F
+    ck, cv = (t[0] for t in state["caches"][0]["pos0"])
+    B, _, K, hd = ck.shape
+    n = min(state["index"] + 1, ck.shape[1])
+    q = torch.randn(B, K, cfg.num_heads // K, hd, generator=g,
+                    device="cuda").to(ck.dtype)
+    with torch.inference_mode():
+        host_us, dev_us, per_call, names, events, by_name = _host_and_device(
+            lambda: F.flash_attention(q, ck[:, :n].transpose(1, 2),
+                                      cv[:, :n].transpose(1, 2),
+                                      causal=False), 100)
+    others = [x for x in names if not _is_copy_kernel(x)]
+    return {"B": B, "K": K, "rows": q.shape[2], "Sk": n, "hd": hd,
+            "kernels_per_call": per_call,
+            "copy_kernels_per_call": per_call - len(others),
+            "kernels_seen": [x[:100] for x in names], "device_us": dev_us,
+            "device_us_by_kernel": {k[:100]: v for k, v in by_name.items()},
+            "host_us": host_us,
+            "profiled": f"{events} kernel events over 100 calls"}
+
+
+def _zoo_qwen(torch, counts):
+    """(b) qwen3-8b at full width in bfloat16, drawn on the card."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+    cfg = get_config("qwen3-8b")
+    t0 = time.perf_counter()
+    params = T.init_params(0, cfg, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    g = torch.Generator(device="cuda").manual_seed(3)
+    prefill = ST.make_prefill_step(cfg)
+    B, S = QWEN_PREFILL
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                         device="cuda")
+    prefill(params, {"tokens": toks})               # warm
+    launch_counts.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    counts.update(launch_counts)
+    prefill_launches = dict(launch_counts)
+    if prefill_launches.get("flash_attention_tc") != cfg.num_layers:
+        raise AssertionError(f"zoo (b) prefill: {prefill_launches}, not "
+                             f"{cfg.num_layers} tensor-core launches")
+    with PlainVersions():
+        want = prefill(params, {"tokens": toks})
+    rel = _rel_l2(got, want)
+    same_top = bool((got.argmax(-1) == want.argmax(-1)).all())
+    gap = float(_top2_gap(want).min())
+    if rel > QWEN_BF16_REL_TOL or not (same_top or gap < 2 * (
+            got.float() - want.float()).abs().max().item()):
+        raise AssertionError(f"zoo (b) prefill against the plain versions: "
+                             f"rel L2 {rel} (tol {QWEN_BF16_REL_TOL}), top "
+                             f"equal {same_top}, gap {gap}")
+    print("zoo (b) prefill", json.dumps({
+        "arch": cfg.name, "params": n_params, "dtype": cfg.param_dtype,
+        "init_s": init_s, "batch": B, "seq": S, "ms": prefill_ms,
+        "tokens_per_s": B * S / prefill_ms * 1e3,
+        "rel_l2_vs_plain": rel, "max_abs_err_vs_plain":
+        (got.float() - want.float()).abs().max().item(),
+        "top1_equal": same_top, "plain_top2_gap": gap,
+        "tol_rel_l2": QWEN_BF16_REL_TOL, "launches": prefill_launches}),
+        flush=True)
+    del got, want
+
+    # the serve loop: the prompt stepped, tokens generated greedily
+    B, P, G, C = QWEN_SERVE
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=g,
+                           device="cuda")
+    serve = ST.make_serve_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    state = T.init_decode_state(params, cfg, B, C, torch.bfloat16)
+    launch_counts.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(P - 1):
+        _, state = serve(params, state, prompt[:, t:t + 1])
+    with torch.inference_mode():
+        last, state = T.decode_step(params, prompt[:, P - 1:], state, cfg)
+    tok = torch.argmax(last[:, -1], dim=-1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = [tok]
+    for _ in range(G - 1):
+        tok, state = serve(params, state, tok)
+        out.append(tok)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts.update(launch_counts)
+    serve_launches = dict(launch_counts)
+    steps = P + G - 1
+    if serve_launches.get("flash_attention") != steps * cfg.num_layers:
+        raise AssertionError(f"zoo (b) serve: {serve_launches}")
+    peak = torch.cuda.max_memory_allocated()
+    trace = _trace_decode(torch, params, cfg, state, tok, ZOO_TRACED_STEPS)
+    call = _trace_decode_attention(torch, cfg, state, g)
+    print("zoo decode attention call", json.dumps(call), flush=True)
+    seen = call["kernels_seen"]
+    if call["kernels_per_call"] != 3 or call["copy_kernels_per_call"] != 2 \
+            or not any(TC_KERNEL in x for x in seen):
+        raise AssertionError(f"the decode step's attention call ran {seen}, "
+                             f"not the tensor-core kernel and the two "
+                             f"prefix copies")
+    # row 0 after the stepped prompt against a prefill of its 512 tokens
+    launch_counts.clear()
+    pre = prefill(params, {"tokens": prompt[:1]})
+    counts.update(launch_counts)
+    rel = _rel_l2(last[0, -1], pre[0])
+    same_top = bool(last[0, -1].argmax() == pre[0].argmax())
+    gap = float(_top2_gap(pre[0]))
+    if rel > QWEN_BF16_REL_TOL or not (same_top or gap < 2 * (
+            last[0, -1].float() - pre[0].float()).abs().max().item()):
+        raise AssertionError(f"zoo (b) stepped prompt against prefill: rel "
+                             f"L2 {rel}, top equal {same_top}, gap {gap}")
+    step_ms = (t2 - t1) / (G - 1) * 1e3
+    print("zoo (b) serve", json.dumps({
+        "batch": B, "prompt_stepped": P, "generated": G, "cache": C,
+        "prompt_ms_per_step": (t1 - t0) / P * 1e3, "ms_per_decode_step":
+        step_ms, "tokens_per_s": B / step_ms * 1e3,
+        "max_memory_allocated_gb": peak / 1e9, "index": state["index"],
+        "launches": serve_launches,
+        "launches_per_step": {k: v / steps for k, v in
+                              serve_launches.items()},
+        "rel_l2_row0_vs_prefill": rel, "top1_equal": same_top,
+        "prefill_top2_gap": gap, "tol_rel_l2": QWEN_BF16_REL_TOL,
+        "traced": trace}), flush=True)
+    del params, state
+    torch.cuda.empty_cache()
+
+
+def _zoo_mamba(torch, counts):
+    """(c) mamba2-370m at full width in float32, `MAMBA_LAYERS` deep: the
+    chunked prefill of S 2048 against the same prompt stepped through
+    `ssm_decode`."""
+    import dataclasses
+    from repro_torch.configs.base import StageSpec, get_config
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(
+        get_config("mamba2-370m"), param_dtype="float32",
+        num_layers=MAMBA_LAYERS, stages=(StageSpec(("ssm",), MAMBA_LAYERS),))
+    params = T.init_params(0, cfg, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (1, MAMBA_S), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(4))
+    launch_counts.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        full, _ = T.forward(params, {"tokens": toks}, cfg)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    _, stepped, state = _zoo_serve(torch, params, cfg, toks, 1, MAMBA_S,
+                                   torch.float32)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / MAMBA_S * 1e3
+    counts.update(launch_counts)
+    got = dict(launch_counts)
+    stepped = stepped[:, :MAMBA_S]
+    rel = _rel_l2(stepped, full)
+    if rel > MAMBA_REL_TOL or got.get("flash_attention"):
+        raise AssertionError(f"zoo (c): rel L2 {rel} (tol {MAMBA_REL_TOL}),"
+                             f" launches {got}")
+    print("zoo (c)", json.dumps({
+        "arch": cfg.name, "dtype": "float32", "layers": cfg.num_layers,
+        "params": sum(t.numel() for t in tree_leaves(params)),
+        "seq": MAMBA_S,
+        "prefill_ms": prefill_ms, "ms_per_decode_step": step_ms,
+        "rel_l2_stepped_vs_prefill": rel, "max_abs_err":
+        (stepped - full).abs().max().item(), "tol_rel_l2": MAMBA_REL_TOL,
+        "index": state["index"], "launches": got}), flush=True)
+    del params, full, stepped, state
+    torch.cuda.empty_cache()
+
+
+def run_zoo_path(torch):
+    """The zoo phase: (a) the reduced archs card = CPU, (b) qwen3-8b at
+    full width, (c) mamba2-370m at full width. Returns the card's launch
+    counts over the three."""
+    from collections import Counter
+    counts = Counter()
+    torch.backends.cuda.matmul.allow_tf32 = False     # float32 stays f32
+    torch.cuda.empty_cache()
+    seconds = {}
+    for part, run in (("a", _zoo_reduced), ("b", _zoo_qwen),
+                      ("c", _zoo_mamba)):
+        t0 = time.perf_counter()
+        run(torch, counts)
+        seconds[part] = time.perf_counter() - t0
+    print("zoo", json.dumps({"seconds": seconds, "total_s": sum(
+        seconds.values()), "launches": dict(counts)}), flush=True)
+    return {"zoo": dict(counts)}
+
+
 # ptxas's report of a kernel, from its mangled name - <length><name>I<template
 # arguments>E - to its registers: the tensor-core kernels (hd, and for dk/dv
 # and dq whether P and dS are split) and the short-sequence kernels (type,
@@ -3048,6 +3567,7 @@ def main() -> int:
     agg_rows = check_aggregation(torch)
     rms_rows = check_rmsnorm(torch)
     flash_rows = check_flash(torch)
+    decode_rows = check_flash_decode(torch)
     call = trace_attention_call(torch)
     print("attention call", json.dumps(call), flush=True)
     seen = call["kernels_per_call"]
@@ -3078,6 +3598,8 @@ def main() -> int:
     done("replan path")
     paths.update(run_cli_path(torch))
     done("cli path")
+    paths.update(run_zoo_path(torch))
+    done("zoo path")
 
     # 6. the kernels line. One aggregation of the quickstart (one launch
     # over its flat model at M=20, float32); one SGD step of a
@@ -3156,6 +3678,34 @@ def main() -> int:
         entry.update(device_us_per_call=r["device_us"],
                      cuda_core_device_us_per_call=r["cuda_core_device_us"],
                      bound_ms_per_call=r["bound_ms"])
+    # the zoo's calls: qwen3-8b's prefill and decode step
+    keys = ("max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "route")
+
+    def pick(rows, kname, shape, names):
+        (r,) = [r for r in rows if r["kernel"] == kname and tuple(
+            r[n] for n in names) == shape]
+        return {k: r[k] for k in keys if k in r}
+    flash_names = ("B", "H", "K", "Sq", "Sk", "hd", "causal", "window",
+                   "dtype")
+    next(k for k in kernels if k["name"] == flash_kernel.NAME)["zoo"] = {
+        "work": "qwen3-8b: the prefill's call at (B, H, K, S, hd) = (1, 32, "
+                "8, 2048, 128) causal bf16, 36 a prefill; the decode step's "
+                "at B 8 over a cache prefix of 576, its 4 query heads a kv "
+                "head as 4 query rows, 36 a step",
+        "prefill": pick(flash_rows, flash_kernel.NAME, FLASH_ZOO,
+                        flash_names),
+        "decode": pick(decode_rows, flash_kernel.NAME, FLASH_DECODE_PATH,
+                       flash_names)}
+    rms_names = ("G", "R", "D", "dtype", "x_offset")
+    next(k for k in kernels if k["name"] == rms_kernel.NAME)["zoo"] = {
+        "work": "qwen3-8b: the prefill's block norm at (1, 2048, 4096) and "
+                "the decode step's at (1, 8, 4096), bf16; 145 calls a "
+                "forward (4 a layer and the final norm)",
+        "prefill": pick(rms_rows, rms_kernel.NAME,
+                        (1, 2048, 4096, "bfloat16", 0), rms_names),
+        "decode": pick(rms_rows, rms_kernel.NAME,
+                       (*RMS_ZOO_DECODE, "bfloat16", 0), rms_names)}
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on a main "

@@ -1,44 +1,61 @@
-"""Attention parameters and the q/k/v projection with RoPE (the port of
-`repro.models.attention`'s `attention_init` and `_project_qkv`). The
-attention itself runs in the flash-attention kernel
-(`repro_torch.kernels.flash_attention.ops`); the reference's chunked
-`_attend_*` paths, `_sdpa`, decode and the KV caches come with the zoo
-slice.
+"""Attention blocks: GQA with RoPE, optional qk-norm, global (causal) and
+local (sliding-window) variants, and single-token decode against a KV
+cache (the port of `repro.models.attention`).
+
+Attention runs in the flash-attention kernel
+(`repro_torch.kernels.flash_attention.ops`; its plain version on the
+CPU), every norm in the RMSNorm kernel. The kernel tiles the sequence by
+itself, so the reference's `q_chunk` (an XLA memory device) is accepted
+and does not change the result. A local layer is the kernel's
+`causal=True, window=W`: the reference keeps 0 <= q - k < W.
 
 Layouts:
   activations  x        : (B, S, D)
   q            q        : (B, S, H, hd)
   kv           k, v     : (B, T, K, hd)      K = num_kv_heads
-Parameters may carry a leading satellite axis, which x then shares.
+  kv cache     (B, T, K, hd), written at slot index % T; local layers
+               keep T = min(window, seq_len) slots (a ring buffer).
+Parameters may carry a leading satellite axis, which x then shares (the
+transformer payload's batched client update).
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import GLOBAL_ATTN, LOCAL_ATTN, ModelConfig
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import layers as L
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor       # (B, T, K, hd)
+    v: torch.Tensor       # (B, T, K, hd)
 
 
 def attention_init(generator: torch.Generator, cfg: ModelConfig, kind: str):
     d, hd = cfg.d_model, cfg.resolved_head_dim
     H, K = cfg.num_heads, cfg.num_kv_heads
     dt = L.dtype_of(cfg)
+    dev = generator.device
     p = {
-        "norm": L.rmsnorm_init(d, dt),
+        "norm": L.rmsnorm_init(d, dt, dev),
         "wq": L.dense_init(generator, d, H * hd, dt),
         "wk": L.dense_init(generator, d, K * hd, dt),
         "wv": L.dense_init(generator, d, K * hd, dt),
         "wo": L.dense_init(generator, H * hd, d, dt),
     }
     if cfg.qk_norm:
-        p["q_norm"] = L.rmsnorm_init(hd, dt)
-        p["k_norm"] = L.rmsnorm_init(hd, dt)
+        p["q_norm"] = L.rmsnorm_init(hd, dt, dev)
+        p["k_norm"] = L.rmsnorm_init(hd, dt, dev)
     return p
 
 
 def _project_qkv(params, x, cfg: ModelConfig, positions):
     """x: (*lead, B, S, D) -> q (*lead, B, S, H, hd), k and v
-    (*lead, B, S, K, hd), RoPE applied to q and k."""
+    (*lead, B, S, K, hd), qk-norm (in the kernel) and RoPE applied to q
+    and k."""
     *batch, S, _ = x.shape
     hd = cfg.resolved_head_dim
     H, K = cfg.num_heads, cfg.num_kv_heads
@@ -48,6 +65,72 @@ def _project_qkv(params, x, cfg: ModelConfig, positions):
     if cfg.qk_norm:
         q = L.rmsnorm(params["q_norm"], q, cfg.norm_eps)
         k = L.rmsnorm(params["k_norm"], k, cfg.norm_eps)
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    sin, cos = L.rope_tables(positions, hd, cfg.rope_theta, x.device)
+    return L.rotate(q, sin, cos), L.rotate(k, sin, cos), v
+
+
+def _window(cfg: ModelConfig, kind: str) -> int:
+    if kind == LOCAL_ATTN:
+        return cfg.window_size
+    if kind == GLOBAL_ATTN:
+        return 0
+    raise NotImplementedError(
+        f"{kind!r} attention (whisper's encoder and cross-attention) comes "
+        f"with ROADMAP A.11 part 2")
+
+
+def attention_apply(params, x, cfg: ModelConfig, kind: str,
+                    q_chunk: int = 512, positions=None):
+    """Full-sequence (prefill) attention block with pre-norm and residual.
+    `positions` (S,) or (B, S) default to 0..S-1."""
+    B, S, _ = x.shape
+    window = _window(cfg, kind)
+    h = L.rmsnorm(params["norm"], x, cfg.norm_eps)
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    q, k, v = _project_qkv(params, h, cfg, positions)
+    o = flash_ops.flash_attention_bshd(q, k, v, causal=True, window=window)
+    return x + o.reshape(B, S, -1) @ params["wo"]
+
+
+# ---------------------------------------------------------------------------
+# Decode (single new token against a KV cache)
+
+
+def init_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int, dtype,
+               device=None) -> KVCache:
+    T = min(cfg.window_size, seq_len) if kind == LOCAL_ATTN else seq_len
+    shape = (batch, T, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def attention_decode(params, x, cache: KVCache, index: int,
+                     cfg: ModelConfig, kind: str):
+    """x: (B, 1, D); index: a host int, the number of tokens already in
+    the cache. Writes the new k and v into slot index % T of the cache
+    (in place) and returns (y, cache).
+
+    The slots written so far are the first min(index + 1, T) of the
+    cache, for both kinds: a local layer's ring buffer holds exactly its
+    window there, in ring order, which a non-causal softmax does not see.
+    The G = H / K query heads of a kv head go to the kernel as G query
+    rows of one head: q (B, 1, H, hd) is (B, K, G, hd) as it lies, so the
+    call is (B, K, G, hd) against the (B, K, n, hd) prefix, with no copy
+    of q or o; the wrapper copies the prefix of k and v (strided in B)."""
+    _window(cfg, kind)
+    B = x.shape[0]
+    hd = cfg.resolved_head_dim
+    H, K = cfg.num_heads, cfg.num_kv_heads
+    h = L.rmsnorm(params["norm"], x, cfg.norm_eps)
+    pos = torch.full((1,), index, device=x.device)
+    q, k_new, v_new = _project_qkv(params, h, cfg, pos)
+    T = cache.k.shape[1]
+    slot = index % T
+    cache.k[:, slot] = k_new[:, 0]
+    cache.v[:, slot] = v_new[:, 0]
+    n = min(index + 1, T)
+    o = flash_ops.flash_attention(
+        q.reshape(B, K, H // K, hd), cache.k[:, :n].transpose(1, 2),
+        cache.v[:, :n].transpose(1, 2), causal=False)
+    return x + o.reshape(B, 1, H * hd) @ params["wo"], cache

@@ -8,7 +8,10 @@ with `params_from_numpy`, and pass them as `init_params`. Likewise one
 utility regressor û serves both packages (or both devices): a forest
 through its structure-of-arrays fields (`forest_from_arrays`, e.g. from a
 reference forest's `arrays()`), an MLP regressor through its parameters
-and standardization (`mlp_regressor_from_numpy`)."""
+and standardization (`mlp_regressor_from_numpy`). The model zoo's
+parameters come across with `zoo_params_from_numpy`, and its decode
+states both ways with `decode_state_from_numpy` and
+`decode_state_to_numpy`."""
 from __future__ import annotations
 
 from typing import Optional
@@ -18,7 +21,13 @@ import torch
 
 from repro_torch.core.utility import (ForestArrays, MLPRegressor,
                                       RandomForestRegressor, _Node)
+from repro_torch.models.attention import KVCache
+from repro_torch.models.ssm import SSMState
 from repro_torch.tree import tree_map
+
+_ZOO_KEYS = {"emb", "stages", "final_norm"}
+# a reference cache node's fields -> the port's node
+_STATE_NODES = {KVCache._fields: KVCache, SSMState._fields: SSMState}
 
 
 def params_from_numpy(tree, device) -> dict:
@@ -69,3 +78,42 @@ def mlp_regressor_from_numpy(params, mu, sd, ymu, ysd) -> MLPRegressor:
     reg.mu, reg.sd = np.asarray(mu, np.float32), np.asarray(sd, np.float32)
     reg.ymu, reg.ysd = np.float32(ymu), np.float32(ysd)
     return reg
+
+
+def zoo_params_from_numpy(tree, device) -> dict:
+    """A reference zoo tree (`repro.models.transformer.init_params`, its
+    leaves as numpy arrays: {"emb", "stages": a list of stacked trees with
+    the leading repeat axis, "final_norm"}) -> the port's tree on
+    `device`: the same keys, list, shapes and dtypes."""
+    if set(tree) != _ZOO_KEYS or not isinstance(tree["stages"], list):
+        raise ValueError(f"a zoo tree has the keys {sorted(_ZOO_KEYS)}, "
+                         f"\"stages\" a list; got {sorted(tree)}")
+    return params_from_numpy(tree, device)
+
+
+def _state_map(fn, node):
+    if isinstance(node, dict):
+        return {k: _state_map(fn, v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_state_map(fn, v) for v in node]
+    fields = getattr(node, "_fields", None)
+    if fields is not None:
+        return _STATE_NODES[tuple(fields)](*(fn(t) for t in node))
+    return fn(node)
+
+
+def decode_state_from_numpy(state, device) -> dict:
+    """A reference decode state ({"caches": per stage {"pos<j>": KVCache
+    or SSMState}, "index"}, leaves as numpy arrays) -> the port's: its
+    KVCache and SSMState on `device`, `index` a host int."""
+    caches = _state_map(lambda a: torch.tensor(np.asarray(a), device=device),
+                        state["caches"])
+    return {"caches": caches, "index": int(np.asarray(state["index"]))}
+
+
+def decode_state_to_numpy(state) -> dict:
+    """The port's decode state -> numpy leaves (caches as the port's
+    KVCache and SSMState of arrays), `index` an int32 scalar as the
+    reference keeps it."""
+    caches = _state_map(lambda t: t.detach().cpu().numpy(), state["caches"])
+    return {"caches": caches, "index": np.int32(state["index"])}

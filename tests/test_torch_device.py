@@ -1122,3 +1122,91 @@ def test_spilled_version_reloads_onto_the_card(tmp_path):
     assert torch.equal(got["w"], torch.full((3, 4), 2.0, device="cuda"))
     assert torch.equal(got["blocks"][0], torch.arange(5.0, device="cuda")
                        * 2)
+
+
+def test_zoo_entry_points_default_to_the_card_and_raise_without_one():
+    """The zoo's parameters are drawn on the card unless the caller asks
+    for the CPU; a forward whose tensors say CUDA reaches the kernels
+    (which cannot be built here) and raises, launching nothing."""
+    _no_card()
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as TT
+    from repro_torch.tree import tree_map
+    cfg = get_config("qwen3-8b").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TT.init_params(0, cfg)
+    params = TT.init_params(0, cfg, device="cpu")
+    fake = tree_map(lambda t: _fake_cuda(t)[0], params)
+    before = dict(launch_counts)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        TT.forward(fake, {"tokens": _fake_cuda(torch.zeros(1, 4).long())[0]},
+                   cfg)
+    assert dict(launch_counts) == before
+
+
+def _refuse_plain_versions(monkeypatch):
+    """Make every plain version the kernels' wrappers could reach raise."""
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on the card's path")
+    for mod, names in ((rms_ops, ("rmsnorm_ref",)),
+                       (rms_kernel, ("rmsnorm_fwd_ref", "rmsnorm_bwd_ref")),
+                       (flash_ops, ("attention_ref",)),
+                       (flash_kernel, ("attention_fwd_ref",
+                                       "attention_bwd_ref"))):
+        for name in names:
+            monkeypatch.setattr(mod, name, refuse)
+    monkeypatch.setattr(torch.nn.functional, "rms_norm", refuse)
+    monkeypatch.setattr(torch.nn.functional, "scaled_dot_product_attention",
+                        refuse)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,dtype", [("qwen3-8b", "float32"),
+                                        ("qwen3-8b", "bfloat16"),
+                                        ("gemma3-12b", "float32"),
+                                        ("mamba2-370m", "float32"),
+                                        ("mixtral-8x7b", "float32")])
+def test_zoo_serving_runs_the_kernels_on_the_card(arch, dtype, monkeypatch):
+    """Prefill and eight serve steps of a reduced config on the card,
+    every plain version made to raise: RMSNorm and attention launch their
+    kernels (bf16 at hd 64 on the tensor cores), and the float32 logits
+    and greedy tokens agree with the CPU's from the same parameters."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device with nvcc")
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as TT
+    from repro_torch.tree import tree_map
+    cfg = get_config(arch).reduced(param_dtype=dtype)
+    dt = getattr(torch, dtype)
+    cpu = TT.init_params(0, cfg, device="cpu")
+    card = tree_map(lambda t: t.cuda(), cpu)
+    toks = torch.randint(0, cfg.vocab_size, (2, 16),
+                         generator=torch.Generator().manual_seed(1))
+    prefill, serve = ST.make_prefill_step(cfg), ST.make_serve_step(cfg)
+    want = prefill(cpu, {"tokens": toks})
+    _refuse_plain_versions(monkeypatch)
+    launch_counts.clear()
+    got = prefill(card, {"tokens": toks.cuda()})
+    state = TT.init_decode_state(card, cfg, 2, 32, dt)
+    tok, out = toks[:, :1].cuda(), []
+    for _ in range(8):
+        tok, state = serve(card, state, tok)
+        out.append(tok)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    attn = "ssm" not in cfg.layer_kinds
+    assert launch_counts["rmsnorm"] > 0
+    assert (launch_counts["flash_attention"] > 0) == attn
+    if attn and dtype == "bfloat16":
+        assert launch_counts["flash_attention_tc"] > 0
+    if dtype == "float32":
+        # the kernels' order of sums against the plain versions'
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+        state = TT.init_decode_state(cpu, cfg, 2, 32, dt)
+        tok = toks[:, :1]
+        for t in range(8):
+            tok, state = serve(cpu, state, tok)
+            assert torch.equal(out[t].cpu(), tok), t
+    else:
+        assert torch.isfinite(got.float()).all()

@@ -77,8 +77,8 @@ def test_attention_and_stage_init_trees_match(qk_norm):
 def test_unported_blocks_raise():
     _, tcfg = _cfgs()
     gen = torch.Generator()
-    for kind in ("ssm", "recurrent", "cross"):
-        with pytest.raises(NotImplementedError, match="zoo"):
+    for kind in ("recurrent", "cross"):
+        with pytest.raises(NotImplementedError, match="A.11 part 2"):
             TT.block_init(gen, tcfg, kind)
 
 
