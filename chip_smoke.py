@@ -151,7 +151,29 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      width in float32, 16 of its 48 layers: the chunked prefill of 2,048
      tokens against the same prompt stepped through `ssm_decode`, within
      `MAMBA_REL_TOL`;
-  14. one JSON line listing every ported kernel.
+  14. the train phase (`train` lines), the zoo's train step
+     (`repro_torch.launch.steps.make_train_step`: the loss and its
+     gradient with remat, microbatches, clipping, AdamW): (a) the 8
+     served archs' reduced configs in float32, two steps of two
+     microbatches on the card and on the CPU, each step from the same
+     state and `synthetic_lm_batch` batch: loss, grad_norm, params and
+     AdamW's m and v within the `TRAIN_*` tolerances; (b) qwen3-8b at
+     full width in bf16, cut to `QWEN_TRAIN_LAYERS` of its 36 layers for
+     memory, B 2 x S 2048 in `default_num_micro` microbatches: one step's
+     loss and gradients against the plain versions' (`PlainVersions`,
+     within `QWEN_TRAIN_*_TOL`), two steps from copies of one state bit
+     for bit, the launches a step asserted (the tensor-core attention
+     backward's first path), its RMSNorm calls all at shapes
+     `check_rmsnorm` held, ms a step, tokens/s, `mfu` (model FLOPs,
+     6·N·tokens plus causal attention, over the bf16 peak), peak memory,
+     one step run as its two halves with CUDA events between them (the
+     optimizer's share), the next traced whole (kernels, copies, device
+     µs, busy share, the attention backward's share, the 10 slowest
+     kernels; its launches must be the halves'); (c) Part B of
+     examples/satellite_fl_train.py as the reference runs it
+     (`launch.train.train`, mamba2-370m's full config, 24 steps at B 4 x
+     S 64): its loss must fall, its RMSNorm calls at held shapes;
+  15. one JSON line listing every ported kernel.
 The last line is `{"ok": true,
 "device": {...}}`. Without a CUDA device, or away from the repository's
 sources, it exits nonzero and prints no result. Imports nothing of JAX or
@@ -417,14 +439,20 @@ RMS_SHAPES = [(RMS_PATH, "float32", 0), ((1, 8000, 32), "float32", 0)] + [
 # The zoo's shapes: qwen3-8b's prefill (B 1 x S 2048) block norm
 # and qk-norm (2048 tokens x 32 heads of 128), its decode step at B 8
 # (block norm, qk-norm of 8 x 32 heads), mamba2-370m's out_norm over its
-# inner width 2048 at S 2048 and its block norm at one token.
+# inner width 2048 at S 2048 and its block norm at one token; the train
+# step's: qwen3-8b's k-norm (2048 tokens x 8 kv heads of 128) and Part
+# B's mamba2-370m at B 4 x S 64 in bf16 (block and final norms over
+# 1024, out_norm over 2048). `RmsCalls` holds the train path to them.
 RMS_ZOO_DECODE = (1, 8, 4096)
 RMS_ZOO_SHAPES = [((1, 2048, 4096), "bfloat16", 0),
                   ((1, 65536, 128), "bfloat16", 0),
                   (RMS_ZOO_DECODE, "bfloat16", 0),
                   ((1, 256, 128), "bfloat16", 0),
                   ((1, 2048, 2048), "float32", 0),
-                  ((1, 1, 1024), "float32", 0)]
+                  ((1, 1, 1024), "float32", 0),
+                  ((1, 16384, 128), "bfloat16", 0),
+                  ((1, 256, 1024), "bfloat16", 0),
+                  ((1, 256, 2048), "bfloat16", 0)]
 RMS_SHAPES += RMS_ZOO_SHAPES
 RMS_EPS = 1e-6
 
@@ -3134,6 +3162,37 @@ class PlainVersions:
             setattr(mod, name, fn)
 
 
+class RmsCalls:
+    """Within the block, records the (G, R, D, dtype) of every RMSNorm
+    kernel call on the card, both directions, by wrapping the kernel
+    module's entry points that `kernels/rmsnorm/ops.py` calls. `unheld()`
+    lists the configurations `check_rmsnorm` never held against the plain
+    version (`RMS_SHAPES`)."""
+
+    def __enter__(self):
+        from repro_torch.kernels.rmsnorm import kernel as K
+        self.seen, self._saved = set(), []
+        for name in ("rmsnorm", "rmsnorm_bwd"):
+            fn = getattr(K, name)
+
+            def wrapped(x, scale, *args, _fn=fn, _name=name):
+                if x.is_cuda:
+                    self.seen.add((_name, *K._check(x, scale),
+                                   str(x.dtype).split(".")[-1]))
+                return _fn(x, scale, *args)
+            self._saved.append((K, name, fn))
+            setattr(K, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+    def unheld(self):
+        held = {(*shape, dt) for shape, dt, off in RMS_SHAPES if off == 0}
+        return sorted(c for c in self.seen if c[1:] not in held)
+
+
 def _rel_l2(got, want):
     got, want = got.float(), want.float()
     return ((got - want).norm() / want.norm()).item()
@@ -3475,6 +3534,385 @@ def run_zoo_path(torch):
     return {"zoo": dict(counts)}
 
 
+TRAIN_REDUCED = ("qwen3-8b", "qwen3-8b-swa", "gemma3-12b", "h2o-danube-1.8b",
+                 "minitron-4b", "mamba2-370m", "mixtral-8x7b",
+                 "qwen3-moe-30b-a3b")
+# batch 4 in 2 microbatches; 80 tokens, past the reduced window (64) and
+# over four SSD chunks; two steps, as tests/test_torch_zoo_train.py
+TRAIN_SHAPE = (4, 80)
+TRAIN_STEPS = 2
+TRAIN_LR = 3e-4
+# float32 card against CPU after each step, both from the same state (the
+# CPU tests' tolerances for the port against the reference, stated before
+# the first run; that run let the two run on freely, and gemma3's m and v
+# after step 2 parted by 7.5e-5 of a leaf's largest entry: its step-2
+# gradients were taken at params the first step had moved apart where
+# it was ill-conditioned): loss and grad_norm relative; AdamW's m
+# and v to a share of each leaf's largest entry; every param within one
+# step (lr) and all but a share of them within 1% of lr. An AdamW step is
+# lr * g / (|g| + eps) at step 1: an entry whose gradient is within its
+# error of 0, or near eps, steps by up to lr either way.
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_MOMENT_TOL = 5e-5
+TRAIN_PARAM_ATOL = 0.01 * TRAIN_LR
+TRAIN_ILL_SHARE = 1e-4
+# qwen3-8b at full width for training, cut in depth for memory: bf16
+# params and grads, a float32 microbatch sum and AdamW's float32 m and v
+# are 12 bytes a parameter (plus the sum's 4): the whole model's 8.19 B
+# need 98 GB of the card's 80; 8 of its 36 layers are 2.79 B, ~45-55 GB.
+QWEN_TRAIN_LAYERS = 8
+QWEN_TRAIN = (2, 2048)               # batch, sequence
+QWEN_TRAIN_TIMED = 3                 # steps timed after the checks' two
+# bf16 against bf16 on the card, kernels against their plain versions
+# (stated before the first run, as QWEN_BF16_REL_TOL): a rounding of one
+# unit (2**-8 relative) where the two part in each layer's output, added
+# up layer after layer: the loss through the 8 layers' forward, each
+# gradient through the forward and the backward's 8 layers again.
+QWEN_TRAIN_LOSS_TOL = QWEN_TRAIN_LAYERS * 2 ** -8
+QWEN_TRAIN_GRAD_TOL = 2 * QWEN_TRAIN_LAYERS * 2 ** -8
+DIGEST_CHUNK = 1 << 26               # elements a chunk of `_digest`
+PART_B = dict(steps=24, batch=4, seq=64, lr=3e-4)   # examples/
+                                     # satellite_fl_train.py's Part B
+
+
+def _same_train_state(tag, card, cpu, lr):
+    """Card against CPU after one step (`card`, `cpu`: (loss, grad_norm,
+    params, AdamW state), the card's on the host). Returns the errors
+    seen."""
+    from repro_torch.tree import tree_leaves
+    (cl, cg, c_params, c_opt), (hl, hg, h_params, h_opt) = card, cpu
+    err = {"loss": abs(cl - hl) / abs(hl), "grad_norm": abs(cg - hg) / hg,
+           "moments": 0.0, "params": 0.0}
+    for a, b in zip(tree_leaves([c_opt["m"], c_opt["v"]]),
+                    tree_leaves([h_opt["m"], h_opt["v"]])):
+        err["moments"] = max(err["moments"], ((a - b).abs().max()
+                                              / b.abs().max()).item())
+    beyond = total = 0
+    for a, b in zip(tree_leaves(c_params), tree_leaves(h_params)):
+        d = (a.float() - b.float()).abs()
+        err["params"] = max(err["params"], d.max().item())
+        beyond += int((d > TRAIN_PARAM_ATOL).sum())
+        total += d.numel()
+    err["params_beyond_share"] = beyond / total
+    if (err["loss"] > TRAIN_LOSS_TOL or err["grad_norm"] > TRAIN_LOSS_TOL
+            or err["moments"] > TRAIN_MOMENT_TOL or err["params"] > lr
+            or beyond > TRAIN_ILL_SHARE * total
+            or int(c_opt["step"]) != int(h_opt["step"])):
+        raise AssertionError(f"{tag}: card against CPU {err}")
+    return err
+
+
+def _train_reduced(torch, counts):
+    """(a) Each served arch's reduced config in float32: train steps of
+    two microbatches on the card and on the CPU, each from the same
+    state (the first from parameters drawn on the CPU; before each later
+    step the CPU's params and AdamW state are copied to the card) and
+    the same `synthetic_lm_batch` batch, held to each other after each
+    step."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.train import synthetic_lm_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_leaves, tree_map
+    B, S = TRAIN_SHAPE
+    shape = ShapeConfig("train", seq_len=S, global_batch=B, kind="train")
+    for arch in TRAIN_REDUCED:
+        cfg = get_config(arch).reduced()
+        step = ST.make_train_step(cfg, num_micro=2, lr=TRAIN_LR)
+        cpu = T.init_params(0, cfg, device="cpu")
+        cpu_opt = adamw_init(cpu)
+        card = tree_map(lambda t: t.cuda(), cpu)
+        card_opt = adamw_init(card)
+        launch_counts.clear()
+        errs, losses, wall, cpu_wall = [], [], 0.0, 0.0
+        for s in range(TRAIN_STEPS):
+            if s:
+                with torch.no_grad():
+                    for a, b in zip(tree_leaves([card, card_opt]),
+                                    tree_leaves([cpu, cpu_opt])):
+                        a.copy_(b)
+            t0 = time.perf_counter()
+            card, card_opt, m = step(card, card_opt, synthetic_lm_batch(
+                cfg, shape, s, device="cuda"))
+            got = (m["loss"].item(), m["grad_norm"].item(),
+                   *tree_map(lambda t: t.cpu(), (card, card_opt)))
+            t1 = time.perf_counter()
+            cpu, cpu_opt, m = step(cpu, cpu_opt, synthetic_lm_batch(
+                cfg, shape, s, device="cpu"))
+            want = (m["loss"].item(), m["grad_norm"].item(), cpu, cpu_opt)
+            cpu_wall += time.perf_counter() - t1
+            wall += t1 - t0
+            errs.append(_same_train_state(f"train (a) {arch} step {s}",
+                                          got, want, TRAIN_LR))
+            losses.append((got[0], want[0], got[1]))
+        counts.update(launch_counts)
+        launches = dict(launch_counts)
+        attn = "ssm" not in cfg.layer_kinds
+        if not launches.get("rmsnorm_bwd") or attn != bool(
+                launches.get("flash_attention_bwd")):
+            raise AssertionError(f"train (a) {arch}: launches {launches}")
+        print("train (a)", json.dumps({
+            "arch": cfg.name, "batch": B, "seq": S, "num_micro": 2,
+            "steps": TRAIN_STEPS, "lr": TRAIN_LR,
+            "loss": [x[0] for x in losses], "cpu_loss": [x[1] for x in
+                                                         losses],
+            "grad_norm": [x[2] for x in losses], "errors": errs,
+            "tol": {"loss_grad_norm_rel": TRAIN_LOSS_TOL,
+                    "moments_of_leaf_max": TRAIN_MOMENT_TOL,
+                    "params": TRAIN_LR, "params_1pct_lr_share":
+                    TRAIN_ILL_SHARE},
+            "card_wall_s": wall, "cpu_wall_s": cpu_wall,
+            "launches": launches}), flush=True)
+
+
+def _digest(torch, t):
+    """Two int64 sums of a tensor's bits (plain, and weighted by position;
+    both wrap): equal for equal bits."""
+    flat = t.reshape(-1).view(torch.int32 if t.element_size() == 4
+                              else torch.int16)
+    out = torch.zeros(2, dtype=torch.int64, device=t.device)
+    for i in range(0, flat.numel(), DIGEST_CHUNK):
+        c = flat[i:i + DIGEST_CHUNK].long()
+        w = torch.arange(i + 1, i + 1 + c.numel(), device=t.device)
+        out += torch.stack([c.sum(), (c * w).sum()])
+    return out
+
+
+def _matmul_params(cfg, params):
+    """Parameters that enter a matmul: the stages' weight matrices and
+    the LM head (the tied table where there is none); not the embedding's
+    gather, not the norms' scales."""
+    from repro_torch.tree import tree_leaves
+    n = sum(t.numel() for t in tree_leaves(params["stages"]) if t.dim() >= 3)
+    return n + params["emb"].get("lm_head", params["emb"]["embed"]).numel()
+
+
+def _train_trace(torch, step, params, opt, batches):
+    """Two train steps: one run as the step's two halves
+    (`step.loss_and_grad`, then `step.update`: clipping and AdamW) with
+    CUDA events between them, for each half's time; then one traced
+    whole, whose kernel launches (the exact `launch_counts`) must be the
+    halves'. Kernels, copy kernels, device us and the 10 slowest kernels
+    come from the whole step's trace (the profiler dropped events of a
+    step split into two windows: 2,887 of 3,018 kernels in one H100
+    run)."""
+    from repro_torch.kernels import launch_counts
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    launch_counts.clear()
+    ev[0].record()
+    _, grads = step.loss_and_grad(params, batches[0])
+    ev[1].record()
+    step.update(params, opt, grads)
+    ev[2].record()
+    torch.cuda.synchronize()
+    del grads
+    halves = dict(launch_counts)
+    half_ms = {"grad": ev[0].elapsed_time(ev[1]),
+               "optimizer": ev[1].elapsed_time(ev[2])}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    launch_counts.clear()
+    with torch.profiler.profile(activities=acts) as prof:
+        step(params, opt, batches[1])
+        torch.cuda.synchronize()
+    if dict(launch_counts) != halves:
+        raise AssertionError(f"the whole step launched {dict(launch_counts)}"
+                             f", its two halves {halves}")
+    whole = _device_events(prof)
+    if not whole:
+        raise AssertionError("torch.profiler shows no device time")
+    dev_us = sum(t for _, _, t in whole)
+    share = lambda *keys: sum(t for n, _, t in whole  # noqa: E731
+                              if any(k in n for k in keys)) / dev_us
+    return {
+        "kernels": sum(c for _, c, _ in whole),
+        "copy_kernels": sum(c for n, c, _ in whole if _is_copy_kernel(n)),
+        "device_us": dev_us,
+        "launches_each_way": halves,
+        "ms_by_half": half_ms,
+        "optimizer_share": half_ms["optimizer"] / sum(half_ms.values()),
+        "attention_bwd_share": share("flash_bwd_tc"),
+        "attention_fwd_share": share("flash_fwd_tc"),
+        "rmsnorm_share": share("rmsnorm"),
+        "slowest_kernels_us": {n[:100]: t for n, _, t in sorted(
+            whole, key=lambda e: -e[2])[:10]}}
+
+
+def _train_qwen(torch, counts):
+    """(b) qwen3-8b at full width in bf16, cut to `QWEN_TRAIN_LAYERS`
+    layers, B 2 x S 2048 in `default_num_micro` microbatches, remat on:
+    one step's loss and gradients against the plain versions', two steps
+    from copies of one state bit for bit, the launches of a step, then
+    timed and traced steps."""
+    import dataclasses
+    from repro_torch.configs.base import ShapeConfig, StageSpec, get_config
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.train import synthetic_lm_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_leaves, tree_map
+    full = get_config("qwen3-8b")
+    L = QWEN_TRAIN_LAYERS
+    cfg = dataclasses.replace(full, num_layers=L,
+                              stages=(StageSpec(("global",), L),))
+    B, S = QWEN_TRAIN
+    shape = ShapeConfig("train", seq_len=S, global_batch=B, kind="train")
+    nm = ST.default_num_micro(cfg, shape)
+    lr = 3e-4
+    params = T.init_params(0, cfg, device="cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    batches = [synthetic_lm_batch(cfg, shape, s)
+               for s in range(QWEN_TRAIN_TIMED + 3)]
+    step = ST.make_train_step(cfg, num_micro=nm, lr=lr)
+
+    # one step's loss and gradients, kernels against plain versions
+    loss_k, grads_k = step.loss_and_grad(params, batches[0])
+    with PlainVersions():
+        loss_p, grads_p = step.loss_and_grad(params, batches[0])
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    grad_rel = [_rel_l2(a, b) for a, b in zip(tree_leaves(grads_k),
+                                              tree_leaves(grads_p))]
+    if loss_rel > QWEN_TRAIN_LOSS_TOL or max(grad_rel) > QWEN_TRAIN_GRAD_TOL:
+        raise AssertionError(f"train (b) against the plain versions: loss "
+                             f"{loss_rel}, gradients {grad_rel}")
+    del grads_k, grads_p
+    torch.cuda.empty_cache()
+
+    # two steps from copies of one state: the first is the main path's
+    # step whose launches are counted
+    start = tree_map(torch.clone, params)
+    opt = adamw_init(params)
+    launch_counts.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with RmsCalls() as norms:
+        params, opt, m_a = step(params, opt, batches[0])
+        torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    counts.update(launch_counts)
+    launches = dict(launch_counts)
+    if norms.unheld():
+        raise AssertionError(f"train (b): RMSNorm calls never held against "
+                             f"the plain version: {norms.unheld()}")
+    # per microbatch: every layer's attention forward, again in the
+    # backward's recompute (remat), and its backward; four norms a layer
+    # (block, q, k, ffn) forward and recomputed, the final norm once,
+    # and each norm's backward once
+    want = {"flash_attention_tc": 2 * nm * L, "flash_attention_bwd_tc":
+            nm * L, "rmsnorm": nm * (4 * L + 1) + nm * 4 * L,
+            "rmsnorm_bwd": nm * (4 * L + 1)}
+    if any(launches.get(k) != v for k, v in want.items()):
+        raise AssertionError(f"train (b) launches {launches}, want {want}")
+    a_metrics = (m_a["loss"].clone(), m_a["grad_norm"].clone())
+    a_digest = [_digest(torch, t) for t in tree_leaves(opt)]
+    del opt
+    torch.cuda.empty_cache()
+    opt = adamw_init(start)
+    start, opt, m_b = step(start, opt, batches[0])
+    same = (torch.equal(a_metrics[0], m_b["loss"])
+            and torch.equal(a_metrics[1], m_b["grad_norm"])
+            and all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(params), tree_leaves(start)))
+            and all(torch.equal(d, _digest(torch, t)) for d, t in zip(
+                a_digest, tree_leaves(opt))))
+    if not same:
+        raise AssertionError("train (b): two steps from copies of one "
+                             "state differ")
+    del params
+    params = start
+    torch.cuda.empty_cache()
+
+    # timed steps, then one traced
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses = [], [m_b["loss"].item()]
+    for s in range(1, QWEN_TRAIN_TIMED + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batches[s])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(m["loss"].item())
+    peak = torch.cuda.max_memory_allocated()
+    trace = _train_trace(torch, step, params, opt,
+                         batches[QWEN_TRAIN_TIMED + 1:])
+    step_s = sorted(walls)[len(walls) // 2]
+    tokens = B * S
+    flops = 6 * _matmul_params(cfg, params) * tokens \
+        + 3 * 2 * B * S * S * cfg.num_heads * cfg.resolved_head_dim * L
+    trace["busy_share"] = trace["device_us"] / (step_s * 1e6)
+    print("train (b)", json.dumps({
+        "arch": cfg.name, "layers": L, "cut": f"{L} of {full.num_layers} "
+        f"layers, for memory: AdamW over the whole model needs ~98 GB",
+        "params": n_params, "dtype": cfg.param_dtype, "batch": B, "seq": S,
+        "num_micro": nm, "remat": True, "lr": lr,
+        "loss_rel_vs_plain": loss_rel, "grad_rel_l2_vs_plain_max":
+        max(grad_rel), "grad_rel_l2_vs_plain": grad_rel,
+        "tol": {"loss_rel": QWEN_TRAIN_LOSS_TOL,
+                "grad_rel_l2": QWEN_TRAIN_GRAD_TOL},
+        "bit_for_bit_from_one_state": same, "first_step_ms": first_ms,
+        "ms_per_step": step_s * 1e3, "ms_steps": [w * 1e3 for w in walls],
+        "tokens_per_s": tokens / step_s, "model_flops_per_step": flops,
+        "mfu": flops / step_s / BF16_TC_FLOP_PER_S,
+        "max_memory_allocated_gb": peak / 1e9, "loss": losses,
+        "launches": launches, "launches_want": want,
+        "rmsnorm_calls": sorted(norms.seen), "traced": trace}),
+        flush=True)
+    del params, opt, batches
+    torch.cuda.empty_cache()
+
+
+def _train_part_b(torch, counts):
+    """(c) Part B of examples/satellite_fl_train.py as the reference runs
+    it: mamba2-370m at full config (48 layers, bf16) through
+    `launch.train.train`; the loss must fall, and every RMSNorm call's
+    configuration must be one `check_rmsnorm` held (`RmsCalls`)."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.train import train
+    launch_counts.clear()
+    t0 = time.perf_counter()
+    with RmsCalls() as norms:
+        hist = train("mamba2-370m", reduced=False, log_every=4, **PART_B)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts.update(launch_counts)
+    got = dict(launch_counts)
+    if not hist[-1] < hist[0] or got.get("flash_attention") \
+            or not got.get("rmsnorm_bwd") or norms.unheld():
+        raise AssertionError(f"train (c): loss {hist[0]} -> {hist[-1]}, "
+                             f"launches {got}, RMSNorm calls never held "
+                             f"against the plain version {norms.unheld()}")
+    print("train (c)", json.dumps({
+        "arch": "mamba2-370m", "config": "full (48 layers, bf16)", **PART_B,
+        "loss_history": hist, "ms_per_step": wall / PART_B["steps"] * 1e3,
+        "wall_s": wall, "launches": got,
+        "rmsnorm_calls": sorted(norms.seen)}), flush=True)
+
+
+def run_train_path(torch, t_start):
+    """The train phase: (a) the reduced archs card = CPU, (b) qwen3-8b at
+    full width cut in depth, (c) Part B. Returns the card's launch counts
+    over the three."""
+    from collections import Counter
+    counts = Counter()
+    torch.backends.cuda.matmul.allow_tf32 = False     # float32 stays f32
+    torch.cuda.empty_cache()
+    seconds = {}
+    for part, run in (("a", _train_reduced), ("b", _train_qwen),
+                      ("c", _train_part_b)):
+        t0 = time.perf_counter()
+        run(torch, counts)
+        seconds[part] = time.perf_counter() - t0
+    print("train", json.dumps({
+        "seconds": seconds, "total_s": sum(seconds.values()),
+        "script_s": time.perf_counter() - t_start,
+        "launches": dict(counts)}), flush=True)
+    return {"train": dict(counts)}
+
+
 # ptxas's report of a kernel, from its mangled name - <length><name>I<template
 # arguments>E - to its registers: the tensor-core kernels (hd, and for dk/dv
 # and dq whether P and dS are split) and the short-sequence kernels (type,
@@ -3600,6 +4038,8 @@ def main() -> int:
     done("cli path")
     paths.update(run_zoo_path(torch))
     done("zoo path")
+    paths.update(run_train_path(torch, t_start))
+    done("train path")
 
     # 6. the kernels line. One aggregation of the quickstart (one launch
     # over its flat model at M=20, float32); one SGD step of a
@@ -3706,6 +4146,30 @@ def main() -> int:
                         (1, 2048, 4096, "bfloat16", 0), rms_names),
         "decode": pick(rms_rows, rms_kernel.NAME,
                        (*RMS_ZOO_DECODE, "bfloat16", 0), rms_names)}
+    # the train step's backward calls: qwen3-8b's at the prefill's shapes
+    # (a microbatch is one sequence of 2,048)
+    next(k for k in kernels if k["name"] == flash_kernel.NAME_BWD)[
+        "train"] = {
+        "work": "qwen3-8b's train step (8 layers, B 2 x S 2048 in 2 "
+                "microbatches): the backward at (B, H, K, S, hd) = (1, 32, "
+                "8, 2048, 128) causal bf16 on the tensor cores, 16 a step",
+        "call": pick(flash_rows, flash_kernel.NAME_BWD, FLASH_ZOO,
+                     flash_names)}
+    next(k for k in kernels if k["name"] == rms_kernel.NAME_BWD)[
+        "train"] = {
+        "work": "qwen3-8b's train step: the block norms' backward at (1, "
+                "2048, 4096) bf16, the q-norm's at (1, 65536, 128), the "
+                "k-norm's at (1, 16384, 128); 66 calls a step (4 a layer "
+                "and the final norm, a microbatch); Part B's mamba2-370m "
+                "(B 4 x S 64, bf16): block and final norms at (1, 256, "
+                "1024), out_norm at (1, 256, 2048)",
+        **{part: pick(rms_rows, rms_kernel.NAME_BWD, (*shape, "bfloat16", 0),
+                      rms_names)
+           for part, shape in (("block", (1, 2048, 4096)),
+                               ("q_norm", (1, 65536, 128)),
+                               ("k_norm", (1, 16384, 128)),
+                               ("part_b_block", (1, 256, 1024)),
+                               ("part_b_out_norm", (1, 256, 2048)))}}
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on a main "

@@ -1,17 +1,22 @@
-"""Part A of examples/satellite_fl_train.py on the PyTorch port: the
-paper's experiment end to end on the card. A DenseNet-style CNN (the
-paper's model family, its lower block frozen) is federated across 48
-satellites under the FedSpace scheduler over simulated connectivity,
-through `repro_torch.fl.Federation.from_experiment(exp).run()`: phase 1
-(pretrain, eq.-12 samples, the utility forest) and the run on one CUDA
-device, the aggregations in the port's eq.-4 kernel.
+"""examples/satellite_fl_train.py on the PyTorch port, both halves on the
+card:
 
-Part B of the reference example (pretraining mamba2-370m) needs the model
-zoo and the launch layer, which the port does not have yet (ROADMAP
-A.11); this script runs Part A only.
+  Part A - the paper's experiment end to end. A DenseNet-style CNN (the
+  paper's model family, its lower block frozen) is federated across 48
+  satellites under the FedSpace scheduler over simulated connectivity,
+  through `repro_torch.fl.Federation.from_experiment(exp).run()`: phase 1
+  (pretrain, eq.-12 samples, the utility forest) and the run on one CUDA
+  device, the aggregations in the port's eq.-4 kernel.
+
+  Part B - the datacenter path: pretrain the FULL mamba2-370m config
+  (all 48 SSD layers, bf16) with the zoo's train step
+  (`repro_torch.launch.train.train`: AdamW, clipping, remat), short
+  sequences and a small batch as the reference runs it.
 
 Run:  PYTHONPATH=src python examples/satellite_fl_train_torch.py
+          [--part a|b|all] [--steps N]
 """
+import argparse
 import time
 
 from repro_torch.fl import (AdapterConfig, ConstellationConfig,
@@ -52,8 +57,31 @@ def part_a():
     print(f"accuracy curve: {[round(a, 3) for a in res.accuracy]}")
     print(f"global updates: {res.num_global_updates}, "
           f"aggregated gradients: {res.num_aggregated_gradients}")
-    print(f"Part A done in {time.time() - t0:.0f}s")
+    print(f"Part A done in {time.time() - t0:.0f}s\n")
+
+
+def part_b(steps=None):
+    print("=== Part B: datacenter pretraining of mamba2-370m (full "
+          "368M-param config, short seq) ===")
+    from repro_torch.launch.train import train
+    t0 = time.time()
+    hist = train("mamba2-370m", reduced=False, steps=steps or 24, batch=4,
+                 seq=64, lr=3e-4, log_every=4)
+    print(f"loss {hist[0]:.3f} -> {hist[-1]:.3f} "
+          f"({time.time() - t0:.0f}s)")
+    assert hist[-1] < hist[0], "loss did not decrease"
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--part", default="all", choices=["a", "b", "all"])
+    ap.add_argument("--steps", type=int, default=None)
+    args = ap.parse_args()
+    if args.part in ("a", "all"):
+        part_a()
+    if args.part in ("b", "all"):
+        part_b(args.steps)
 
 
 if __name__ == "__main__":
-    part_a()
+    main()

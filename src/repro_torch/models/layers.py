@@ -146,7 +146,11 @@ def embedding_init(generator: torch.Generator, cfg: ModelConfig):
 
 
 def embed(params, tokens, cfg: ModelConfig):
-    return params["embed"][tokens]
+    """Rows of the table. `F.embedding`, not `table[tokens]`: its gradient
+    adds a row's contributions in a fixed order on the CPU and on the
+    card, where indexing's (an accumulating `index_put_`) adds them in
+    whatever order the CPU's threads take (ROADMAP C21)."""
+    return F.embedding(tokens, params["embed"])
 
 
 def unembed(params, x, cfg: ModelConfig):

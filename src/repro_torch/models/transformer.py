@@ -14,16 +14,20 @@ Block kinds:
 The reference's `recurrent` (RG-LRU), `cross` and `enc` blocks (whisper)
 and the vision frontend raise `NotImplementedError` (ROADMAP A.11 part 2).
 
-Serving (prefill and decode) runs under `torch.inference_mode()`
-(`repro_torch.launch.steps`). The decode state is the caches, on the
-params' device, and `index`, a host int, so a step reads nothing back
-from the device; `decode_step` writes the caches in place.
+Serving (prefill and decode) runs under `torch.inference_mode()`, the
+train step under autograd (`repro_torch.launch.steps`). `forward(...,
+remat=True)` recomputes one repeat of a stage's pattern in the backward
+(`torch.utils.checkpoint`, the reference's `jax.checkpoint` over its scan
+body) and keeps only the repeat's input. The decode state is the caches,
+on the params' device, and `index`, a host int, so a step reads nothing
+back from the device; `decode_step` writes the caches in place.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (GLOBAL_ATTN, LOCAL_ATTN, SSM,
                                       ModelConfig, StageSpec)
@@ -32,9 +36,11 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import (tree_flatten, tree_leaves, tree_map,
+                               tree_unflatten)
 
 _SERVED = (GLOBAL_ATTN, LOCAL_ATTN, SSM)     # the block kinds ported
+VISION_DIM = 1024  # stub CLIP/SigLIP patch-embedding width
 
 
 def _unported(what: str):
@@ -122,21 +128,39 @@ def stage_init(generator: torch.Generator, cfg: ModelConfig,
     return stack
 
 
-def _rep(stage_params, r: int):
-    """Repeat r of a stage's stacked leaves (views)."""
-    return tree_map(lambda a: a[r], stage_params)
+def _reps(stage_params, repeats: int):
+    """Every repeat of a stage's stacked leaves, as views from one
+    `unbind` a leaf: its gradient is one stack of the repeats' gradients,
+    where `a[r]` would add a zero-padded leaf per repeat."""
+    leaves, structure = tree_flatten(stage_params)
+    pieces = [a.unbind(0) for a in leaves]
+    return [tree_unflatten(structure, [p[r] for p in pieces])
+            for r in range(repeats)]
 
 
 def stage_apply(stage_params, x, cfg: ModelConfig, spec: StageSpec, *,
-                positions=None, q_chunk=512, moe_groups=1):
-    aux = 0.0
-    for r in range(spec.repeats):
-        rep = _rep(stage_params, r)
+                positions=None, q_chunk=512, remat=True, moe_groups=1):
+    """The stage's repeats in order. With `remat` (and autograd
+    recording), each repeat's blocks run under a checkpoint: their
+    activations are recomputed in the backward."""
+    def body(rep, h):
+        aux = 0.0
         for j, kind in enumerate(spec.pattern):
-            x, a = block_apply(rep[f"pos{j}"], x, cfg, kind,
+            h, a = block_apply(rep[f"pos{j}"], h, cfg, kind,
                                positions=positions, q_chunk=q_chunk,
                                moe_groups=moe_groups)
             aux = aux + a
+        return h, aux
+
+    recompute = remat and torch.is_grad_enabled()
+    aux = 0.0
+    for rep in _reps(stage_params, spec.repeats):
+        if recompute:
+            x, a = checkpoint(body, rep, x, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            x, a = body(rep, x)
+        aux = aux + a
     return x, aux
 
 
@@ -157,8 +181,7 @@ def stage_decode(stage_params, caches, x, index: int, cfg: ModelConfig,
     """One token through the stage; the stacked caches are written in
     place (an attention block writes its slot, an SSM block's new state is
     copied into its repeat's rows)."""
-    for r in range(spec.repeats):
-        rep = _rep(stage_params, r)
+    for r, rep in enumerate(_reps(stage_params, spec.repeats)):
         for j, kind in enumerate(spec.pattern):
             stacked = caches[f"pos{j}"]
             cache = type(stacked)(*(t[r] for t in stacked))
@@ -201,14 +224,16 @@ def init_params(seed: int, cfg: ModelConfig, *,
     }
 
 
-def forward(params, batch, cfg: ModelConfig, *, q_chunk=512, moe_groups=1):
+def forward(params, batch, cfg: ModelConfig, *, q_chunk=512, remat=True,
+            moe_groups=1):
     """Full-sequence forward. batch: {"tokens": (B, S) int}. Returns
-    (logits (B, S, V), aux loss)."""
+    (logits (B, S, V), aux loss). `remat` matters only where autograd
+    records (`stage_apply`)."""
     _check_model(cfg)
     x = L.embed(params["emb"], batch["tokens"], cfg)
     aux = 0.0
     for spec, sp in zip(cfg.stages, params["stages"]):
-        x, a = stage_apply(sp, x, cfg, spec, q_chunk=q_chunk,
+        x, a = stage_apply(sp, x, cfg, spec, q_chunk=q_chunk, remat=remat,
                            moe_groups=moe_groups)
         aux = aux + a
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)

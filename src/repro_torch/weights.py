@@ -9,9 +9,10 @@ utility regressor û serves both packages (or both devices): a forest
 through its structure-of-arrays fields (`forest_from_arrays`, e.g. from a
 reference forest's `arrays()`), an MLP regressor through its parameters
 and standardization (`mlp_regressor_from_numpy`). The model zoo's
-parameters come across with `zoo_params_from_numpy`, and its decode
-states both ways with `decode_state_from_numpy` and
-`decode_state_to_numpy`."""
+parameters come across both ways with `zoo_params_from_numpy` and
+`zoo_params_to_numpy`, AdamW's state (`repro.optim.adamw_init`'s tree)
+with `adamw_state_from_numpy` and `adamw_state_to_numpy`, and its decode
+states with `decode_state_from_numpy` and `decode_state_to_numpy`."""
 from __future__ import annotations
 
 from typing import Optional
@@ -30,6 +31,10 @@ _ZOO_KEYS = {"emb", "stages", "final_norm"}
 _STATE_NODES = {KVCache._fields: KVCache, SSMState._fields: SSMState}
 
 
+def _host_copy(t):
+    return t.detach().to("cpu", copy=True).numpy()
+
+
 def params_from_numpy(tree, device) -> dict:
     """Nested dict of array-likes -> nested dict of tensors on `device`
     (dtypes kept, data copied)."""
@@ -38,8 +43,10 @@ def params_from_numpy(tree, device) -> dict:
 
 
 def params_to_numpy(params) -> dict:
-    """Nested dict of tensors -> nested dict of numpy arrays on the host."""
-    return tree_map(lambda t: t.detach().cpu().numpy(), params)
+    """Nested dict of tensors -> nested dict of numpy arrays on the host,
+    copies (never views of a CPU tensor that a train step later writes in
+    place)."""
+    return tree_map(_host_copy, params)
 
 
 def forest_from_arrays(feature, thresh, left, right, value, depth: int, *,
@@ -91,6 +98,33 @@ def zoo_params_from_numpy(tree, device) -> dict:
     return params_from_numpy(tree, device)
 
 
+def zoo_params_to_numpy(params) -> dict:
+    """The port's zoo tree -> numpy leaves in the reference's tree (the
+    inverse of `zoo_params_from_numpy`)."""
+    if set(params) != _ZOO_KEYS:
+        raise ValueError(f"a zoo tree has the keys {sorted(_ZOO_KEYS)}; got "
+                         f"{sorted(params)}")
+    return params_to_numpy(params)
+
+
+def adamw_state_from_numpy(state, device) -> dict:
+    """A reference AdamW state ({"step": int32 scalar, "m", "v": trees
+    like the params}, leaves as numpy arrays) -> the port's on `device`:
+    `step` an int32 0-dim tensor, m and v float32 trees."""
+    return {"step": torch.tensor(np.asarray(state["step"], np.int32),
+                                 device=device),
+            "m": params_from_numpy(state["m"], device),
+            "v": params_from_numpy(state["v"], device)}
+
+
+def adamw_state_to_numpy(state) -> dict:
+    """The port's AdamW state -> numpy leaves, `step` an int32 scalar as
+    the reference keeps it."""
+    return {"step": np.int32(state["step"].item()),
+            "m": params_to_numpy(state["m"]),
+            "v": params_to_numpy(state["v"])}
+
+
 def _state_map(fn, node):
     if isinstance(node, dict):
         return {k: _state_map(fn, v) for k, v in node.items()}
@@ -115,5 +149,5 @@ def decode_state_to_numpy(state) -> dict:
     """The port's decode state -> numpy leaves (caches as the port's
     KVCache and SSMState of arrays), `index` an int32 scalar as the
     reference keeps it."""
-    caches = _state_map(lambda t: t.detach().cpu().numpy(), state["caches"])
+    caches = _state_map(_host_copy, state["caches"])
     return {"caches": caches, "index": np.int32(state["index"])}

@@ -1210,3 +1210,127 @@ def test_zoo_serving_runs_the_kernels_on_the_card(arch, dtype, monkeypatch):
             assert torch.equal(out[t].cpu(), tok), t
     else:
         assert torch.isfinite(got.float()).all()
+
+
+def test_train_entry_points_default_to_the_card_and_raise_without_one():
+    """`train()` and `synthetic_lm_batch` run on the card unless the caller
+    asks for the CPU; a train step whose tensors say CUDA reaches the
+    kernels (which cannot be built here) and raises, launching nothing."""
+    _no_card()
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch import train as TR
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_map
+    cfg = get_config("qwen3-8b").reduced()
+    shape = ShapeConfig("t", seq_len=8, global_batch=2, kind="train")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TR.train("qwen3-8b", steps=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TR.synthetic_lm_batch(cfg, shape, 0)
+    params = TT.init_params(0, cfg, device="cpu")
+    fake = lambda tree: tree_map(lambda t: _fake_cuda(t)[0], tree)  # noqa
+    batch = TR.synthetic_lm_batch(cfg, shape, 0, device="cpu")
+    before = dict(launch_counts)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        ST.make_train_step(cfg)(fake(params), fake(adamw_init(params)),
+                                fake(batch))
+    assert dict(launch_counts) == before
+
+
+def _train_tol_check(got, want, lr):
+    """Card against CPU after one float32 step: loss and grad_norm to 1e-5,
+    AdamW's moments to 5e-5 of each leaf's largest entry, every param to
+    one step (lr) and all but 1e-4 of them to 1% of lr (an entry whose
+    gradient is within its error of 0, or near eps, takes a step of
+    either sign; tests/test_torch_zoo_train.py)."""
+    (gl, gg, gp, go), (wl, wg, wp, wo) = got, want
+    torch.testing.assert_close(gl, wl, rtol=1e-5, atol=0)
+    torch.testing.assert_close(gg, wg, rtol=1e-5, atol=0)
+    from repro_torch.tree import tree_leaves
+    for a, b in zip(tree_leaves([go["m"], go["v"]]),
+                    tree_leaves([wo["m"], wo["v"]])):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=5e-5 * b.abs().max().item())
+    beyond = total = 0
+    for a, b in zip(tree_leaves(gp), tree_leaves(wp)):
+        torch.testing.assert_close(a, b, rtol=0, atol=lr)
+        beyond += int(((a - b).abs() > 0.01 * lr).sum())
+        total += a.numel()
+    assert beyond <= 1e-4 * total
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-8b", "gemma3-12b", "mamba2-370m",
+                                  "mixtral-8x7b"])
+def test_zoo_train_step_on_the_card_matches_the_cpu(arch, monkeypatch):
+    """One float32 train step of a reduced config (2 microbatches) on the
+    card, every plain version made to raise: both kernels launch both
+    ways, and the step agrees with the CPU's from the same state."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device with nvcc")
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.train import synthetic_lm_batch
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    shape = ShapeConfig("t", seq_len=80, global_batch=4, kind="train")
+    lr = 3e-4
+    step = ST.make_train_step(cfg, num_micro=2, lr=lr)
+    results = {}
+    for dev in ("cpu", "cuda"):
+        params = TT.init_params(0, cfg, device="cpu")
+        params = tree_map(lambda t: t.to(dev), params)
+        batch = synthetic_lm_batch(cfg, shape, 0, device=dev)
+        if dev == "cuda":
+            _refuse_plain_versions(monkeypatch)
+            launch_counts.clear()
+        params, opt, m = step(params, adamw_init(params), batch)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            monkeypatch.undo()
+        results[dev] = tree_map(lambda t: t.cpu(), (
+            m["loss"], m["grad_norm"], params, opt))
+    assert launch_counts["rmsnorm"] > 0 and launch_counts["rmsnorm_bwd"] > 0
+    attn = "ssm" not in cfg.layer_kinds
+    assert (launch_counts["flash_attention_bwd"] > 0) == attn
+    _train_tol_check(results["cuda"], results["cpu"], lr)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_zoo_remat_changes_no_bit_on_the_card(dtype, monkeypatch):
+    """Gradients with remat (the step's `make_loss_and_grad`) and without
+    (`forward(..., remat=False)` patched in), bit for bit on the card
+    (bf16 at hd 64 takes the tensor-core attention both ways), and twice
+    alike."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device with nvcc")
+    import functools
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.train import synthetic_lm_batch
+    from repro_torch.models import transformer as TT
+    from repro_torch.tree import tree_leaves
+    cfg = get_config("qwen3-8b").reduced(param_dtype=dtype)
+    params = TT.init_params(0, cfg, device="cuda")
+    batch = synthetic_lm_batch(
+        cfg, ShapeConfig("t", seq_len=128, global_batch=4, kind="train"), 0)
+    fn = ST.make_loss_and_grad(cfg, num_micro=2)
+    launch_counts.clear()
+    runs = [fn(params, batch)]
+    with monkeypatch.context() as m:
+        m.setattr(TT, "forward", functools.partial(TT.forward, remat=False))
+        runs.append(fn(params, batch))
+    runs.append(fn(params, batch))
+    if dtype == "bfloat16":
+        assert launch_counts["flash_attention_bwd_tc"] == 3 * 2 * \
+            cfg.num_layers
+    for loss, grads in runs[1:]:
+        assert torch.equal(loss, runs[0][0])
+        for a, b in zip(tree_leaves(grads), tree_leaves(runs[0][1])):
+            assert torch.equal(a, b)
