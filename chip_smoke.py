@@ -39,8 +39,9 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      one query a head at Sk 1-576, and as the path makes them, the 4
      query heads of a kv head as 4 rows; forward only, SDPA beside them)
      and its RMSNorm shapes (qwen3-8b's prefill and decode norms,
-     mamba2-370m's); then one attention call of the path as the adapter
-     makes it, traced: the two short kernels and no copy;
+     mamba2-370m's); the families' prefill and decode calls and norms;
+     then one attention call of the path as the adapter makes it,
+     traced: the two short kernels and no copy;
   4. the quickstart path: the FedBuff federation of examples/quickstart.py
      (MLP payload) through `Federation.from_experiment(exp).run()` on the
      card, launch counts read around it (one aggregation launch per
@@ -151,29 +152,50 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      width in float32, 16 of its 48 layers: the chunked prefill of 2,048
      tokens against the same prompt stepped through `ssm_decode`, within
      `MAMBA_REL_TOL`;
-  14. the train phase (`train` lines), the zoo's train step
-     (`repro_torch.launch.steps.make_train_step`: the loss and its
-     gradient with remat, microbatches, clipping, AdamW): (a) the 8
-     served archs' reduced configs in float32, two steps of two
-     microbatches on the card and on the CPU, each step from the same
-     state and `synthetic_lm_batch` batch: loss, grad_norm, params and
-     AdamW's m and v within the `TRAIN_*` tolerances; (b) qwen3-8b at
-     full width in bf16, cut to `QWEN_TRAIN_LAYERS` of its 36 layers for
-     memory, B 2 x S 2048 in `default_num_micro` microbatches: one step's
-     loss and gradients against the plain versions' (`PlainVersions`,
-     within `QWEN_TRAIN_*_TOL`), two steps from copies of one state bit
-     for bit, the launches a step asserted (the tensor-core attention
-     backward's first path), its RMSNorm calls all at shapes
-     `check_rmsnorm` held, ms a step, tokens/s, `mfu` (model FLOPs,
-     6·N·tokens plus causal attention, over the bf16 peak), peak memory,
-     one step run as its two halves with CUDA events between them (the
-     optimizer's share), the next traced whole (kernels, copies, device
-     µs, busy share, the attention backward's share, the 10 slowest
-     kernels; its launches must be the halves'); (c) Part B of
-     examples/satellite_fl_train.py as the reference runs it
-     (`launch.train.train`, mamba2-370m's full config, 24 steps at B 4 x
-     S 64): its loss must fall, its RMSNorm calls at held shapes;
-  15. one JSON line listing every ported kernel.
+  14. the families phase (`families` lines), the zoo's three last
+     families (recurrentgemma's RG-LRU with local attention, whisper's
+     encoder and cross-attention, phi-3-vision's image frontend): (a)
+     their reduced configs and recurrentgemma's hybrid (two recurrent
+     layers and a local one), the prefill step and the serve loop on the
+     card and on the CPU in float32 from the same parameters: greedy
+     tokens equal, the prefill's and every step's logits and the final
+     caches within `ZOO_F32_TOL`, attention launched iff a layer attends;
+     (b) each at full width in bf16 drawn on the card: the prefill step
+     (recurrentgemma B 1 x S 4096; phi-3-vision 576 image embeddings and
+     1,472 tokens; whisper B 8, 1,500 frames and 448 tokens) timed, its
+     launches asserted and its next-token logits against the plain
+     versions' (`PlainVersions`, within `FAMILIES`' tolerances); the serve
+     loop at B 8 (whisper's state from its encoder's frames) timed, its
+     launches a step asserted, peak memory, four steps traced, the greedy
+     tokens and the next-token logits against the same inputs stepped
+     with the plain versions, row 0 after the stepped prompt against a
+     prefill of it; recurrentgemma's step at a full window (index 4,095,
+     random caches) timed and traced; every RMSNorm call at a shape
+     `check_rmsnorm` held. The phase's kernel shapes are rows of phase
+     3 (`FLASH_FAMILIES`, `FLASH_DECODE_FAMILIES`, `RMS_FAMILY_SHAPES`);
+  15. the train phase (`train` lines), the zoo's train step
+     (`repro_torch.launch.steps.make_train_step`: the loss and its gradient
+     with remat, microbatches, clipping, AdamW): (a) the 8 served archs'
+     and the families' reduced configs in float32, two steps of two
+     microbatches on the card and on the CPU, each step from the same state
+     and `synthetic_lm_batch` batch: loss, grad_norm, params and AdamW's m
+     and v within the `TRAIN_*` tolerances; (b) qwen3-8b at full width in
+     bf16, cut to `QWEN_TRAIN_LAYERS` of its 36 layers for memory, B 2 x S
+     2048 in `default_num_micro` microbatches: one step's loss and
+     gradients against the plain versions' (`PlainVersions`, within
+     `QWEN_TRAIN_*_TOL`), two steps from copies of one state bit for bit,
+     the launches a step asserted (the tensor-core attention backward's
+     first path), its RMSNorm calls all at shapes `check_rmsnorm` held, ms
+     a step, tokens/s, `mfu` (model FLOPs, 6·N·tokens plus causal
+     attention, over the bf16 peak), peak memory, one step run as its two
+     halves with CUDA events between them (the optimizer's share), the next
+     traced whole (kernels, copies, device µs, busy share, the attention
+     backward's share, the 10 slowest kernels; its launches must be the
+     halves'); (c) Part B of examples/satellite_fl_train.py as the
+     reference runs it (`launch.train.train`, mamba2-370m's full config, 24
+     steps at B 4 x S 64): its loss must fall, its RMSNorm calls at held
+     shapes;
+  16. one JSON line listing every ported kernel.
 The last line is `{"ok": true,
 "device": {...}}`. Without a CUDA device, or away from the repository's
 sources, it exits nonzero and prints no result. Imports nothing of JAX or
@@ -454,6 +476,19 @@ RMS_ZOO_SHAPES = [((1, 2048, 4096), "bfloat16", 0),
                   ((1, 256, 1024), "bfloat16", 0),
                   ((1, 256, 2048), "bfloat16", 0)]
 RMS_SHAPES += RMS_ZOO_SHAPES
+# The families phase's shapes, bf16, a shared scale over B x S rows:
+# recurrentgemma-9b's prefill (B 1 x S 4096; its decode step's (1, 8,
+# 4096) is qwen3-8b's), phi-3-vision's prefill (576 image and 1,472 text
+# positions) and decode step at B 8, whisper-base's encoder (8 x 1,500
+# frames), decoder prefill (8 x 448 tokens) and decode step at B 8.
+# `RmsCalls` holds the phase's (b) to them.
+RMS_FAMILY_SHAPES = [((1, 4096, 4096), "bfloat16", 0),
+                     ((1, 2048, 3072), "bfloat16", 0),
+                     ((1, 8, 3072), "bfloat16", 0),
+                     ((1, 12000, 512), "bfloat16", 0),
+                     ((1, 3584, 512), "bfloat16", 0),
+                     ((1, 8, 512), "bfloat16", 0)]
+RMS_SHAPES += RMS_FAMILY_SHAPES
 RMS_EPS = 1e-6
 
 
@@ -751,6 +786,20 @@ FLASH_SHAPES = [FLASH_PATH, FLASH_EVAL] + FLASH_SHORT_SWEEP \
     (2, 4, 2, 64, 64, 12, True, 3, "float32"),
     (1, 4, 2, 128, 128, 300, True, 3, "bfloat16"),
     (1, 4, 2, 128, 128, 1000, True, 0, "float32"), FLASH_ZOO]
+# The families phase's prefill calls, bf16: recurrentgemma-9b's local
+# layers (16 query heads over 1 kv head of 256, the CUDA cores, S 4096
+# past the 2,048 window), phi-3-vision's (32 heads of 96, zero-padded to
+# 128 on the tensor cores), whisper-base's encoder (1,500 frames, no
+# mask: a partial 64-row key tile), decoder self-attention (448 tokens,
+# causal) and cross-attention (448 over 1,500, no mask).
+FLASH_RG = (1, 16, 1, 4096, 4096, 256, True, 2048, "bfloat16")
+FLASH_PHI3 = (1, 32, 32, 2048, 2048, 96, True, 0, "bfloat16")
+FLASH_WHISPER_ENC = (8, 8, 8, 1500, 1500, 64, False, 0, "bfloat16")
+FLASH_WHISPER_DEC = (8, 8, 8, 448, 448, 64, True, 0, "bfloat16")
+FLASH_WHISPER_CROSS = (8, 8, 8, 448, 1500, 64, False, 0, "bfloat16")
+FLASH_FAMILIES = [FLASH_RG, FLASH_PHI3, FLASH_WHISPER_ENC, FLASH_WHISPER_DEC,
+                  FLASH_WHISPER_CROSS]
+FLASH_SHAPES += FLASH_FAMILIES
 TC_KERNEL = "flash_fwd_tc_kernel"     # in the tensor-core kernel's name
 TC_BWD_KERNELS = ("flash_bwd_tc_delta_kernel", "flash_bwd_tc_dkdv_kernel",
                   "flash_bwd_tc_dq_kernel")   # in the backward's
@@ -1012,6 +1061,19 @@ FLASH_DECODE = FLASH_DECODE_ONE + [
     (8, 8, 8, 4, sk, 128, False, 0, "bfloat16") for sk in (1, 64, 65, 512)] \
     + [FLASH_DECODE_PATH, (8, 8, 8, 2, 576, 240, False, 0, "bfloat16"),
        (4, 2, 2, 2, 31, 64, False, 0, "float32")]
+# The families phase's decode calls at B 8, bf16, each as the path makes
+# it: recurrentgemma-9b's 16 query heads of its one kv head as 16 rows
+# (hd 256, the CUDA cores) over the serve loop's last prefix (160) and a
+# full window (2,048); phi-3-vision's one query a head over 160 (hd 96
+# padded to 128); whisper-base's self-attention over its last prefix
+# (64) and cross-attention over the 1,500 encoder frames.
+FLASH_DECODE_RG = (8, 1, 1, 16, 2048, 256, False, 0, "bfloat16")
+FLASH_DECODE_FAMILIES = [(8, 1, 1, 16, 160, 256, False, 0, "bfloat16"),
+                         FLASH_DECODE_RG,
+                         (8, 32, 32, 1, 160, 96, False, 0, "bfloat16"),
+                         (8, 8, 8, 1, 64, 64, False, 0, "bfloat16"),
+                         (8, 8, 8, 1, 1500, 64, False, 0, "bfloat16")]
+FLASH_DECODE += FLASH_DECODE_FAMILIES
 
 
 def check_flash_decode(torch):
@@ -3203,12 +3265,19 @@ def _top2_gap(logits):
     return (top[..., 0] - top[..., 1])
 
 
-def _zoo_serve(torch, params, cfg, prompt, gen, cache, dtype):
+def _attends(cfg) -> bool:
+    """Whether a layer kind of `cfg` calls attention."""
+    return bool(set(cfg.layer_kinds) & {"global", "local", "enc", "cross"})
+
+
+def _zoo_serve(torch, params, cfg, prompt, gen, cache, dtype,
+               enc_frames=None):
     """examples/serve_decode.py's loop: the prompt stepped, `gen` tokens
-    generated greedily. Returns (tokens (B, gen), every step's logits,
-    the state)."""
+    generated greedily (an encoder-decoder's state from `enc_frames`).
+    Returns (tokens (B, gen), every step's logits, the state)."""
     from repro_torch.models import transformer as T
-    state = T.init_decode_state(params, cfg, prompt.shape[0], cache, dtype)
+    state = T.init_decode_state(params, cfg, prompt.shape[0], cache, dtype,
+                                enc_frames=enc_frames)
     logits = []
     with torch.inference_mode():
         for t in range(prompt.shape[1]):
@@ -3277,7 +3346,7 @@ def _zoo_reduced(torch, counts):
         if lg_err > ZOO_F32_TOL or (cache_err or 0) > ZOO_F32_TOL:
             raise AssertionError(f"zoo (a) {arch}: logits {lg_err}, caches "
                                  f"{cache_err} beyond {ZOO_F32_TOL}")
-        if not got.get("rmsnorm") or (("ssm" not in cfg.layer_kinds)
+        if not got.get("rmsnorm") or (_attends(cfg)
                                       != bool(got.get("flash_attention"))):
             raise AssertionError(f"zoo (a) {arch}: launches {got}")
         print("zoo (a)", json.dumps({
@@ -3534,9 +3603,363 @@ def run_zoo_path(torch):
     return {"zoo": dict(counts)}
 
 
+# The families phase: the zoo's three last families, RecurrentGemma's
+# RG-LRU (`recurrent` blocks with local attention), whisper's encoder and
+# cross-attention (`enc`, `cross`) and phi-3-vision's image frontend
+# (`vis_proj`, logits on the text positions). (a) Their reduced configs
+# and recurrentgemma's hybrid (two recurrent layers and a local one),
+# card against CPU in float32 within `ZOO_F32_TOL`: the prefill step and
+# the serve loop (71 steps, past the reduced window of 64: the hybrid's
+# ring wraps). (b) Each at full width in bf16 drawn on the card (the
+# configs as registered: configs/recurrentgemma_9b.py, whisper_base.py,
+# phi3_vision_4_2b.py), the image embeddings and frames random float32
+# from a seed.
+FAMILIES_REDUCED = ("recurrentgemma-9b", "recurrentgemma-9b/hybrid",
+                    "whisper-base", "phi-3-vision-4.2b")
+FAMILIES_SERVE = (4, 8, 64, 128)    # batch, prompt, generated, cache
+# Per config: the prefill (batch, text tokens), the serve loop (batch,
+# prompt stepped, generated, cache slots), the tolerance of the
+# next-token logits against the plain versions and the launches a call,
+# counted from the code (none of the three has qk-norm: 2 RMSNorm calls
+# a layer, 3 a cross layer, and the final and encoder norms). The
+# tolerances, stated before the first run as `QWEN_BF16_REL_TOL`: one
+# bf16 unit (2**-8 relative) per layer that attends or recurs, added up
+# layer after layer: recurrentgemma's 38, phi-3-vision's 32, whisper's 6
+# encoder and 6 decoder layers.
+FAMILIES = {
+    "recurrentgemma-9b": dict(
+        prefill=(1, 4096), serve=(8, 128, 32, 4096), tol=38 * 2 ** -8,
+        forward={"flash_attention": 12, "rmsnorm": 77},
+        step={"flash_attention": 12, "rmsnorm": 77}),
+    "phi-3-vision-4.2b": dict(
+        prefill=(1, 1472), serve=(8, 128, 32, 2048), tol=32 * 2 ** -8,
+        forward={"flash_attention": 32, "rmsnorm": 65},
+        step={"flash_attention": 32, "rmsnorm": 65}),
+    "whisper-base": dict(
+        prefill=(8, 448), serve=(8, 32, 32, 448), tol=12 * 2 ** -8,
+        forward={"flash_attention": 18, "rmsnorm": 32},
+        encode={"flash_attention": 6, "rmsnorm": 13},
+        step={"flash_attention": 12, "rmsnorm": 19}),
+}
+# recurrentgemma's timed-only step: index 4,095 (the ring's 2,048 slots
+# all read) from caches and recurrent states filled with random values
+RG_FULL_WINDOW = 4095
+
+
+def _zoo_cfg(name):
+    """A reduced config by name; "<arch>/hybrid" is recurrentgemma's
+    registered pattern, two recurrent layers and a local one."""
+    from repro_torch.configs.base import StageSpec, get_config
+    arch, _, variant = name.partition("/")
+    if variant == "hybrid":
+        return get_config(arch).reduced(
+            stages=(StageSpec(("recurrent", "recurrent", "local"), 1),),
+            num_layers=3)
+    return get_config(arch).reduced()
+
+
+def _family_batch(torch, cfg, B, S, g, device):
+    """tokens (B, S), and the family's inputs: image embeddings (B, N,
+    1024) or encoder frames (B, encoder_seq, d_model), float32 normals."""
+    from repro_torch.models.transformer import VISION_DIM
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                                   device=device)}
+    if cfg.frontend == "vision":
+        out["image_embeds"] = torch.randn(B, cfg.num_image_tokens,
+                                          VISION_DIM, generator=g,
+                                          device=device)
+    if cfg.is_encoder_decoder:
+        out["frames"] = torch.randn(B, cfg.encoder_seq, cfg.d_model,
+                                    generator=g, device=device)
+    return out
+
+
+def _families_reduced(torch, counts):
+    """(a) Each family's reduced config on the card and on the CPU from
+    the same parameters (drawn on the CPU) and inputs: the prefill step,
+    then the serve loop's tokens, every step's logits and the final
+    caches."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves, tree_map
+    B, P, G, C = FAMILIES_SERVE
+    for name in FAMILIES_REDUCED:
+        cfg = _zoo_cfg(name)
+        cpu = T.init_params(0, cfg, device="cpu")
+        card = tree_map(lambda t: t.cuda(), cpu)
+        batch = _family_batch(torch, cfg, B, P,
+                              torch.Generator().manual_seed(1), "cpu")
+        frames = batch.get("frames")
+        prefill = ST.make_prefill_step(cfg)
+        launch_counts.clear()
+        t0 = time.perf_counter()
+        pre_k = prefill(card, {k: v.cuda() for k, v in batch.items()})
+        tok_k, lg_k, st_k = _zoo_serve(
+            torch, card, cfg, batch["tokens"].cuda(), G, C, torch.float32,
+            None if frames is None else frames.cuda())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts.update(launch_counts)
+        got = dict(launch_counts)
+        pre_c = prefill(cpu, batch)
+        tok_c, lg_c, st_c = _zoo_serve(torch, cpu, cfg, batch["tokens"], G,
+                                       C, torch.float32, frames)
+        parted = _same_greedy(tok_k.cpu(), tok_c, lg_c, ZOO_F32_TOL, name)
+        rows = [b for b in range(B) if b not in {p[0] for p in parted}]
+        pre_err = (pre_k.cpu() - pre_c).abs().max().item()
+        lg_err = (lg_k.cpu()[rows] - lg_c[rows]).abs().max().item()
+        cache_err = max((a.cpu() - b).abs().max().item()
+                        for a, b in zip(tree_leaves(st_k["caches"]),
+                                        tree_leaves(st_c["caches"]))) \
+            if not parted else None
+        if max(pre_err, lg_err, cache_err or 0) > ZOO_F32_TOL:
+            raise AssertionError(f"families (a) {name}: prefill {pre_err}, "
+                                 f"logits {lg_err}, caches {cache_err} "
+                                 f"beyond {ZOO_F32_TOL}")
+        if not got.get("rmsnorm") or (_attends(cfg)
+                                      != bool(got.get("flash_attention"))):
+            raise AssertionError(f"families (a) {name}: launches {got}")
+        print("families (a)", json.dumps({
+            "case": name, "kinds": sorted(set(cfg.layer_kinds)),
+            "batch": B, "prompt": P, "generated": G, "cache": C,
+            "window": cfg.window_size, "tokens_equal": not parted,
+            "parted": parted, "max_abs_err_prefill": pre_err,
+            "max_abs_err_logits": lg_err, "max_abs_err_caches": cache_err,
+            "tol": ZOO_F32_TOL, "card_wall_s": wall,
+            "index": st_k["index"], "launches": got}), flush=True)
+
+
+def _expect_launches(tag, got, want, calls, tc):
+    """`got` holds `calls` times each count of `want`; with `tc`, every
+    attention launch took the tensor cores, else none did."""
+    for name, n in want.items():
+        if got.get(name, 0) != n * calls:
+            raise AssertionError(f"{tag}: {got}, not {n} {name} a call over "
+                                 f"{calls} calls")
+    n_tc = got.get("flash_attention_tc", 0)
+    if n_tc != (got.get("flash_attention", 0) if tc else 0):
+        raise AssertionError(f"{tag}: {n_tc} tensor-core launches of "
+                             f"{got.get('flash_attention')}")
+
+
+def _check_close(tag, got, want, tol):
+    """Next-token logits (B, V) against another computation's: relative
+    L2 within `tol`, and each row's top token equal or parted within a
+    near tie (`want`'s top-2 gap under twice the largest difference).
+    Returns the numbers."""
+    rel = _rel_l2(got, want)
+    err = (got.float() - want.float()).abs().max().item()
+    same = got.argmax(-1) == want.argmax(-1)
+    gap = _top2_gap(want)
+    if rel > tol or not bool((same | (gap < 2 * err)).all()):
+        raise AssertionError(f"{tag}: rel L2 {rel} (tol {tol}), top equal "
+                             f"{same.tolist()}, gaps {gap.tolist()}, max "
+                             f"|diff| {err}")
+    return {"rel_l2": rel, "max_abs_err": err, "top1_equal": bool(
+        same.all()), "top2_gap_min": float(gap.min()), "tol_rel_l2": tol}
+
+
+def _fill_random(torch, state, g):
+    """Every cache and recurrent state of `state` normal random values,
+    in place."""
+    from repro_torch.tree import tree_leaves
+    for t in tree_leaves(state["caches"]):
+        t.copy_(torch.randn(t.shape, generator=g, device=t.device))
+
+
+def _family_full(torch, arch, counts):
+    """(b) One family at full width in bf16, drawn on the card: the
+    prefill step timed, its launches asserted and its next-token logits
+    against the plain versions'; the serve loop timed (whisper's state
+    from its encoder's frames), its launches a step asserted, the greedy
+    tokens and the next-token logits after it against the same inputs
+    stepped with the plain versions, row 0's logits after the stepped
+    prompt against a prefill of the prompt; four decode steps traced;
+    for recurrentgemma a step at a full window, timed and traced. Every
+    RMSNorm call of the timed runs at a shape `check_rmsnorm` held.
+    Returns the launches by part."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+    spec, cfg = FAMILIES[arch], get_config(arch)
+    tc = arch != "recurrentgemma-9b"       # hd 256 takes the CUDA cores
+    launches = {}
+    t0 = time.perf_counter()
+    params = T.init_params(0, cfg, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    g = torch.Generator(device="cuda").manual_seed(6)
+    prefill, serve = ST.make_prefill_step(cfg), ST.make_serve_step(cfg)
+    B, S = spec["prefill"]
+    batch = _family_batch(torch, cfg, B, S, g, "cuda")
+    prefill(params, batch)                          # warm
+    with RmsCalls() as norms:
+        launch_counts.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = prefill(params, batch)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        counts.update(launch_counts)
+        launches["prefill"] = dict(launch_counts)
+        _expect_launches(f"families (b) {arch} prefill", launches["prefill"],
+                         spec["forward"], 1, tc)
+        with PlainVersions():
+            want = prefill(params, batch)
+        pre = _check_close(f"families (b) {arch} prefill against the "
+                           f"plain versions", got, want, spec["tol"])
+        del got, want, batch
+
+        # the serve loop: the prompt stepped, tokens generated greedily
+        B, P, G, C = spec["serve"]
+        inputs = _family_batch(torch, cfg, B, P, g, "cuda")
+        prompt, frames = inputs["tokens"], inputs.get("frames")
+        torch.cuda.reset_peak_memory_stats()
+        launch_counts.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = T.init_decode_state(params, cfg, B, C, torch.bfloat16,
+                                    enc_frames=frames)
+        torch.cuda.synchronize()
+        state_ms = (time.perf_counter() - t0) * 1e3
+        counts.update(launch_counts)
+        launches["decode_state"] = dict(launch_counts)
+        _expect_launches(f"families (b) {arch} decode state",
+                         launches["decode_state"], spec.get("encode", {}),
+                         1, tc)
+        launch_counts.clear()
+        t0 = time.perf_counter()
+        for t in range(P - 1):
+            _, state = serve(params, state, prompt[:, t:t + 1])
+        with torch.inference_mode():
+            last, state = T.decode_step(params, prompt[:, P - 1:], state,
+                                        cfg)
+        tok = torch.argmax(last[:, -1], dim=-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = [tok]
+        for _ in range(G - 1):
+            tok, state = serve(params, state, tok)
+            out.append(tok)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        steps = P + G - 1
+        counts.update(launch_counts)
+        launches["serve"] = dict(launch_counts)
+        _expect_launches(f"families (b) {arch} serve", launches["serve"],
+                         spec["step"], steps, tc)
+        peak = torch.cuda.max_memory_allocated()
+    if norms.unheld():
+        raise AssertionError(f"families (b) {arch}: RMSNorm calls at "
+                             f"shapes check_rmsnorm never held: "
+                             f"{norms.unheld()}")
+    out = torch.cat(out, dim=1)
+    with torch.inference_mode():
+        nxt, _ = T.decode_step(params, tok, state, cfg)
+    # the same inputs stepped with the plain versions: their greedy pick
+    # at each generated position and their logits after the last
+    with PlainVersions(), torch.inference_mode():
+        st = T.init_decode_state(params, cfg, B, C, torch.bfloat16,
+                                 enc_frames=frames)
+        plain = []
+        for x in torch.cat([prompt, out], dim=1).unbind(1):
+            lg, st = T.decode_step(params, x[:, None], st, cfg)
+            plain.append(lg[:, 0])
+        plain = torch.stack(plain[P - 1:], dim=1)      # (B, G + 1, V)
+        del st
+    serve_plain = _check_close(f"families (b) {arch} serve against the "
+                               f"plain versions", nxt[:, 0], plain[:, -1],
+                               spec["tol"])
+    parted = _same_greedy(out.cpu(), plain[:, :-1].argmax(-1).cpu(),
+                          plain[:, :-1].cpu(), serve_plain["max_abs_err"],
+                          f"families (b) {arch} greedy against the plain "
+                          f"versions")
+    # row 0 after the stepped prompt against a prefill of its P tokens
+    one = {"tokens": prompt[:1]}
+    if cfg.frontend == "vision":
+        one["image_embeds"] = inputs["image_embeds"][:1, :0]
+    if frames is not None:
+        one["frames"] = frames[:1]
+    stepped = _check_close(f"families (b) {arch} stepped prompt against "
+                           f"prefill", last[:1, -1], prefill(params, one),
+                           spec["tol"])
+    del plain, last, nxt
+    step_ms = (t2 - t1) / (G - 1) * 1e3
+    trace = _trace_decode(torch, params, cfg, state, tok, ZOO_TRACED_STEPS)
+    line = {
+        "arch": arch, "params": n_params, "dtype": cfg.param_dtype,
+        "init_s": init_s, "prefill": {
+            "batch": spec["prefill"][0], "text_tokens": spec["prefill"][1],
+            "positions": spec["prefill"][1] + (
+                cfg.num_image_tokens if cfg.frontend == "vision" else 0),
+            "frames": cfg.encoder_seq if frames is not None else None,
+            "ms": prefill_ms, "vs_plain": pre},
+        "serve": {"batch": B, "prompt_stepped": P, "generated": G,
+                  "cache": C, "decode_state_ms": state_ms,
+                  "prompt_ms_per_step": (t1 - t0) / P * 1e3,
+                  "ms_per_decode_step": step_ms,
+                  "tokens_per_s": B / step_ms * 1e3,
+                  "max_memory_allocated_gb": peak / 1e9,
+                  "vs_plain": serve_plain, "greedy_parted_vs_plain": parted,
+                  "stepped_prompt_vs_prefill": stepped, "traced": trace},
+        "launches": launches,
+        "launches_per_step": {k: v / steps for k, v in
+                              launches["serve"].items()},
+        "rmsnorm_calls": sorted(norms.seen)}
+    del state
+    if arch == "recurrentgemma-9b":
+        # a step at a full window, every ring slot read: timed only
+        state = T.init_decode_state(params, cfg, B, C, torch.bfloat16)
+        _fill_random(torch, state, g)
+        state["index"] = RG_FULL_WINDOW
+        launch_counts.clear()
+        full = _trace_decode(torch, params, cfg, state, tok,
+                             ZOO_TRACED_STEPS)
+        counts.update(launch_counts)
+        launches["full_window"] = dict(launch_counts)
+        _expect_launches(f"families (b) {arch} full window",
+                         launches["full_window"], spec["step"],
+                         2 * ZOO_TRACED_STEPS, tc)
+        line["full_window_step"] = {"index": RG_FULL_WINDOW,
+                                    "keys_read": cfg.window_size, **full}
+        del state
+    print("families (b)", json.dumps(line), flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_families_path(torch):
+    """The families phase: (a) the reduced families card = CPU, (b) each
+    family at full width. Returns the card's launch counts over both, and
+    (b)'s by arch."""
+    from collections import Counter
+    counts = Counter()
+    torch.backends.cuda.matmul.allow_tf32 = False     # float32 stays f32
+    torch.cuda.empty_cache()
+    seconds, by_arch = {}, {}
+    t0 = time.perf_counter()
+    _families_reduced(torch, counts)
+    seconds["a"] = time.perf_counter() - t0
+    for arch in FAMILIES:
+        t0 = time.perf_counter()
+        before = Counter(counts)
+        _family_full(torch, arch, counts)
+        by_arch[arch] = dict(counts - before)
+        seconds[arch] = time.perf_counter() - t0
+    print("families", json.dumps({"seconds": seconds, "total_s": sum(
+        seconds.values()), "launches": dict(counts),
+        "launches_by_arch": by_arch}), flush=True)
+    return {"families": dict(counts)}, by_arch
+
+
 TRAIN_REDUCED = ("qwen3-8b", "qwen3-8b-swa", "gemma3-12b", "h2o-danube-1.8b",
                  "minitron-4b", "mamba2-370m", "mixtral-8x7b",
-                 "qwen3-moe-30b-a3b")
+                 "qwen3-moe-30b-a3b") + FAMILIES_REDUCED
 # batch 4 in 2 microbatches; 80 tokens, past the reduced window (64) and
 # over four SSD chunks; two steps, as tests/test_torch_zoo_train.py
 TRAIN_SHAPE = (4, 80)
@@ -3609,7 +4032,7 @@ def _train_reduced(torch, counts):
     step the CPU's params and AdamW state are copied to the card) and
     the same `synthetic_lm_batch` batch, held to each other after each
     step."""
-    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels import launch_counts
     from repro_torch.launch import steps as ST
     from repro_torch.launch.train import synthetic_lm_batch
@@ -3619,7 +4042,7 @@ def _train_reduced(torch, counts):
     B, S = TRAIN_SHAPE
     shape = ShapeConfig("train", seq_len=S, global_batch=B, kind="train")
     for arch in TRAIN_REDUCED:
-        cfg = get_config(arch).reduced()
+        cfg = _zoo_cfg(arch)
         step = ST.make_train_step(cfg, num_micro=2, lr=TRAIN_LR)
         cpu = T.init_params(0, cfg, device="cpu")
         cpu_opt = adamw_init(cpu)
@@ -3649,12 +4072,12 @@ def _train_reduced(torch, counts):
             losses.append((got[0], want[0], got[1]))
         counts.update(launch_counts)
         launches = dict(launch_counts)
-        attn = "ssm" not in cfg.layer_kinds
-        if not launches.get("rmsnorm_bwd") or attn != bool(
+        if not launches.get("rmsnorm_bwd") or _attends(cfg) != bool(
                 launches.get("flash_attention_bwd")):
             raise AssertionError(f"train (a) {arch}: launches {launches}")
         print("train (a)", json.dumps({
-            "arch": cfg.name, "batch": B, "seq": S, "num_micro": 2,
+            "arch": cfg.name, "case": arch, "batch": B, "seq": S,
+            "num_micro": 2,
             "steps": TRAIN_STEPS, "lr": TRAIN_LR,
             "loss": [x[0] for x in losses], "cpu_loss": [x[1] for x in
                                                          losses],
@@ -4038,6 +4461,9 @@ def main() -> int:
     done("cli path")
     paths.update(run_zoo_path(torch))
     done("zoo path")
+    families, family_launches = run_families_path(torch)
+    paths.update(families)
+    done("families path")
     paths.update(run_train_path(torch, t_start))
     done("train path")
 
@@ -4146,6 +4572,60 @@ def main() -> int:
                         (1, 2048, 4096, "bfloat16", 0), rms_names),
         "decode": pick(rms_rows, rms_kernel.NAME,
                        (*RMS_ZOO_DECODE, "bfloat16", 0), rms_names)}
+    # the families' calls: each full-width config's prefill and decode
+    by_arch = {arch: {k: n for k, n in c.items()
+                      if k.startswith(("flash_attention", "rmsnorm"))}
+               for arch, c in family_launches.items()}
+    next(k for k in kernels if k["name"] == flash_kernel.NAME)[
+        "families"] = {
+        "work": "the families at full width, bf16: recurrentgemma-9b's "
+                "local layers at (B, H, K, S, hd) = (1, 16, 1, 4096, 256) "
+                "causal with a 2,048 window on the CUDA cores, 12 a "
+                "prefill, and its decode calls (16 query rows of the one "
+                "kv head over 160 and 2,048 keys), 12 a step; "
+                "phi-3-vision's (1, 32, 32, 2048, 96 padded to 128) causal "
+                "on the tensor cores, 32 a prefill, decode over 160 keys; "
+                "whisper-base's encoder (8, 8, 8, 1500, 64) and "
+                "cross-attention (448 over 1,500) without a mask, decoder "
+                "(448) causal, 18 a prefill, 6 an encoder pass, 12 a step",
+        "calls": {
+            "recurrentgemma-9b": {
+                "prefill": pick(flash_rows, flash_kernel.NAME, FLASH_RG,
+                                flash_names),
+                "decode_full_window": pick(decode_rows, flash_kernel.NAME,
+                                           FLASH_DECODE_RG, flash_names)},
+            "phi-3-vision-4.2b": {
+                "prefill": pick(flash_rows, flash_kernel.NAME, FLASH_PHI3,
+                                flash_names),
+                "decode": pick(decode_rows, flash_kernel.NAME,
+                               FLASH_DECODE_FAMILIES[2], flash_names)},
+            "whisper-base": {
+                part: pick(flash_rows, flash_kernel.NAME, shape,
+                           flash_names)
+                for part, shape in (("encoder", FLASH_WHISPER_ENC),
+                                    ("decoder", FLASH_WHISPER_DEC),
+                                    ("cross", FLASH_WHISPER_CROSS))} | {
+                "decode_cross": pick(decode_rows, flash_kernel.NAME,
+                                     FLASH_DECODE_FAMILIES[4],
+                                     flash_names)}},
+        "launches_by_arch": by_arch}
+    next(k for k in kernels if k["name"] == rms_kernel.NAME)["families"] = {
+        "work": "the families at full width, bf16, a shared scale: "
+                "recurrentgemma-9b's at (1, 4096, 4096) a prefill and (1, "
+                "8, 4096) a step, 77 calls each; phi-3-vision's at (1, "
+                "2048, 3072) and (1, 8, 3072), 65; whisper-base's "
+                "encoder's at (1, 12000, 512), 13, its decoder's at (1, "
+                "3584, 512), 19 a prefill, and (1, 8, 512), 19 a step",
+        "calls": {part: pick(rms_rows, rms_kernel.NAME,
+                             (*shape, "bfloat16", 0), rms_names)
+                  for part, shape in (
+                      ("recurrentgemma_prefill", (1, 4096, 4096)),
+                      ("phi3_prefill", (1, 2048, 3072)),
+                      ("phi3_decode", (1, 8, 3072)),
+                      ("whisper_encoder", (1, 12000, 512)),
+                      ("whisper_decoder", (1, 3584, 512)),
+                      ("whisper_decode", (1, 8, 512)))},
+        "launches_by_arch": by_arch}
     # the train step's backward calls: qwen3-8b's at the prefill's shapes
     # (a microbatch is one sequence of 2,048)
     next(k for k in kernels if k["name"] == flash_kernel.NAME_BWD)[

@@ -7,9 +7,12 @@ The steps run on the device their params are on (`transformer.
 init_params(seed, cfg)` draws them on the card by default). Prefill and
 the serve step run under `torch.inference_mode()`; the train step runs
 autograd on the parameter leaves and writes the params and the AdamW
-state in place (ROADMAP C20). The reference's meshes, shardings and
-expert parallelism come with ROADMAP A.10; its `build` and aggregation
-steps with A.11 part 2.
+state in place (ROADMAP C20), every leaf of the tree: the encoder's, the
+vision projection's and the RG-LRU's too. The serve step writes the
+decode state in place (C19): KV caches, SSM and RG-LRU states and a
+cross block's self cache. The reference's meshes, shardings and expert
+parallelism come with ROADMAP A.10; its `build` and aggregation steps
+with A.11 part 2 step 3.
 """
 from __future__ import annotations
 
@@ -132,10 +135,15 @@ def make_prefill_step(cfg: ModelConfig, *, q_chunk: int = 512,
 
 def make_decode_state_shape(cfg: ModelConfig, shape: ShapeConfig):
     """The decode state at `shape` (batch, cache length) on the meta
-    device: its tensors carry shapes and dtypes and hold no memory."""
-    return T.init_decode_state(None, cfg, shape.global_batch, shape.seq_len,
+    device: its tensors carry shapes and dtypes and hold no memory. An
+    encoder-decoder's comes from frames (batch, encoder_seq, d_model), as
+    the reference's."""
+    B = shape.global_batch
+    frames = (torch.empty((B, cfg.encoder_seq, cfg.d_model), device="meta")
+              if cfg.is_encoder_decoder else None)
+    return T.init_decode_state(None, cfg, B, shape.seq_len,
                                getattr(torch, cfg.param_dtype),
-                               device="meta")
+                               enc_frames=frames, device="meta")
 
 
 def make_serve_step(cfg: ModelConfig):

@@ -1,6 +1,7 @@
-"""Attention blocks: GQA with RoPE, optional qk-norm, global (causal) and
-local (sliding-window) variants, and single-token decode against a KV
-cache (the port of `repro.models.attention`).
+"""Attention blocks: GQA with RoPE, optional qk-norm, global (causal),
+local (sliding-window) and encoder (bidirectional) variants,
+cross-attention over an encoder's output, and single-token decode against
+a KV cache (the port of `repro.models.attention`).
 
 Attention runs in the flash-attention kernel
 (`repro_torch.kernels.flash_attention.ops`; its plain version on the
@@ -24,7 +25,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.configs.base import GLOBAL_ATTN, LOCAL_ATTN, ModelConfig
+from repro_torch.configs.base import ENC_ATTN, LOCAL_ATTN, ModelConfig
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import layers as L
 
@@ -70,27 +71,51 @@ def _project_qkv(params, x, cfg: ModelConfig, positions):
 
 
 def _window(cfg: ModelConfig, kind: str) -> int:
-    if kind == LOCAL_ATTN:
-        return cfg.window_size
-    if kind == GLOBAL_ATTN:
-        return 0
-    raise NotImplementedError(
-        f"{kind!r} attention (whisper's encoder and cross-attention) comes "
-        f"with ROADMAP A.11 part 2")
+    return cfg.window_size if kind == LOCAL_ATTN else 0
+
+
+def _project_q(params, h, cfg: ModelConfig):
+    """h: (B, S, D) -> q (B, S, H, hd), q-norm applied where the config
+    has qk-norm, no RoPE: cross-attention's query."""
+    B, S, _ = h.shape
+    q = L.linear(h, params["wq"]).reshape(B, S, cfg.num_heads,
+                                          cfg.resolved_head_dim)
+    if cfg.qk_norm:
+        q = L.rmsnorm(params["q_norm"], q, cfg.norm_eps)
+    return q
 
 
 def attention_apply(params, x, cfg: ModelConfig, kind: str,
-                    q_chunk: int = 512, positions=None):
+                    q_chunk: int = 512, positions=None, kv_override=None):
     """Full-sequence (prefill) attention block with pre-norm and residual.
-    `positions` (S,) or (B, S) default to 0..S-1."""
+    `positions` (S,) or (B, S) default to 0..S-1. A global or local layer
+    is causal, an encoder layer (`enc`) not; all three apply RoPE.
+    `kv_override` (k, v, causal): cross-attention over precomputed k and
+    v (`cross_kv`), its query without RoPE."""
     B, S, _ = x.shape
-    window = _window(cfg, kind)
     h = L.rmsnorm(params["norm"], x, cfg.norm_eps)
-    if positions is None:
-        positions = torch.arange(S, device=x.device)
-    q, k, v = _project_qkv(params, h, cfg, positions)
-    o = flash_ops.flash_attention_bshd(q, k, v, causal=True, window=window)
+    if kv_override is None:
+        if positions is None:
+            positions = torch.arange(S, device=x.device)
+        q, k, v = _project_qkv(params, h, cfg, positions)
+        causal, window = kind != ENC_ATTN, _window(cfg, kind)
+    else:
+        k, v, causal = kv_override
+        q, window = _project_q(params, h, cfg), 0
+    o = flash_ops.flash_attention_bshd(q, k, v, causal=causal, window=window)
     return x + o.reshape(B, S, -1) @ params["wo"]
+
+
+def cross_kv(params, enc_out, cfg: ModelConfig):
+    """Cross-attention's k and v (B, T, K, hd) from the encoder's output
+    (B, T, D): no RoPE, k-norm where the config has qk-norm."""
+    B, T, _ = enc_out.shape
+    hd = cfg.resolved_head_dim
+    k = (enc_out @ params["wk"]).reshape(B, T, cfg.num_kv_heads, hd)
+    v = (enc_out @ params["wv"]).reshape(B, T, cfg.num_kv_heads, hd)
+    if cfg.qk_norm:
+        k = L.rmsnorm(params["k_norm"], k, cfg.norm_eps)
+    return k, v
 
 
 # ---------------------------------------------------------------------------
@@ -106,7 +131,7 @@ def init_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int, dtype,
 
 
 def attention_decode(params, x, cache: KVCache, index: int,
-                     cfg: ModelConfig, kind: str):
+                     cfg: ModelConfig, kind: str, kv_override=None):
     """x: (B, 1, D); index: a host int, the number of tokens already in
     the cache. Writes the new k and v into slot index % T of the cache
     (in place) and returns (y, cache).
@@ -117,20 +142,28 @@ def attention_decode(params, x, cache: KVCache, index: int,
     The G = H / K query heads of a kv head go to the kernel as G query
     rows of one head: q (B, 1, H, hd) is (B, K, G, hd) as it lies, so the
     call is (B, K, G, hd) against the (B, K, n, hd) prefix, with no copy
-    of q or o; the wrapper copies the prefix of k and v (strided in B)."""
-    _window(cfg, kind)
+    of q or o; the wrapper copies the prefix of k and v (strided in B).
+
+    `kv_override` (k, v), each (B, T, K, hd): cross-attention over all T
+    of them (the encoder's output, `cross_kv`), the query without RoPE;
+    nothing is written and `cache` comes back as it was given."""
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     H, K = cfg.num_heads, cfg.num_kv_heads
     h = L.rmsnorm(params["norm"], x, cfg.norm_eps)
-    pos = torch.full((1,), index, device=x.device)
-    q, k_new, v_new = _project_qkv(params, h, cfg, pos)
-    T = cache.k.shape[1]
-    slot = index % T
-    cache.k[:, slot] = k_new[:, 0]
-    cache.v[:, slot] = v_new[:, 0]
-    n = min(index + 1, T)
-    o = flash_ops.flash_attention(
-        q.reshape(B, K, H // K, hd), cache.k[:, :n].transpose(1, 2),
-        cache.v[:, :n].transpose(1, 2), causal=False)
+    if kv_override is None:
+        pos = torch.full((1,), index, device=x.device)
+        q, k_new, v_new = _project_qkv(params, h, cfg, pos)
+        T = cache.k.shape[1]
+        slot = index % T
+        cache.k[:, slot] = k_new[:, 0]
+        cache.v[:, slot] = v_new[:, 0]
+        n = min(index + 1, T)
+        k, v = cache.k[:, :n], cache.v[:, :n]
+    else:
+        q = _project_q(params, h, cfg)
+        k, v = kv_override
+    o = flash_ops.flash_attention(q.reshape(B, K, H // K, hd),
+                                  k.transpose(1, 2), v.transpose(1, 2),
+                                  causal=False)
     return x + o.reshape(B, 1, H * hd) @ params["wo"], cache

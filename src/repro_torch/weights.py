@@ -23,12 +23,15 @@ import torch
 from repro_torch.core.utility import (ForestArrays, MLPRegressor,
                                       RandomForestRegressor, _Node)
 from repro_torch.models.attention import KVCache
+from repro_torch.models.rglru import LRUState
 from repro_torch.models.ssm import SSMState
 from repro_torch.tree import tree_map
 
 _ZOO_KEYS = {"emb", "stages", "final_norm"}
+# an encoder-decoder's encoder, the vision frontend's projection
+_ZOO_OPTIONAL_KEYS = {"enc_stage", "enc_norm", "vis_proj"}
 # a reference cache node's fields -> the port's node
-_STATE_NODES = {KVCache._fields: KVCache, SSMState._fields: SSMState}
+_STATE_NODES = {node._fields: node for node in (KVCache, SSMState, LRUState)}
 
 
 def _host_copy(t):
@@ -87,23 +90,29 @@ def mlp_regressor_from_numpy(params, mu, sd, ymu, ysd) -> MLPRegressor:
     return reg
 
 
+def _check_zoo_keys(tree):
+    keys = set(tree)
+    if not (_ZOO_KEYS <= keys <= _ZOO_KEYS | _ZOO_OPTIONAL_KEYS) or \
+            not isinstance(tree["stages"], list):
+        raise ValueError(f"a zoo tree has the keys {sorted(_ZOO_KEYS)} "
+                         f"(\"stages\" a list) and may have "
+                         f"{sorted(_ZOO_OPTIONAL_KEYS)}; got {sorted(keys)}")
+
+
 def zoo_params_from_numpy(tree, device) -> dict:
     """A reference zoo tree (`repro.models.transformer.init_params`, its
     leaves as numpy arrays: {"emb", "stages": a list of stacked trees with
-    the leading repeat axis, "final_norm"}) -> the port's tree on
+    the leading repeat axis, "final_norm"}, and where the config has them
+    "enc_stage", "enc_norm" and "vis_proj") -> the port's tree on
     `device`: the same keys, list, shapes and dtypes."""
-    if set(tree) != _ZOO_KEYS or not isinstance(tree["stages"], list):
-        raise ValueError(f"a zoo tree has the keys {sorted(_ZOO_KEYS)}, "
-                         f"\"stages\" a list; got {sorted(tree)}")
+    _check_zoo_keys(tree)
     return params_from_numpy(tree, device)
 
 
 def zoo_params_to_numpy(params) -> dict:
     """The port's zoo tree -> numpy leaves in the reference's tree (the
     inverse of `zoo_params_from_numpy`)."""
-    if set(params) != _ZOO_KEYS:
-        raise ValueError(f"a zoo tree has the keys {sorted(_ZOO_KEYS)}; got "
-                         f"{sorted(params)}")
+    _check_zoo_keys(params)
     return params_to_numpy(params)
 
 
@@ -137,9 +146,10 @@ def _state_map(fn, node):
 
 
 def decode_state_from_numpy(state, device) -> dict:
-    """A reference decode state ({"caches": per stage {"pos<j>": KVCache
-    or SSMState}, "index"}, leaves as numpy arrays) -> the port's: its
-    KVCache and SSMState on `device`, `index` a host int."""
+    """A reference decode state ({"caches": per stage {"pos<j>": a
+    KVCache, SSMState, LRUState or a cross block's dict {"self":
+    KVCache, "cross_k", "cross_v"}}, "index"}, leaves as numpy arrays) ->
+    the port's: the same nodes on `device`, `index` a host int."""
     caches = _state_map(lambda a: torch.tensor(np.asarray(a), device=device),
                         state["caches"])
     return {"caches": caches, "index": int(np.asarray(state["index"]))}
@@ -147,7 +157,7 @@ def decode_state_from_numpy(state, device) -> dict:
 
 def decode_state_to_numpy(state) -> dict:
     """The port's decode state -> numpy leaves (caches as the port's
-    KVCache and SSMState of arrays), `index` an int32 scalar as the
-    reference keeps it."""
+    KVCache, SSMState, LRUState and dicts of arrays), `index` an int32
+    scalar as the reference keeps it."""
     caches = _state_map(_host_copy, state["caches"])
     return {"caches": caches, "index": np.int32(state["index"])}

@@ -75,11 +75,16 @@ def test_attention_and_stage_init_trees_match(qk_norm):
 
 
 def test_unported_blocks_raise():
-    _, tcfg = _cfgs()
+    """A kind the transformer stack does not have (densenet-fl's `cnn`)
+    raises, naming the model that has it; the recurrent and cross blocks
+    build the reference's trees."""
+    rcfg, tcfg = _cfgs()
     gen = torch.Generator()
+    with pytest.raises(NotImplementedError, match="models.densenet"):
+        TT.block_init(gen, tcfg, "cnn")
     for kind in ("recurrent", "cross"):
-        with pytest.raises(NotImplementedError, match="A.11 part 2"):
-            TT.block_init(gen, tcfg, kind)
+        rb = RT.block_init(jax.random.PRNGKey(2), rcfg, kind)
+        assert _port_paths(TT.block_init(gen, tcfg, kind)) == _ref_paths(rb)
 
 
 def test_dense_init_scale_and_dtype():

@@ -1,8 +1,8 @@
 """The port's model-zoo configs (`repro_torch.configs`) against
 `repro.configs`: the registry, every config and its `reduced()` field for
 field, the input shapes, and `init_params` trees path for path and shape
-for shape. Families outside the serving slice raise, naming ROADMAP A.11
-part 2."""
+for shape. densenet-fl's `cnn` kind, which is not a block of the
+transformer stack, raises there, naming its model's module."""
 
 import dataclasses
 
@@ -18,12 +18,13 @@ from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
 
 ARCHS = RB.list_configs()
-# the serving slice: dense and MoE attention stacks, global and local, and
-# Mamba-2; the others raise
+# the transformer stack's configs: dense and MoE attention stacks, global
+# and local, Mamba-2, RG-LRU (recurrentgemma), the encoder-decoder
+# (whisper) and the vision frontend (phi-3-vision); densenet-fl raises
 SERVED = ["gemma3-12b", "h2o-danube-1.8b", "mamba2-370m", "minitron-4b",
-          "mixtral-8x7b", "qwen3-8b", "qwen3-8b-swa", "qwen3-moe-30b-a3b"]
-UNPORTED = ["densenet-fl", "phi-3-vision-4.2b", "recurrentgemma-9b",
-            "whisper-base"]
+          "mixtral-8x7b", "phi-3-vision-4.2b", "qwen3-8b", "qwen3-8b-swa",
+          "qwen3-moe-30b-a3b", "recurrentgemma-9b", "whisper-base"]
+UNPORTED = ["densenet-fl"]
 
 
 def _fields(cfg):
@@ -113,7 +114,8 @@ def test_families_outside_the_slice_raise(arch):
                  lambda: TT.forward({}, {"tokens": None}, cfg),
                  lambda: TT.init_decode_state(None, cfg, 1, 8, torch.float32,
                                               device="cpu")):
-        with pytest.raises(NotImplementedError, match="A.11 part 2"):
+        with pytest.raises(NotImplementedError,
+                           match="repro_torch.models.densenet"):
             call()
 
 

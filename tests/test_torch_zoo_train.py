@@ -22,7 +22,6 @@ import torch
 from jax.sharding import AxisType
 
 from repro.configs.base import ShapeConfig as RShape
-from repro.configs.base import get_config as rget
 from repro.launch import steps as RS
 from repro.launch.train import synthetic_lm_batch as r_batch
 from repro.models import transformer as RT
@@ -36,9 +35,14 @@ from repro_torch.optim import adamw_init as t_adamw_init
 from repro_torch.tree import tree_leaves
 from repro_torch.weights import (adamw_state_to_numpy, zoo_params_from_numpy,
                                  zoo_params_to_numpy)
+from test_torch_zoo_families import cfgs
 
+# every transformer config, and recurrentgemma's hybrid of two recurrent
+# layers and a local one (`test_torch_zoo_families.CASES`)
 SERVED = ("qwen3-8b", "qwen3-8b-swa", "gemma3-12b", "h2o-danube-1.8b",
-          "minitron-4b", "mamba2-370m", "mixtral-8x7b", "qwen3-moe-30b-a3b")
+          "minitron-4b", "mamba2-370m", "mixtral-8x7b", "qwen3-moe-30b-a3b",
+          "recurrentgemma-9b", "recurrentgemma-9b/hybrid", "whisper-base",
+          "phi-3-vision-4.2b")
 # batch 4 in 2 microbatches of 2; 80 tokens: past the reduced window (64)
 # and over three SSD chunks of 32
 BATCH, SEQ, STEPS, LR = 4, 80, 2, 3e-4
@@ -72,7 +76,7 @@ def _ref_mesh():
 def _run(arch, num_micro):
     """Both packages' trajectories: per step (loss, grad_norm, params,
     opt state), as numpy."""
-    rc, tc = rget(arch).reduced(), tget(arch).reduced()
+    rc, tc = cfgs(arch)
     rshape = RShape("t", seq_len=SEQ, global_batch=BATCH, kind="train")
     tshape = TShape("t", seq_len=SEQ, global_batch=BATCH, kind="train")
     mesh = _ref_mesh()
@@ -137,7 +141,7 @@ def test_train_step_matches_the_reference(arch, num_micro):
 
 
 def _port_setup(arch, batch=BATCH, seq=SEQ):
-    tc = tget(arch).reduced()
+    _, tc = cfgs(arch)
     tp = TT.init_params(0, tc, device="cpu")
     shape = TShape("t", seq_len=seq, global_batch=batch, kind="train")
     return tc, tp, t_batch(tc, shape, 0, device="cpu")
@@ -165,9 +169,10 @@ def test_remat_changes_no_bit(arch, monkeypatch):
 
 @pytest.mark.parametrize("arch", SERVED)
 def test_every_leaf_gets_a_gradient(arch):
-    """Autograd reaches every leaf of every served block kind (global,
-    local, MoE, SSD) and both embedding layouts (tied, untied); the
-    microbatch sums are float32."""
+    """Autograd reaches every leaf of every block kind (global, local,
+    MoE, SSD, RG-LRU, the encoder's and cross-attention), the vision
+    projection and both embedding layouts (tied, untied); the microbatch
+    sums are float32."""
     tc, tp, batch = _port_setup(arch)
     loss, grads = TS.make_loss_and_grad(tc, num_micro=2)(tp, batch)
     assert loss.dtype == torch.float32 and torch.isfinite(loss)
