@@ -40,15 +40,17 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      query heads of a kv head as 4 rows; forward only, SDPA beside them)
      and its RMSNorm shapes (qwen3-8b's prefill and decode norms,
      mamba2-370m's); the families' prefill and decode calls and norms;
-     then one attention call of the path as the adapter makes it,
-     traced: the two short kernels and no copy;
+     the FL round's norms (`RMS_LAUNCH_SHAPES`); then one attention call
+     of the path as the adapter makes it, traced: the two short kernels
+     and no copy;
   4. the quickstart path: the FedBuff federation of examples/quickstart.py
      (MLP payload) through `Federation.from_experiment(exp).run()` on the
      card, launch counts read around it (one aggregation launch per
      aggregation), then the same experiment on the CPU as the check;
   5. the transformer path: the same FedBuff world with the transformer
      payload (RMSNorm and attention in the kernels, forward and backward)
-     on the card, launch counts read around it, then on the CPU, and one
+     over its first 96 of 288 windows (`TRANSFORMER_WINDOWS`) on the
+     card, launch counts read around it, then on the CPU, and one
      batched client update of 20 satellites held leaf by leaf against the
      CPU's from the same parameters and batches, beside the spread of the
      CPU's and of the card's own update under a 1e-7 nudge; every
@@ -74,15 +76,16 @@ Phases, each of which fails the script (nonzero exit) when it fails:
   7. the DenseNet path (`densenet` lines), Part A of
      examples/satellite_fl_train.py (48 satellites, 2 days, the DenseNet
      adapter's widths with the first block frozen): (a) under FedBuff
-     (M 8) on the card, launch counts read around it (one aggregation
-     launch per aggregation), then over its first half day (48 of 144
-     windows) on the card and on the CPU from the same initial
-     model: counters equal, the frozen leaves bit for bit the initial
-     model on both devices, the final models and accuracies as near as
-     a one-rounding nudge of the initial model moves the card's own; (b)
-     Part A as a user runs it, FedSpace with phase 1 on the card (its
-     seconds by part, R^2), the run (wall, counters, launches), then on
-     the CPU with the forest carried across: counters and every re-plan's
+     (M 8) over its first quarter day (24 of 144 windows) on the card,
+     launch counts read around it (one
+     aggregation launch per aggregation), and on the CPU from the same
+     initial model: counters equal, the frozen leaves bit for bit the
+     initial model on both devices, the final models and accuracies as
+     near as a one-rounding nudge of the initial model moves the card's
+     own; (b) Part A as a user runs it, FedSpace with phase 1 on the card
+     (its seconds by part, R^2), the run over its first 48 windows (wall,
+     counters, launches), then on the CPU with the
+     forest carried across: counters and every re-plan's
      schedule equal, or parted only on a forest split on the status T,
      both values printed (ROADMAP C13); (c) one client update at M 8 and
      M 20 held leaf by leaf against the CPU's and repeated bit for bit on
@@ -90,7 +93,8 @@ Phases, each of which fails the script (nonzero exit) when it fails:
   8. the scenarios (`scenarios` lines), link budgets and inter-satellite
      links through the repo's examples: (a) every policy of
      examples/scheduler_comparison.py (starlink40, 384 windows, its
-     ISLConfig; the chaos-held async and isl_async over the first 96) on
+     ISLConfig; the chaos-held async and isl_async over the first 48,
+     fedbuff and periodic over the first 192) on
      the card and on the CPU, FedSpace with phase 1 on the
      card (its seconds) and the forest carried to the CPU; (b) the
      binding cell of examples/isl_comparison.py (starlink40 over sparse1
@@ -195,7 +199,31 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      reference runs it (`launch.train.train`, mamba2-370m's full config, 24
      steps at B 4 x S 64): its loss must fall, its RMSNorm calls at held
      shapes;
-  16. one JSON line listing every ported kernel.
+  16. the launch phase (`launch` lines), the launch tools
+     (`repro_torch.launch.steps`' agg steps and FL round, `launch.
+     dryrun`): (a) the agg step and the bf16-product agg step for every
+     served arch's reduced config (the train phase's list) and the FL
+     round for reduced qwen3-8b and mamba2-370m (M 3, 2 local SGD steps,
+     B 2 x S 32), float32, card against CPU from the same params, one
+     aggregation launch a step or round; (b) the agg step at full width
+     in bf16, params and updates random from a seed as views of one
+     buffer each (`flat_tree`): whisper-base's agg_m96 (M 96) and
+     qwen3-8b at M 2 (N 8,190,735,360, past 2^31), one launch a step,
+     the output against the plain version over column windows (the first
+     element, around 2^30, 2^31 and 2^32, the last), the peak memory
+     within `PEAK_SLACK` of params + updates + output, the kernel, its
+     plain version and `addmv` timed (`launch (b)`); (c) the FL round of
+     mamba2-370m's flround_m16 with no cut (M 16, 4 local SGD steps, B 8
+     x S 512, bf16): its wall, the clients' and the aggregation's
+     shares, the launches a round counted from the code, the peak memory
+     (no copy of the float32 update stack), its RMSNorm calls at held
+     shapes (`RMS_LAUNCH_SHAPES`) and the aggregation's output against
+     the plain version on the same rows; (d) the record of `python -m
+     repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k`, run in
+     a fresh process with no card visible beside the build and waited for
+     before the kernel checks, so that it loads no timed phase: it must
+     say ok; its terms printed;
+  17. one JSON line listing every ported kernel.
 The last line is `{"ok": true,
 "device": {...}}`. Without a CUDA device, or away from the repository's
 sources, it exits nonzero and prints no result. Imports nothing of JAX or
@@ -212,14 +240,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM data-sheet peaks (dense): HBM rate, float32 outside the tensor
-# cores, and bf16 on the tensor cores. The aggregation and RMSNorm do
-# their arithmetic on the CUDA cores in float32; attention's operations
-# are bounded by the tensor cores' bf16 rate, the least time the card
-# could take for them, though its CUDA-core route runs in float32.
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-BF16_TC_FLOP_PER_S = 989e12
+# The bounds' rates and formulas (H100 SXM data sheet: HBM, float32 on the
+# CUDA cores, bf16 on the tensor cores) are the package's, which the dry
+# run's op counter reads too: `repro_torch/kernels/cost.py`.
+from repro_torch.kernels import cost  # noqa: E402
+
 # The flat models one aggregation launch covers (`FlatLayout`: leaves on
 # 16 bytes): the quickstart MLP, F=32 -> 48 -> 62 (4,622 parameters, no
 # gaps), and the transformer payload (20,766 parameters in 20,768).
@@ -257,22 +282,6 @@ def _time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def _bound(moved_bytes, ops, flop_per_s):
-    """(least ms, what bounds it): the larger of the bytes over the HBM
-    rate and the operations over `flop_per_s`."""
-    t_bytes = moved_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / flop_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def _agg_bound(m: int, n: int, upd_bytes: int, par_bytes: int = 4):
-    """Least time for one aggregation: every input (M rows of updates,
-    params, M weights and M row indices) read once, the output written
-    once, against 2*M*N float32 operations."""
-    return _bound((m * upd_bytes + 2 * par_bytes) * n + 8 * m, 2 * m * n,
-                  FP32_FLOP_PER_S)
 
 
 def _agg_inputs(torch, g, m, n, udt):
@@ -337,7 +346,8 @@ def check_aggregation(torch):
             # none takes bfloat16 updates into float32 params
             lib_ms = _time_ms(lambda: torch.addmv(p, upd.t(), w_rows),
                               iters) if udt == torch.float32 else None
-            bound, by = _agg_bound(m, n, upd.element_size())
+            bound, by = cost.bound(*cost.agg(m, n, upd.element_size()),
+                                   cost.FP32_FLOP_PER_S)
             design = K.design_for(n, upd.stride(0) * upd.element_size())
             row = {"m": m, "n": n, "updates": str(udt).split(".")[-1],
                    "max_abs_err": err, "tol": AGG_TOL, "design": design,
@@ -361,7 +371,9 @@ def check_aggregation(torch):
             print("agg cutoff", json.dumps({
                 "m": m, "n": n, "updates": "float32",
                 "register_ms": ms["register"], "ring_ms": ms["ring"],
-                "bound_ms": _agg_bound(m, n, 4)[0]}), flush=True)
+                "bound_ms": cost.bound(*cost.agg(m, n, 4),
+                                       cost.FP32_FLOP_PER_S)[0]}),
+                  flush=True)
             del upd, rows, p, w
     for udt in (torch.float32, torch.bfloat16):
         # the first version's layout: rows N apart, N % 4 = 2, so the
@@ -377,7 +389,8 @@ def check_aggregation(torch):
         del upd, p, w
         torch.cuda.empty_cache()
         upd, rows, p, w, _ = _agg_inputs(torch, g, PAPER_M, PAPER_N, udt)
-        bound = _agg_bound(PAPER_M, PAPER_N, upd.element_size())[0]
+        bound = cost.bound(*cost.agg(PAPER_M, PAPER_N, upd.element_size()),
+                           cost.FP32_FLOP_PER_S)[0]
         for tile in AGG_TILES:
             for stages in AGG_STAGES:
                 if not K.ring_fits(stages, tile):
@@ -489,6 +502,12 @@ RMS_FAMILY_SHAPES = [((1, 4096, 4096), "bfloat16", 0),
                      ((1, 3584, 512), "bfloat16", 0),
                      ((1, 8, 512), "bfloat16", 0)]
 RMS_SHAPES += RMS_FAMILY_SHAPES
+# The launch phase's FL round: mamba2-370m at B 8 x S 512 in bf16, its
+# block and final norms over 1024 and its out_norm over 2048. `RmsCalls`
+# holds its (c) to them.
+RMS_LAUNCH_SHAPES = [((1, 4096, 1024), "bfloat16", 0),
+                     ((1, 4096, 2048), "bfloat16", 0)]
+RMS_SHAPES += RMS_LAUNCH_SHAPES
 RMS_EPS = 1e-6
 
 
@@ -690,10 +709,10 @@ def check_rmsnorm(torch):
         iters = 20 if big else 200
         n, b = x.numel(), x.element_size()
         sb = scale.numel() * scale.element_size()
-        fwd_bound = _bound(2 * n * b + sb + 4 * G * R, 4 * n,
-                           FP32_FLOP_PER_S)
-        bwd_bound = _bound(3 * n * b + 2 * sb + 4 * G * R, 10 * n,
-                           FP32_FLOP_PER_S)
+        fwd_bound = cost.bound(*cost.rmsnorm_fwd(n, b, sb, G * R),
+                               cost.FP32_FLOP_PER_S)
+        bwd_bound = cost.bound(*cost.rmsnorm_bwd(n, b, sb, G * R),
+                               cost.FP32_FLOP_PER_S)
         vec = K.vector_width(D, b, x.data_ptr(), scale.data_ptr())
         shared = G == 1    # one PyTorch call takes one (D,) scale only
         for direction, err, tol, bound, kern, plain, lib, loads in (
@@ -805,16 +824,6 @@ TC_BWD_KERNELS = ("flash_bwd_tc_delta_kernel", "flash_bwd_tc_dkdv_kernel",
                   "flash_bwd_tc_dq_kernel")   # in the backward's
 SHORT_KERNELS = {"fwd": "flash_fwd_short_kernel",   # in the short-sequence
                  "bwd": "flash_bwd_short_kernel"}   # kernels' names
-
-
-def _visible_pairs(sq, sk, causal, window):
-    """(query, key) pairs the mask keeps: the work this run's inputs need."""
-    total = 0
-    for i in range(sq):
-        hi = min(sk - 1, i) if causal else sk - 1
-        lo = max(0, i - window + 1) if window > 0 else 0
-        total += max(0, hi - lo + 1)
-    return total
 
 
 def _cuda_core_fwd(K, q, k, v, causal, window):
@@ -948,15 +957,10 @@ def check_flash(torch):
         big = sq * sk * B * H >= 1 << 24
         iters = 10 if big else 50 if shape in (
             FLASH_SHORT_SWEEP + FLASH_SHORT_WIDE) else 100
-        b = q.element_size()
-        qo = q.numel() * b                 # bytes of q (and of o, do, dq)
-        kv = k.numel() * b                 # bytes of k (and of v, dk, dv)
-        lse_b = 4 * B * H * sq
-        fwd_ops = 4 * hd * B * H * _visible_pairs(sq, sk, causal, window)
-        fwd_bound = _bound(2 * qo + 2 * kv + lse_b, fwd_ops,
-                           BF16_TC_FLOP_PER_S)
-        bwd_bound = _bound(4 * qo + 4 * kv + lse_b, 2.5 * fwd_ops,
-                           BF16_TC_FLOP_PER_S)
+        work = (B, H, KH, sq, sk, hd, q.element_size(), causal, window)
+        fwd_bound = cost.bound(*cost.flash(*work), cost.BF16_TC_FLOP_PER_S)
+        bwd_bound = cost.bound(*cost.flash(*work, backward=True),
+                               cost.BF16_TC_FLOP_PER_S)
         # one PyTorch call computing the same function (no row here is
         # fully masked, where SDPA and the kernel differ)
         mask = _mask(sq, sk, causal, window, q.device) if window else None
@@ -1112,9 +1116,9 @@ def check_flash_decode(torch):
         err, tol = _compare(tag, (o,), (o_ref,), dt)
         err = max(err, _compare(tag + " lse", (lse,), (lse_ref,),
                                 torch.float32)[0])
-        b = q.element_size()
-        bound = _bound(2 * q.numel() * b + 2 * k.numel() * b + 4 * B * H * sq,
-                       4 * hd * B * H * sq * sk, BF16_TC_FLOP_PER_S)
+        bound = cost.bound(*cost.flash(B, H, KH, sq, sk, hd,
+                                       q.element_size(), False, 0),
+                           cost.BF16_TC_FLOP_PER_S)
         row = {"kernel": "flash_attention", "B": B, "H": H, "K": KH,
                "Sq": sq, "Sk": sk, "hd": hd, "causal": causal,
                "window": window, "dtype": dts,
@@ -1239,13 +1243,18 @@ def transformer_experiment():
                            max_windows=288, stop_at_target=False))
 
 
-# The reference's counters for `transformer_experiment` (FedBuff decides
-# on buffer counts alone, so they are the MLP world's): a CPU run of the
-# JAX package's Federation on the same experiment.
-TRANSFORMER_REFERENCE = {"num_global_updates": 36,
-                         "num_aggregated_gradients": 755,
-                         "idle_connections": 89, "total_connections": 1300,
-                         "windows_run": 288}
+# The path's card and CPU runs cover the first TRANSFORMER_WINDOWS of the
+# experiment's 288 windows (the whole horizon's CPU run took 69-78 s).
+TRANSFORMER_WINDOWS = 96
+# The reference's counters for `transformer_experiment` over its first
+# TRANSFORMER_WINDOWS windows (FedBuff decides on buffer counts alone, so
+# they are the MLP world's): a CPU run of the JAX package's Federation on
+# the same experiment with `max_windows` 96 (over all 288 windows: 36,
+# 755, 89, 1300).
+TRANSFORMER_REFERENCE = {"num_global_updates": 11,
+                         "num_aggregated_gradients": 228,
+                         "idle_connections": 33, "total_connections": 421,
+                         "windows_run": TRANSFORMER_WINDOWS}
 # Tolerances of the card against the CPU on the transformer path, float32.
 # One SGD step is the gradient itself: the same sums in other orders.
 STEP_TOL = 1e-4
@@ -1260,8 +1269,9 @@ FIRST_LOSS_TOL = 1e-3
 
 
 def run_transformer_path(torch):
-    """Phase 5, the transformer path. Returns the launch counts of the
-    card's run."""
+    """Phase 5, the transformer path, over the experiment's first
+    TRANSFORMER_WINDOWS windows on the card and on the CPU. Returns the
+    launch counts of the card's run."""
     import math
     from repro_torch.fl.api import Federation
     from repro_torch.kernels import launch_counts
@@ -1269,7 +1279,7 @@ def run_transformer_path(torch):
     launch_counts.clear()
     t0 = time.perf_counter()
     fed = Federation.from_experiment(exp)
-    res = fed.run()
+    res = _first_windows(fed, TRANSFORMER_WINDOWS).run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(launch_counts)
@@ -1306,7 +1316,7 @@ def run_transformer_path(torch):
 
     t0 = time.perf_counter()
     cpu_fed = Federation.from_experiment(exp, device="cpu")
-    cpu = cpu_fed.run()
+    cpu = _first_windows(cpu_fed, TRANSFORMER_WINDOWS).run()
     print("transformer path (cpu): ", json.dumps(cpu.summary()),
           f"wall {time.perf_counter() - t0:.3f} s", flush=True)
     _same_counters(res, cpu)
@@ -1316,7 +1326,7 @@ def run_transformer_path(torch):
           flush=True)
     if first > FIRST_LOSS_TOL * abs(cpu.val_loss[0]):
         raise AssertionError("first val_loss differs beyond tolerance")
-    # 576 SGD steps at lr 1.0 carry the float32 rounding differences of
+    # 176 SGD steps at lr 1.0 carry the float32 rounding differences of
     # the kernels' and cuBLAS's summation orders forward; an accuracy on
     # 1000 validation samples may move by a few argmax flips
     _close_accuracy(res, cpu, 0.02)
@@ -1916,9 +1926,11 @@ CHAOS_FACTOR = 3.0
 # each device's own update moves when its parameters move by one rounding.
 DENSENET_STEP_TOL = 5e-3
 DENSENET_UPDATE_TOL = 2e-2
-# (a)'s card against CPU runs over the first half day (48 of 144
-# windows); the card's full run keeps its wall and launches
-DENSENET_SHORT = 48
+# (a) runs over the first quarter day (24 of 144 windows: one evaluation),
+# card against CPU; (b) over the first 48 (2 re-plans of the whole run's
+# 6); both cut to keep the script inside its time limit
+DENSENET_SHORT = 24
+DENSENET_FEDSPACE_WINDOWS = 48
 
 
 def densenet_experiment(scheduler):
@@ -1990,16 +2002,16 @@ def _drift(got, want, start) -> float:
 def run_densenet_path(torch):
     """Phase 7, the DenseNet path (Part A of
     examples/satellite_fl_train.py). (a) Part A's world under FedBuff
-    (M 8) on the card, launch counts read around it, its frozen leaves
-    bit for bit the initial model; then over the first DENSENET_SHORT
-    windows on the card, again from the initial model nudged by one
+    (M 8) over its first DENSENET_SHORT windows on the card, launch
+    counts read around it, again from the initial model nudged by one
     rounding, and on the CPU from the same initial model: counters and
     staleness histogram equal, the frozen leaves bit for bit the initial
     model on both devices, the card's
     final model and accuracies as near the CPU's as `CHAOS_FACTOR` times
     the nudge moves them on the card; (b) Part A as a user runs
     it, FedSpace with phase 1 on the card (its seconds by part, R^2), the
-    run (wall, counters, launches), then on the CPU with the same forest
+    run over its first DENSENET_FEDSPACE_WINDOWS windows (wall, counters,
+    launches), then on the CPU with the same forest
     carried across: counters and every re-plan's schedule equal, or parted
     only on a forest split on T (ROADMAP C13); (c) one client update at M
     8 and M 20, card against CPU and twice on the card, then traced.
@@ -2018,9 +2030,12 @@ def run_densenet_path(torch):
     fed = Federation.from_experiment(exp)
     p0 = params_to_numpy(fed.adapter.init(torch.Generator().manual_seed(
         exp.seed)))
+    # the first DENSENET_SHORT windows, card against CPU (over the whole
+    # horizon the CPU's run took 95-150 s, the card's 41-83 s)
+    short = _first_windows(fed, DENSENET_SHORT)
     launch_counts.clear()
     t0 = time.perf_counter()
-    eng = fed.engine(init_params=p0)
+    eng = short.engine(init_params=p0)
     res = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2035,15 +2050,6 @@ def run_densenet_path(torch):
     start = tree_leaves(p0)
     frozen = [i for i, m in enumerate(tree_leaves(
         fed.adapter.trainable_mask(p0))) if m == 0.0]
-    full_final = tree_leaves(params_to_numpy(eng.params))
-    if not frozen or not all(np.array_equal(full_final[i], start[i])
-                             for i in frozen):
-        raise AssertionError("a frozen leaf moved on the card")
-    # card against CPU over the first DENSENET_SHORT windows (the CPU's
-    # whole run took 95-150 s)
-    short = _first_windows(fed, DENSENET_SHORT)
-    eng = short.engine(init_params=p0)
-    res = eng.run()
     r = np.random.default_rng(0)
     nudged = tree_map(lambda a: (a * (1 + 1e-7 * r.standard_normal(
         a.shape))).astype(a.dtype), p0)
@@ -2102,7 +2108,8 @@ def run_densenet_path(torch):
     launch_counts.clear()
     t0 = time.perf_counter()
     with Replans() as card:
-        res = fs.run(init_params=p0)
+        res = _first_windows(fs, DENSENET_FEDSPACE_WINDOWS).run(
+            init_params=p0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts["densenet fedspace"] = dict(launch_counts)
@@ -2122,8 +2129,9 @@ def run_densenet_path(torch):
         kind="fedspace", params={**DENSENET_FEDSPACE, "regressor": carried}))
     t0 = time.perf_counter()
     with Replans() as cpu_log:
-        cpu = Federation.from_experiment(cpu_exp, device="cpu").run(
-            init_params=p0)
+        cpu = _first_windows(Federation.from_experiment(
+            cpu_exp, device="cpu"), DENSENET_FEDSPACE_WINDOWS).run(
+                init_params=p0)
     print("densenet fedspace (cpu): ", json.dumps(cpu.summary()),
           f"wall {time.perf_counter() - t0:.3f} s", flush=True)
     both = list(zip(card.log, cpu_log.log))
@@ -2167,9 +2175,11 @@ SCENARIO_SETUP = {"pretrain_rounds": 30, "clients_per_round": 16,
 ISL_CELL_POLICIES = (("fedbuff", {"M": 12}), ("intra_plane", {}),
                      ("isl_async", {}))
 # (a)'s chaos-held policies (an aggregation nearly every window, each run
-# also held against a nudged card run) run the world's first simulated day,
-# which keeps the whole script well inside its time limit.
-SCENARIO_SHORT = {"async": 96, "isl_async": 96}
+# also held against a nudged card run) run the world's first half day (two
+# evaluations), fedbuff and periodic its first two of four days, which
+# keeps the whole script inside its time limit.
+SCENARIO_SHORT = {"async": 48, "isl_async": 48, "fedbuff": 192,
+                  "periodic": 192}
 # Accuracy card against CPU, at every evaluation: within 0.01 (as the
 # quickstart path); where a run is chaotic (one update an aggregation at lr
 # 1.0 carries a rounding difference on and grows it: ROADMAP C16) and the
@@ -2827,7 +2837,7 @@ def run_compression_path(torch):
               flush=True)
     g = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randn((MAIN_PATH_M, PAPER_N), generator=g, device="cuda")
-    bound = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    bound = 2 * x.numel() * 4 / cost.HBM_BYTES_PER_S * 1e3
     for label, fn in (
             (f"top-k {COMPRESSION_TOPK}",
              lambda: TC.roundtrip_rows(x, COMPRESSION_TOPK)),
@@ -4279,7 +4289,7 @@ def _train_qwen(torch, counts):
         "bit_for_bit_from_one_state": same, "first_step_ms": first_ms,
         "ms_per_step": step_s * 1e3, "ms_steps": [w * 1e3 for w in walls],
         "tokens_per_s": tokens / step_s, "model_flops_per_step": flops,
-        "mfu": flops / step_s / BF16_TC_FLOP_PER_S,
+        "mfu": flops / step_s / cost.BF16_TC_FLOP_PER_S,
         "max_memory_allocated_gb": peak / 1e9, "loss": losses,
         "launches": launches, "launches_want": want,
         "rmsnorm_calls": sorted(norms.seen), "traced": trace}),
@@ -4334,6 +4344,408 @@ def run_train_path(torch, t_start):
         "script_s": time.perf_counter() - t_start,
         "launches": dict(counts)}), flush=True)
     return {"train": dict(counts)}
+
+
+# The launch phase: `repro_torch.launch.steps`' eq.-4 agg step, its
+# bf16-product form and the FL round, and a dry run (`launch.dryrun`).
+# (a) float32, card against CPU from the same params, M by arch in turn;
+# the FL round at M 3, 2 local SGD steps, B 2 x S 32. Tolerances of the
+# CPU tests for the port against the reference (tests/
+# test_torch_launch_tools.py): the agg step AGG_TOL (the same products in
+# another order); the bf16 product one bf16 ulp (2^-7) of the weighted
+# sum; the FL round 1e-4 of the largest entry of the aggregated update
+# beside two float32 roundings of a param (2^-22 of it).
+LAUNCH_M = (4, 5, 6)
+LAUNCH_ROUND_ARCHS = ("qwen3-8b", "mamba2-370m")
+LAUNCH_ROUND = (3, 2, 2, 32)           # M, local steps, batch, sequence
+LAUNCH_ROUND_SCALE_TOL = 1e-4
+LAUNCH_ROUND_RTOL = 2 ** -22
+# (b), (c): the kernel's bf16 output against its plain version's: float32
+# sums in another order round to bf16 at most one ulp apart, 2^-7 of a
+# value (stated before the first run)
+AGG_BF16_RTOL = 2 ** -7
+AGG_WINDOW = 1 << 20                   # columns a window held (b)
+AGG_CHUNK = 1 << 30                    # columns a chunk where the whole
+                                       # does not fit (the plain version's
+                                       # float32 copy, `addmv`'s output)
+LAUNCH_AGG = (("whisper-base", 96, False), ("qwen3-8b", 2, True))
+PEAK_SLACK = 1 << 30                   # bytes over params + updates + out
+ROUND_ARCH, ROUND_SHAPE = "mamba2-370m", "flround_m16"
+DRYRUN_ARGS = ("--arch", "qwen3-8b", "--shape", "train_4k")
+
+
+def start_dryrun():
+    """(d)'s dry run, started in a fresh process with no card visible: it
+    runs on the host's CPU beside the build, and `_finish_dryrun` waits
+    for it before the first timed phase."""
+    import os
+    out = ROOT / "build" / "dryrun_torch.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.unlink(missing_ok=True)
+    log = open(ROOT / "build" / "dryrun_torch.log", "w")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch."
+                             "dryrun", *DRYRUN_ARGS, "--out", str(out)],
+                            cwd=ROOT, env=env, stdout=log,
+                            stderr=subprocess.STDOUT)
+    proc.out, proc.log, proc.t0 = out, log, time.perf_counter()
+    return proc
+
+
+def _flat_on_card(torch, tree, like=None, lead=()):
+    """`tree` on the card as views of one buffer a dtype (`flat_tree`),
+    laid out as `like`'s rows where it is an (M, ...) update stack."""
+    from repro_torch.kernels.agg.ops import flat_tree
+    from repro_torch.tree import tree_map
+    card = flat_tree(tree if like is None else like, lead=lead,
+                     device="cuda")
+    tree_map(lambda d, s: d.copy_(s), card, tree)
+    return card
+
+
+def _launch_reduced(torch, counts):
+    """(a) The agg step and the bf16-product agg step for every served
+    arch's reduced config (the train phase's list), and the FL round for
+    reduced qwen3-8b and mamba2-370m, float32, on the card and on the CPU
+    from the same params, updates, batches and staleness."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves, tree_map
+    g = torch.Generator().manual_seed(0)
+    errs = {}
+    for i, arch in enumerate(TRAIN_REDUCED):
+        cfg = _zoo_cfg(arch)
+        m = LAUNCH_M[i % len(LAUNCH_M)]
+        cpu = T.init_params(0, cfg, device="cpu")
+        upd = tree_map(lambda p: 0.01 * torch.randn((m,) + p.shape,
+                                                    generator=g), cpu)
+        stal = torch.randint(0, 9, (m,), generator=g, dtype=torch.int32)
+        card = _flat_on_card(torch, cpu)
+        card_u = _flat_on_card(torch, upd, cpu, (m,))
+        for name, step, launches in (("agg", ST.make_agg_step(cfg), 1),
+                                     ("agg_opt", ST.make_agg_step_opt(cfg),
+                                      0)):
+            want = step(cpu, upd, stal)
+            launch_counts.clear()
+            got = step(card, card_u, stal.cuda())
+            torch.cuda.synchronize()
+            counts.update(launch_counts)
+            if launch_counts["weighted_aggregate"] != launches:
+                raise AssertionError(f"launch (a) {arch} {name}: "
+                                     f"{dict(launch_counts)}")
+            err = 0.0
+            for a, b, u in zip(tree_leaves(got), tree_leaves(want),
+                               tree_leaves(upd)):
+                a = a.cpu()
+                if name == "agg":
+                    rtol, atol = AGG_TOL, AGG_TOL
+                else:
+                    rtol, atol = 2 ** -7, 2 ** -7 * u.abs().sum(0).max()
+                err = max(err, (a - b).abs().max().item())
+                if not torch.allclose(a, b, rtol=rtol, atol=float(atol)):
+                    raise AssertionError(f"launch (a) {arch} {name}: card "
+                                         f"against CPU {err}")
+            errs[f"{arch} {name} M {m}"] = err
+    M, steps, B, S = LAUNCH_ROUND
+    for arch in LAUNCH_ROUND_ARCHS:
+        cfg = _zoo_cfg(arch)
+        cpu = T.init_params(0, cfg, device="cpu")
+        toks = torch.randint(0, cfg.vocab_size, (M, steps, B, S + 1),
+                             generator=g)
+        batches = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+        stal = torch.randint(0, 9, (M,), generator=g, dtype=torch.int32)
+        step = ST.make_fl_round_step(cfg, local_steps=steps)
+        want = step(cpu, batches, stal)
+        launch_counts.clear()
+        got = step(_flat_on_card(torch, cpu),
+                   {k: v.cuda() for k, v in batches.items()}, stal.cuda())
+        torch.cuda.synchronize()
+        counts.update(launch_counts)
+        if launch_counts["weighted_aggregate"] != 1 or not launch_counts[
+                "rmsnorm_bwd"]:
+            raise AssertionError(f"launch (a) {arch} round: "
+                                 f"{dict(launch_counts)}")
+        err = 0.0
+        for a, b, p in zip(tree_leaves(got), tree_leaves(want),
+                           tree_leaves(cpu)):
+            a = a.cpu()
+            atol = LAUNCH_ROUND_SCALE_TOL * (b - p).abs().max().item()
+            err = max(err, (a - b).abs().max().item())
+            if not torch.allclose(a, b, rtol=LAUNCH_ROUND_RTOL, atol=atol):
+                raise AssertionError(f"launch (a) {arch} round: card "
+                                     f"against CPU {err}")
+        errs[f"{arch} round M {M}"] = err
+    print("launch (a)", json.dumps({
+        "archs": list(TRAIN_REDUCED), "round": dict(zip(
+            ("m", "local_steps", "batch", "seq"), LAUNCH_ROUND)),
+        "max_abs_err": errs}), flush=True)
+
+
+def _agg_yardsticks(torch, p, u, w, chunked, library):
+    """The plain version's ms and one PyTorch call's (`addmv` in bf16, the
+    weights rounded to bf16; None without `library`, and where the rows
+    lie 2^31 or more elements apart, which cuBLAS's leading dimension
+    cannot hold) on the same inputs, whole or, where the whole does not
+    fit, over column chunks of `AGG_CHUNK` timed together."""
+    from repro_torch.kernels.agg.ref import weighted_aggregate_ref
+    n = p.shape[0]
+    cuts = [slice(a, a + AGG_CHUNK) for a in range(0, n, AGG_CHUNK)] \
+        if chunked else [slice(0, n)]
+    w16 = w.to(p.dtype)
+
+    def plain():
+        for c in cuts:
+            weighted_aggregate_ref(p[c], u[:, c], w)
+
+    def addmv():
+        for c in cuts:
+            torch.addmv(p[c], u[:, c].t(), w16)
+    library = library and u.stride(0) < 2 ** 31 - 1
+    return (_time_ms(plain, 2), _time_ms(addmv, 5) if library else None)
+
+
+def _launch_agg_full(torch, arch, m, chunked, counts):
+    """(b) The agg step at full width in bf16, random from a seed: params
+    and M updates as views of one buffer each (`flat_tree`; no copy of
+    either would fit beside them at qwen3-8b), one launch a step, its
+    output against the plain version over column windows (the first
+    element, the middle, the last, and around 2^30, 2^31 and 2^32), the
+    peak memory within `PEAK_SLACK` of params + updates + output, then
+    the step, the kernel, its plain version and `addmv` timed."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.aggregation import aggregation_weights
+    from repro_torch.kernels import cost, launch_counts
+    from repro_torch.kernels.agg import kernel as K
+    from repro_torch.kernels.agg.ops import FlatLayout, flat_tree
+    from repro_torch.kernels.agg.ref import weighted_aggregate_ref
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    params = flat_tree(T.init_params(0, cfg, device="meta"), device="cuda")
+    upd = flat_tree(params, lead=(m,))
+    for t in tree_leaves(params):
+        t.normal_(0, 0.02, generator=g)
+    for t in tree_leaves(upd):
+        t.normal_(0, 0.01, generator=g)
+    stal = torch.randint(0, 9, (m,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    leaves = tree_leaves(params)
+    layout = FlatLayout.of(leaves)
+    p_flat = layout.buffer_of(leaves)
+    u_flat = layout.buffer_of(tree_leaves(upd), lead=1)
+    n = layout.size
+    step = ST.make_agg_step(cfg)
+    launch_counts.clear()
+    t0 = time.perf_counter()
+    new = step(params, upd, stal)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    got = dict(launch_counts)
+    counts.update(launch_counts)
+    if got != {"weighted_aggregate": 1} or p_flat is None or u_flat is None:
+        raise AssertionError(f"launch (b) {arch}: launches {got}, params "
+                             f"and updates in place: {p_flat is not None}, "
+                             f"{u_flat is not None}")
+    out = layout.buffer_of(tree_leaves(new))
+    w = aggregation_weights(stal)
+    half = AGG_WINDOW // 2
+    starts = sorted({0, n // 2 - half, n - AGG_WINDOW} | {
+        c - half for c in (1 << 30, 1 << 31, 1 << 32) if c + half <= n})
+    err = 0.0
+    for a in starts:
+        win = slice(a, a + AGG_WINDOW)
+        want = weighted_aggregate_ref(p_flat[win], u_flat[:, win], w).float()
+        have = out[win].float()
+        err = max(err, (have - want).abs().max().item())
+        if not torch.allclose(have, want, rtol=AGG_BF16_RTOL, atol=1e-6):
+            raise AssertionError(f"launch (b) {arch}: the kernel against "
+                                 f"its plain version at columns {a}: {err}")
+    peak = torch.cuda.max_memory_allocated() - base
+    resident = (m + 2) * n * p_flat.element_size()
+    if peak > resident + PEAK_SLACK:
+        raise AssertionError(f"launch (b) {arch}: peak {peak} bytes over "
+                             f"params + updates + output {resident}")
+    del new, out
+    iters = 5
+    step_ms = _time_ms(lambda: step(params, upd, stal), iters)
+    kernel_ms = _time_ms(lambda: K.weighted_aggregate(p_flat, u_flat, w),
+                         iters)
+    plain_ms, lib_ms = _agg_yardsticks(torch, p_flat, u_flat, w, chunked,
+                                       True)
+    bound, by = cost.bound(*cost.agg(m, n, 2, 2), cost.FP32_FLOP_PER_S)
+    row = {"arch": arch, "m": m, "n": n, "params_total": sum(
+        t.numel() for t in leaves), "params": "bfloat16",
+        "updates": "bfloat16", "design": K.design_for(n, u_flat.stride(0)
+                                                      * 2),
+        "launches_per_step": 1, "windows": starts, "max_abs_err": err,
+        "tol_rel": AGG_BF16_RTOL, "first_step_ms": first_ms,
+        "step_ms": step_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+        "plain_chunked": chunked, "library_ms": lib_ms,
+        "library": "torch.addmv in bf16" if lib_ms is not None else
+        "none: cuBLAS takes no row stride of 2^31 elements or more",
+        "bound_ms": bound,
+        "bound_by": by, "bound_share": bound / kernel_ms,
+        "peak_bytes": peak, "resident_bytes": resident}
+    print("launch (b)", json.dumps(row), flush=True)
+    del params, upd, p_flat, u_flat, leaves
+    torch.cuda.empty_cache()
+    return row
+
+
+def _launch_round(torch, counts):
+    """(c) The FL round of `ROUND_SHAPE` on `ROUND_ARCH`'s full config, no
+    cut (M 16, 4 local SGD steps, B 8 x S 512, bf16, random from a seed):
+    the round's wall, the clients' and the aggregation's shares, the
+    launches counted from the code, the peak memory (no copy of the
+    update stack), every RMSNorm call at a held shape, and the
+    aggregation's output against the plain version on the same rows; then
+    the kernel and its plain version timed on them."""
+    from repro_torch.configs.base import INPUT_SHAPES, get_config
+    from repro_torch.kernels import cost, launch_counts
+    from repro_torch.kernels.agg import kernel as K
+    from repro_torch.kernels.agg import ops
+    from repro_torch.kernels.agg.ref import weighted_aggregate_ref
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+    cfg, shape = get_config(ROUND_ARCH), INPUT_SHAPES[ROUND_SHAPE]
+    M, S, steps, B = shape.global_batch, shape.seq_len, 4, 8
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = _flat_on_card(torch, T.init_params(0, cfg))
+    g = torch.Generator(device="cuda").manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (M, steps, B, S + 1),
+                         generator=g, device="cuda")
+    batches = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    stal = torch.randint(0, 9, (M,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    step = ST.make_fl_round_step(cfg, local_steps=steps)
+    seen, agg_s = [], []
+    real_flat, real_apply = ops.aggregate_flat, ST.apply_aggregation
+
+    def spy(p, u, w, rows=None):
+        out = real_flat(p, u, w, rows)
+        seen.append((p, u, w, out))
+        return out
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_apply(*a, **k)
+        torch.cuda.synchronize()
+        agg_s.append(time.perf_counter() - t)
+        return out
+    ops.aggregate_flat, ST.apply_aggregation = spy, timed
+    try:
+        with RmsCalls() as norms:
+            launch_counts.clear()
+            t0 = time.perf_counter()
+            step(params, batches, stal)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        ops.aggregate_flat, ST.apply_aggregation = real_flat, real_apply
+    got = dict(launch_counts)
+    counts.update(launch_counts)
+    peak = torch.cuda.max_memory_allocated() - base
+    L, calls = cfg.num_layers, M * steps
+    dtypes = len({t.dtype for t in tree_leaves(params)})
+    # a forward's norms: two a layer (the block's, the SSD's out_norm) and
+    # the final one; remat recomputes the layers' in the backward
+    want = {"rmsnorm": calls * (2 * L + 1 + 2 * L),
+            "rmsnorm_bwd": calls * (2 * L + 1),
+            "weighted_aggregate": dtypes}
+    ((p, u, w, out),) = [c for c in seen if c[0].dtype == torch.bfloat16]
+    upd_bytes = sum(c[1].numel() * c[1].element_size() for c in seen)
+    if got != want or norms.unheld() or peak > 2 * upd_bytes:
+        raise AssertionError(f"launch (c): launches {got}, not {want}; "
+                             f"RMSNorm calls never held {norms.unheld()}; "
+                             f"peak {peak} bytes, the update stack "
+                             f"{upd_bytes}")
+    ref = weighted_aggregate_ref(p, u, w).float()
+    err = (out.float() - ref).abs().max().item()
+    if not torch.allclose(out.float(), ref, rtol=AGG_BF16_RTOL, atol=1e-6):
+        raise AssertionError(f"launch (c): the aggregation against its plain "
+                             f"version {err}")
+    del ref
+    n = p.shape[0]
+    kernel_ms = _time_ms(lambda: K.weighted_aggregate(p, u, w), 5)
+    plain_ms, _ = _agg_yardsticks(torch, p, u, w, False, False)
+    bound, by = cost.bound(*cost.agg(M, n, 4, 2), cost.FP32_FLOP_PER_S)
+    row = {"arch": ROUND_ARCH, "shape": ROUND_SHAPE, "m": M,
+           "local_steps": steps, "batch": B, "seq": S,
+           "wall_s": wall, "aggregation_s": sum(agg_s),
+           "aggregation_share": sum(agg_s) / wall,
+           "clients_share": 1 - sum(agg_s) / wall,
+           "s_per_sgd_step": (wall - sum(agg_s)) / calls,
+           "launches": got, "launches_counted": want,
+           "rmsnorm_calls": sorted(norms.seen), "peak_bytes": peak,
+           "update_stack_bytes": upd_bytes, "n": n, "params": "bfloat16",
+           "updates": "float32",
+           "design": K.design_for(n, u.stride(0) * 4), "max_abs_err": err,
+           "tol_rel": AGG_BF16_RTOL, "kernel_ms": kernel_ms,
+           "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound,
+           "bound_by": by, "bound_share": bound / kernel_ms}
+    print("launch (c)", json.dumps(row), flush=True)
+    del seen, p, u, w, out, params, batches, toks
+    torch.cuda.empty_cache()
+    return row
+
+
+def _finish_dryrun(proc):
+    """(d) The dry run's record: it must say ok; its terms printed."""
+    rc = proc.wait(timeout=600)
+    proc.log.close()
+    wall = time.perf_counter() - proc.t0
+    log = (ROOT / "build" / "dryrun_torch.log").read_text()
+    if rc:
+        raise AssertionError(f"launch (d): the dry run exited {rc}: "
+                             f"{log[-2000:]}")
+    (rec,) = json.loads(proc.out.read_text())
+    if rec["status"] != "ok":
+        raise AssertionError(f"launch (d): {rec}")
+    keys = ("arch", "shape", "mesh", "chips", "status", "time_s",
+            "params_total", "params_active", "model_flops", "hlo_flops",
+            "hlo_bytes", "useful_flops_ratio", "t_compute_s", "t_memory_s",
+            "t_collective_s", "dominant_term", "memory", "ops_counted",
+            "kernel_calls")
+    print("launch (d)", json.dumps({**{k: rec[k] for k in keys},
+                                    "process_wall_s": wall}), flush=True)
+    return rec
+
+
+def run_launch_path(torch):
+    """The launch phase: (a) card = CPU on reduced configs, (b) the agg
+    step at full width, (c) the FL round at full width ((d), the dry run,
+    ran beside the build). Returns ({"launch": the card's launch counts},
+    its aggregation rows)."""
+    from collections import Counter
+    counts = Counter()
+    torch.backends.cuda.matmul.allow_tf32 = False     # float32 stays f32
+    seconds, rows = {}, {}
+    t0 = time.perf_counter()
+    _launch_reduced(torch, counts)
+    seconds["a"] = time.perf_counter() - t0
+    for arch, m, chunked in LAUNCH_AGG:
+        t0 = time.perf_counter()
+        rows[f"{arch} M {m}"] = _launch_agg_full(torch, arch, m, chunked,
+                                                 counts)
+        seconds[f"b {arch}"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows[f"{ROUND_ARCH} {ROUND_SHAPE}"] = _launch_round(torch, counts)
+    seconds["c"] = time.perf_counter() - t0
+    print("launch", json.dumps({"seconds": seconds,
+                                "total_s": sum(seconds.values()),
+                                "launches": dict(counts)}), flush=True)
+    return {"launch": dict(counts)}, rows
 
 
 # ptxas's report of a kernel, from its mangled name - <length><name>I<template
@@ -4408,21 +4820,31 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
     print(smi.splitlines()[0], flush=True)      # name, power limit
 
-    # 2. build, all sources at once
-    for b in build.build([agg_kernel.SOURCE, rms_kernel.SOURCE,
-                          flash_kernel.SOURCE, flash_kernel.SOURCE_TC,
-                          flash_kernel.SOURCE_BWD_TC]):
-        print(f"built {b.source.relative_to(ROOT)} -> "
-              f"{b.library.relative_to(ROOT)} in {b.seconds:.1f} s",
-              flush=True)
-        print(b.log.strip(), flush=True)
-        if b.source in (flash_kernel.SOURCE_TC, flash_kernel.SOURCE_BWD_TC):
-            _ptxas(b.log, "tc")
-        if b.source == flash_kernel.SOURCE:
-            _ptxas(b.log, "short")
-        if b.source == agg_kernel.SOURCE:
-            _ptxas(b.log, "agg")
-    done("build")
+    # 2. build, all sources at once; beside it, on the host's CPU alone,
+    # the launch phase's dry run (d), waited for before any phase is timed
+    dryrun = start_dryrun()
+    try:
+        for b in build.build([agg_kernel.SOURCE, rms_kernel.SOURCE,
+                              flash_kernel.SOURCE, flash_kernel.SOURCE_TC,
+                              flash_kernel.SOURCE_BWD_TC]):
+            print(f"built {b.source.relative_to(ROOT)} -> "
+                  f"{b.library.relative_to(ROOT)} in {b.seconds:.1f} s",
+                  flush=True)
+            print(b.log.strip(), flush=True)
+            if b.source in (flash_kernel.SOURCE_TC,
+                            flash_kernel.SOURCE_BWD_TC):
+                _ptxas(b.log, "tc")
+            if b.source == flash_kernel.SOURCE:
+                _ptxas(b.log, "short")
+            if b.source == agg_kernel.SOURCE:
+                _ptxas(b.log, "agg")
+        done("build")
+        _finish_dryrun(dryrun)
+    finally:
+        if dryrun.poll() is None:
+            dryrun.kill()
+            dryrun.wait()
+    done("dry run")
 
     # 3. kernels against their plain versions
     agg_rows = check_aggregation(torch)
@@ -4466,6 +4888,9 @@ def main() -> int:
     done("families path")
     paths.update(run_train_path(torch, t_start))
     done("train path")
+    launch, launch_rows = run_launch_path(torch)
+    paths.update(launch)
+    done("launch path")
 
     # 6. the kernels line. One aggregation of the quickstart (one launch
     # over its flat model at M=20, float32); one SGD step of a
@@ -4496,6 +4921,17 @@ def main() -> int:
                 "M = 8, float32",
         **{k: r[k] for k in ("design", "max_abs_err", "bound_ms", "bound_by",
                              "plain_ms", "library_ms")}, "ms": r["kernel_ms"]}
+    kernels[0]["launch"] = {
+        "work": "the launch tools at full width, bf16 params: the agg step "
+                "of whisper-base's agg_m96 (M 96, bf16 updates) and of "
+                "qwen3-8b at M 2 (bf16 updates, N past 2^31), one launch a "
+                "step; the FL round of mamba2-370m's flround_m16 (M 16, "
+                "float32 updates), one launch a params dtype (its bf16 "
+                "group here)",
+        **{name: {k: r[k] for k in (
+            "m", "n", "params", "updates", "design", "max_abs_err",
+            "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "bound_share")} for name, r in launch_rows.items()}}
     path_shapes = (
         (rms_rows, "rmsnorm", 5, "src/repro_torch/kernels/rmsnorm/csrc/"
          "rmsnorm.cu", "src/repro/kernels/rmsnorm/kernel.py:28",
@@ -4650,6 +5086,15 @@ def main() -> int:
                                ("k_norm", (1, 16384, 128)),
                                ("part_b_block", (1, 256, 1024)),
                                ("part_b_out_norm", (1, 256, 2048)))}}
+    rms_launch = (1, 4096, 1024, "bfloat16", 0)
+    for kname in (rms_kernel.NAME, rms_kernel.NAME_BWD):
+        next(k for k in kernels if k["name"] == kname)["launch"] = {
+            "work": "the FL round of mamba2-370m (B 8 x S 512, bf16): "
+                    "block and final norms at (1, 4096, 1024), out_norm at "
+                    "(1, 4096, 2048)",
+            "block": pick(rms_rows, kname, rms_launch, rms_names),
+            "out_norm": pick(rms_rows, kname, (1, 4096, 2048, "bfloat16", 0),
+                             rms_names)}
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on a main "

@@ -27,7 +27,14 @@ short-sequence kernels): each
 wrapper adds one where it launches its kernel and nowhere else, so a run
 can show that its path went through the kernels (`launch_counts.clear()`
 resets them).
+
+A call on the meta device (the dry run's: shapes, no memory) launches
+nothing. It returns empty meta outputs of the kernel's shapes and dtypes
+and adds its work to `meta_counts`, keyed (kernel entry point, "calls" |
+"bytes" | "flops"), by the formulas of `cost.py`; `launch_counts` stays
+as it was.
 """
 from collections import Counter
 
 launch_counts: Counter = Counter()
+meta_counts: Counter = Counter()

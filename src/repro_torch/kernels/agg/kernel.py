@@ -11,7 +11,8 @@ caller reads its update buffer in the weights' order where it lies; no
 strides and raises on anything the kernel does not take. A CPU tensor
 goes to the plain version (`ref.py`); a CUDA tensor goes to the kernel,
 which is built at first use, or the call raises. There is no fallback from
-one to the other.
+one to the other. A meta tensor (the dry run's) gives an empty meta output
+and records the call's work (`cost.record_meta`), launching nothing.
 
 The source holds two designs that compute every output bit for bit alike
 (`design_for` picks one): "register", a thread per 4 columns walking the
@@ -26,7 +27,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import build, launch_counts
+from repro_torch.kernels import build, cost, launch_counts
 from repro_torch.kernels.agg.ref import weighted_aggregate_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "agg.cu"
@@ -121,6 +122,15 @@ def _stream(t):
     return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
+def _meta(params_flat, updates, weights):
+    """The meta device's call: the output's shape and dtype, the work of
+    `cost.agg` recorded."""
+    cost.record_meta(NAME, *cost.agg(
+        weights.shape[0], params_flat.shape[0], updates.element_size(),
+        params_flat.element_size()))
+    return torch.empty_like(params_flat)
+
+
 def weighted_aggregate(params_flat, updates, weights, rows=None, *,
                        design=None, stages=RING_STAGES,
                        tile_bytes=RING_TILE_BYTES):
@@ -134,9 +144,12 @@ def weighted_aggregate(params_flat, updates, weights, rows=None, *,
     device = params_flat.device
     if device.type == "cpu":
         return weighted_aggregate_ref(params_flat, updates, weights, rows)
+    if device.type == "meta":
+        return _meta(params_flat, updates, weights)
     if device.type != "cuda":
         raise ValueError(f"weighted_aggregate runs on CUDA (or, as its "
-                         f"plain version, on the CPU); got {device}")
+                         f"plain version, on the CPU, or shapes alone on "
+                         f"the meta device); got {device}")
     launch = _library()
     r, n = updates.shape
     ld = updates.stride(0) if r > 1 else n

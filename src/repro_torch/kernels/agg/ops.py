@@ -10,7 +10,10 @@ leaf is as aligned as a tensor of its own; the few elements between
 leaves are zero. Where a tree's leaves already are views of one such
 buffer at the layout's offsets (the engine keeps its parameters so, and
 writes its update rows so), the buffer is read in place; any other tree
-is copied into one (one `torch.cat` a tree).
+is copied into one (one `torch.cat` a tree). `flat_tree` lays a new
+tree out so: a params tree, or an (M, ...) update stack, as views of one
+buffer a dtype, which a caller at full width needs, since a copy of such
+a tree may not fit.
 """
 from __future__ import annotations
 
@@ -100,6 +103,27 @@ class FlatLayout:
             parts.append(leaf.reshape(rows + (-1,)))
             end = off + math.prod(shape)
         return torch.cat(parts, dim=-1)
+
+
+def flat_tree(tree, lead: Tuple[int, ...] = (), dtype=None, device=None):
+    """A zeroed tree shaped like `tree` (any device's tensors, meta ones
+    too), each leaf (*lead, *leaf.shape) a view of one new buffer
+    (*lead, size) for each dtype of `tree`'s leaves, at the offsets of
+    `FlatLayout.of` those leaves: the layout that `aggregate_params_tree`
+    reads in place, for params (`lead` ()) and for an update stack
+    (`lead` (M,)) of the params' tree alike. The buffers are in `dtype`
+    (default each group's own) on `device` (default the leaves')."""
+    leaves, structure = tree_flatten(tree)
+    out = [None] * len(leaves)
+    for idx in _by_dtype(leaves, leaves):
+        group = [leaves[i] for i in idx]
+        layout = FlatLayout.of(group)
+        buf = torch.zeros(tuple(lead) + (layout.size,),
+                          dtype=dtype or group[0].dtype,
+                          device=device or group[0].device)
+        for i, v in zip(idx, layout.views(buf)):
+            out[i] = v
+    return tree_unflatten(structure, out)
 
 
 def aggregate_flat(params_flat, updates, weights, rows=None):

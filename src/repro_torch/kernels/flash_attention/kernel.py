@@ -7,7 +7,11 @@ kernel.flash_attention` (which has no backward). Each wrapper checks
 device, dtype, shape and contiguity and raises on anything the kernel does
 not take. A CPU tensor goes to the plain version (`ref.py`), at any head
 dim; a CUDA tensor goes to a kernel, which is built at first use, or the
-call raises. There is no fallback from one to the other.
+call raises. There is no fallback from one to the other. A meta tensor
+(the dry run's) takes the card's path up to the launch, its padding and
+copies included, then gives empty meta outputs (o and the log-sum-exp, or
+the gradients) and records the call's work (`cost.record_meta`),
+launching nothing.
 
 On the card a head dim `hd` from 1 to `MAX_HEAD_DIM` is zero-padded to
 the next instantiated width (`padded_head_dim`): zero columns change no
@@ -39,7 +43,7 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build, launch_counts
+from repro_torch.kernels import build, cost, launch_counts
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_fwd_ref)
 
@@ -153,9 +157,10 @@ def _check(q, k, v, *rest, window: int, bshd: bool = False):
                          f"{ {t.device for t in tensors} }")
     if not bshd and not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash_attention takes contiguous tensors")
-    if device.type not in ("cpu", "cuda"):
+    if device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"flash_attention runs on CUDA (or, as its plain "
-                         f"version, on the CPU); got {device}")
+                         f"version, on the CPU, or shapes alone on the meta "
+                         f"device); got {device}")
     return device
 
 
@@ -245,6 +250,13 @@ def _rows16(t):
 _ZEROS = (0,) * 24
 
 
+def _record_meta(name, sizes, hd, q, causal, window, backward):
+    """Record a meta call of `sizes` (B, H, K, Sq, Sk) at the true head
+    dim `hd`: the work of `cost.flash`."""
+    cost.record_meta(name, *cost.flash(*sizes, hd, q.element_size(), causal,
+                                       window, backward))
+
+
 def _short_args(tensors, strided, sizes, causal, window, hd, bshd):
     """The `SHORT_ARGS` block of a call: the pointers of `tensors` (the
     first padded q), the sizes, the padded and the true head dim `hd` (its
@@ -260,43 +272,49 @@ def _short_args(tensors, strided, sizes, causal, window, hd, bshd):
                            _stream(q), hd ** -0.5, *st, *_ZEROS[len(st):])
 
 
-def _short_fwd(launch, q, k, v, causal, window, bshd, sizes):
-    """The short-sequence forward on CUDA tensors in either layout, of
-    `_short_sizes`: o in q's layout (contiguous), lse (B, H, Sq)
-    float32."""
+def _short_fwd(q, k, v, causal, window, bshd, sizes):
+    """The short-sequence forward on CUDA (or meta) tensors in either
+    layout, of `_short_sizes`: o in q's layout (contiguous), lse (B, H,
+    Sq) float32."""
     hd = q.shape[-1]
     width = padded_head_dim(hd)
     q, k, v = (_rows16(pad_head_dim(t, width)) for t in (q, k, v))
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = q.new_empty((sizes[0], sizes[1], sizes[3]), dtype=torch.float32)
-    err = launch(_short_args((q, k, v, o, lse), (q, k, v, o), sizes, causal,
-                             window, hd, bshd))
-    if err:
-        raise RuntimeError(f"flash_fwd_short_launch failed with cudaError "
-                           f"{err}")
-    launch_counts[NAME] += 1
-    launch_counts[NAME_SHORT] += 1
+    if q.device.type == "meta":
+        _record_meta(NAME, sizes, hd, q, causal, window, False)
+    else:
+        err = _library()[2](_short_args((q, k, v, o, lse), (q, k, v, o),
+                                        sizes, causal, window, hd, bshd))
+        if err:
+            raise RuntimeError(f"flash_fwd_short_launch failed with "
+                               f"cudaError {err}")
+        launch_counts[NAME] += 1
+        launch_counts[NAME_SHORT] += 1
     return (o if width == hd else o[..., :hd].contiguous()), lse
 
 
-def _short_bwd(launch, q, k, v, o, lse, do, causal, window, bshd, sizes):
-    """The short-sequence backward, one launch, on CUDA tensors in either
-    layout, of `_short_sizes`: dq in q's layout, dk and dv in k's
-    (contiguous); no workspace."""
+def _short_bwd(q, k, v, o, lse, do, causal, window, bshd, sizes):
+    """The short-sequence backward, one launch, on CUDA (or meta) tensors
+    in either layout, of `_short_sizes`: dq in q's layout, dk and dv in
+    k's (contiguous); no workspace."""
     hd = q.shape[-1]
     width = padded_head_dim(hd)
     q, k, v, o, do = (_rows16(pad_head_dim(t, width))
                       for t in (q, k, v, o, do))
     dq, dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format)
                   for t in (q, k, v))
-    err = launch(_short_args((q, k, v, o, lse, do, dq, dk, dv),
-                             (q, k, v, o, do, dq, dk, dv), sizes, causal,
-                             window, hd, bshd))
-    if err:
-        raise RuntimeError(f"flash_bwd_short_launch failed with cudaError "
-                           f"{err}")
-    launch_counts[NAME_BWD] += 1
-    launch_counts[NAME_BWD_SHORT] += 1
+    if q.device.type == "meta":
+        _record_meta(NAME_BWD, sizes, hd, q, causal, window, True)
+    else:
+        err = _library()[3](_short_args((q, k, v, o, lse, do, dq, dk, dv),
+                                        (q, k, v, o, do, dq, dk, dv), sizes,
+                                        causal, window, hd, bshd))
+        if err:
+            raise RuntimeError(f"flash_bwd_short_launch failed with "
+                               f"cudaError {err}")
+        launch_counts[NAME_BWD] += 1
+        launch_counts[NAME_BWD_SHORT] += 1
     if width != hd:
         dq, dk, dv = (t[..., :hd].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv
@@ -310,25 +328,27 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         return attention_fwd_ref(q, k, v, causal=causal, window=window)
     sizes = _short_sizes(q, k, False)
     if sizes:
-        return _short_fwd(_library()[2], q, k, v, causal, window, False,
-                          sizes)
+        return _short_fwd(q, k, v, causal, window, False, sizes)
     hd = q.shape[-1]
     width = padded_head_dim(hd)
     tc = route(q.dtype, width) == "tc"
-    launch = _library_tc() if tc else _library()[0]
     q, k, v = (pad_head_dim(t, width) for t in (q, k, v))
     if tc:
         q, k, v = (_rows16(t) for t in (q, k, v))
     o = torch.empty_like(q)
     lse = q.new_empty(q.shape[:3], dtype=torch.float32)
-    err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), *_dims(q, k, causal, window, hd))
-    if err:
-        raise RuntimeError(f"flash_fwd{'_tc' if tc else ''}_launch failed "
-                           f"with cudaError {err}")
-    launch_counts[NAME] += 1
-    if tc:
-        launch_counts[NAME_TC] += 1
+    if device.type == "meta":
+        _record_meta(NAME, _sizes(q, k, False), hd, q, causal, window, False)
+    else:
+        launch = _library_tc() if tc else _library()[0]
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     lse.data_ptr(), *_dims(q, k, causal, window, hd))
+        if err:
+            raise RuntimeError(f"flash_fwd{'_tc' if tc else ''}_launch "
+                               f"failed with cudaError {err}")
+        launch_counts[NAME] += 1
+        if tc:
+            launch_counts[NAME_TC] += 1
     return (o if width == hd else o[..., :hd].contiguous()), lse
 
 
@@ -350,28 +370,32 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                                  window=window)
     sizes = _short_sizes(q, k, False)
     if sizes:
-        return _short_bwd(_library()[3], q, k, v, o, lse, do, causal,
-                          window, False, sizes)
+        return _short_bwd(q, k, v, o, lse, do, causal, window, False,
+                          sizes)
     hd = q.shape[-1]
     width = padded_head_dim(hd)
     tc = route(q.dtype, width) == "tc"
-    launch = _library_bwd_tc() if tc else _library()[1]
     q, k, v, o, do = (pad_head_dim(t, width) for t in (q, k, v, o, do))
     if tc:
         q, k, v, o, do = (_rows16(t) for t in (q, k, v, o, do))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = q.new_empty(q.shape[:3], dtype=torch.float32)
-    err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
-                 dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-                 *_dims(q, k, causal, window, hd),
-                 *((BWD_TC_PARTS,) if tc else ()))
-    if err:
-        raise RuntimeError(f"flash_bwd{'_tc' if tc else ''}_launch failed "
-                           f"with cudaError {err}")
-    launch_counts[NAME_BWD] += 1
-    if tc:
-        launch_counts[NAME_BWD_TC] += 1
+    if device.type == "meta":
+        _record_meta(NAME_BWD, _sizes(q, k, False), hd, q, causal, window,
+                     True)
+    else:
+        launch = _library_bwd_tc() if tc else _library()[1]
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
+                     dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+                     *_dims(q, k, causal, window, hd),
+                     *((BWD_TC_PARTS,) if tc else ()))
+        if err:
+            raise RuntimeError(f"flash_bwd{'_tc' if tc else ''}_launch "
+                               f"failed with cudaError {err}")
+        launch_counts[NAME_BWD] += 1
+        if tc:
+            launch_counts[NAME_BWD_TC] += 1
     if width != hd:
         dq, dk, dv = (t[..., :hd].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv
@@ -392,8 +416,7 @@ def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0):
         return o.transpose(1, 2), lse
     sizes = _short_sizes(q, k, True)
     if sizes:
-        return _short_fwd(_library()[2], q, k, v, causal, window, True,
-                          sizes)
+        return _short_fwd(q, k, v, causal, window, True, sizes)
     o, lse = flash_attention(*(t.transpose(1, 2).contiguous()
                                for t in (q, k, v)),
                              causal=causal, window=window)
@@ -423,8 +446,8 @@ def flash_attention_bshd_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         return tuple(g.transpose(1, 2) for g in grads)
     sizes = _short_sizes(q, k, True)
     if sizes:
-        return _short_bwd(_library()[3], q, k, v, o, lse, do, causal,
-                          window, True, sizes)
+        return _short_bwd(q, k, v, o, lse, do, causal, window, True,
+                          sizes)
     grads = flash_attention_bwd(
         *(t.transpose(1, 2).contiguous() for t in (q, k, v, o)), lse,
         do.transpose(1, 2).contiguous(), causal=causal, window=window)

@@ -8,7 +8,9 @@ They replace the Pallas TPU kernel `repro.kernels.rmsnorm.kernel.rmsnorm`
 contiguity and raises on anything the kernel does not take. A CPU tensor
 goes to the plain version (`ref.py`); a CUDA tensor goes to the kernel,
 which is built at first use, or the call raises. There is no fallback
-from one to the other.
+from one to the other. A meta tensor (the dry run's) gives empty meta
+outputs and records the call's work (`cost.record_meta`), launching
+nothing.
 
 Each direction is one launch. The wrapper picks the kernel's layout from
 the shape and the pointers (`vector_width`, `layout`, `tiles`). The
@@ -26,7 +28,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import build, launch_counts
+from repro_torch.kernels import build, cost, launch_counts
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_fwd_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rmsnorm.cu"
@@ -108,9 +110,10 @@ def _check(x, scale):
                          f"{scale.device}")
     if not (x.is_contiguous() and scale.is_contiguous()):
         raise ValueError("rmsnorm takes contiguous tensors")
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"rmsnorm runs on CUDA (or, as its plain version, "
-                         f"on the CPU); got {x.device}")
+                         f"on the CPU, or shapes alone on the meta "
+                         f"device); got {x.device}")
     d = x.shape[-1]
     if n // d > _MAX_ROWS:
         raise ValueError(f"rmsnorm takes at most {_MAX_ROWS} rows; got "
@@ -141,9 +144,14 @@ def _dtypes(x, scale):
 
 def _fwd(x, scale, eps, g, r, d, max_loads=FWD_LOADS):
     """Launch the forward on checked CUDA tensors (`max_loads` other than
-    the default only to measure the other layouts). y and rstd are two
-    allocations: one shared through views costs more host time
-    (`chip_smoke.py`'s host line)."""
+    the default only to measure the other layouts); meta tensors launch
+    nothing. y and rstd are two allocations: one shared through views
+    costs more host time (`chip_smoke.py`'s host line)."""
+    if x.device.type == "meta":
+        cost.record_meta(NAME, *cost.rmsnorm_fwd(
+            x.numel(), x.element_size(),
+            scale.numel() * scale.element_size(), g * r))
+        return torch.empty_like(x), x.new_empty(g * r, dtype=torch.float32)
     launch, _ = _library()
     y = torch.empty_like(x)
     rstd = torch.empty(g * r, dtype=torch.float32, device=x.device)
@@ -165,6 +173,11 @@ def _bwd(x, scale, rstd, dy, g, r, d, max_loads=BWD_LOADS):
     `_fwd`): dx and dscale, and a float32 workspace for the tiles' partial
     sums only where a group has more than one tile (not at the transformer
     path's shapes) or the row-looping kernel keeps its column sums there."""
+    if x.device.type == "meta":
+        cost.record_meta(NAME_BWD, *cost.rmsnorm_bwd(
+            x.numel(), x.element_size(),
+            scale.numel() * scale.element_size(), g * r))
+        return torch.empty_like(x), torch.empty_like(scale)
     _, launch = _library()
     dx = torch.empty_like(x)
     dscale = torch.empty_like(scale)

@@ -24,11 +24,19 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.param_dtype)
 
 
+class MetaGenerator:
+    """Stands in for a `torch.Generator` on the meta device, which has
+    none: the init functions given it return the tree's shapes and dtypes
+    on the meta device, with no numbers and no memory."""
+    device = torch.device("meta")
+
+
 def normal(generator: torch.Generator, shape, scale: float, dtype):
     """N(0, scale^2) of `shape` in `dtype`, drawn in float32 on the
     generator's device."""
-    w = torch.randn(shape, generator=generator, dtype=torch.float32,
-                    device=generator.device)
+    meta = generator.device.type == "meta"
+    w = torch.randn(shape, generator=None if meta else generator,
+                    dtype=torch.float32, device=generator.device)
     return w.mul_(scale).to(dtype)
 
 

@@ -293,13 +293,18 @@ def init_params(seed: int, cfg: ModelConfig, *,
     list, one stacked tree per stage), "final_norm"}, and for an
     encoder-decoder {"enc_stage", "enc_norm"}, for the vision frontend
     {"vis_proj"}; drawn on `device` (default the card) from a generator
-    seeded with `seed`. The same keys and shapes as
+    seeded with `seed`; on the meta device the tree's shapes and dtypes
+    alone. The same keys and shapes as
     `repro.models.transformer.init_params`, other numbers: carry the
     reference's parameters across with
     `repro_torch.weights.zoo_params_from_numpy`."""
     _check_model(cfg)
-    generator = torch.Generator(device=resolve_device(device))
-    generator.manual_seed(int(seed))
+    device = resolve_device(device)
+    if device.type == "meta":
+        generator = L.MetaGenerator()
+    else:
+        generator = torch.Generator(device=device)
+        generator.manual_seed(int(seed))
     dt = L.dtype_of(cfg)
     p = {
         "emb": L.embedding_init(generator, cfg),

@@ -38,11 +38,21 @@ def _host_copy(t):
     return t.detach().to("cpu", copy=True).numpy()
 
 
+def _tensor(a, device):
+    """An array-like as a tensor on `device`, its dtype kept: a bfloat16
+    array (the reference's, an extension dtype numpy cannot hand over)
+    through float32, which holds it exactly."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.astype(np.float32), device=device).to(
+            torch.bfloat16)
+    return torch.tensor(a, device=device)
+
+
 def params_from_numpy(tree, device) -> dict:
     """Nested dict of array-likes -> nested dict of tensors on `device`
-    (dtypes kept, data copied)."""
-    return tree_map(lambda a: torch.tensor(np.asarray(a), device=device),
-                    tree)
+    (dtypes kept, bfloat16 too; data copied)."""
+    return tree_map(lambda a: _tensor(a, device), tree)
 
 
 def params_to_numpy(params) -> dict:

@@ -87,7 +87,11 @@ def test_agg_wrapper_sends_cuda_tensors_to_the_kernel_or_raises():
         weighted_aggregate(*fake)
     assert launch_counts["weighted_aggregate"] == before
     with pytest.raises(ValueError, match="runs on CUDA"):
-        weighted_aggregate(p.to("meta"), upd.to("meta"), w.to("meta"))
+        weighted_aggregate(*_labelled("xpu", p, upd, w))
+    # the meta device's call: the output's shape and dtype, no launch
+    out = weighted_aggregate(p.to("meta"), upd.to("meta"), w.to("meta"))
+    assert out.device.type == "meta" and out.shape == p.shape
+    assert launch_counts["weighted_aggregate"] == before
 
 
 def test_protocol_state_defaults_to_the_card_and_raises_without_one():
@@ -100,6 +104,14 @@ def test_protocol_state_defaults_to_the_card_and_raises_without_one():
 
 def _fake_cuda(*tensors):
     return [torch.Tensor._make_subclass(_CudaLabelled, t) for t in tensors]
+
+
+def _labelled(device_type, *tensors):
+    """CPU tensors that report a device of `device_type`, neither the CPU,
+    CUDA nor meta: a wrapper must refuse them."""
+    cls = type("Labelled", (torch.Tensor,), {
+        "device": property(lambda self: torch.device(device_type))})
+    return [torch.Tensor._make_subclass(cls, t) for t in tensors]
 
 
 def test_rmsnorm_and_attention_wrappers_send_cuda_tensors_to_the_kernels():
@@ -126,10 +138,17 @@ def test_rmsnorm_and_attention_wrappers_send_cuda_tensors_to_the_kernels():
             call()
     assert dict(launch_counts) == before
     with pytest.raises(ValueError, match="runs on CUDA"):
-        rms_kernel.rmsnorm(x.to("meta"), s.to("meta"))
+        rms_kernel.rmsnorm(*_labelled("xpu", x, s))
     with pytest.raises(ValueError, match="runs on CUDA"):
-        flash_kernel.flash_attention(q.to("meta"), k.to("meta"),
-                                     k.to("meta"))
+        flash_kernel.flash_attention(*_labelled("xpu", q, k, k))
+    # the meta device's calls: outputs of the kernels' shapes, no launch
+    y, rstd = rms_kernel.rmsnorm(x.to("meta"), s.to("meta"))
+    assert (y.shape, rstd.shape) == (x.shape, (16,))
+    o, lse = flash_kernel.flash_attention(q.to("meta"), k.to("meta"),
+                                          k.to("meta"))
+    assert (o.shape, lse.shape) == (q.shape, q.shape[:3])
+    assert {o.device.type, lse.device.type, y.device.type} == {"meta"}
+    assert dict(launch_counts) == before
 
 
 @pytest.mark.gpu
@@ -1334,3 +1353,161 @@ def test_zoo_remat_changes_no_bit_on_the_card(dtype, monkeypatch):
         assert torch.equal(loss, runs[0][0])
         for a, b in zip(tree_leaves(grads), tree_leaves(runs[0][1])):
             assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_launch_steps_on_the_card_match_the_cpu(monkeypatch):
+    """The agg step with bf16 params and bf16 updates (reduced whisper-base,
+    M 6) and the FL round with bf16 params and float32 updates (reduced
+    qwen3-8b and mamba2-370m, M 3, 2 local SGD steps at B 2 x S 32) on the
+    card against the CPU from the same params, every plain version and
+    every kernel's meta branch made to raise: one aggregation launch a
+    params dtype (mamba2-370m keeps A_log, D and dt_bias float32). The
+    agg step within one bf16 ulp (2^-7) of the CPU's. In the round, each
+    aggregation's output within one bf16 ulp of the plain version's on
+    the card's own rows, and the round held to the CPU's by
+    `round_faults`. The new params' limit there is three bf16 ulps beside
+    2^-5 of the largest step: the clients' bf16 gradients part between
+    the card (tensor cores, other sums) and the CPU by a few roundings of
+    2^-8 each, through two layers and two SGD steps (1.1% of the largest
+    step seen; 2^-7 of it was passed by 1 element of 131,072, at 1.5
+    times). So the test also plants two faults in the card's round, one
+    client's update dropped and two clients' weights swapped, and shows
+    that each fails `round_faults`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device with nvcc")
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import cost
+    from repro_torch.kernels.agg import ops as agg_ops
+    from repro_torch.kernels.agg.ops import flat_tree
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as TT
+    from repro_torch.tree import tree_leaves, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(0)
+
+    def on_card(tree, like=None, lead=()):
+        """`tree` on the card as views of one buffer a dtype, laid out as
+        `like`'s (the params') rows where it is an (M, ...) stack."""
+        card = flat_tree(tree if like is None else like, lead=lead,
+                         device="cuda")
+        tree_map(lambda d, s: d.copy_(s), card, tree)
+        return card
+
+    def spy(seen, plant=None):
+        """Each aggregation's (params, updates, weights, output) appended
+        to `seen`; `plant(updates, weights)` changes the first one's."""
+        real = agg_ops.aggregate_flat
+
+        def spying(p, u, w, rows=None):
+            if plant is not None and not seen:
+                u, w = plant(u, w)
+            seen.append((p, u, w, real(p, u, w, rows)))
+            return seen[-1][-1]
+        monkeypatch.setattr(agg_ops, "aggregate_flat", spying)
+
+    def run(step, card_args, launches, seen=None, plant=None):
+        """`step` on the card, every plain version and meta branch
+        refused."""
+        if seen is not None:
+            spy(seen, plant)
+        monkeypatch.setattr(cost, "record_meta", refuse)
+        _refuse_plain_versions(monkeypatch)
+        monkeypatch.setattr(agg_kernel, "weighted_aggregate_ref", refuse)
+        launch_counts.clear()
+        got = step(*card_args)
+        torch.cuda.synchronize()
+        counts = dict(launch_counts)
+        monkeypatch.undo()
+        assert counts.get("weighted_aggregate") == launches, counts
+        return got
+
+    def refuse(*a, **k):
+        raise AssertionError("a meta branch or a plain version ran on the "
+                             "card's path")
+
+    cfg = get_config("whisper-base").reduced(param_dtype="bfloat16")
+    params = TT.init_params(0, cfg, device="cpu")
+    upd = tree_map(lambda p: (0.01 * torch.randn((6,) + p.shape,
+                                                 generator=g)).to(p.dtype),
+                   params)
+    stal = torch.randint(0, 9, (6,), generator=g, dtype=torch.int32)
+    step = ST.make_agg_step(cfg)
+    want = step(params, upd, stal)
+    got = run(step, (on_card(params), on_card(upd, params, (6,)),
+                     stal.cuda()), 1)
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        assert a.dtype == b.dtype == torch.bfloat16
+        torch.testing.assert_close(a.cpu().float(), b.float(),
+                                   rtol=2 ** -7, atol=1e-6)
+    def round_faults(got, want, seen, params):
+        """Where the card's round parts from the CPU's (`seen`: each
+        device's aggregations): each aggregation's weights beyond float32
+        roundings (1e-6), each client's update row whose norm parts by
+        more than 2^-5 (a bf16 rounding that goes the other way moves an
+        entry by one ulp but the norm little), the new params beyond three
+        bf16 ulps beside 2^-5 of the largest step."""
+        faults = []
+        assert len(seen["cuda"]) == len(seen["cpu"])
+        for (_, u, w, _), (_, u0, w0, _) in zip(seen["cuda"], seen["cpu"]):
+            assert u.shape == u0.shape
+            if not torch.allclose(w.cpu(), w0, rtol=1e-6, atol=0):
+                faults.append(f"weights {w.tolist()}, CPU {w0.tolist()}")
+            norm, norm0 = u.cpu().norm(dim=1), u0.norm(dim=1)
+            part = ((norm - norm0).abs() / norm0).max().item()
+            print(f"update rows' norms part by {part:.3e} at most")
+            if part > 2 ** -5:
+                faults.append(f"update norms {norm.tolist()}, CPU "
+                              f"{norm0.tolist()}")
+        for a, b, p in zip(tree_leaves(got), tree_leaves(want),
+                           tree_leaves(params)):
+            assert a.dtype == b.dtype == p.dtype
+            step_max = (b.float() - p.float()).abs().max().item()
+            if not torch.allclose(a.cpu().float(), b.float(),
+                                  rtol=3 * 2 ** -7,
+                                  atol=2 ** -5 * step_max + 1e-6):
+                faults.append("new params")
+                break
+        return faults
+
+    def drop_client(u, w):
+        u = u.clone()
+        u[1] = 0
+        return u, w
+
+    def swap_weights(u, w):
+        i, j = int(w.argmax()), int(w.argmin())
+        assert w[i] > w[j]
+        w = w.clone()
+        w[[i, j]] = w[[j, i]]
+        return u, w
+
+    for arch, launches in (("qwen3-8b", 1), ("mamba2-370m", 2)):
+        cfg = get_config(arch).reduced(param_dtype="bfloat16")
+        params = TT.init_params(0, cfg, device="cpu")
+        toks = torch.randint(0, cfg.vocab_size, (3, 2, 2, 33), generator=g)
+        batches = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+        stal = torch.randint(0, 9, (3,), generator=g, dtype=torch.int32)
+        step = ST.make_fl_round_step(cfg, local_steps=2)
+        seen = {"cpu": []}
+        spy(seen["cpu"])
+        want = step(params, batches, stal)
+        monkeypatch.undo()
+        card_batches = {k: v.cuda() for k, v in batches.items()}
+        for plant in (None, drop_client, swap_weights):
+            seen["cuda"] = []
+            got = run(step, (on_card(params), card_batches, stal.cuda()),
+                      launches, seen["cuda"], plant)
+            assert len(seen["cuda"]) == launches
+            for p, u, w, out in seen["cuda"]:
+                assert u.dtype == torch.float32 and u.shape[0] == 3
+                torch.testing.assert_close(
+                    out.cpu().float(), weighted_aggregate_ref(
+                        p.cpu(), u.cpu(), w.cpu()).float(),
+                    rtol=2 ** -7, atol=1e-6)
+            faults = round_faults(got, want, seen, params)
+            print(arch, getattr(plant, "__name__", "no fault"), faults)
+            if plant is None:
+                assert not faults, faults
+            else:
+                assert faults, f"{plant.__name__} passed every check"
