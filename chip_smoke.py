@@ -44,9 +44,20 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      of the path as the adapter makes it, traced: the two short kernels
      and no copy;
   4. the quickstart path: the FedBuff federation of examples/quickstart.py
-     (MLP payload) through `Federation.from_experiment(exp).run()` on the
-     card, launch counts read around it (one aggregation launch per
-     aggregation), then the same experiment on the CPU as the check;
+     (MLP payload) through `Federation.from_experiment(exp)`'s engine on
+     the card (the engine's fast loop, the default: each chunk of windows
+     one CUDA graph replay), launch counts read around it (one
+     aggregation launch per aggregation), then the card's host loop
+     (`fast_loop=False`) held to it bit for bit (`strategies` line:
+     counters, histogram, evaluation windows, columns, params; each run's
+     wall, chunks, scans, graph captures and replays, the engine's device
+     reads and the synchronizing calls torch saw), both again in turns,
+     then the same experiment on the CPU as the check; then the fast
+     loop's own phase (`fastloop` lines): (a) a graph replay against the
+     eager scan on the card at every bucket 1-128, ground-only, sink and
+     gossip, on the fault study's world under churn40, bit for bit, each
+     bucket timed both ways; (b) a stop requested mid-chunk at windows 0,
+     17, 37 and 63 against a run of stop + 1 windows;
   5. the transformer path: the same FedBuff world with the transformer
      payload (RMSNorm and attention in the kernels, forward and backward)
      over its first 96 of 288 windows (`TRANSFORMER_WINDOWS`) on the
@@ -64,7 +75,9 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      FedSpace with a histogram-only forest (no split on the status T)
      through `Federation.from_experiment(exp).run()` on the card, launch
      counts read around it (one aggregation launch per aggregation),
-     then on the CPU: counters and every re-plan's schedule equal; (b)
+     the card's host loop held to its fast loop (every re-plan's schedule
+     too), then on the CPU: counters and every re-plan's schedule equal;
+     (b)
      the quickstart's FedSpace row as a user runs it: phase 1 on the card
      (its seconds, the regressor's in-sample R^2; the eq.-12 samples
      generated twice, bit for bit alike, and the forest refitted on them
@@ -96,7 +109,8 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      ISLConfig; the chaos-held async and isl_async over the first 48,
      fedbuff and periodic over the first 192) on
      the card and on the CPU, FedSpace with phase 1 on the
-     card (its seconds) and the forest carried to the CPU; (b) the
+     card (its seconds) and the forest carried to the CPU, sync and
+     periodic also on the card's host loop, held to the fast loop; (b) the
      binding cell of examples/isl_comparison.py (starlink40 over sparse1
      under a finite budget; its blocked share): fedbuff, intra_plane,
      isl_async and FedSpace's link-gated search, card against CPU, with
@@ -1165,9 +1179,106 @@ def quickstart_experiment():
                            target_acc=0.35, max_windows=288))
 
 
+class LoopStats:
+    """What a block of engine runs cost the host: the fast loop's CUDA
+    graphs captured and replayed (`repro_torch.fl.engine.graph_counts`)
+    and the synchronizing calls torch saw under
+    `torch.cuda.set_sync_debug_mode("warn")` (device-to-host reads, and
+    copies from pageable host memory, which wait for the device too)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        import warnings
+        from repro_torch.fl.engine import graph_counts
+        self._before = dict(graph_counts)
+        self._warnings = warnings.catch_warnings(record=True)
+        self._caught = self._warnings.__enter__()
+        warnings.simplefilter("always")
+        self.torch.cuda.synchronize()
+        self.torch.cuda.set_sync_debug_mode("warn")
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.fl.engine import graph_counts
+        self.torch.cuda.synchronize()
+        self.wall = time.perf_counter() - self._t0
+        self.torch.cuda.set_sync_debug_mode("default")
+        self._warnings.__exit__(*exc)
+        self.syncs = sum("synchroniz" in str(w.message)
+                         for w in self._caught)
+        self.captures = graph_counts["captures"] - self._before["captures"]
+        self.replays = graph_counts["replays"] - self._before["replays"]
+
+    def line(self, eng):
+        """The block's numbers with the engine's own counts (chunks,
+        scans, its device-to-host reads)."""
+        return {"wall_s": round(self.wall, 3), **eng.loop_counts,
+                "captures": self.captures, "replays": self.replays,
+                "syncs": self.syncs}
+
+
+def _engine(fed, init_params=None, callbacks=(), **overrides):
+    """`fed.engine()` on the world's device with `overrides` of its
+    `EngineConfig` (`fast_loop=False`, `max_windows`, ...)."""
+    import dataclasses
+    from repro_torch.fl.engine import SimulationEngine
+    cfg = dataclasses.replace(fed.engine(device=fed.device).config,
+                              **overrides)
+    return SimulationEngine(fed.C, fed.adapter, fed.scheduler, cfg,
+                            callbacks=callbacks, init_params=init_params,
+                            device=fed.device,
+                            link_budget=fed.link_budget, isl=fed.isl,
+                            faults=fed.faults)
+
+
+def _strategies(torch, tag, fed, fast_eng, fast_res, fast_stats,
+                init_params=None, fast_replans=None):
+    """The card's host-loop run of `fed` beside its fast-loop run (done):
+    every counter, the staleness histogram, the evaluation windows, the
+    protocol columns and the final params bit for bit (one device, the
+    same operations), and with `fast_replans` (the fast run's `Replans`
+    log) every re-plan's schedule; one aggregation launch per aggregation
+    on each; the walls, chunks, graph captures and replays and device
+    reads of both printed. Returns the host run's stats."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.tree import tree_leaves
+    if not fast_eng._fast_ok or fast_eng.loop_counts["chunks"] == 0:
+        raise AssertionError(f"{tag}: the default run took no fast loop")
+    if fast_stats.replays != fast_eng.loop_counts["scans"]:
+        raise AssertionError(f"{tag}: {fast_stats.replays} graph replays "
+                             f"for {fast_eng.loop_counts['scans']} scans")
+    host_eng = _engine(fed, init_params, fast_loop=False)
+    launch_counts.clear()
+    with LoopStats(torch) as host_stats, Replans() as host_replans:
+        host = host_eng.run()
+    _one_launch_per_aggregation(host, dict(launch_counts))
+    if fast_replans is not None:
+        _same_schedules(fast_replans, host_replans.log)
+    if host_eng.loop_counts["chunks"] or host_stats.replays:
+        raise AssertionError(f"{tag}: the host loop ran chunks")
+    _same_counters(fast_res, host)
+    if _columns(fast_eng) != _columns(host_eng):
+        raise AssertionError(f"{tag}: protocol columns differ, fast loop "
+                             f"against host loop")
+    if fast_res.accuracy != host.accuracy or not all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(fast_eng.params),
+                                              tree_leaves(host_eng.params))):
+        raise AssertionError(f"{tag}: params or accuracies differ, fast "
+                             f"loop against host loop on the card")
+    print(f"{tag} strategies (cuda): fast loop "
+          f"{json.dumps(fast_stats.line(fast_eng))}, host loop "
+          f"{json.dumps(host_stats.line(host_eng))}; counters, histogram, "
+          f"columns and params bit for bit", flush=True)
+    return host_stats
+
+
 def run_main_path(torch):
-    """Phase 4, the quickstart path. Returns the launch counts of the
-    card's run."""
+    """Phase 4, the quickstart path: the card's run (the fast loop, the
+    default), the card's host-loop run held to it bit for bit, then the
+    CPU's. Returns the launch counts of the card's fast-loop run."""
     import math
     from repro_torch.fl.api import Federation
     from repro_torch.kernels import launch_counts
@@ -1175,7 +1286,9 @@ def run_main_path(torch):
     launch_counts.clear()
     t0 = time.perf_counter()
     fed = Federation.from_experiment(exp)
-    res = fed.run()
+    with LoopStats(torch) as stats:
+        eng = fed.engine()
+        res = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(launch_counts)
@@ -1185,6 +1298,19 @@ def run_main_path(torch):
     _one_launch_per_aggregation(res, counts)
     if not all(math.isfinite(a) for a in res.accuracy + res.val_loss):
         raise AssertionError("non-finite accuracy or loss on the card")
+    _strategies(torch, "main path", fed, eng, res, stats)
+    # the same runs again, in turns: the first fast-loop run paid the
+    # process's first use of what follows the build (the card's first
+    # aggregation, the data on the card)
+    again = {}
+    for label, fast in (("host", False), ("fast", True)):
+        e = _engine(fed, fast_loop=fast)
+        with LoopStats(torch) as st:
+            r = e.run()
+        _same_counters(res, r)
+        again[label] = st.line(e)
+    print(f"main path strategies (cuda), again: {json.dumps(again)}",
+          flush=True)
 
     t0 = time.perf_counter()
     cpu = Federation.from_experiment(exp, device="cpu").run()
@@ -1221,6 +1347,147 @@ def _close_accuracy(res, cpu, tol):
           f" (|diff| {acc_err}, tolerance {tol})", flush=True)
     if acc_err > tol:
         raise AssertionError("final accuracy differs beyond tolerance")
+
+
+FASTLOOP_MODES = (("fedbuff", {"M": FAULT_M}, None),
+                  ("intra_plane", {"M": FAULT_M}, "sink"),
+                  ("isl_async", {}, "gossip"))
+FASTLOOP_BUCKETS = tuple(1 << b for b in range(8))     # 1, 2, 4, ... 128
+FASTLOOP_STOPS = (0, 17, 37, 63)
+
+
+def _fastloop_world(torch):
+    """The fault study's world (its budget and ISLs) under churn40's fault
+    trace, one `Federation` on the card."""
+    from repro_torch.fl.api import Federation
+    churn40 = dict(fault_scenarios())["churn40"]
+    return Federation.from_experiment(fault_study_experiment()).with_faults(
+        churn40)
+
+
+def _random_state(torch, g, K, eng):
+    """Random protocol columns for `eng`'s run (its optional columns),
+    drawn on the host from `g`, on the card."""
+    from repro_torch.core import staleness as SS
+
+    def col(lo, hi):
+        return torch.randint(lo, hi, (K,), generator=g,
+                             dtype=torch.int32).cuda()
+    return SS.SatState(*(None if x is None else col(*span) for x, span in
+                         zip(eng.state, ((-1, 5),) * 3 + ((0, 4),) * 2)))
+
+
+def _host_ms(torch, fn, iters=5):
+    """Median host-clock ms of `fn()` ending in a synchronise."""
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def run_fastloop_path(torch):
+    """Phase 5, the fast loop on the card (`fastloop` lines): (a) one CUDA
+    graph replay (`ChunkGraphs`) against the eager `_scan_windows` on the
+    card, its yardstick, at every bucket 1-128, ground-only, sink and
+    gossip, on the fault study's world (budget, ISLs) under churn40's
+    trace, from random protocol states: every state column and the
+    counters bit for bit, the graphs captured once a key, and each
+    bucket's replay and eager call timed; (b) a stop requested mid-chunk
+    at windows 0, 17, 37 and 63 under fedbuff and intra_plane, held
+    against a run of `max_windows` = stop + 1: windows, protocol columns,
+    global version and params bit for bit."""
+    from repro_torch.fl import engine as E
+    from repro_torch.fl.callbacks import Callback
+    from repro_torch.tree import tree_leaves, tree_map
+    fed = _fastloop_world(torch)
+    g = torch.Generator().manual_seed(0)
+    times = {}
+    for kind, params, mode in FASTLOOP_MODES:
+        eng = fed.with_scheduler(kind, **params).engine()
+        eng.prepare()
+        if eng._isl_mode != mode:
+            raise AssertionError(f"fastloop: {kind} runs mode "
+                                 f"{eng._isl_mode}, not {mode}")
+        fn, args, _ = eng.scheduler.device_plan(
+            0, K=eng.K, state=eng.state, ig=0, connectivity=eng._plan_C,
+            status=0.0, link=eng._plan_link)
+        args = tree_map(lambda x: torch.as_tensor(x).cuda(), args)
+        graphs = E.ChunkGraphs("cuda")
+        before = dict(E.graph_counts)
+        for h in FASTLOOP_BUCKETS:
+            for rep in range(2):
+                i0 = int(torch.randint(0, eng.num_windows, (), generator=g))
+                nv = int(torch.randint(1, h + 1, (), generator=g))
+                ig = int(torch.randint(0, 6, (), generator=g))
+                st = _random_state(torch, g, eng.K, eng)
+                isl = {"sink": eng._sink_plan(i0) if mode == "sink" else None,
+                       "gossip": eng._gossip_dev + (eng._gossip_period,)
+                       if mode == "gossip" else None, None: None}[mode]
+                i32 = (lambda x: torch.tensor(x, dtype=torch.int32,
+                                              device="cuda"))
+                kw = dict(indicator=fn, horizon=h, isl_mode=mode)
+                ops = (eng._C_dev, i32(i0), i32(nv), args, eng._link_dev,
+                       isl, eng._faults_dev)
+
+                def eager():
+                    return E._scan_windows(st, i32(ig), *ops, **kw)
+
+                def replay():
+                    return graphs(st, ig, eng._C_dev, i0, nv, args,
+                                  eng._link_dev, isl, eng._faults_dev, **kw)
+                (s1, c1), (s0, c0) = replay(), eager()
+                if not torch.equal(c1, c0) or not all(
+                        (x is None and y is None) or torch.equal(x, y)
+                        for x, y in zip(s1, s0)):
+                    raise AssertionError(f"fastloop (a) {kind} bucket {h}: "
+                                         f"the graph replay differs from "
+                                         f"the eager scan")
+            times[f"{mode or 'ground'} {h}"] = {
+                "replay_ms": _host_ms(torch, replay),
+                "eager_ms": _host_ms(torch, eager)}
+        captured = E.graph_counts["captures"] - before["captures"]
+        if captured != len(FASTLOOP_BUCKETS):
+            raise AssertionError(f"fastloop (a) {kind}: {captured} graphs "
+                                 f"captured for {len(FASTLOOP_BUCKETS)} "
+                                 f"buckets")
+        print(f"fastloop (a) {kind} ({mode or 'ground-only'}), K "
+              f"{eng.K}, budget and churn40: buckets "
+              f"{list(FASTLOOP_BUCKETS)} replay = eager on the card, bit "
+              f"for bit, twice a bucket; {captured} graphs captured",
+              flush=True)
+    print("fastloop (a) ms a scan, host clock with a synchronise (median "
+          "of 5), graph replay and eager:", json.dumps(times), flush=True)
+
+    class StopAt(Callback):
+        def __init__(self, window):
+            self.window = window
+
+        def on_window_end(self, engine, i):
+            if i == self.window:
+                engine.request_stop()
+    for kind, params, mode in FASTLOOP_MODES[:2]:
+        world = fed.with_scheduler(kind, **params)
+        for stop in FASTLOOP_STOPS:
+            ref = _engine(world, eval_every=1000, max_windows=stop + 1)
+            ref.run()
+            eng = _engine(world, callbacks=[StopAt(stop)], eval_every=1000)
+            res = eng.run()
+            if res.windows_run != stop + 1 or eng.ig != ref.ig or \
+                    _columns(eng) != _columns(ref) or not all(
+                        torch.equal(a, b) for a, b in zip(
+                            tree_leaves(eng.params),
+                            tree_leaves(ref.params))):
+                raise AssertionError(f"fastloop (b) {kind}: the stop at "
+                                     f"window {stop} does not freeze the "
+                                     f"run one window later")
+            print(f"fastloop (b) {kind}: stop at window {stop}: "
+                  f"{res.windows_run} windows, ig {eng.ig}, columns and "
+                  f"params those of max_windows {stop + 1}; loop "
+                  f"{json.dumps(eng.loop_counts)}", flush=True)
 
 
 def transformer_experiment():
@@ -1742,17 +2009,19 @@ def _hist_forest(seed=3, s_max=8, n=400):
     return RandomForestRegressor(n_trees=20, max_depth=6, seed=seed).fit(X, y)
 
 
-def _fedspace_runs(torch, exp, card_fed, p0, tag):
-    """The run on the card (launch counts read around it), then the same
-    experiment on the CPU from `p0`; counters, schedules and final
-    accuracy compared. Returns (card result, launch counts)."""
+def _fedspace_runs(torch, exp, card_fed, p0, tag, host_pair=False):
+    """The run on the card (launch counts read around it), with
+    `host_pair` the card's host-loop run held to it (`_strategies`), then
+    the same experiment on the CPU from `p0`; counters, schedules and
+    final accuracy compared. Returns (card result, launch counts)."""
     import math
     from repro_torch.fl.api import Federation
     from repro_torch.kernels import launch_counts
     launch_counts.clear()
     t0 = time.perf_counter()
-    with Replans() as card:
-        res = card_fed.run()
+    with Replans() as card, LoopStats(torch) as stats:
+        eng = card_fed.engine()
+        res = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(launch_counts)
@@ -1766,6 +2035,11 @@ def _fedspace_runs(torch, exp, card_fed, p0, tag):
     _one_launch_per_aggregation(res, counts)
     if not all(math.isfinite(a) for a in res.accuracy + res.val_loss):
         raise AssertionError("non-finite accuracy or loss on the card")
+    if host_pair:
+        _strategies(torch, f"fedspace {tag}", card_fed, eng, res, stats,
+                    fast_replans=card.log)
+        print(f"fedspace {tag}: {len(card.log)} re-plans, schedules equal,"
+              f" fast loop against host loop on the card", flush=True)
     t0 = time.perf_counter()
     with Replans() as cpu_log:
         cpu = Federation.from_experiment(exp, device="cpu").run(
@@ -1800,7 +2074,7 @@ def run_fedspace_path(torch):
     fed = Federation.from_experiment(exp)
     p0 = params_to_numpy(fed.adapter.init(torch.Generator().manual_seed(
         exp.seed)))
-    _fedspace_runs(torch, exp, fed, p0, "histogram forest")
+    _fedspace_runs(torch, exp, fed, p0, "histogram forest", host_pair=True)
 
     # (b) phase 1 as the quickstart builds it: a FedBuff world, then
     # with_scheduler
@@ -2186,6 +2460,8 @@ SCENARIO_SHORT = {"async": 48, "isl_async": 48, "fedbuff": 192,
 # gap is wider, within CHAOS_FACTOR times the gap a nudge of the initial
 # model by one rounding makes on the card, plus one argmax flip.
 SCENARIO_ACC_TOL = 0.01
+# the policies whose card run is also held to the card's host loop
+SCENARIO_HOST_PAIRS = ("sync", "periodic")
 
 
 def _first_windows(fed, windows):
@@ -2247,9 +2523,11 @@ def _columns(eng):
 
 
 def _scenario_pair(torch, tag, card_fed, cpu_fed, p0, counts,
-                   regressor=None):
+                   regressor=None, host_pair=False):
     """One policy (`tag` leads its lines): the card's run (launch counts
-    read around it, wall), then the CPU's from the same initial model;
+    read around it, wall, the fast loop's counts), with `host_pair` the
+    card's host-loop run held to it (`_strategies`), then the CPU's from
+    the same initial model;
     every counter, the staleness histogram and the final protocol columns
     equal (for
     FedSpace, every re-plan under the C13 rule, and the rest where the
@@ -2261,7 +2539,7 @@ def _scenario_pair(torch, tag, card_fed, cpu_fed, p0, counts,
     from repro_torch.tree import tree_map
     launch_counts.clear()
     t0 = time.perf_counter()
-    with Replans() as card_log:
+    with Replans() as card_log, LoopStats(torch) as stats:
         eng = card_fed.engine(init_params=p0)
         res = eng.run()
     torch.cuda.synchronize()
@@ -2272,10 +2550,12 @@ def _scenario_pair(torch, tag, card_fed, cpu_fed, p0, counts,
     print(f"{tag} (cuda):", json.dumps(res.summary()), flush=True)
     print(f"{tag} (cuda): wall {wall:.3f} s, windows "
           f"{res.windows_run}, re-plans {len(card_log.log)}, launches "
-          f"{mine}", flush=True)
+          f"{mine}, loop {json.dumps(stats.line(eng))}", flush=True)
     _one_launch_per_aggregation(res, mine)
     if not all(math.isfinite(a) for a in res.accuracy + res.val_loss):
         raise AssertionError("non-finite accuracy or loss on the card")
+    if host_pair:
+        _strategies(torch, tag, card_fed, eng, res, stats, init_params=p0)
     t0 = time.perf_counter()
     with Replans() as cpu_log:
         cpu_eng = cpu_fed.engine(init_params=p0, device=cpu_fed.device)
@@ -2380,7 +2660,8 @@ def run_scenarios_path(torch):
                              for w in (base, cpu_base))
         _, card, cpu = _scenario_pair(
             torch, f"scenarios (a) {name}", card_w.with_scheduler(name, **kw),
-            cpu_w.with_scheduler(name, **kw), p0, counts)
+            cpu_w.with_scheduler(name, **kw), p0, counts,
+            host_pair=name in SCENARIO_HOST_PAIRS)
         walls[f"(a) {name}"] = (card, cpu)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4863,6 +5144,8 @@ def main() -> int:
     # 4, 5. the main paths
     paths = {"quickstart": run_main_path(torch)}
     done("quickstart path")
+    run_fastloop_path(torch)
+    done("fastloop path")
     paths["transformer"] = run_transformer_path(torch)
     done("transformer path")
     trace_aggregations_apart()

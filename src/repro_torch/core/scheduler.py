@@ -4,13 +4,14 @@ Sync (eq. 5), Async (eq. 6), FedBuff (eq. 7), a periodic baseline,
 FedSpace (§3: every I0 windows, an eq.-13 random search against the
 utility regressor û) and the two ISL policies (sink relaying,
 `intra_plane`; gossip, `isl_async`), behind one interface so the engine
-(`repro_torch.fl.engine`) is policy-agnostic. The engine runs the
-per-window host loop and asks `decide`. The policies whose indicator
-holds for the whole run also offer `device_plan`: a module-level torch
-indicator and its arguments, which the batched sweep
-(`repro_torch.fl.sweep`) evaluates on the device for a whole group of
-variants at once (the reference's contract with ``horizon=None``; the
-engine's chunked loop over it is ROADMAP A.8).
+(`repro_torch.fl.engine`) is policy-agnostic. Every policy answers
+`decide`, once a window, on the engine's host loop. Every policy here
+also offers `device_plan`: a module-level torch indicator, its
+arguments and the horizon over which they hold, which the engine's
+chunked fast loop evaluates on the device inside its window scans
+(`SimulationEngine._run_chunk`) and the batched sweep
+(`repro_torch.fl.sweep`) for a whole group of variants at once. FedSpace's
+plan holds until its next re-plan, the others' to the end of the run.
 """
 from __future__ import annotations
 
@@ -25,11 +26,13 @@ from repro_torch.core import staleness as SS
 from repro_torch.fl.registry import SCHEDULERS, register_scheduler
 
 
-# Device-side aggregation indicators, evaluated by the sweep once per
-# window for a whole group of variants. Module-level (stable identity), so
-# variants of one kind share one group; instance knobs (K, M, the period)
-# travel in `args`. `n_buf` and `args` may carry a leading variant axis, and
-# `t` is the absolute window index.
+# Device-side aggregation indicators, evaluated once a window inside the
+# engine's window scans (`t` a 0-d int32 tensor on the run's device) and
+# by the sweep for a whole group of variants (`t` a Python int, `n_buf`
+# and `args` with a leading variant axis). Module-level (stable identity),
+# so each is one key of the engine's captured graphs and variants of one
+# kind share one sweep group; instance knobs (K, M, the period, FedSpace's
+# schedule) travel in `args`. No indicator reads the device.
 
 def _sync_indicator(t, n_buf, args):
     return n_buf >= args                       # args = K
@@ -45,6 +48,15 @@ def _fedbuff_indicator(t, n_buf, args):
 
 def _periodic_indicator(t, n_buf, args):
     return (n_buf > 0) & ((t + 1) % args == 0)  # args = period
+
+
+def _fedspace_indicator(t, n_buf, args):
+    sched, start = args            # the (I0,) schedule and its first window
+    # a bucketed scan runs padding windows past the plan's horizon: clamp
+    # the index into the schedule (the reference's gather clamps), the
+    # scan's `live` mask discards what they decide
+    idx = (t - start).clamp(0, sched.shape[-1] - 1).long()
+    return torch.take(sched, idx) > 0
 
 
 def _int32(x):
@@ -104,16 +116,34 @@ class Scheduler:
     def device_plan(self, i: int, *, K: int, state: SS.SatState, ig: int,
                     connectivity: np.ndarray, status: float, link=None,
                     **_):
-        """``(indicator_fn, args, None)`` when one device-side indicator
-        decides every window from `i` to the end of the run, else None
-        (the default: the policy answers through `decide` alone).
-        ``indicator_fn(t, n_buf, args)`` is a module-level torch function
-        (its identity groups the sweep's variants); `args` a tree of int32
-        tensors, stacked over the variants of a group; `t` the absolute
-        window and `n_buf` the post-upload buffer occupancy, both possibly
-        with a leading variant axis. Its decisions equal `decide`'s for
-        the same windows. Keywords as `decide`'s (the plan view, under a
-        blind fault trace)."""
+        """``(indicator_fn, args, horizon)`` when one device-side indicator
+        decides every window of ``[i, i + horizon)`` (``horizon=None``:
+        to the end of the run), else None (the default: the engine then
+        runs window `i` on its host loop and asks `decide`).
+
+        Contract (the reference's):
+          * ``indicator_fn(t, n_buf, args)`` is a module-level torch
+            function: its identity is a key of the engine's captured
+            graphs and of the sweep's groups, so a fresh closure per call
+            would capture a graph per chunk; per-instance knobs travel in
+            `args`, a tree of int32 tensors;
+          * `t` is the absolute window (a 0-d int32 device tensor in the
+            engine's scans, an int in the sweep) and `n_buf` the
+            post-upload buffer occupancy, both possibly with a leading
+            variant axis (the sweep). The function reads nothing from the
+            device (no `.item()`, no Python `if` on a tensor), and an index
+            it takes from `t` is clamped: a bucketed scan runs padding
+            windows past the horizon, whose decisions it discards;
+          * its decisions equal `decide`'s for the same windows: the two
+            execution strategies give the same bits;
+          * the hook may do host work first: FedSpace re-plans here,
+            simulating the boundary window's upload so the search sees
+            the post-upload state `decide` would.
+
+        Keywords as `decide`'s (the plan view, under a blind fault trace).
+        Under a fault trace the engine also passes `exec_connectivity` and
+        `exec_link`, the executed world, for a hook that simulates the
+        boundary window's upload (hence the ``**_``)."""
         return None
 
 
@@ -184,8 +214,10 @@ class FedSpaceScheduler(Scheduler):
     seed)`) is drawn by `random_candidates` alone, once per re-plan, so
     the candidate pools are the reference's. Under a link budget the
     search rolls the candidates through the same per-window grants the
-    engine applies. It re-plans mid-run against the training status, so
-    it offers no device plan and the sweep refuses it (`replans`).
+    engine applies. Its `device_plan` (the reference's) re-plans at each
+    I0 boundary and holds the schedule until the next one, so the
+    engine's fast loop runs it; it re-plans mid-run against the training
+    status, so the sweep refuses it (`replans`).
 
     `service` (a `repro_torch.fl.replan.ReplanService` with the same I0,
     s_max and pool size) routes every re-plan through the service: the
@@ -305,6 +337,35 @@ class FedSpaceScheduler(Scheduler):
                               link=link)
         a = bool(self._schedule[i - self._window_start])
         return a and n_in_buffer > 0
+
+    def device_plan(self, i, *, K, state, ig, connectivity, status,
+                    link=None, exec_connectivity=None, exec_link=None, **_):
+        if i % self.I0 == 0 or self._schedule is None:
+            # `decide` runs after the engine's upload; simulate window i's
+            # upload here so the search (and `_search_state`'s grant undo)
+            # scores the post-upload state `decide` would see. Under a
+            # blind fault trace that upload runs on the executed world,
+            # while the search plans on the clean view.
+            bc = connectivity if exec_connectivity is None \
+                else exec_connectivity
+            bl = link if exec_connectivity is None else exec_link
+            device = state.version.device
+            conn = torch.as_tensor(np.asarray(bc[i], bool), device=device)
+            gate = None if bl is None else SS.LinkGate(
+                torch.as_tensor(np.asarray(bl.grant[i]), dtype=torch.int32,
+                                device=device),
+                int(bl.need_up), int(bl.need_dn))
+            state, _ = SS.upload_step(state, ig, conn, gate)
+            self._ensure_schedule(i, state=state, ig=ig,
+                                  connectivity=connectivity, status=status,
+                                  link=link)
+        device = state.version.device
+        args = (torch.as_tensor(np.asarray(self._schedule, np.int32),
+                                device=device),
+                torch.tensor(self._window_start, dtype=torch.int32,
+                             device=device))
+        return _fedspace_indicator, args, \
+            self._window_start + self.I0 - i
 
 
 @register_scheduler("intra_plane")

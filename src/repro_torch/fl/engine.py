@@ -7,14 +7,24 @@ Time advances in T0 windows (15 min each). At window i the GS:
   staleness-compensated update of eq. 4 when a^i = 1 (`on_aggregate`), and
   broadcasts the current model (`on_downloads`).
 
-The port of `repro.fl.engine` runs the reference's per-window host loop
-(`SimulationEngine._run_window`) with the protocol state (`SatState`),
-the model, the checkpoints and the client data on the run's device. One
-small device-to-host read per window brings back the upload counters the
-scheduler decides on. The reference's chunked fast loop (jitted scans
-between aggregation events) is a JAX `scan` idiom; its PyTorch
-counterpart (a CUDA graph) is ROADMAP A.8, and the reference asserts that
-both of its loops give the same bits, so the host loop is the contract.
+The port of `repro.fl.engine`, with the protocol state (`SatState`),
+the model, the checkpoints and the client data on the run's device. Two
+execution strategies, the reference's, give the same bits:
+  * the chunked **fast loop** (the default): when no protocol step is
+    overridden and the scheduler offers a `device_plan`, the windows
+    between two aggregation events run as one scan on the device
+    (`_scan_windows`), which freezes at the first window whose indicator
+    fires; its per-window counters come to the host once a scan, the host
+    trains and aggregates that window, and the next scan starts after it.
+    On a CUDA device each scan is one replay of a CUDA graph
+    (`ChunkGraphs`: one graph per static shape of the scan, the
+    counterpart of the reference's `jax.jit` of its `lax.scan`), counted
+    in `graph_counts`; on the CPU the same function runs eagerly;
+  * the per-window **host loop** (`_run_window`): `on_uploads`,
+    `on_decide`, `on_aggregate`, `on_downloads` through the same
+    transitions, with one small device-to-host read a window. It runs
+    for `EngineConfig(fast_loop=False)`, a subclass that overrides a
+    step, and a window whose scheduler offers no plan.
 
 Finite link budgets (`repro_torch.core.connectivity.LinkBudget`, built
 by `Federation` from a constrained `LinkConfig`) run through the same
@@ -57,6 +67,187 @@ from repro_torch.tree import tree_flatten, tree_leaves, tree_map, \
     tree_unflatten
 
 T0_MINUTES = 15.0
+
+# Upper bound on the windows of one scan: chunks are bucketed to powers of
+# two up to this, so a run captures O(log) scan shapes a scheduler kind,
+# and the device copies of the run's matrices carry this many padding rows
+_MAX_CHUNK = 128
+
+# The fast loop's CUDA graphs, beside `repro_torch.kernels.launch_counts`:
+# `captures` counts graphs captured, `replays` chunk scans replayed
+graph_counts = {"captures": 0, "replays": 0}
+
+
+def _state_where(pred, a: SS.SatState, b: SS.SatState) -> SS.SatState:
+    """Column by column `where(pred, a, b)` over the columns the state
+    carries (None stays None)."""
+    return SS.SatState(*(None if x is None else torch.where(pred, x, y)
+                         for x, y in zip(a, b)))
+
+
+def _scan_windows(state, ig, C_dev, i0, n_valid, ind_args, link_dev,
+                  isl_dev=None, faults_dev=None, *, indicator, horizon,
+                  isl_mode=None):
+    """Advance the protocol over `horizon` windows from absolute window
+    `i0`, freezing at the first window whose aggregation indicator fires
+    (post-upload, pre-aggregation: the engine trains and aggregates on the
+    host, then scans on). The port of the reference's `_scan_impl`, built
+    from the transitions the host loop and the sweep run
+    (`core/transfers.py`'s two halves).
+
+    `ig`, `i0` and `n_valid` are 0-d int32 tensors on the run's device:
+    `ig` holds for the whole scan (no aggregation happens in it), and
+    windows at offset >= `n_valid` are padding (a bucketed horizon) that
+    leave the state as it is. `C_dev` is the run's (W + _MAX_CHUNK, K)
+    connectivity on the device, padded with all-false rows so a scan never
+    reads past it; `link_dev` is None or ``(grants (W + _MAX_CHUNK, K)
+    int32, need_up, need_dn)``; `faults_dev` None or ``(revive, alive)``,
+    both padded likewise. `isl_mode` "sink" takes ``isl_dev = (sink,
+    need_hops)`` (one election for the whole chunk: the engine clips
+    chunks to election epochs), "gossip" ``(nxt, prv, left, right,
+    period)`` with `period` a 0-d int32 tensor.
+
+    Nothing here reads the device, so the function runs eagerly on the CPU
+    and is captured whole into a CUDA graph on the card (`ChunkGraphs`).
+    Returns (state, counters (horizon, 4) int32) with per-window
+    [n_connected, n_idle, n_buffered, a]; rows after the event row are
+    garbage the caller ignores."""
+    device = C_dev.device
+    ts = i0 + torch.arange(horizon, dtype=i0.dtype, device=device)
+    conn = C_dev.index_select(0, ts)
+    grant = None if link_dev is None else link_dev[0].index_select(0, ts)
+    revive = alive = None
+    if faults_dev is not None:
+        revive = faults_dev[0].index_select(0, ts)
+        alive = faults_dev[1].index_select(0, ts)
+    done = torch.zeros((), dtype=torch.bool, device=device)
+    rows = []
+    for j in range(horizon):
+        t = ts[j]
+        live = ~done & (t - i0 < n_valid)
+        gate = None if grant is None \
+            else SS.LinkGate(grant[j], link_dev[1], link_dev[2])
+        kw = {} if alive is None else {"alive": alive[j]}
+        if isl_mode == "sink":
+            kw["sink"], kw["need_hops"] = isl_dev
+        gossip = None
+        if isl_mode == "gossip":
+            period = isl_dev[4]
+            gossip = tuple(isl_dev[:4]) + ((period <= 1)
+                                           | (t % period == 0),)
+        up_st, info = TR.window_upload(
+            state, ig, conn[j], gate, gossip=gossip, **kw,
+            revive=None if revive is None else revive[j])
+        n_buf = info["n_buffered"]
+        a = live & indicator(t, n_buf, ind_args) & (n_buf > 0)
+        dl_st = TR.window_download(up_st, ig, conn[j], gate, **kw)
+        state = _state_where(live, _state_where(a, up_st, dl_st), state)
+        rows.append(torch.stack([info["n_connected"], info["n_idle"], n_buf,
+                                 a.to(torch.int32)]))
+        done = done | a
+    return state, torch.stack(rows)
+
+
+class _Graph(NamedTuple):
+    graph: object          # torch.cuda.CUDAGraph
+    inputs: list           # static input buffers, copied into per replay
+    state: SS.SatState     # static outputs, overwritten by every replay
+    counters: torch.Tensor
+    keep: tuple            # the run constants the graph reads in place
+
+
+class ChunkGraphs:
+    """`_scan_windows` as CUDA graphs, one per static key: the indicator,
+    the bucketed horizon, the ISL mode, which state columns exist, the
+    shapes and dtypes of the indicator's args and the ISL operands, and
+    the run's constant tensors (connectivity, grants and their needs,
+    fault masks), which the graph reads in place. The counterpart of the
+    reference's `jax.jit` of `_scan_windows` with its static arguments.
+
+    A graph is captured at its key's first call (a warm-up run on a side
+    stream, then the capture, into one memory pool that all the graphs
+    share) and replayed after copying the call's state columns, `ig`,
+    `i0`, `n_valid`, indicator args and ISL operands into its static input
+    buffers. The outputs are copied out of the graph's buffers before
+    the call returns, so a later replay of any graph leaves them alone. A
+    failed capture raises: nothing falls back to the eager function.
+    Called like `_scan_windows`, with `ig`, `i0` and `n_valid` as ints or
+    0-d tensors."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        if self.device.type != "cuda":
+            raise ValueError(f"ChunkGraphs captures CUDA graphs, not on "
+                             f"{self.device}")
+        self.pool = None
+        self.graphs = {}
+
+    def __call__(self, state, ig, C_dev, i0, n_valid, ind_args, link_dev,
+                 isl_dev=None, faults_dev=None, *, indicator, horizon,
+                 isl_mode=None):
+        arg_leaves, arg_structure = tree_flatten(ind_args)
+        isl_ops = list(isl_dev or ())
+        consts = [C_dev] + ([] if link_dev is None else [link_dev[0]]) \
+            + list(faults_dev or ())
+        present = tuple(x is not None for x in state)
+        key = (indicator, horizon, isl_mode, present, repr(arg_structure),
+               tuple((tuple(x.shape), x.dtype) for x in arg_leaves
+                     + isl_ops),
+               tuple((x.data_ptr(), tuple(x.shape), x.dtype)
+                     for x in consts),
+               None if link_dev is None else (int(link_dev[1]),
+                                              int(link_dev[2])))
+        cols = [x for x in state if x is not None]
+        dynamic = cols + [ig, i0, n_valid] + arg_leaves + isl_ops
+        g = self.graphs.get(key)
+        if g is None:
+            g = self.graphs[key] = self._capture(
+                dynamic, present, arg_structure, len(arg_leaves), C_dev,
+                link_dev, faults_dev, indicator=indicator, horizon=horizon,
+                isl_mode=isl_mode, keep=tuple(consts))
+        for dst, src in zip(g.inputs, dynamic):
+            if isinstance(src, torch.Tensor):
+                dst.copy_(src)
+            else:
+                dst.fill_(src)
+        g.graph.replay()
+        graph_counts["replays"] += 1
+        return (SS.SatState(*(None if x is None else x.clone()
+                              for x in g.state)), g.counters.clone())
+
+    def _capture(self, dynamic, present, arg_structure, n_args, C_dev,
+                 link_dev, faults_dev, *, indicator, horizon, isl_mode,
+                 keep):
+        # the static inputs live on the card (a CPU scalar would be baked
+        # into the graph as a constant), outside the graphs' pool
+        inputs = [x.to(self.device, copy=True) if isinstance(x, torch.Tensor)
+                  else torch.tensor(x, dtype=torch.int32, device=self.device)
+                  for x in dynamic]
+        n_cols = sum(present)
+        cols = iter(inputs[:n_cols])
+        st = SS.SatState(*(next(cols) if p else None for p in present))
+        ig, i0, n_valid = inputs[n_cols:n_cols + 3]
+        args = tree_unflatten(arg_structure,
+                              inputs[n_cols + 3:n_cols + 3 + n_args])
+        isl_ops = tuple(inputs[n_cols + 3 + n_args:]) or None
+
+        def scan():
+            return _scan_windows(
+                st, ig, C_dev, i0, n_valid, args, link_dev, isl_ops,
+                faults_dev, indicator=indicator, horizon=horizon,
+                isl_mode=isl_mode)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            scan()                                  # warm-up
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool):
+            out_state, counters = scan()
+        graph_counts["captures"] += 1
+        return _Graph(graph, inputs, out_state, counters, keep)
 
 
 @dataclass
@@ -129,9 +320,9 @@ class EngineConfig:
     uplink_topk: Optional[float] = None  # >0: compressed uplink; unset -> 0
     # dense int8 uplink quantization; unset -> False / LinkConfig fallback
     uplink_int8: Optional[bool] = None
-    # the reference's switch between its chunked fast loop and the
-    # per-window host loop; the port has only the host loop so far, which
-    # runs either way
+    # False forces the per-window host loop even where the chunked fast
+    # loop would apply — e.g. for callbacks that must observe the device
+    # state at every single window boundary
     fast_loop: bool = True
 
     def __post_init__(self):
@@ -199,6 +390,27 @@ class SimulationEngine:
     Protocol steps (`on_uploads`, `on_decide`, `on_aggregate`,
     `on_downloads`) are methods so scenario variants override exactly the
     step they change; callbacks observe the run without touching it.
+
+    Execution-strategy selection (both strategies give the same bits):
+      * the chunked **fast loop** (`_run_chunk` over `_scan_windows`) runs
+        when ALL of — `EngineConfig.fast_loop` is True (the default), no
+        protocol step is overridden in a subclass, and
+        `Scheduler.device_plan` returns a plan for the current window;
+        on a CUDA device each scan is a CUDA graph replay (`ChunkGraphs`,
+        `graph_counts`), elsewhere the function runs eagerly;
+      * otherwise the window goes through the per-window **host loop**
+        (`_run_window`): one `on_uploads`/`on_decide`/`on_aggregate`/
+        `on_downloads` cycle through the same transitions.
+    Fast-loop chunks are clipped to eval boundaries (where `status`
+    changes), the plan's horizon, `_MAX_CHUNK` and the sink election
+    epoch; on a card they are bucketed to powers of two, so a run
+    captures O(log) scan shapes (the padding windows change nothing, so
+    the CPU's eager scans skip them). The aggregation stays on the host
+    (`on_aggregate`, one aggregation-kernel launch each). Under the fast
+    loop `on_window_end` callbacks see the state at the end of the scan,
+    as in the reference; a stop they request mid-chunk replays the
+    chunk's prefix, so the run freezes one window after the request
+    under both strategies.
 
     Args:
       C: (num_windows, K) bool connectivity matrix (tiled per
@@ -358,11 +570,30 @@ class SimulationEngine:
         self.state = SS.bootstrap_state(self.K, progress=linked,
                                         relay=self._isl_mode == "sink",
                                         device=self.device)
-        # the run's link gates: the executed grants on the device (one
-        # copy per run) for the transitions, and host gates for the
-        # schedulers — the executed one, and the plan view they decide on
-        # (a blind fault run's clean grants)
+        # the fast loop runs when no protocol step is overridden (and
+        # the scheduler offers a plan, asked window by window in `run`)
+        self._fast_ok = cfg.fast_loop and all(
+            getattr(type(self), m) is getattr(SimulationEngine, m)
+            for m in ("on_uploads", "on_decide", "on_aggregate",
+                      "on_downloads"))
+        # the run's matrices go to the device once; under the fast loop
+        # each carries _MAX_CHUNK all-false (zero) rows after the horizon,
+        # so a bucketed scan never reads past it
+        pad = _MAX_CHUNK if self._fast_ok else 0
+
+        def on_device(rows, dtype):
+            rows = np.asarray(rows[:self.num_windows], dtype)
+            if pad:
+                rows = np.concatenate(
+                    [rows, np.zeros((pad, rows.shape[1]), dtype)])
+            return torch.as_tensor(rows, device=self.device)
+        self._C_dev = on_device(self.C, bool) if self._fast_ok else None
+        # the run's link gates: the executed grants on the device for the
+        # transitions, and host gates for the schedulers — the executed
+        # one, and the plan view they decide on (a blind fault run's clean
+        # grants)
         self._link = self._plan_link = self._grants_dev = None
+        self._link_dev = None
         if linked:
             b = self.link_budget
             self._link = SS.LinkGate(self._grants, int(b.need_up),
@@ -371,23 +602,24 @@ class SimulationEngine:
                 if self._plan_grants is self._grants \
                 else SS.LinkGate(self._plan_grants, int(b.need_up),
                                  int(b.need_dn))
-            self._grants_dev = torch.as_tensor(
-                self._grants[:self.num_windows], device=self.device)
-        # fault masks on the device, one copy per run (None without a
-        # trace); `_alive` stays on the host for the sink elections
+            self._grants_dev = on_device(self._grants, np.int32)
+            self._link_dev = (self._grants_dev, int(b.need_up),
+                              int(b.need_dn))
+        # fault masks on the device (None without a trace); `_alive` stays
+        # on the host for the sink elections
         self._alive = self._alive_dev = self._revive_dev = None
+        self._faults_dev = None
         if self._trace is not None:
             self._alive = np.asarray(self._trace.alive[:self.num_windows],
                                      bool)
-            self._alive_dev = torch.as_tensor(self._alive,
-                                              device=self.device)
-            self._revive_dev = torch.as_tensor(
-                np.asarray(self._trace.revive[:self.num_windows], bool),
-                device=self.device)
+            self._alive_dev = on_device(self._alive, bool)
+            self._revive_dev = on_device(self._trace.revive, bool)
+            self._faults_dev = (self._revive_dev, self._alive_dev)
         # ISL device arrays: sink plans per election epoch (made at the
-        # epoch's first window), the gossip neighbours once per run
+        # epoch's first window), the gossip neighbours and hop period once
+        # per run
         self._sink_cache = {}
-        self._gossip_dev = None
+        self._gossip_dev = self._gossip_period = None
         if self._isl_mode == "gossip":
             topo = self._isl.topology
             idx = np.arange(self.K)
@@ -397,21 +629,34 @@ class SimulationEngine:
                 for a in (topo.nxt, topo.prv,
                           topo.left if cross else idx,
                           topo.right if cross else idx))
+            self._gossip_period = torch.tensor(
+                max(self._isl.relay_windows, 1), dtype=torch.int32,
+                device=self.device)
+        # the fast loop's chunk scans: CUDA graphs on a card, the eager
+        # function elsewhere; `loop_counts` counts this run's chunks, scans
+        # and the engine's own device-to-host reads
+        self._graphs = ChunkGraphs(self.device) \
+            if self._fast_ok and self.device.type == "cuda" else None
+        self.loop_counts = {"chunks": 0, "scans": 0, "host_reads": 0}
         self.result = SimResult(scheme=self.scheduler.name,
                                 target_acc=cfg.target_acc)
         self.result.staleness_hist = np.zeros(cfg.s_max + 1, np.int64)
         self.status = float(self.adapter.val_loss(self.params))
 
     def run(self) -> SimResult:
-        """Execute the run: `prepare()`, then advance windows until the
-        horizon, a stop request, or the target accuracy. Returns the
-        populated `SimResult`."""
+        """Execute the run: `prepare()`, then advance windows under the
+        selected strategy until the horizon, a stop request, or the
+        target accuracy. Returns the populated `SimResult`."""
         self.prepare()
         try:
             self._emit("on_run_begin")
             i = 0
             while i < self.num_windows:
-                i, stop = self._run_window(i)
+                chunk = self._fast_chunk_plan(i) if self._fast_ok else None
+                if chunk is None:
+                    i, stop = self._run_window(i)
+                else:
+                    i, stop = self._run_chunk(i, *chunk)
                 if stop or self._stop_requested:
                     break
         finally:
@@ -445,6 +690,110 @@ class SimulationEngine:
             stop = self.evaluate(i)
         self._emit("on_window_end", i)
         return i + 1, stop
+
+    # --------------------------------------------------- chunked fast loop
+
+    def _fast_chunk_plan(self, i: int):
+        """Ask the scheduler for a device-side indicator valid from window
+        i; clip the chunk to the eval boundary (where `status` changes),
+        the plan's horizon, `_MAX_CHUNK` and, under sink relaying, the
+        election epoch. Returns (indicator, args, end) or None."""
+        if self._trace is not None:
+            # reviving satellites re-enter before planning (idempotent:
+            # the scan applies the same reset at this window)
+            self.state = FT.fault_reset(self.state, self._revive_dev[i])
+        extra = {} if self._trace is None else {
+            "exec_connectivity": self.C, "exec_link": self._link}
+        plan = self.scheduler.device_plan(
+            i, K=self.K, state=self.state, ig=self.ig,
+            connectivity=self._plan_C, status=self.status,
+            link=self._plan_link, **extra)
+        if plan is None:
+            return None
+        fn, args, horizon = plan
+        end = i + (int(horizon) if horizon is not None
+                   else self.num_windows - i)
+        ev = self.config.eval_every
+        end = min(end, self.num_windows, (i // ev + 1) * ev, i + _MAX_CHUNK)
+        if self._isl_mode == "sink":
+            # one sink election a scan: clip chunks to election epochs
+            ep = self._isl.epoch
+            end = min(end, (i // ep + 1) * ep)
+        return fn, args, end
+
+    def _scan(self, state, w: int, n_valid: int, fn, args, isl_dev,
+              horizon: int):
+        """One scan of `horizon` windows from w, the first `n_valid` of
+        them live: a graph replay on a card, the eager `_scan_windows`
+        elsewhere. Returns (state, counters), both the engine's own."""
+        self.loop_counts["scans"] += 1
+        kw = dict(indicator=fn, horizon=horizon, isl_mode=self._isl_mode)
+        if self._graphs is not None:
+            return self._graphs(state, self.ig, self._C_dev, w, n_valid,
+                                args, self._link_dev, isl_dev,
+                                self._faults_dev, **kw)
+
+        def i32(x):
+            return torch.tensor(x, dtype=torch.int32, device=self.device)
+        return _scan_windows(state, i32(self.ig), self._C_dev, i32(w),
+                             i32(n_valid), args, self._link_dev, isl_dev,
+                             self._faults_dev, **kw)
+
+    def _run_chunk(self, i: int, fn, args, end: int):
+        """Advance windows [i, end) through scans on the device, back on
+        the host exactly at aggregation events. One device-to-host read of
+        the per-window counters a scan; the protocol's integers and the
+        model's bits are the host loop's. Returns (next window, stop)."""
+        cfg, res = self.config, self.result
+        self.loop_counts["chunks"] += 1
+        args = tree_map(lambda x: torch.as_tensor(x, device=self.device),
+                        args)
+        w = i
+        while w < end:
+            H = end - w
+            # a card's scans are bucketed to powers of two (one graph a
+            # bucket); the CPU's eager scan runs just the chunk's windows
+            bucket = H if self._graphs is None else 1 << (H - 1).bit_length()
+            if self._isl_mode == "sink":
+                isl_dev = self._sink_plan(w)
+            elif self._isl_mode == "gossip":
+                isl_dev = self._gossip_dev + (self._gossip_period,)
+            else:
+                isl_dev = None
+            prev_state = self.state
+            self.state, counters = self._scan(prev_state, w, H, fn, args,
+                                              isl_dev, bucket)
+            counters = counters[:H].tolist()
+            self.loop_counts["host_reads"] += 1
+            advanced = H
+            for j in range(H):
+                n_conn, n_idle, _, a = counters[j]
+                res.total_connections += n_conn
+                res.idle_connections += n_idle
+                res.windows_run = w + j + 1
+                if a:
+                    self.on_aggregate(w + j)
+                    self.on_downloads(w + j, self.C[w + j])
+                stop = False
+                if (w + j + 1) % cfg.eval_every == 0 \
+                        or w + j == self.num_windows - 1:
+                    stop = self.evaluate(w + j)
+                self._emit("on_window_end", w + j)
+                if stop or self._stop_requested:
+                    if not a and j + 1 < H:
+                        # a stop mid-chunk: the scan advanced the state past
+                        # this window; replay the prefix from the saved state
+                        # (no event fired in it, so the rescan repeats it
+                        # exactly), so the run freezes one window after the
+                        # request, not at the chunk's end
+                        self.state, _ = self._scan(prev_state, w, j + 1, fn,
+                                                   args, isl_dev, bucket)
+                    return w + j + 1, True
+                if a:        # the scan froze at the event; rescan after it
+                    advanced = j + 1
+                    break
+            w += advanced
+        return w, False
 
     # -------------------------------------------------------- protocol steps
 
@@ -507,6 +856,7 @@ class SimulationEngine:
         n_conn, n_idle, n_buf = torch.stack(
             [info["n_connected"], info["n_idle"], info["n_buffered"]]
         ).tolist()
+        self.loop_counts["host_reads"] += 1
         res.total_connections += n_conn
         res.idle_connections += n_idle
         return n_buf
@@ -533,6 +883,7 @@ class SimulationEngine:
         work."""
         cfg = self.config
         buffered = self.state.buffered.cpu().numpy()
+        self.loop_counts["host_reads"] += 2      # here and the pruning's
         ks = np.flatnonzero(buffered >= 0)
         stal = (self.ig - buffered[ks]).astype(np.int64)
         updates, rows = self._train_buffered(ks, buffered, round_rng=i)

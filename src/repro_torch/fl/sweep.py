@@ -21,10 +21,12 @@ model is trained. Each variant's outcome equals its sequential
 
 What is sweepable: an engine whose scheduler offers a `device_plan`
 valid for the rest of the run (sync, async, fedbuff, periodic,
-intra_plane, isl_async), with the base protocol steps and no stop at a
-target accuracy. FedSpace re-plans mid-run against training status, so
-`sweep_engines` refuses it (run those variants through `.run()`, as
-`examples/fault_study_torch.py` does).
+intra_plane, isl_async: the indicators the engine's fast loop scans
+too), with the base protocol steps and no stop at a target accuracy.
+FedSpace's plan holds only until its next re-plan, which depends on the
+training status, so `sweep_engines` refuses it (run those variants
+through `.run()`, where the engine's fast loop takes its plan chunk by
+chunk, as `examples/fault_study_torch.py` does).
 """
 from __future__ import annotations
 
@@ -96,7 +98,7 @@ def _variant_columns(eng: SimulationEngine):
                              link=plan_link)
     if plan is None:
         raise _not_sweepable(eng, "no device plan")
-    fn, args, _ = plan     # the port's plans hold to the end of the run
+    fn, args, _ = plan     # horizon None: the plan holds to the end
 
     cols = {"C": np.asarray(eng.C[:W], bool), "args": args}
     if linked:

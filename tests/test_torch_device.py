@@ -1511,3 +1511,123 @@ def test_launch_steps_on_the_card_match_the_cpu(monkeypatch):
                 assert not faults, faults
             else:
                 assert faults, f"{plant.__name__} passed every check"
+
+
+def _scan_world(g, K, W, device):
+    """A random world for `_scan_windows` on `device`: connectivity,
+    grants and fault masks padded like the engine's, a sink plan and
+    gossip neighbours, from the torch generator `g`."""
+    from repro_torch.fl.engine import _MAX_CHUNK
+
+    def rows(p):
+        x = torch.rand((W + _MAX_CHUNK, K), generator=g) < p
+        x[W:] = False
+        return x
+    C = rows(0.4)
+    grants = torch.randint(1, 4, (W + _MAX_CHUNK, K), generator=g,
+                           dtype=torch.int32) * C
+    faults = (rows(0.05), rows(0.9))
+    sink = torch.randint(0, K, (K,), generator=g)
+    need = torch.randint(0, 3, (K,), generator=g, dtype=torch.int32)
+    nbrs = tuple(torch.randint(0, K, (K,), generator=g) for _ in range(4))
+    on = (lambda t: t.to(device))
+    return {"C": on(C), "link": (on(grants), 2, 1),
+            "faults": tuple(map(on, faults)),
+            "sink": (on(sink), on(need)),
+            "gossip": tuple(map(on, nbrs)) + (on(torch.tensor(
+                3, dtype=torch.int32)),)}
+
+
+def _scan_state(g, K, device, *, linked, relay):
+    def col(lo, hi):
+        return torch.randint(lo, hi, (K,), generator=g,
+                             dtype=torch.int32).to(device)
+    return TS.SatState(col(-1, 4), col(-1, 4), col(-1, 4),
+                       col(0, 3) if linked else None,
+                       col(0, 3) if relay else None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", [None, "sink", "gossip"])
+def test_chunk_graph_replay_matches_the_eager_scan_on_the_card(mode):
+    """Each bucket's CUDA graph replay against the eager `_scan_windows`
+    on the card and on the CPU, under a budget and a fault trace: every
+    state column and counter bit for bit, twice per graph (the second
+    replay from other inputs)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core.scheduler import _fedbuff_indicator
+    from repro_torch.fl import engine as TE
+    K, W = 12, 200
+    g = torch.Generator().manual_seed(0)
+    worlds = {d: _scan_world(torch.Generator().manual_seed(1), K, W, d)
+              for d in ("cuda", "cpu")}
+    graphs = TE.ChunkGraphs("cuda")
+    before = dict(TE.graph_counts)
+    for h in [1 << b for b in range(8)]:
+        for _ in range(2):
+            st = _scan_state(g, K, "cpu", linked=True, relay=mode == "sink")
+            ig = int(torch.randint(0, 5, (), generator=g))
+            i0 = int(torch.randint(0, W, (), generator=g))
+            nv = int(torch.randint(1, h + 1, (), generator=g))
+            M = torch.tensor(int(torch.randint(1, 5, (), generator=g)),
+                             dtype=torch.int32)
+            outs = {}
+            for d, wd in worlds.items():
+                args = dict(indicator=_fedbuff_indicator, horizon=h,
+                            isl_mode=mode)
+                ops = (TS.SatState(*(None if x is None else x.to(d)
+                                     for x in st)),)
+                rest = (wd["C"],)
+                i32 = (lambda x: torch.tensor(x, dtype=torch.int32,
+                                              device=d))
+                outs[d] = TE._scan_windows(
+                    *ops, i32(ig), *rest, i32(i0), i32(nv), M.to(d),
+                    wd["link"], wd.get(mode), wd["faults"], **args)
+                if d == "cuda":
+                    outs["graph"] = graphs(
+                        *ops, ig, *rest, i0, nv, M.to(d), wd["link"],
+                        wd.get(mode), wd["faults"], **args)
+            for side in ("graph", "cpu"):
+                (s1, c1), (s0, c0) = outs[side], outs["cuda"]
+                assert torch.equal(c1.cpu(), c0.cpu()), (side, h)
+                for x, y in zip(s1, s0):
+                    assert (x is None) == (y is None)
+                    if x is not None:
+                        assert torch.equal(x.cpu(), y.cpu()), (side, h)
+    assert TE.graph_counts["captures"] - before["captures"] == 8
+    assert TE.graph_counts["replays"] - before["replays"] == 16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,params", [("fedbuff", {"M": 2}),
+                                         ("periodic", {"period": 3})])
+def test_fast_loop_matches_the_host_loop_on_the_card(kind, params):
+    """A small quickstart world on the card under both strategies: every
+    counter and the parameters bit for bit (same device, same operations),
+    one graph replay a scan, fewer device reads than the host loop."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.fl import engine as TE
+    import dataclasses
+    fed = TA.Federation.from_experiment(_exp(), device="cuda")
+    fed = fed.with_scheduler(kind, **params)
+    out = []
+    for fast in (True, False):
+        plain = fed.engine(device="cuda")
+        eng = SimulationEngine(plain.C, fed.adapter, fed.scheduler,
+                               dataclasses.replace(plain.config,
+                                                   fast_loop=fast),
+                               device="cuda")
+        before = dict(TE.graph_counts)
+        res = eng.run()
+        replays = TE.graph_counts["replays"] - before["replays"]
+        assert replays == eng.loop_counts["scans"]
+        assert (replays > 0) == fast
+        out.append((eng, res))
+    (fe, fr), (he, hr) = out
+    assert fr.summary() == hr.summary() and fr.accuracy == hr.accuracy
+    assert fr.num_global_updates > 0
+    assert fe.loop_counts["host_reads"] < he.loop_counts["host_reads"]
+    for a, b in zip(fe.params.values(), he.params.values()):
+        assert torch.equal(a, b)

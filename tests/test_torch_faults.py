@@ -73,7 +73,11 @@ class StubAdapter:
 
 
 def _scripted_indicator(t, n_buf, args):
-    return args[..., t] > 0
+    if isinstance(t, int):                  # the sweep's window loop
+        return args[..., t] > 0
+    # the engine's scans: `t` a 0-d device tensor, past the schedule on a
+    # bucket's padding windows (clamped; the scan discards them)
+    return torch.take(args, t.clamp(max=args.shape[-1] - 1).long()) > 0
 
 
 class Scripted(Scheduler):
