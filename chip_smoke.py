@@ -51,13 +51,13 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      (`fast_loop=False`) held to it bit for bit (`strategies` line:
      counters, histogram, evaluation windows, columns, params; each run's
      wall, chunks, scans, graph captures and replays, the engine's device
-     reads and the synchronizing calls torch saw), both again in turns,
-     then the same experiment on the CPU as the check; then the fast
-     loop's own phase (`fastloop` lines): (a) a graph replay against the
-     eager scan on the card at every bucket 1-128, ground-only, sink and
-     gossip, on the fault study's world under churn40, bit for bit, each
-     bucket timed both ways; (b) a stop requested mid-chunk at windows 0,
-     17, 37 and 63 against a run of stop + 1 windows;
+     reads and the synchronizing calls torch saw), then the same
+     experiment on the CPU as the check; then the fast loop's own phase
+     (`fastloop` lines): (a) a graph replay against the eager scan on the
+     card at buckets 1, 8 and 128, ground-only, sink and gossip, on the
+     fault study's world under churn40, bit for bit, each bucket timed
+     both ways; (b) a stop requested mid-chunk at windows 0 and 17
+     against a run of stop + 1 windows;
   5. the transformer path: the same FedBuff world with the transformer
      payload (RMSNorm and attention in the kernels, forward and backward)
      over its first 96 of 288 windows (`TRANSFORMER_WINDOWS`) on the
@@ -72,8 +72,8 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      (`aggregation trace`: kernels, copy kernels, device and host
      microseconds from the last client update to the new params);
   6. the FedSpace path (`fedspace` lines): (a) the quickstart world under
-     FedSpace with a histogram-only forest (no split on the status T)
-     through `Federation.from_experiment(exp).run()` on the card, launch
+     FedSpace with a histogram-only forest (no split on the status T),
+     over its first 144 of 288 windows (`FEDSPACE_HIST_WINDOWS`), through `Federation.from_experiment(exp).run()` on the card, launch
      counts read around it (one aggregation launch per aggregation),
      the card's host loop held to its fast loop (every re-plan's schedule
      too), then on the CPU: counters and every re-plan's schedule equal;
@@ -107,10 +107,10 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      links through the repo's examples: (a) every policy of
      examples/scheduler_comparison.py (starlink40, 384 windows, its
      ISLConfig; the chaos-held async and isl_async over the first 48,
-     fedbuff and periodic over the first 192) on
+     fedbuff and periodic over the first 96) on
      the card and on the CPU, FedSpace with phase 1 on the
-     card (its seconds) and the forest carried to the CPU, sync and
-     periodic also on the card's host loop, held to the fast loop; (b) the
+     card (its seconds) and the forest carried to the CPU, sync also on
+     the card's host loop, held to the fast loop; (b) the
      binding cell of examples/isl_comparison.py (starlink40 over sparse1
      under a finite budget; its blocked share): fedbuff, intra_plane,
      isl_async and FedSpace's link-gated search, card against CPU, with
@@ -126,8 +126,9 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      under `torch.cuda.set_sync_debug_mode("error")`, groups and walls
      printed, and three cells run one by one through the card's `.run()`,
      equal to the sweep; (b) FedSpace under each fault world and under
-     churn40 as an oracle, phase 1 once on the card and the forest carried
-     to the CPU, card against CPU as in the scenarios; (c) the traces'
+     churn40 as an oracle, over the first 96 windows
+     (`FAULT_FEDSPACE_WINDOWS`), phase 1 once on the card and the forest
+     carried to the CPU, card against CPU as in the scenarios; (c) the traces'
      numbers (alive satellites at the end, contacts and grant units
      removed);
   10. the compression phase (`compression` lines): (a) the top-k 0.25
@@ -137,7 +138,8 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      frozen leaves 0), then both timed on one flat leaf of the paper's
      size (M 20, N 26,608,958) beside one read and one write of it; (b)
      part (b) of the `payloads` section of benchmarks/hotpaths.py, 12
-     runs card and CPU: every counter equal, need_up lower with
+     runs card and CPU over the first 96 of its 192 windows
+     (`STUDY_WINDOWS`): every counter equal, need_up lower with
      compression, need_dn unchanged, the aggregated-gradient counts
      shifted, one aggregation launch per aggregation, RMSNorm and
      attention in the transformer cells;
@@ -237,7 +239,13 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      a fresh process with no card visible beside the build and waited for
      before the kernel checks, so that it loads no timed phase: it must
      say ok; its terms printed;
-  17. one JSON line listing every ported kernel.
+  17. the satellite-axis mesh on a world-1 NCCL group (`mesh` lines),
+     last because the group leaves a thread behind: (a) the mesh gate's
+     K 1,000 run, fast and host loop, with the mesh and with
+     `mesh=None`, bit for bit; (b) `score_candidates(mesh=)` at K 191 /
+     R 5,000; (c) `ReplanService(mesh=)` at K 1,000 / R 20,000, each
+     against the unsharded result and timed;
+  18. one JSON line listing every ported kernel.
 The last line is `{"ok": true,
 "device": {...}}`. Without a CUDA device, or away from the repository's
 sources, it exits nonzero and prints no result. Imports nothing of JAX or
@@ -342,6 +350,7 @@ def check_aggregation(torch):
               for m in (1, MAIN_PATH_M, 40)] + [(DENSENET_M, DENSENET_N),
                                                 (FAULT_M, FAULT_N),
                                                 (MAIN_PATH_M, FAULT_N),
+                                                (MESH_GATE["M"], 2),
                                                 (PAPER_M, PAPER_N)]
     rows_out = []
     for m, n in shapes:
@@ -1299,18 +1308,6 @@ def run_main_path(torch):
     if not all(math.isfinite(a) for a in res.accuracy + res.val_loss):
         raise AssertionError("non-finite accuracy or loss on the card")
     _strategies(torch, "main path", fed, eng, res, stats)
-    # the same runs again, in turns: the first fast-loop run paid the
-    # process's first use of what follows the build (the card's first
-    # aggregation, the data on the card)
-    again = {}
-    for label, fast in (("host", False), ("fast", True)):
-        e = _engine(fed, fast_loop=fast)
-        with LoopStats(torch) as st:
-            r = e.run()
-        _same_counters(res, r)
-        again[label] = st.line(e)
-    print(f"main path strategies (cuda), again: {json.dumps(again)}",
-          flush=True)
 
     t0 = time.perf_counter()
     cpu = Federation.from_experiment(exp, device="cpu").run()
@@ -1352,8 +1349,11 @@ def _close_accuracy(res, cpu, tol):
 FASTLOOP_MODES = (("fedbuff", {"M": FAULT_M}, None),
                   ("intra_plane", {"M": FAULT_M}, "sink"),
                   ("isl_async", {}, "gossip"))
-FASTLOOP_BUCKETS = tuple(1 << b for b in range(8))     # 1, 2, 4, ... 128
-FASTLOOP_STOPS = (0, 17, 37, 63)
+# buckets 1-128 all run in the `gpu` test of the graph replay
+# (tests/test_torch_device.py); the script holds and times three of them
+# and stops at two windows, which leaves its time room for the mesh phase
+FASTLOOP_BUCKETS = (1, 8, 128)
+FASTLOOP_STOPS = (0, 17)
 
 
 def _fastloop_world(torch):
@@ -1392,12 +1392,12 @@ def _host_ms(torch, fn, iters=5):
 def run_fastloop_path(torch):
     """Phase 5, the fast loop on the card (`fastloop` lines): (a) one CUDA
     graph replay (`ChunkGraphs`) against the eager `_scan_windows` on the
-    card, its yardstick, at every bucket 1-128, ground-only, sink and
-    gossip, on the fault study's world (budget, ISLs) under churn40's
-    trace, from random protocol states: every state column and the
-    counters bit for bit, the graphs captured once a key, and each
-    bucket's replay and eager call timed; (b) a stop requested mid-chunk
-    at windows 0, 17, 37 and 63 under fedbuff and intra_plane, held
+    card, its yardstick, at the buckets of `FASTLOOP_BUCKETS`,
+    ground-only, sink and gossip, on the fault study's world (budget,
+    ISLs) under churn40's trace, from random protocol states: every state
+    column and the counters bit for bit, the graphs captured once a key,
+    and each bucket's replay and eager call timed; (b) a stop requested
+    mid-chunk at `FASTLOOP_STOPS` under fedbuff and intra_plane, held
     against a run of `max_windows` = stop + 1: windows, protocol columns,
     global version and params bit for bit."""
     from repro_torch.fl import engine as E
@@ -1488,6 +1488,176 @@ def run_fastloop_path(torch):
                   f"{res.windows_run} windows, ig {eng.ig}, columns and "
                   f"params those of max_windows {stop + 1}; loop "
                   f"{json.dumps(eng.loop_counts)}", flush=True)
+
+
+# The satellite-axis mesh: benchmarks/hotpaths.py's mesh gate
+# (starlink1000 scale: K 1,000, 96 windows, C = default_rng(0).random((96,
+# 1000)) < 0.08, FedBuff M 12, a stub adapter), FedSpace's re-plan at the
+# paper's shape and the replan service at its serving shape
+MESH_GATE = {"K": 1000, "W": 96, "M": 12}
+MESH_SEARCH = {"K": 191, "R": 5000, "I0": 24}
+MESH_SERVE = {"K": 1000, "R": 20_000, "I0": 24}
+
+
+class _NullAdapter:
+    """A two-parameter model whose loss has zero gradient, on the card:
+    client training changes nothing, so a run isolates the protocol (the
+    mesh gate's stub adapter). Each aggregation still launches the
+    aggregation kernel."""
+
+    def __init__(self, torch, K):
+        self.torch, self.clients = torch, list(range(K))
+        self.device = torch.device("cuda")
+
+    def init(self, gen):
+        return {"w": self.torch.zeros(2, device=self.device)}
+
+    def loss(self, params, batch):
+        return (params["w"] * 0.0).sum(-1) + batch[0].sum(-1) * 0.0
+
+    def client_batch(self, ci, round_rng, batch_size, num_batches):
+        return (self.torch.zeros((num_batches, 1), device=self.device),)
+
+    def accuracy(self, params):
+        return 0.0
+
+    def val_loss(self, params):
+        return 0.0
+
+
+def run_mesh_path(torch, smi):
+    """The last phase, after the launch tools': the satellite-axis mesh
+    (`mesh` lines) on a world-1 NCCL group that the phase starts
+    (`repro_torch.core.mesh.sim_mesh`) and destroys: (a) the mesh gate's
+    run, fast loop (its scans CUDA graphs
+    holding their collectives) and host loop, each with the mesh and
+    with `mesh=None`: the version, pending and buffered columns, `ig`,
+    the staleness histogram and the idle and total connections bit for
+    bit, walls, graph captures and replays and `collective_counts`
+    printed; (b) `score_candidates(mesh=)` at the paper's re-plan shape
+    (K 191, R 5,000, I0 24, a 40-tree forest from a seed) equal to
+    `mesh=None` bit for bit, each timed; (c) `ReplanService(mesh=)` at
+    K 1,000, R 20,000: two requests, each a sharded full rescan (reason
+    "mesh", no cache) equal to the unsharded service's full answer,
+    each timed. Returns the launch counts of (a)'s runs."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.core import mesh as MM
+    from repro_torch.core import staleness as SS
+    from repro_torch.core.scheduler import make_scheduler
+    from repro_torch.core.search import random_candidates, score_candidates
+    from repro_torch.fl.engine import EngineConfig, SimulationEngine
+    from repro_torch.fl.replan import ReplanService
+    from repro_torch.kernels import launch_counts
+    card = smi.splitlines()[0]
+    t_phase = time.perf_counter()
+    mesh = MM.sim_mesh()
+    try:
+        K, W, M = MESH_GATE["K"], MESH_GATE["W"], MESH_GATE["M"]
+        C = np.random.default_rng(0).random((W, K)) < 0.08
+        out, counts = {}, {}
+        launch_counts.clear()
+        for fast in (True, False):
+            for label, m in (("none", None), ("mesh", mesh)):
+                MM.collective_counts.clear()
+                eng = SimulationEngine(
+                    C, _NullAdapter(torch, K),
+                    make_scheduler("fedbuff", M=M),
+                    EngineConfig(eval_every=W, max_windows=W,
+                                 fast_loop=fast), mesh=m)
+                with LoopStats(torch) as st:
+                    res = eng.run()
+                key = ("fast" if fast else "host", label)
+                out[key] = (eng, res)
+                line = dict(st.line(eng),
+                            collectives=dict(+MM.collective_counts))
+                print(f"mesh (a) K {K}, {W} windows, fedbuff M {M}, "
+                      f"{'fast' if fast else 'host'} loop, "
+                      f"{'world-1 NCCL mesh' if m else 'mesh=None'}: "
+                      f"{json.dumps(line)}; {card}", flush=True)
+                if fast and m is not None and not (
+                        MM.collective_counts["psum"]
+                        and MM.collective_counts["all_gather"]
+                        and st.replays):
+                    raise AssertionError("mesh (a): the mesh's fast loop "
+                                         "ran no collective or no graph")
+        counts = dict(launch_counts)
+        for loop in ("fast", "host"):
+            (e0, r0), (e1, r1) = out[loop, "none"], out[loop, "mesh"]
+            if not (np.array_equal(e0.version, e1.version)
+                    and np.array_equal(e0.pending, e1.pending)
+                    and np.array_equal(e0.buffered_base, e1.buffered_base)
+                    and e0.ig == e1.ig
+                    and r0.staleness_hist.tolist()
+                    == r1.staleness_hist.tolist()
+                    and r0.idle_connections == r1.idle_connections
+                    and r0.total_connections == r1.total_connections):
+                raise AssertionError(f"mesh (a) {loop} loop: the mesh run "
+                                     f"differs from mesh=None")
+        (e0, r0) = out["fast", "none"]
+        if r0.num_global_updates == 0 or counts.get(
+                "weighted_aggregate") != 4 * r0.num_global_updates:
+            raise AssertionError(f"mesh (a): {counts} launches for 4 runs "
+                                 f"of {r0.num_global_updates} aggregations")
+        print(f"mesh (a): fast and host loop, mesh = mesh=None bit for bit "
+              f"(columns, ig {e0.ig}, histogram, idle "
+              f"{r0.idle_connections} of {r0.total_connections} "
+              f"connections, {r0.num_global_updates} aggregations); "
+              f"{card}", flush=True)
+
+        rf = _search_forest()
+        for tag, shape in (("(b) score_candidates", MESH_SEARCH),
+                           ("(c) ReplanService", MESH_SERVE)):
+            K, R, I0 = shape["K"], shape["R"], shape["I0"]
+            r = np.random.default_rng(1)
+            C = r.random((I0 + 1, K)) < 0.15
+            ig = 20
+            state = SS.SatState(*(torch.as_tensor(
+                r.integers(-1, ig + 1, K).astype(np.int32), device="cuda")
+                for _ in range(3)))
+            if tag.startswith("(b)"):
+                cands = random_candidates(r, I0, 4, 8, R)
+                calls = {label: (lambda m=m: score_candidates(
+                    cands, C[:I0], state, ig, rf, 1.0, mesh=m))
+                    for label, m in (("none", None), ("mesh", mesh))}
+                got = {k: f() for k, f in calls.items()}
+                if not np.array_equal(got["mesh"], got["none"]):
+                    raise AssertionError("mesh (b): sharded scores differ")
+                ms = {k: _time_ms(f, 5) for k, f in calls.items()}
+                row = {"K": K, "R": R, "I0": I0, "scores_equal": True,
+                       "ms_none": ms["none"], "ms_mesh": ms["mesh"]}
+            else:
+                svc = ReplanService(rf, I0=I0, num_candidates=R, n_min=4,
+                                    n_max=8, mesh=mesh)
+                ms = {"mesh": [], "none": []}
+                for i in range(2):
+                    draws = {}
+                    for label, s in (("mesh", svc), ("none", ReplanService(
+                            rf, I0=I0, num_candidates=R, n_min=4,
+                            n_max=8))):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        draws[label] = s.replan(
+                            i, C[i:i + I0], state, ig, 1.0,
+                            rng=np.random.default_rng(10 + i))
+                        ms[label].append((time.perf_counter() - t0) * 1e3)
+                    if not np.array_equal(draws["mesh"], draws["none"]):
+                        raise AssertionError(f"mesh (c) request {i}: the "
+                                             f"sharded answer differs")
+                    if (svc.last_mode, svc.last_reason) != ("full", "mesh") \
+                            or svc.pool is not None:
+                        raise AssertionError("mesh (c): the service under a "
+                                             "mesh cached or took no full "
+                                             "rescan")
+                row = {"K": K, "R": R, "I0": I0, "answers_equal": True,
+                       "reason": svc.last_reason, "stats": svc.stats,
+                       "ms_mesh": ms["mesh"], "ms_none": ms["none"]}
+            print(f"mesh {tag}: {json.dumps(row)}; {card}", flush=True)
+        print(f"mesh: phase {time.perf_counter() - t_phase:.1f} s; {card}",
+              flush=True)
+    finally:
+        dist.destroy_process_group()
+    return {"mesh": counts}
 
 
 def transformer_experiment():
@@ -1915,6 +2085,9 @@ def check_client_update(torch, card, cpu, train, m=MAIN_PATH_M,
 # The quickstart's FedSpace row (examples/quickstart.py): the schedule
 # search's knobs and phase 1's setup.
 FEDSPACE_PARAMS = {"I0": 24, "n_min": 4, "n_max": 8, "num_candidates": 500}
+# (a)'s histogram-forest run over the world's first 144 of 288 windows
+# (6 re-plans), a cut that keeps the script inside its time limit
+FEDSPACE_HIST_WINDOWS = 144
 FEDSPACE_SETUP = {"pretrain_rounds": 25, "clients_per_round": 16,
                   "utility_samples": 120, "local_steps": 16,
                   "client_lr": 1.0}
@@ -2061,6 +2234,8 @@ def run_fedspace_path(torch):
     twice, bit for bit alike), the run on the card, then on the CPU with
     the same regressor; (c) the re-plan's cost. Returns the launch counts
     of (b)'s card run."""
+    import dataclasses
+
     import numpy as np
     from repro_torch.core.utility import RandomForestRegressor
     from repro_torch.fl.api import Federation, SchedulerConfig
@@ -2071,6 +2246,8 @@ def run_fedspace_path(torch):
     # (a)
     exp = fedspace_experiment({**FEDSPACE_PARAMS,
                                "regressor": _hist_forest()})
+    exp = dataclasses.replace(exp, train=dataclasses.replace(
+        exp.train, max_windows=FEDSPACE_HIST_WINDOWS))
     fed = Federation.from_experiment(exp)
     p0 = params_to_numpy(fed.adapter.init(torch.Generator().manual_seed(
         exp.seed)))
@@ -2450,10 +2627,10 @@ ISL_CELL_POLICIES = (("fedbuff", {"M": 12}), ("intra_plane", {}),
                      ("isl_async", {}))
 # (a)'s chaos-held policies (an aggregation nearly every window, each run
 # also held against a nudged card run) run the world's first half day (two
-# evaluations), fedbuff and periodic its first two of four days, which
-# keeps the whole script inside its time limit.
-SCENARIO_SHORT = {"async": 48, "isl_async": 48, "fedbuff": 192,
-                  "periodic": 192}
+# evaluations), fedbuff and periodic its first day, which keeps the whole
+# script inside its time limit.
+SCENARIO_SHORT = {"async": 48, "isl_async": 48, "fedbuff": 96,
+                  "periodic": 96}
 # Accuracy card against CPU, at every evaluation: within 0.01 (as the
 # quickstart path); where a run is chaotic (one update an aggregation at lr
 # 1.0 carries a rounding difference on and grows it: ROADMAP C16) and the
@@ -2461,7 +2638,9 @@ SCENARIO_SHORT = {"async": 48, "isl_async": 48, "fedbuff": 192,
 # model by one rounding makes on the card, plus one argmax flip.
 SCENARIO_ACC_TOL = 0.01
 # the policies whose card run is also held to the card's host loop
-SCENARIO_HOST_PAIRS = ("sync", "periodic")
+# (periodic's pair runs in the `gpu` test of the fast loop,
+# tests/test_torch_device.py)
+SCENARIO_HOST_PAIRS = ("sync",)
 
 
 def _first_windows(fed, windows):
@@ -2729,6 +2908,9 @@ def run_scenarios_path(torch):
 # and FedSpace (I0 24, 4-8 aggregations, 512 candidates; phase 1 of 10
 # rounds of 12 clients and 60 samples at E 8, lr 1.0) run one by one.
 FAULT_K, FAULT_G, FAULT_WINDOWS = 40, 12, 192
+# (b)'s FedSpace runs over the worlds' first day (4 re-plans), a cut that
+# keeps the whole script inside its time limit
+FAULT_FEDSPACE_WINDOWS = 96
 FAULT_SWEEPABLE = (("sync", {}), ("fedbuff", {"M": FAULT_M}),
                    ("intra_plane", {"M": FAULT_M}))
 FAULT_FEDSPACE = {"I0": 24, "n_min": 4, "n_max": 8, "num_candidates": 512}
@@ -2985,10 +3167,11 @@ def run_faults_path(torch):
                                                    oracle=True))]
         for label, cfg in runs:
             _, card, cpu = _scenario_pair(
-                torch, f"faults (b) {label}",
-                clean.with_faults(cfg).with_scheduler(fs_cfg),
-                cpu_clean.with_faults(cfg).with_scheduler(cpu_cfg), p0,
-                counts, regressor=reg)
+                torch, f"faults (b) {label}", *(
+                    _first_windows(w.with_faults(cfg).with_scheduler(c),
+                                   FAULT_FEDSPACE_WINDOWS)
+                    for w, c in ((clean, fs_cfg), (cpu_clean, cpu_cfg))),
+                p0, counts, regressor=reg)
             walls[label] = (card, cpu)
     if phase1.calls != 1:
         raise AssertionError(f"phase 1 ran {phase1.calls} times")
@@ -3005,8 +3188,11 @@ def run_faults_path(torch):
 # benchmarks/hotpaths.py as written: starlink40 over sparse1, 2 days (192
 # windows), LinkConfig(20, 100, model MB, one satellite a station),
 # 600/200 samples, E 2, {mlp hidden 64 at 300 MB, transformer default at
-# 600 MB} x {off, top-k 0.25, int8} x {fedbuff M 2, async}, card and CPU.
+# 600 MB} x {off, top-k 0.25, int8} x {fedbuff M 2, async}, card and CPU;
+# each run over the first day (STUDY_WINDOWS), a cut that keeps the whole
+# script inside its time limit.
 COMPRESSION_TOPK = 0.25
+STUDY_WINDOWS = 96
 STUDY_MODELS = (("mlp", {"hidden": 64}, 300.0), ("transformer", {}, 600.0))
 STUDY_COMPRESSION = (("off", {}), ("topk25", {"uplink_topk": 0.25}),
                      ("int8", {"uplink_int8": True}))
@@ -3086,7 +3272,8 @@ def study_experiment(kind, params, model_mb, scheduler, sched_params,
         adapter=AdapterConfig(kind=kind, params=dict(params)),
         scheduler=SchedulerConfig(kind=scheduler,
                                   params=dict(sched_params)),
-        train=EngineConfig(eval_every=192, max_windows=192, local_steps=2),
+        train=EngineConfig(eval_every=STUDY_WINDOWS,
+                           max_windows=STUDY_WINDOWS, local_steps=2),
         link=LinkConfig(uplink_mbps=20.0, downlink_mbps=100.0,
                         model_mb=model_mb, gs_capacity=1, **compression))
 
@@ -5174,6 +5361,10 @@ def main() -> int:
     launch, launch_rows = run_launch_path(torch)
     paths.update(launch)
     done("launch path")
+    # last: the NCCL group it starts and destroys leaves a thread behind
+    # (scripts/mesh_phase_after_cost.py), so no timed phase runs after it
+    paths.update(run_mesh_path(torch, smi))
+    done("mesh path")
 
     # 6. the kernels line. One aggregation of the quickstart (one launch
     # over its flat model at M=20, float32); one SGD step of a

@@ -30,7 +30,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.core import staleness as SS
+from repro_torch.core import mesh as MM
 from repro_torch.core.connectivity import (ConstellationSpec,
                                            satellite_elements,
                                            transfer_windows)
@@ -285,9 +285,12 @@ def sink_connectivity(conn, sink, arrived, pending, *, axis_name=None):
     GS this window iff its plane's sink has a (served) contact AND k's
     update has arrived at the sink — or k has nothing in transit (idle and
     download-only contacts ride the sink's pass directly). `sink` holds
-    global satellite indices (int64); `axis_name` raises (the mesh
-    slice)."""
-    SS._no_mesh(axis_name)
+    global satellite indices (int64); when the satellite axis is sharded
+    (`axis_name`, see `repro_torch.core.mesh`) the connectivity row is
+    all-gathered first, one (K,) bool row a window, so each shard finds
+    its plane's sink wherever it lives."""
+    if axis_name is not None:
+        conn = MM.all_gather(conn, axis_name)
     return _take(conn, sink) & (arrived | (pending < 0))
 
 
@@ -304,11 +307,14 @@ def gossip_step(state, nxt, prv, left, right, do_hop, alive=None, *,
     row per batch index; `do_hop` a bool, or a bool tensor with one value
     per batch index of the state. `alive` (a fault run's (..., K) bool
     mask) removes dead satellites from the exchange: they offer nothing
-    (their version reads as -1) and adopt nothing. `axis_name` raises
-    NotImplementedError (the mesh slice). Returns ``(state, adopted)``."""
-    SS._no_mesh(axis_name)
+    (their version reads as -1) and adopt nothing. When the satellite
+    axis is sharded (`axis_name`) the masked version row is all-gathered,
+    one (K,) int row a hop, before the four gathers, so neighbours
+    resolve across shard boundaries. Returns ``(state, adopted)``."""
     v = state.version
     vn = v if alive is None else torch.where(alive, v, -1)
+    if axis_name is not None:
+        vn = MM.all_gather(vn, axis_name)
     nbv = torch.maximum(torch.maximum(_take(vn, nxt), _take(vn, prv)),
                         torch.maximum(_take(vn, left), _take(vn, right)))
     adopted = nbv > v

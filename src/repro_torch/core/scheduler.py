@@ -79,6 +79,10 @@ class Scheduler:
     name = "base"
     isl_mode = None      # "sink" | "gossip" | None (ground-only)
     isl = None           # the resolved ISL runtime, bound by the engine
+    # the run's satellite-axis mesh (repro_torch.core.mesh), bound by the
+    # engine before reset(); a scheduler that simulates on the device
+    # (FedSpace's eq.-13 search) shards it over the run's mesh
+    mesh = None
     # True for a policy that re-plans mid-run against the training status
     # (FedSpace): no device plan holds for the rest of its run
     replans = False
@@ -318,6 +322,7 @@ class FedSpaceScheduler(Scheduler):
                                           connectivity=connectivity,
                                           link=link)
         if self.service is not None:
+            self.service.mesh = self.mesh
             self._schedule = self.service.replan(
                 i, Cw, search_state, ig, status,
                 link=self._window_link(link, i), rng=self._rng,
@@ -327,7 +332,7 @@ class FedSpaceScheduler(Scheduler):
                 self._rng, Cw, search_state, ig, self.regressor, status,
                 n_min=n_min, n_max=n_max,
                 num_candidates=self.num_candidates, s_max=self.s_max,
-                link=self._window_link(link, i))
+                link=self._window_link(link, i), mesh=self.mesh)
         self._window_start = i
 
     def decide(self, i, *, n_in_buffer, K, state, ig, connectivity, status,

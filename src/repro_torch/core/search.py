@@ -19,8 +19,17 @@ and final rollout state, and `step_candidates`, one window over
 per-candidate states. Both reductions a score is made of add in a fixed
 order (the forest's mean over trees in `utility`, the masked event sum
 here, `_event_sum`), so a row's score has the same bits whether it is
-scored alone or with others: a delta re-plan equals a full rescan. The
-satellite-axis mesh comes with the mesh slice (ROADMAP A.10).
+scored alone or with others: a delta re-plan equals a full rescan.
+
+`score_candidates(mesh=...)` shards the rollouts over a satellite-axis
+mesh (`repro_torch.core.mesh`): each rank rolls its columns of the
+padded satellite axis for every candidate (the only cross-rank step is
+`aggregate_step`'s empty-buffer psum), the marks are gathered along the
+satellite axis, and the features and the forest run on every rank, so
+the scores are those of `mesh=None` bit for bit. Under a mesh
+`scan_candidates`, which does this, keeps none of the artifacts of the
+replan cache, and `step_candidates` stays single-device: no replan cache
+is built under a mesh.
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core import mesh as MM
 from repro_torch.core import staleness as SS
 from repro_torch.core.utility import featurize, featurize_t
 
@@ -66,7 +76,7 @@ def event_positions(candidates: np.ndarray):
 
 
 def _simulate_marks_state(C_window, candidates, state, ig, link=None, *,
-                          s_max: int):
+                          s_max: int, axis=None):
     """Staleness marks (R, I0, K) of each candidate's rollout, on the
     state's device (`link` an optional device `LinkGate`, grant (I0, K)),
     with each candidate's final rollout state and global version: the
@@ -74,7 +84,8 @@ def _simulate_marks_state(C_window, candidates, state, ig, link=None, *,
     only the newly revealed window."""
     fstate, fig, infos = SS.simulate_candidates(C_window, candidates, state,
                                                 ig, s_max=s_max,
-                                                collect="marks", link=link)
+                                                collect="marks", link=link,
+                                                axis_name=axis)
     return infos["marks"], fstate, fig
 
 
@@ -143,12 +154,14 @@ def _narrow_state(state: SS.SatState, ig: int, horizon: int):
             torch.tensor(ig, dtype=dt, device=state.version.device))
 
 
-def _later(what: str, slice_: str) -> NotImplementedError:
-    """The error of an option the port has not yet: `slice_` names the
-    slice of queue A.10 that brings it."""
-    return NotImplementedError(f"{what} is not ported yet: it comes with "
-                               f"the {slice_} slice of the port (ROADMAP "
-                               f"A.10)")
+def _chunk_scores(marks, idx, mask, status, predict_device, *,
+                  s_max: int):
+    """A chunk's scores from its rollouts' marks (Rc, I0, K): the
+    features at each candidate's aggregation windows, û, and the masked
+    event sum. Returns `_event_sum`'s (total (Rc,), masked (Rc, n_cap))."""
+    feats = _event_features(marks, idx, status, s_max=s_max)
+    util = predict_device(feats).reshape(-1, idx.shape[1])
+    return _event_sum(util, mask)
 
 
 def score_candidates(candidates: np.ndarray, C_window: np.ndarray,
@@ -180,16 +193,19 @@ def score_candidates(candidates: np.ndarray, C_window: np.ndarray,
         rolled transfers, so candidates are scored against the effective,
         capacity-constrained connectivity; `state.progress` must be
         attached when given.
-      mesh: raises NotImplementedError (the mesh slice, ROADMAP A.10).
+      mesh: optional satellite-axis `DeviceMesh`
+        (`repro_torch.core.mesh.sim_mesh`): the device pipeline pads K to
+        a multiple of the mesh's size with never-connected satellites and
+        rolls each rank's columns (`scan_candidates`), the scores of
+        `mesh=None` bit for bit. Every rank of the mesh calls with the
+        same arguments. The `.predict` path ignores it.
 
     Returns: (R,) float32 predicted utility sums.
     """
-    if mesh is not None:
-        raise _later("the satellite-axis mesh", "mesh")
     if getattr(regressor, "predict_device", None) is not None:
         return scan_candidates(candidates, C_window, state, ig, regressor,
                                status, s_max=s_max, chunk_rows=chunk_rows,
-                               link=link)[0]
+                               link=link, mesh=mesh)[0]
     device = state.version.device
     if link is not None:
         link = SS.LinkGate(torch.as_tensor(link.grant, dtype=torch.int32,
@@ -210,11 +226,18 @@ def score_candidates(candidates: np.ndarray, C_window: np.ndarray,
 def scan_candidates(candidates: np.ndarray, C_window: np.ndarray,
                     state: SS.SatState, ig: int, regressor, status: float,
                     *, s_max: int = 8, chunk_rows: Optional[int] = None,
-                    link=None):
+                    link=None, mesh=None):
     """`score_candidates`' device pipeline, which also keeps the
     per-candidate artifacts the replan service caches
     (`repro_torch.fl.replan`). The regressor must expose `predict_device`
     (a host-path regressor has no device artifacts).
+
+    Under a satellite-axis `mesh` the satellite axis is padded to a
+    multiple of the mesh's size with never-connected satellites, each rank
+    rolls its columns of it for every candidate, and the marks are
+    gathered along it before the features, so the scores are those of
+    `mesh=None` bit for bit; padded satellites keep their -1 marks, which
+    count in no histogram. No artifacts are kept then (None).
 
     Returns (scores (R,) float32 numpy, artifacts), artifacts a dict:
       win_util: (R, I0) float32 tensor on the state's device — each
@@ -233,12 +256,21 @@ def scan_candidates(candidates: np.ndarray, C_window: np.ndarray,
     cands = np.asarray(candidates)
     R, I0 = cands.shape
     K = C_window.shape[1]
+    Cw = np.asarray(C_window, bool)
+    grant, axis = None if link is None else link.grant, None
+    if mesh is not None:
+        axis, Kp = MM.mesh_axis(mesh), MM.padded_size(K, mesh)
+        Cw = MM.pad_axis(Cw, Kp)
+        grant = None if link is None else MM.pad_axis(np.asarray(grant), Kp)
+        state = MM.pad_state(state, Kp)
     if link is not None:
-        link = SS.LinkGate(torch.as_tensor(link.grant, dtype=torch.int32,
-                                           device=device),
-                           int(link.need_up), int(link.need_dn))
+        link = SS.LinkGate(MM.local(torch.as_tensor(
+            grant, dtype=torch.int32, device=device), axis).contiguous(),
+            int(link.need_up), int(link.need_dn))
     idx, mask = event_positions(cands)
-    Cw = torch.as_tensor(np.asarray(C_window, bool), device=device)
+    Cw = MM.local(torch.as_tensor(Cw, device=device), axis).contiguous()
+    state = SS.SatState(*(None if x is None else MM.local(x, axis)
+                          for x in state))
     cands_d = torch.as_tensor(cands, device=device)
     idx_d = torch.as_tensor(idx.astype(np.int64), device=device)
     mask_d = torch.as_tensor(mask, dtype=torch.float32, device=device)
@@ -246,20 +278,24 @@ def scan_candidates(candidates: np.ndarray, C_window: np.ndarray,
     if chunk_rows is None:
         chunk_rows = max(256, (64 << 20) // max(I0 * K, 1))
     scores = np.empty(R, np.float32)
-    win_util = torch.zeros((R, I0), dtype=torch.float32, device=device)
+    win_util = (torch.zeros((R, I0), dtype=torch.float32, device=device)
+                if axis is None else None)
     end_states, end_igs = [], []
     predict_device = regressor.predict_device
     for c0 in range(0, R, chunk_rows):
         rows = slice(c0, min(c0 + chunk_rows, R))
         marks, fstate, fig = _simulate_marks_state(
-            Cw, cands_d[rows], st, igd, link, s_max=s_max)
-        feats = _event_features(marks, idx_d[rows], status, s_max=s_max)
-        util = predict_device(feats).reshape(-1, idx.shape[1])
-        total, masked = _event_sum(util, mask_d[rows])
+            Cw, cands_d[rows], st, igd, link, s_max=s_max, axis=axis)
+        total, masked = _chunk_scores(MM.all_gather(marks, axis),
+                                      idx_d[rows], mask_d[rows], status,
+                                      predict_device, s_max=s_max)
         scores[rows] = total.cpu().numpy()
-        win_util[rows].scatter_(1, idx_d[rows], masked)
-        end_states.append(fstate)
-        end_igs.append(fig)
+        if axis is None:
+            win_util[rows].scatter_(1, idx_d[rows], masked)
+            end_states.append(fstate)
+            end_igs.append(fig)
+    if axis is not None:
+        return scores, None
     end_state = SS.SatState(*(
         None if end_states[0][j] is None
         else torch.cat([s[j] for s in end_states])

@@ -31,8 +31,14 @@ units (`LinkGate`, the `progress` column); the ISL layer
 (`repro_torch.core.isl`) keeps its relay hop counter in the `relay`
 column. Both columns are None unless the run models them, so
 geometry-only callers keep the three-column state and its exact
-transitions. A sharded satellite axis (`axis_name`) raises
-NotImplementedError: it comes with the mesh slice (ROADMAP A.10).
+transitions.
+
+A sharded satellite axis (`axis_name`, the mesh's process group, see
+`repro_torch.core.mesh`) keeps every mask per shard and makes the
+counters, the empty-buffer guard and the histograms exact integer
+collectives (`MM.psum`, `MM.pmax`), so every shard takes the same
+aggregate-or-not branch; `axis_name=None` runs the single-device
+program unchanged.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.core import mesh as MM
 from repro_torch.device import resolve_device
 
 
@@ -129,13 +136,6 @@ def bootstrap_state(K: int, *, progress: bool = False, relay: bool = False,
 # scans it.
 
 
-def _no_mesh(axis_name=None):
-    if axis_name is not None:
-        raise NotImplementedError(
-            "a sharded satellite axis (axis_name) is not ported yet: it "
-            "comes with the mesh slice of the port (ROADMAP A.10)")
-
-
 def _batched(ig, ref):
     """(ig, ig_b, nb): `ig` as a tensor of `ref`'s dtype and device,
     the same with a unit dim for each state dim it lacks (to broadcast
@@ -165,14 +165,14 @@ def upload_step(state: SatState, ig, connected, link=None, *,
     progress reaches `need_up` (progress then resets). `link=None` — or a
     gate with `need_up == 0` — is the instantaneous upload, bit for bit.
     `connected` is then the capacity-resolved (served) connectivity, so
-    the counters count served contacts. `axis_name` raises
-    NotImplementedError (the mesh slice, ROADMAP A.10).
+    the counters count served contacts. `axis_name` (a sharded satellite
+    axis) makes the three counters one psum, so every shard sees the
+    global values.
 
     Returns (new_state, info) with masks/counters on the device:
       uploads (..., K) bool, idle (..., K) bool,
       n_connected, n_idle, n_buffered — int32, one per batch index.
     """
-    _no_mesh(axis_name)
     _, ig_b, nb = _batched(ig, state.version)
     has_pending = state.pending >= 0
     active = connected & has_pending
@@ -188,10 +188,12 @@ def upload_step(state: SatState, ig, connected, link=None, *,
     # idle: connected, nothing to send, nothing new to fetch (eq. 10)
     idle = connected & ~has_pending & (state.version == ig_b)
     conn = connected.expand(idle.shape) if nb else connected
-    info = {"uploads": uploads, "idle": idle,
-            "n_connected": _count(conn, nb),
-            "n_idle": _count(idle, nb),
-            "n_buffered": _count(buffered >= 0, nb)}
+    counts = (_count(conn, nb), _count(idle, nb), _count(buffered >= 0, nb))
+    if axis_name is not None:
+        # one all-reduce of the stacked counters (exact: integer sums)
+        counts = MM.psum(torch.stack(counts), axis_name).unbind(0)
+    info = {"uploads": uploads, "idle": idle, "n_connected": counts[0],
+            "n_idle": counts[1], "n_buffered": counts[2]}
     return SatState(state.version, pending, buffered, progress,
                     state.relay), info
 
@@ -217,23 +219,26 @@ def aggregate_step(state: SatState, ig, aggregate, *, s_max: int,
           clipped staleness, -1 for satellites not aggregated this index
           (int8 when s_max <= 126; see `hist_from_marks`);
         * ``"none"``: {} — the transition only.
-      axis_name: raises NotImplementedError (the mesh slice, ROADMAP
-        A.10).
+      axis_name: a sharded satellite axis: the empty-buffer guard and
+        the histogram and count diagnostics become cross-device
+        reductions (exact integer psums, the maximum a pmax), so every
+        shard takes the same branch.
 
     The `progress` and `relay` columns pass through unchanged.
 
     Returns (new_state, new_ig, info); new_ig is a tensor of `ig`'s shape
     in the state's dtype.
     """
-    _no_mesh(axis_name)
     if collect not in ("hist", "marks", "none"):
         raise ValueError(f"collect must be 'hist', 'marks' or 'none', got "
                          f"{collect!r}")
     ig, ig_b, nb = _batched(ig, state.buffered)
     in_buffer = state.buffered >= 0
+    any_buf = in_buffer.flatten(nb).any(-1)
+    if axis_name is not None:
+        any_buf = MM.psum(any_buf.to(torch.int32), axis_name) > 0
     aggregate = torch.as_tensor(aggregate, dtype=torch.bool,
-                                device=ig.device) \
-        & in_buffer.flatten(nb).any(-1)
+                                device=ig.device) & any_buf
     new_ig = ig + aggregate.to(ig.dtype)
     agg_b = aggregate.reshape(aggregate.shape
                               + (1,) * (in_buffer.dim() - nb))
@@ -253,10 +258,17 @@ def aggregate_step(state: SatState, ig, aggregate, *, s_max: int,
                           device=stale_c.device)
     hist = ((stale_c[..., None] == levels) & counted[..., None]).sum(
         dim=-2, dtype=torch.int32)
-    info = {"hist": hist, "n_aggregated": _count(counted, nb),
-            "max_staleness": torch.where(counted, stale, 0).flatten(
-                nb).amax(-1),
-            "aggregated": counted}
+    n_agg = _count(counted, nb)
+    max_stale = torch.where(counted, stale, 0).flatten(nb).amax(-1)
+    if axis_name is not None:
+        # the histogram and the count in one psum, the maximum a pmax
+        summed = MM.psum(torch.cat([hist, n_agg[..., None]], -1),
+                         axis_name)
+        hist, n_agg = summed[..., :-1], summed[..., -1]
+        max_stale = MM.pmax(max_stale.to(torch.int32),
+                            axis_name).to(max_stale.dtype)
+    info = {"hist": hist, "n_aggregated": n_agg,
+            "max_staleness": max_stale, "aggregated": counted}
     return new_state, new_ig, info
 
 
@@ -324,18 +336,21 @@ def step(state: SatState, ig, connected, aggregate, *, s_max: int,
         `aggregate_step`).
       link: optional per-window `LinkGate` (grant (K,) or (..., K)) gating
         the upload and the download; None = instantaneous transfers.
-      axis_name: raises NotImplementedError (the mesh slice, ROADMAP
-        A.10).
+      axis_name: a sharded satellite axis, threaded to the upload's
+        counters and the aggregation's guard and diagnostics.
 
     Returns (new_state, new_ig, info) where info (collect="hist") has:
       hist: (..., s_max+1) counts of aggregated gradients per clipped
       staleness; n_aggregated, n_idle, max_staleness (only meaningful when
       aggregating); under "marks" and "none", `aggregate_step`'s info.
     """
-    _no_mesh(axis_name)
-    state, up = upload_step(state, ig, connected, link)
+    # the upload's counters are read only under "hist": elsewhere no
+    # collective is issued for them
+    state, up = upload_step(state, ig, connected, link,
+                            axis_name=axis_name if collect == "hist"
+                            else None)
     state, new_ig, agg = aggregate_step(state, ig, aggregate, s_max=s_max,
-                                        collect=collect)
+                                        collect=collect, axis_name=axis_name)
     state, _ = download_step(state, new_ig, connected, link)
     if collect != "hist":
         return state, new_ig, agg
@@ -362,15 +377,16 @@ def simulate_window(C_window, a, state: SatState, ig, *, s_max: int = 8,
         histograms by `hist_from_marks`), or ``"none"`` (infos empty).
       link: optional `LinkGate` whose grant is (I0, K): row i gates the
         transfers of window i, shared by every candidate.
-      axis_name: raises NotImplementedError (the mesh slice, ROADMAP
-        A.10).
+      axis_name: a sharded satellite axis (the state and the K axes of
+        `C_window` and the grants are the rank's columns), threaded to
+        every step: the empty-buffer guard and, under "hist", the counters
+        and histograms cross shards.
 
     Returns (final_state (..., K), final_ig (...), infos) with infos
     stacked over I0 after the batch dims: hist (..., I0, s_max+1) and,
     unless lite, n_aggregated, n_idle, max_staleness (..., I0) — or marks
     (..., I0, K) under collect="marks".
     """
-    _no_mesh(axis_name)
     keep = ("hist",) if collect is None and lite else None
     collect = collect or "hist"
     C_window = torch.as_tensor(C_window, dtype=torch.bool,
@@ -388,7 +404,8 @@ def simulate_window(C_window, a, state: SatState, ig, *, s_max: int = 8,
         gate = None if link is None \
             else LinkGate(grants[i], link.need_up, link.need_dn)
         state, ig, info = step(state, ig, C_window[i], a[..., i],
-                               s_max=s_max, collect=collect, link=gate)
+                               s_max=s_max, collect=collect, link=gate,
+                               axis_name=axis_name)
         steps.append(info if keep is None
                      else {k: info[k] for k in keep})
     infos = {k: torch.stack([s[k] for s in steps], dim=len(batch))

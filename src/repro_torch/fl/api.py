@@ -436,9 +436,9 @@ class Federation:
         means "cuda" and raises when no CUDA device is present; a device
         other than the world's raises, since the adapter's data lives
         there. The world's link budget, ISL runtime and fault trace go with
-        it. `mesh` is
-        the reference's satellite-axis sharding; anything but None raises
-        until the port has it (the mesh slice)."""
+        it. `mesh` shards the satellite axis of the run across a device
+        mesh (`repro_torch.core.mesh.sim_mesh()`), the trajectory of
+        `mesh=None` bit for bit (`SimulationEngine`)."""
         # explicitly-set train fields win; unset (None) ones fall back to
         # the experiment-wide seed / LinkConfig compression settings
         exp = self.experiment

@@ -42,12 +42,21 @@ on the fault-masked connectivity and grants, while the scheduler plans on
 the clean ones unless the trace is an oracle's. Reviving satellites
 re-enter through `fault_reset` before each window's upload, and the alive
 mask keeps dead satellites out of the sink relay and gossip. The masks go
-to the device once per run. The satellite-axis mesh raises
-NotImplementedError naming its slice (ROADMAP A.10).
+to the device once per run.
+
+A satellite-axis mesh (`mesh=`, `repro_torch.core.mesh.sim_mesh`) shards
+the fast loop's scans over the ranks of a process group: every rank
+holds the whole state padded to the mesh and its own columns of the
+run's tables, scans its columns with exact integer collectives as the
+only cross-rank traffic, and gathers the state after each scan; the
+host loop, client training, the aggregation and evaluation run on every
+rank on the padded state, as the reference's host loop runs on global
+arrays. Any mesh gives the trajectory of `mesh=None` bit for bit.
 """
 from __future__ import annotations
 
 import dataclasses
+from collections import Counter
 from dataclasses import dataclass, field
 from typing import List, NamedTuple, Optional, Sequence
 
@@ -56,6 +65,7 @@ import torch
 
 from repro_torch.ckpt.checkpoint import CheckpointStore
 from repro_torch.core import faults as FT
+from repro_torch.core import mesh as MM
 from repro_torch.core import staleness as SS
 from repro_torch.core import transfers as TR
 from repro_torch.core.aggregation import aggregation_weights
@@ -85,9 +95,17 @@ def _state_where(pred, a: SS.SatState, b: SS.SatState) -> SS.SatState:
                          for x, y in zip(a, b)))
 
 
+def _gather_state(state, axis):
+    """The whole state from every rank's columns: one all-gather of the
+    stacked (int32) columns."""
+    present = [x for x in state if x is not None]
+    cols = iter(MM.all_gather(torch.stack(present), axis).unbind(0))
+    return SS.SatState(*(None if x is None else next(cols) for x in state))
+
+
 def _scan_windows(state, ig, C_dev, i0, n_valid, ind_args, link_dev,
                   isl_dev=None, faults_dev=None, *, indicator, horizon,
-                  isl_mode=None):
+                  isl_mode=None, axis=None):
     """Advance the protocol over `horizon` windows from absolute window
     `i0`, freezing at the first window whose aggregation indicator fires
     (post-upload, pre-aggregation: the engine trains and aggregates on the
@@ -107,12 +125,27 @@ def _scan_windows(state, ig, C_dev, i0, n_valid, ind_args, link_dev,
     chunks to election epochs), "gossip" ``(nxt, prv, left, right,
     period)`` with `period` a 0-d int32 tensor.
 
+    `axis` is a satellite-axis mesh's group (`repro_torch.core.mesh`) or
+    None. Under a mesh `state` and the ISL index arrays are the whole
+    padded (Kp,) vectors, the same on every rank, while `C_dev` and the
+    grant and fault tables hold the rank's columns: the scan runs on the
+    rank's columns of the state (the counters are psums, the sink and
+    neighbour lookups gather the rows they index; the reference's
+    `_scan_impl` under `shard_map`) and all-gathers the state columns at
+    the end, so every rank returns the whole state and the same counters.
+
     Nothing here reads the device, so the function runs eagerly on the CPU
     and is captured whole into a CUDA graph on the card (`ChunkGraphs`).
     Returns (state, counters (horizon, 4) int32) with per-window
     [n_connected, n_idle, n_buffered, a]; rows after the event row are
     garbage the caller ignores."""
     device = C_dev.device
+    if axis is not None:
+        state = SS.SatState(*(None if x is None else MM.local(x, axis)
+                              for x in state))
+        if isl_dev is not None:     # the gossip period stays 0-d
+            isl_dev = tuple(MM.local(x, axis) if x.dim() else x
+                            for x in isl_dev)
     ts = i0 + torch.arange(horizon, dtype=i0.dtype, device=device)
     conn = C_dev.index_select(0, ts)
     grant = None if link_dev is None else link_dev[0].index_select(0, ts)
@@ -137,14 +170,17 @@ def _scan_windows(state, ig, C_dev, i0, n_valid, ind_args, link_dev,
                                            | (t % period == 0),)
         up_st, info = TR.window_upload(
             state, ig, conn[j], gate, gossip=gossip, **kw,
-            revive=None if revive is None else revive[j])
+            revive=None if revive is None else revive[j], axis_name=axis)
         n_buf = info["n_buffered"]
         a = live & indicator(t, n_buf, ind_args) & (n_buf > 0)
-        dl_st = TR.window_download(up_st, ig, conn[j], gate, **kw)
+        dl_st = TR.window_download(up_st, ig, conn[j], gate, **kw,
+                                   axis_name=axis)
         state = _state_where(live, _state_where(a, up_st, dl_st), state)
         rows.append(torch.stack([info["n_connected"], info["n_idle"], n_buf,
                                  a.to(torch.int32)]))
         done = done | a
+    if axis is not None:
+        state = _gather_state(state, axis)
     return state, torch.stack(rows)
 
 
@@ -154,6 +190,7 @@ class _Graph(NamedTuple):
     state: SS.SatState     # static outputs, overwritten by every replay
     counters: torch.Tensor
     keep: tuple            # the run constants the graph reads in place
+    collectives: Counter   # the collectives one replay runs (a mesh's)
 
 
 class ChunkGraphs:
@@ -172,7 +209,14 @@ class ChunkGraphs:
     the call returns, so a later replay of any graph leaves them alone. A
     failed capture raises: nothing falls back to the eager function.
     Called like `_scan_windows`, with `ig`, `i0` and `n_valid` as ints or
-    0-d tensors."""
+    0-d tensors.
+
+    Under a mesh (`axis`, part of the key) the graph holds the scan's
+    NCCL collectives, captured in "thread_local" mode (so that the
+    process group's watchdog thread may go on querying its events). A
+    replay runs them again: it adds the captured collectives to
+    `repro_torch.core.mesh.collective_counts` (the capture itself adds
+    none, the warm-up run counts as it runs)."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -184,7 +228,7 @@ class ChunkGraphs:
 
     def __call__(self, state, ig, C_dev, i0, n_valid, ind_args, link_dev,
                  isl_dev=None, faults_dev=None, *, indicator, horizon,
-                 isl_mode=None):
+                 isl_mode=None, axis=None):
         arg_leaves, arg_structure = tree_flatten(ind_args)
         isl_ops = list(isl_dev or ())
         consts = [C_dev] + ([] if link_dev is None else [link_dev[0]]) \
@@ -196,7 +240,8 @@ class ChunkGraphs:
                tuple((x.data_ptr(), tuple(x.shape), x.dtype)
                      for x in consts),
                None if link_dev is None else (int(link_dev[1]),
-                                              int(link_dev[2])))
+                                              int(link_dev[2])),
+               None if axis is None else id(axis))
         cols = [x for x in state if x is not None]
         dynamic = cols + [ig, i0, n_valid] + arg_leaves + isl_ops
         g = self.graphs.get(key)
@@ -204,7 +249,7 @@ class ChunkGraphs:
             g = self.graphs[key] = self._capture(
                 dynamic, present, arg_structure, len(arg_leaves), C_dev,
                 link_dev, faults_dev, indicator=indicator, horizon=horizon,
-                isl_mode=isl_mode, keep=tuple(consts))
+                isl_mode=isl_mode, keep=tuple(consts), axis=axis)
         for dst, src in zip(g.inputs, dynamic):
             if isinstance(src, torch.Tensor):
                 dst.copy_(src)
@@ -212,12 +257,13 @@ class ChunkGraphs:
                 dst.fill_(src)
         g.graph.replay()
         graph_counts["replays"] += 1
+        MM.collective_counts.update(g.collectives)
         return (SS.SatState(*(None if x is None else x.clone()
                               for x in g.state)), g.counters.clone())
 
     def _capture(self, dynamic, present, arg_structure, n_args, C_dev,
                  link_dev, faults_dev, *, indicator, horizon, isl_mode,
-                 keep):
+                 keep, axis):
         # the static inputs live on the card (a CPU scalar would be baked
         # into the graph as a constant), outside the graphs' pool
         inputs = [x.to(self.device, copy=True) if isinstance(x, torch.Tensor)
@@ -235,7 +281,7 @@ class ChunkGraphs:
             return _scan_windows(
                 st, ig, C_dev, i0, n_valid, args, link_dev, isl_ops,
                 faults_dev, indicator=indicator, horizon=horizon,
-                isl_mode=isl_mode)
+                isl_mode=isl_mode, axis=axis)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
@@ -244,10 +290,15 @@ class ChunkGraphs:
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool):
+        mode = "global" if axis is None else "thread_local"
+        before = Counter(MM.collective_counts)
+        with torch.cuda.graph(graph, pool=self.pool,
+                              capture_error_mode=mode):
             out_state, counters = scan()
         graph_counts["captures"] += 1
-        return _Graph(graph, inputs, out_state, counters, keep)
+        captured = MM.collective_counts - before
+        MM.collective_counts.subtract(captured)     # captured, not run
+        return _Graph(graph, inputs, out_state, counters, keep, captured)
 
 
 @dataclass
@@ -443,8 +494,18 @@ class SimulationEngine:
         `fault_reset`'s forced re-download — while the scheduler plans on
         the clean connectivity and grants unless the trace is an
         oracle's. `faults=None` keeps every run as it is without faults.
-      mesh: anything but None raises NotImplementedError (the mesh slice,
-        ROADMAP A.10).
+      mesh: optional satellite-axis `DeviceMesh`
+        (`repro_torch.core.mesh.sim_mesh`) on the run's device type. The
+        state is padded to a multiple of the mesh's size with
+        never-connected satellites (`repro_torch.core.mesh.pad_state`),
+        each rank keeps its own columns of the fast loop's device tables,
+        the fast loop's scans run sharded (`_scan_windows(axis=...)`) with
+        exact integer collectives as the only cross-rank traffic, the
+        host loop runs the padded state on every rank, and the host views
+        and the schedulers' state strip the padding: any mesh run is the
+        `mesh=None` run bit for bit. Every rank of the mesh runs the
+        engine with the same arguments. A mesh on another device type
+        than the run's raises.
     """
 
     def __init__(self, C: np.ndarray, adapter, scheduler: Scheduler,
@@ -452,11 +513,11 @@ class SimulationEngine:
                  callbacks: Sequence = (), init_params=None, device=None,
                  link_budget=None, isl=None, faults=None, mesh=None,
                  **overrides):
-        if mesh is not None:
-            raise NotImplementedError(
-                "SimulationEngine(mesh=...) is not ported yet: it comes "
-                "with the mesh slice of the port (ROADMAP A.10)")
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a mesh on {mesh.device_type} cannot run an "
+                             f"engine on {self.device}")
+        self.mesh = mesh
         if adapter.device != self.device:
             raise ValueError(f"adapter lives on {adapter.device}, the run "
                              f"on {self.device}")
@@ -487,6 +548,8 @@ class SimulationEngine:
         if cfg.max_windows:
             self.num_windows = min(self.num_windows, cfg.max_windows)
         self.K = self.C.shape[1]
+        # the padded satellite count of every device-side vector and table
+        self._Kp = self.K if mesh is None else MM.padded_size(self.K, mesh)
 
     # ------------------------------------------------------------------ API
 
@@ -495,35 +558,37 @@ class SimulationEngine:
         this for early stopping)."""
         self._stop_requested = True
 
+    def _host(self, x) -> Optional[np.ndarray]:
+        """A state column on the host, the mesh's padding stripped."""
+        return None if x is None else x[..., :self.K].cpu().numpy()
+
     @property
     def version(self) -> np.ndarray:
         """Host mirror of the last global version each satellite received.
         Read-only diagnostic — the authoritative state is `self.state`."""
-        return self.state.version.cpu().numpy()
+        return self._host(self.state.version)
 
     @property
     def pending(self) -> np.ndarray:
         """Host mirror of each satellite's pending-update base version."""
-        return self.state.pending.cpu().numpy()
+        return self._host(self.state.pending)
 
     @property
     def buffered_base(self) -> np.ndarray:
         """Host mirror of the GS buffer's per-satellite base versions."""
-        return self.state.buffered.cpu().numpy()
+        return self._host(self.state.buffered)
 
     @property
     def transfer_progress(self) -> Optional[np.ndarray]:
         """Host mirror of each satellite's in-progress transfer units (None
         unless the run models a link budget)."""
-        p = self.state.progress
-        return None if p is None else p.cpu().numpy()
+        return self._host(self.state.progress)
 
     @property
     def relay_units(self) -> Optional[np.ndarray]:
         """Host mirror of each satellite's accumulated ISL hop units (None
         unless the run relays through sink satellites)."""
-        r = self.state.relay
-        return None if r is None else r.cpu().numpy()
+        return self._host(self.state.relay)
 
     def prepare(self) -> None:
         """Initialize run state (model, client-update functions, checkpoint
@@ -537,8 +602,12 @@ class SimulationEngine:
         self._isl = self.isl if mode is not None else None
         self._isl_mode = mode if self._isl is not None else None
         self.scheduler.isl = self._isl
+        # a scheduler that simulates on the device (FedSpace's eq.-13
+        # search) shards it over the run's mesh
+        self.scheduler.mesh = self.mesh
         self.scheduler.reset()
         self._stop_requested = False
+        self._axis = None if self.mesh is None else MM.mesh_axis(self.mesh)
         if self._init_params is None:
             gen = torch.Generator().manual_seed(cfg.seed)
             params = self.adapter.init(gen)
@@ -570,6 +639,8 @@ class SimulationEngine:
         self.state = SS.bootstrap_state(self.K, progress=linked,
                                         relay=self._isl_mode == "sink",
                                         device=self.device)
+        if self.mesh is not None:
+            self.state = MM.pad_state(self.state, self._Kp)
         # the fast loop runs when no protocol step is overridden (and
         # the scheduler offers a plan, asked window by window in `run`)
         self._fast_ok = cfg.fast_loop and all(
@@ -578,15 +649,24 @@ class SimulationEngine:
                       "on_downloads"))
         # the run's matrices go to the device once; under the fast loop
         # each carries _MAX_CHUNK all-false (zero) rows after the horizon,
-        # so a bucketed scan never reads past it
+        # so a bucketed scan never reads past it. Under a mesh a rank keeps
+        # its own columns of the padded tables, which only the scans read
+        # (the host loop takes its rows from the host, `_window_row`)
         pad = _MAX_CHUNK if self._fast_ok else 0
+        tables = self._fast_ok or self.mesh is None
 
         def on_device(rows, dtype):
+            if not tables:
+                return None
             rows = np.asarray(rows[:self.num_windows], dtype)
+            if self._axis is not None:
+                rows = MM.pad_axis(rows, self._Kp)[
+                    :, MM.local_slice(self._Kp, self._axis)]
             if pad:
                 rows = np.concatenate(
                     [rows, np.zeros((pad, rows.shape[1]), dtype)])
-            return torch.as_tensor(rows, device=self.device)
+            return torch.as_tensor(np.ascontiguousarray(rows),
+                                   device=self.device)
         self._C_dev = on_device(self.C, bool) if self._fast_ok else None
         # the run's link gates: the executed grants on the device for the
         # transitions, and host gates for the schedulers — the executed
@@ -621,14 +701,17 @@ class SimulationEngine:
         self._sink_cache = {}
         self._gossip_dev = self._gossip_period = None
         if self._isl_mode == "gossip":
+            # satellites of the mesh's padding are their own neighbours
             topo = self._isl.topology
-            idx = np.arange(self.K)
+            idx = np.arange(self._Kp)
             cross = self._isl.cross_plane
             self._gossip_dev = tuple(
-                torch.as_tensor(np.asarray(a, np.int64), device=self.device)
+                torch.as_tensor(np.concatenate(
+                    [np.asarray(a, np.int64), idx[self.K:]]),
+                    device=self.device)
                 for a in (topo.nxt, topo.prv,
-                          topo.left if cross else idx,
-                          topo.right if cross else idx))
+                          topo.left if cross else idx[:self.K],
+                          topo.right if cross else idx[:self.K]))
             self._gossip_period = torch.tensor(
                 max(self._isl.relay_windows, 1), dtype=torch.int32,
                 device=self.device)
@@ -701,11 +784,11 @@ class SimulationEngine:
         if self._trace is not None:
             # reviving satellites re-enter before planning (idempotent:
             # the scan applies the same reset at this window)
-            self.state = FT.fault_reset(self.state, self._revive_dev[i])
+            self.state = FT.fault_reset(self.state, self._revive_row(i))
         extra = {} if self._trace is None else {
             "exec_connectivity": self.C, "exec_link": self._link}
         plan = self.scheduler.device_plan(
-            i, K=self.K, state=self.state, ig=self.ig,
+            i, K=self.K, state=self._plan_state(), ig=self.ig,
             connectivity=self._plan_C, status=self.status,
             link=self._plan_link, **extra)
         if plan is None:
@@ -727,7 +810,8 @@ class SimulationEngine:
         them live: a graph replay on a card, the eager `_scan_windows`
         elsewhere. Returns (state, counters), both the engine's own."""
         self.loop_counts["scans"] += 1
-        kw = dict(indicator=fn, horizon=horizon, isl_mode=self._isl_mode)
+        kw = dict(indicator=fn, horizon=horizon, isl_mode=self._isl_mode,
+                  axis=self._axis)
         if self._graphs is not None:
             return self._graphs(state, self.ig, self._C_dev, w, n_valid,
                                 args, self._link_dev, isl_dev,
@@ -797,13 +881,42 @@ class SimulationEngine:
 
     # -------------------------------------------------------- protocol steps
 
+    def _plan_state(self) -> SS.SatState:
+        """The schedulers' (K,) view of the protocol state: the mesh's
+        padding stripped, so `device_plan` and `decide` see the world at
+        its own satellite count."""
+        if self._Kp == self.K:
+            return self.state
+        return SS.SatState(*(None if x is None else x[..., :self.K]
+                             for x in self.state))
+
+    def _host_row(self, row, dtype) -> torch.Tensor:
+        """A host (K,) row on the device, padded to the mesh (fill 0)."""
+        row = np.asarray(row, dtype)
+        if self._Kp != self.K:
+            row = MM.pad_axis(row, self._Kp)
+        return torch.as_tensor(row, device=self.device)
+
+    def _window_row(self, table, host, i: int, dtype) -> torch.Tensor:
+        """Window i's row of a run table for the host loop: a row of the
+        device table, or under a mesh (whose device tables hold a rank's
+        columns) the host row, padded, on the device."""
+        if self.mesh is None:
+            return table[i]
+        return self._host_row(host[i], dtype)
+
+    def _revive_row(self, i: int) -> torch.Tensor:
+        return self._window_row(self._revive_dev, self._trace.revive, i,
+                                bool)
+
     def _gate(self, i: int):
         """The device `LinkGate` of window i (None without a link
         budget): a row of the run's grants on the device."""
         if self._link is None:
             return None
-        return SS.LinkGate(self._grants_dev[i], self._link.need_up,
-                           self._link.need_dn)
+        return SS.LinkGate(self._window_row(self._grants_dev, self._grants,
+                                            i, np.int32),
+                           self._link.need_up, self._link.need_dn)
 
     def _sink_plan(self, i: int):
         """Device (sink (K,) int64, need_hops (K,) int32) of window i's
@@ -817,9 +930,13 @@ class SimulationEngine:
                 self._alive[e * ep:(e + 1) * ep].any(axis=0)
             sink, need = self._isl.sink_plan(self.C[e * ep:(e + 1) * ep],
                                              alive=alive_e)
+            # satellites of the mesh's padding are their own sinks at
+            # distance 0 (never connected, so inert)
+            sink = np.concatenate([sink.astype(np.int64),
+                                   np.arange(self.K, self._Kp)])
             self._sink_cache[e] = (
-                torch.as_tensor(sink.astype(np.int64), device=self.device),
-                torch.as_tensor(need, device=self.device))
+                torch.as_tensor(sink, device=self.device),
+                self._host_row(need, np.int32))
         return self._sink_cache[e]
 
     def _transfer_operands(self, i: int) -> dict:
@@ -827,8 +944,9 @@ class SimulationEngine:
         (`core/transfers.py`): the alive mask of a fault run, the sink
         plan of a sink-relay run."""
         kw = {}
-        if self._alive_dev is not None:
-            kw["alive"] = self._alive_dev[i]
+        if self._alive is not None:
+            kw["alive"] = self._window_row(self._alive_dev, self._alive, i,
+                                           bool)
         if self._isl_mode == "sink":
             kw["sink"], kw["need_hops"] = self._sink_plan(i)
         return kw
@@ -844,10 +962,10 @@ class SimulationEngine:
         gossip nor ride their sink's contact. Returns the buffer
         occupancy."""
         res = self.result
-        conn_dev = torch.as_tensor(np.asarray(conn, bool), device=self.device)
+        conn_dev = self._host_row(conn, bool)
         kw = self._transfer_operands(i)
         if self._trace is not None:
-            kw["revive"] = self._revive_dev[i]
+            kw["revive"] = self._revive_row(i)
         if self._isl_mode == "gossip" and \
                 i % max(self._isl.relay_windows, 1) == 0:     # a hop window
             kw["gossip"] = self._gossip_dev + (True,)
@@ -866,7 +984,8 @@ class SimulationEngine:
         the plan view (`_plan_C`, `_plan_link`): under a blind fault trace
         the clean world, while the run executes the masked one."""
         return self.scheduler.decide(
-            i, n_in_buffer=n_buf, K=self.K, state=self.state, ig=self.ig,
+            i, n_in_buffer=n_buf, K=self.K, state=self._plan_state(),
+            ig=self.ig,
             connectivity=self._plan_C, status=self.status,
             link=self._plan_link)
 
@@ -995,7 +1114,7 @@ class SimulationEngine:
         relaying the plane downloads through its sink's contact (the relay
         advanced at the upload already; dead satellites, in a fault run,
         download nothing) and fresh rounds reset the relay counter."""
-        conn_dev = torch.as_tensor(np.asarray(conn, bool), device=self.device)
+        conn_dev = self._host_row(conn, bool)
         self.state = TR.window_download(self.state, self.ig, conn_dev,
                                         self._gate(i),
                                         **self._transfer_operands(i))

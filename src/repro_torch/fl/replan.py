@@ -37,10 +37,12 @@ The cache is invalidated — the service falls back to a full rescan — on:
   * **status**: the training status T changed (every cached utility was
     predicted at the old T);
   * **pool**: the survivors would fall below `min_pool`.
-Fallbacks are counted per reason in `ReplanService.stats`. The
-reference's sixth reason, **mesh** (sharded full rescans cache nothing),
-comes with the satellite-axis mesh: `ReplanService(mesh=...)` raises,
-naming the mesh slice.
+  * **mesh**: under a satellite-axis mesh (`mesh=`) every answer is a
+    sharded full rescan (`score_candidates(mesh=...)`) and nothing is
+    cached. The reason reads "mesh" from the first answer on (the
+    reference checks it after the cold start, so its first answer reads
+    "cold").
+Fallbacks are counted per reason in `ReplanService.stats`.
 
 The candidate pools, the extension bits and the selection run on the host
 in numpy, from the reference's generators in the reference's order, so
@@ -64,10 +66,10 @@ import numpy as np
 import torch
 
 from repro_torch.core import staleness as SS
-from repro_torch.core.search import (_event_sum, _later, event_positions,
+from repro_torch.core.search import (_event_sum, event_positions,
                                      infer_n_range, random_candidates,
-                                     scan_candidates, select_candidate,
-                                     step_candidates)
+                                     scan_candidates, score_candidates,
+                                     select_candidate, step_candidates)
 from repro_torch.core.utility import featurize_t, transfer_ready
 
 __all__ = ["ReplanService"]
@@ -134,8 +136,10 @@ class ReplanService:
       seed: service rng (extension bits, and full-plan draws when the
         caller does not pass its own rng).
       min_pool: survivor floor below which a delta request full-rescans.
-      mesh: anything but None raises NotImplementedError (the mesh slice,
-        ROADMAP A.10).
+      mesh: optional satellite-axis `DeviceMesh`
+        (`repro_torch.core.mesh`) for full rescans; nothing is cached
+        under a mesh. A FedSpace scheduler holding the service sets it to
+        its run's mesh.
     """
 
     def __init__(self, regressor, *, I0: int = 24,
@@ -148,10 +152,8 @@ class ReplanService:
                 f"{s_max}: it must expose predict_device and (if fitted "
                 "through .fit) a matching feature width — see "
                 "repro_torch.core.utility.transfer_ready")
-        if mesh is not None:
-            raise _later("the satellite-axis mesh (ReplanService(mesh="
-                         "...))", "mesh")
         self.regressor = regressor
+        self.mesh = mesh
         self.I0 = I0
         self.num_candidates = num_candidates
         self.n_min = n_min
@@ -260,6 +262,11 @@ class ReplanService:
             n_max = n_max if n_max is not None else inf_max
         cands = random_candidates(rng, I0, n_min, n_max,
                                   self.num_candidates)
+        if self.mesh is not None:
+            scores = score_candidates(cands, Cw, state, ig, self.regressor,
+                                      status, s_max=self.s_max, link=link,
+                                      mesh=self.mesh)
+            return cands[select_candidate(cands, scores)].copy()
         scores, art = scan_candidates(cands, Cw, state, ig, self.regressor,
                                       status, s_max=self.s_max, link=link)
         w = select_candidate(cands, scores)
@@ -282,6 +289,8 @@ class ReplanService:
         """None when the cached rollouts can answer this request, else the
         invalidation reason (module docstring)."""
         c = self._cache
+        if self.mesh is not None:
+            return "mesh"
         if c is None:
             return "cold"
         if window != c.window + 1:

@@ -79,6 +79,7 @@ def _variant_columns(eng: SimulationEngine):
         else None
     mode = mode if isl_rt is not None else None
     sched.isl = isl_rt
+    sched.mesh = None
     sched.reset()
     if sched.replans:
         raise _not_sweepable(

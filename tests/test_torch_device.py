@@ -1631,3 +1631,169 @@ def test_fast_loop_matches_the_host_loop_on_the_card(kind, params):
     assert fe.loop_counts["host_reads"] < he.loop_counts["host_reads"]
     for a, b in zip(fe.params.values(), he.params.values()):
         assert torch.equal(a, b)
+
+
+class _Stub:
+    """A two-parameter model whose loss has zero gradient, on `device`:
+    a run isolates the protocol (tests/test_torch_mesh.py's)."""
+
+    def __init__(self, K, device):
+        self.clients, self.device = list(range(K)), torch.device(device)
+
+    def init(self, gen):
+        return {"w": torch.zeros(2, device=self.device)}
+
+    def loss(self, params, batch):
+        return (params["w"] * 0.0).sum(-1) + batch[0].sum(-1) * 0.0
+
+    def client_batch(self, ci, round_rng, batch_size, num_batches):
+        return (torch.zeros((num_batches, 1), device=self.device),)
+
+    def accuracy(self, params):
+        return 0.0
+
+    def val_loss(self, params):
+        return 0.0
+
+
+def _mesh_cases(K=40, I=48):
+    """The card's mesh cases at K 40: FedBuff plain and under a budget
+    with churn, sink relaying under churn, gossip under a budget."""
+    from repro_torch.core import faults as TFT
+    from repro_torch.core import isl as TI
+    rng = np.random.default_rng(4)
+    C = rng.random((I, K)) < 0.3
+    grants = rng.integers(1, 4, C.shape).astype(np.int32) * C
+    budget = TCN.LinkBudget(visible=C, served=C,
+                            assign=np.where(C, 0, -1).astype(np.int32),
+                            grants=grants, need_up=2, need_dn=1)
+    trace = TFT.fault_trace(TFT.FaultConfig(
+        deorbit=TFT.random_churn(K, I, 0.25, seed=1)), I, K=K)
+    spec = TCN.ConstellationSpec(
+        num_satellites=K, shells=(TCN.Shell(24, 4, 550_000.0, 53.0),
+                                  TCN.Shell(16, 2, 560_000.0, 97.6)))
+    sink = TI.ISL(topology=TI.ring_topology(spec), relay_windows=1,
+                  epoch=12)
+    gossip = TI.ISL(topology=TI.ring_topology(spec), relay_windows=2,
+                    epoch=12, cross_plane=True)
+    return C, {"plain": ("fedbuff", {"M": 6}, {}),
+               "budget_faults": ("fedbuff", {"M": 6},
+                                 {"link_budget": budget, "faults": trace}),
+               "sink": ("intra_plane", {"M": 6},
+                        {"isl": sink, "faults": trace}),
+               "gossip": ("isl_async", {}, {"isl": gossip,
+                                            "link_budget": budget})}
+
+
+@pytest.mark.gpu
+def test_mesh_fast_loop_matches_no_mesh_on_the_card():
+    """A world-1 NCCL mesh on the card: the fast loop's scans as CUDA
+    graphs holding their collectives give the `mesh=None` run bit for bit
+    at K 40, sink relaying and gossip included; the collectives ran."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+    from repro_torch.core import mesh as TM
+    from repro_torch.core.scheduler import make_scheduler
+    from repro_torch.fl import engine as TE
+    C, cases = _mesh_cases()
+    mesh = TM.sim_mesh()
+    try:
+        TM.collective_counts.clear()
+        for case, (name, params, kw) in cases.items():
+            out = []
+            for m in (None, mesh):
+                before = dict(TE.graph_counts)
+                eng = SimulationEngine(
+                    C, _Stub(C.shape[1], "cuda"),
+                    make_scheduler(name, **params),
+                    EngineConfig(eval_every=C.shape[0] + 1), device="cuda",
+                    mesh=m, **kw)
+                res = eng.run()
+                assert TE.graph_counts["replays"] > before["replays"]
+                out.append((eng, res))
+            (a, ra), (b, rb) = out
+            assert ra.summary() == rb.summary(), case
+            assert ra.num_global_updates > 0, case
+            for f in ("version", "pending", "buffered_base",
+                      "transfer_progress", "relay_units"):
+                x, y = getattr(a, f), getattr(b, f)
+                assert (x is None) == (y is None), (case, f)
+                if x is not None:
+                    np.testing.assert_array_equal(x, y, err_msg=case)
+        assert TM.collective_counts["psum"] > 0
+        assert TM.collective_counts["all_gather"] > 0
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_mesh_score_candidates_match_on_the_card():
+    """`score_candidates(mesh=)` on a world-1 NCCL mesh: the unsharded
+    scores bit for bit, with and without a link gate."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+    from repro_torch.core import mesh as TM
+    from repro_torch.core.search import random_candidates, score_candidates
+    rf = _hist_forest_torch()
+    K, I0 = 40, 24
+    rng = np.random.default_rng(6)
+    C = rng.random((I0, K)) < 0.3
+    link = TS.LinkGate(rng.integers(1, 4, C.shape).astype(np.int32) * C, 2,
+                       1)
+    cands = random_candidates(np.random.default_rng(7), I0, 4, 8, 2000)
+    mesh = TM.sim_mesh()
+    try:
+        TM.collective_counts.clear()
+        for gate in (None, link):
+            state = TS.bootstrap_state(K, progress=gate is not None)
+            want = score_candidates(cands, C, state, 0, rf, 1.0, link=gate)
+            got = score_candidates(cands, C, state, 0, rf, 1.0, link=gate,
+                                   mesh=mesh)
+            np.testing.assert_array_equal(got, want)
+        assert TM.collective_counts["psum"] > 0
+        assert TM.collective_counts["all_gather"] > 0
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_replan_mlp_delta_equals_full_rescan_on_the_card():
+    """ROADMAP C17: the replan service's bit contract (a delta answer is
+    a full rescan of the live pool) with `regressor_kind="mlp"`'s
+    regressor, whose `predict_device` is a chain of matmuls on the card:
+    every answer is `score_candidates` + `select_candidate` of the pool
+    on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core.search import score_candidates, select_candidate
+    from repro_torch.core.utility import MLPRegressor, featurize
+    from repro_torch.fl.replan import ReplanService
+    rng = np.random.default_rng(0)
+    hists = rng.integers(0, 25, (200, 9)).astype(np.float32)
+    s = np.arange(9, dtype=np.float32)
+    y = ((hists * (1.2 - 0.3 * s)).sum(1) / np.maximum(hists.sum(1), 1.0)
+         + 0.05 * rng.normal(size=200)).astype(np.float32)
+    mlp = MLPRegressor(hidden=32, steps=200).fit(featurize(hists, 1.0), y)
+    K, I0, R = 120, 16, 3000
+    C = np.random.default_rng(1).random((I0 + 8, K)) < 0.2
+    svc = ReplanService(mlp, I0=I0, num_candidates=R, n_min=3, n_max=7,
+                        seed=3, min_pool=64)
+    state = TS.bootstrap_state(K, device="cuda")
+    ig, modes = 0, []
+    for i in range(8):
+        Cw = C[i:i + I0]
+        plan = svc.replan(i, Cw, state, ig, 1.0,
+                          rng=np.random.default_rng(20 + i))
+        pool = svc.pool
+        scores = score_candidates(pool, Cw, state, ig, mlp, 1.0)
+        assert np.array_equal(plan, pool[select_candidate(pool, scores)]), \
+            (i, svc.last_mode)
+        modes.append(svc.last_mode)
+        svc.maintain()
+        state, g, _ = TS.step(state, ig, torch.as_tensor(C[i],
+                                                         device="cuda"),
+                              bool(plan[0]), s_max=8, collect="none")
+        ig = int(g)
+    assert modes.count("delta") >= 1, modes

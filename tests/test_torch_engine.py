@@ -12,6 +12,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import repro.fl.api as RA
 import repro_torch.fl.api as TA
@@ -22,6 +23,7 @@ from repro.fl.engine import EngineConfig as REC
 from repro.fl.engine import SimulationEngine as RSE
 from repro_torch.core import connectivity as TCN
 from repro_torch.core import faults as TFT
+from repro_torch.core import mesh as TM
 from repro_torch.fl.callbacks import JsonlMetricsCallback as TJsonl
 from repro_torch.fl.engine import EngineConfig as TEC
 from repro_torch.fl.engine import SimulationEngine
@@ -195,14 +197,24 @@ def test_fault_options_resolve_the_reference_world(isl, faults):
 
 
 def test_engine_rejects_unported_layers(runs):
-    """The mesh still raises; a fault trace (which raised until the faults
-    slice) builds the reference's executed and planned connectivity."""
+    """None is rejected any more. A mesh (which raised until the mesh
+    slice) builds a sharded engine, and one on another device type than
+    the run's raises (its runs: tests/test_torch_mesh.py); a fault trace
+    (which raised until the faults slice) builds the reference's executed
+    and planned connectivity."""
     (rfed, _, _), (tfed, _, _), _ = runs
-    with pytest.raises(NotImplementedError, match="mesh slice"):
+
+    class CardMesh:
+        device_type = "cuda"
+    with pytest.raises(ValueError, match="mesh on cuda"):
         SimulationEngine(tfed.C, tfed.adapter, tfed.scheduler,
-                         device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh slice"):
-        tfed.engine(device="cpu", mesh=object())
+                         device="cpu", mesh=CardMesh())
+    mesh = TM.sim_mesh(device="cpu")
+    try:
+        eng = tfed.engine(device="cpu", mesh=mesh)
+        assert eng.mesh is mesh and eng._Kp == eng.K
+    finally:
+        dist.destroy_process_group()
     W, K = tfed.C.shape
     cfg = dict(deorbit=((2, 4), (9, 0)), oracle=False)
     reng = RSE(rfed.C, rfed.adapter, rfed.scheduler,

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import repro.fl.api as RA
 import repro_torch.fl.api as TA
@@ -27,6 +28,7 @@ from repro.core import staleness as RS
 from repro.fl.engine import EngineConfig as REC
 from repro_torch.core import connectivity as TCN
 from repro_torch.core import isl as TI
+from repro_torch.core import mesh as TM
 from repro_torch.core import staleness as TS
 from repro_torch.core.scheduler import make_scheduler
 from repro_torch.fl.engine import EngineConfig as TEC
@@ -251,8 +253,11 @@ def test_batched_isl_transitions_match_vmapped_reference(seed):
 
 
 def test_faults_and_mesh_raise_naming_their_slices():
-    """The mesh still raises. The alive mask raised until the faults
-    slice: gossip and the sink plan now take it as the reference does."""
+    """Neither raises any more. The alive mask raised until the faults
+    slice: gossip and the sink plan now take it as the reference does.
+    The mesh raised until the mesh slice: on a mesh of one rank both
+    transitions gather the row they index and give the unsharded
+    results (tests/test_torch_mesh.py shards them over 8 ranks)."""
     rst, tst = _state(np.random.default_rng(0), 4)
     idx = torch.arange(4)
     nxt = np.array([1, 2, 3, 0])
@@ -265,12 +270,22 @@ def test_faults_and_mesh_raise_naming_their_slices():
                                  alive=torch.as_tensor(alive))
     _same_state(ref, got)
     _same(radopt, tadopt, "adopted")
-    with pytest.raises(NotImplementedError, match="mesh slice"):
-        TI.gossip_step(tst, idx, idx, idx, idx, True, axis_name="sat")
-    with pytest.raises(NotImplementedError, match="mesh slice"):
-        TI.sink_connectivity(torch.ones(4, dtype=torch.bool), idx,
-                             torch.ones(4, dtype=torch.bool), tst.pending,
-                             axis_name="sat")
+    mesh = TM.sim_mesh(device="cpu")
+    try:
+        axis = TM.mesh_axis(mesh)
+        sharded, s_adopt = TI.gossip_step(
+            tst, torch.as_tensor(nxt), torch.as_tensor(nxt), idx, idx, True,
+            alive=torch.as_tensor(alive), axis_name=axis)
+        conn = torch.tensor([True, False, True, False])
+        arrived = torch.tensor([True, True, False, False])
+        eff = TI.sink_connectivity(conn, torch.as_tensor(nxt), arrived,
+                                   tst.pending, axis_name=axis)
+    finally:
+        dist.destroy_process_group()
+    _same_state(ref, sharded)
+    _same(radopt, s_adopt, "adopted under a mesh")
+    assert torch.equal(eff, TI.sink_connectivity(
+        conn, torch.as_tensor(nxt), arrived, tst.pending))
     C = np.array([[False, True, True, False], [True, True, False, True]])
     for ref, got in zip(
             RI.ISL(topology=RI.identity_topology(4)).sink_plan(

@@ -15,10 +15,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro.core import staleness as RS
 from repro.core.utility import RandomForestRegressor as RRF
 from repro.fl.replan import ReplanService as RService
+from repro_torch.core import mesh as TM
 from repro_torch.core import staleness as TS
 from repro_torch.core.search import (random_candidates, scan_candidates,
                                      score_candidates, select_candidate,
@@ -256,8 +258,28 @@ def test_external_invalidate_and_pool_floor():
 
 
 def test_mesh_raises_naming_its_slice():
-    with pytest.raises(NotImplementedError, match="mesh slice"):
-        ReplanService(_forest(), mesh=object())
+    """It raised until the mesh slice. Under a mesh (one rank here;
+    tests/test_torch_mesh.py runs 8) every answer is a sharded full
+    rescan, the unsharded full answer, and nothing is cached."""
+    rf = _forest()
+    C = np.random.default_rng(3).random((14, 12)) < 0.3
+    state = TS.bootstrap_state(12, device="cpu")
+    mesh = TM.sim_mesh(device="cpu")
+    try:
+        svc = ReplanService(rf, I0=12, num_candidates=128, n_min=2,
+                            n_max=6, min_pool=8, mesh=mesh)
+        got = [svc.replan(i, C[i:i + 12], state, 0, 1.0,
+                          rng=np.random.default_rng(i)) for i in range(2)]
+    finally:
+        dist.destroy_process_group()
+    assert svc.mesh is mesh and svc.pool is None
+    assert (svc.last_mode, svc.last_reason) == ("full", "mesh")
+    assert svc.stats == {"full": 2, "delta": 0, "invalidated": {}}
+    for i, plan in enumerate(got):
+        want = ReplanService(rf, I0=12, num_candidates=128, n_min=2,
+                             n_max=6, min_pool=8).replan(
+            i, C[i:i + 12], state, 0, 1.0, rng=np.random.default_rng(i))
+        np.testing.assert_array_equal(plan, want)
 
 
 def test_transfer_ready_gatekeeps_service():

@@ -175,12 +175,16 @@ def test_scores_equal_across_narrowing():
 
 
 def test_link_and_mesh_raise_naming_their_slice():
+    """Neither raises any more. The `.predict` path ignores a mesh, as the
+    reference's does (the device path's mesh: tests/test_torch_mesh.py);
+    the link gate is ported."""
     st = TS.bootstrap_state(4, device="cpu")
     C = np.ones((4, 4), bool)
     cands = np.ones((2, 4), np.int32)
-    with pytest.raises(NotImplementedError, match="A.10"):
+    np.testing.assert_array_equal(
         TSR.score_candidates(cands, C, st, 0, _FreshGradientOracle(), 1.0,
-                             mesh=object())
+                             mesh=object()),
+        TSR.score_candidates(cands, C, st, 0, _FreshGradientOracle(), 1.0))
     # the link gate is ported: the zero-need gate scores as no gate
     gated = TSR.score_candidates(
         cands, C, TS.bootstrap_state(4, progress=True, device="cpu"), 0,

@@ -7,8 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro.core import staleness as RS
+from repro_torch.core import mesh as TM
 from repro_torch.core import staleness as TS
 
 
@@ -122,25 +124,45 @@ def test_initial_states_and_compensation():
 
 def test_unported_collect_modes_raise():
     """Every collect mode of the reference is ported ("hist", "marks",
-    "none"); any other raises, naming them, and so does a sharded
-    satellite axis, naming its slice (link gates are ported:
-    tests/test_torch_link_budget.py)."""
-    st = TS.bootstrap_state(3, device="cpu")
+    "none"); any other raises, naming them. A sharded satellite axis
+    raised until the mesh slice: on a mesh of one rank every transition
+    takes it and gives the unsharded results (link gates are ported:
+    tests/test_torch_link_budget.py; 8 ranks: tests/test_torch_mesh.py)."""
+    st = TS.SatState(torch.tensor([0, 1, -1], dtype=torch.int32),
+                     torch.tensor([0, -1, 1], dtype=torch.int32),
+                     torch.tensor([-1, 0, 1], dtype=torch.int32))
     with pytest.raises(ValueError, match="'marks' or 'none'"):
         TS.aggregate_step(st, 0, True, s_max=8, collect="lite")
-    conn = torch.ones(3, dtype=torch.bool)
-    for call in (lambda: TS.aggregate_step(st, 0, True, s_max=8,
-                                           axis_name="k"),
-                 lambda: TS.step(st, 0, conn, True, s_max=8, axis_name="k"),
-                 lambda: TS.upload_step(st, 0, conn, axis_name="k"),
-                 lambda: TS.simulate_candidates(np.ones((2, 3), bool),
-                                                np.ones((2, 2)), st, 0,
-                                                axis_name="k"),
-                 lambda: TS.simulate_window(np.ones((2, 3), bool),
-                                            np.ones(2), st, 0,
-                                            axis_name="k")):
-        with pytest.raises(NotImplementedError, match="A.10"):
-            call()
+    conn = torch.tensor([True, True, False])
+    calls = (lambda ax: TS.aggregate_step(st, 2, True, s_max=8,
+                                          axis_name=ax),
+             lambda ax: TS.step(st, 2, conn, True, s_max=8, axis_name=ax),
+             lambda ax: TS.upload_step(st, 2, conn, axis_name=ax),
+             lambda ax: TS.simulate_candidates(
+                 np.ones((2, 3), bool), np.ones((2, 2)), st, 2,
+                 axis_name=ax),
+             lambda ax: TS.simulate_window(np.ones((2, 3), bool),
+                                           np.ones(2), st, 2, axis_name=ax))
+    want = [call(None) for call in calls]
+    mesh = TM.sim_mesh(device="cpu")
+    try:
+        got = [call(TM.mesh_axis(mesh)) for call in calls]
+    finally:
+        dist.destroy_process_group()
+
+    def flat(x):
+        if isinstance(x, torch.Tensor):
+            return [x]
+        if isinstance(x, dict):
+            return [t for k in sorted(x) for t in flat(x[k])]
+        if isinstance(x, (tuple, list)):
+            return [t for y in x if y is not None for t in flat(y)]
+        return [torch.as_tensor(x)]
+    for g, w in zip(got, want):
+        fg, fw = flat(g), flat(w)
+        assert len(fg) == len(fw)
+        for a, b in zip(fg, fw):
+            assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 # --------------------------------------------------------------------------
