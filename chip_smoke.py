@@ -7,9 +7,10 @@ Phases, each of which fails the script (nonzero exit) when it fails:
   1. device: the card's name, count, and `nvidia-smi` name/power limit;
   2. build: every CUDA source of the port (aggregation, RMSNorm, flash
      attention on the CUDA cores, its forward and its backward on the
-     tensor cores) built with nvcc for sm_90a, one nvcc per source, all
-     started together, with ptxas's report (and a summary of the
-     tensor-core, short-sequence and aggregation kernels' registers and
+     tensor cores, its hd-256 forward with the combine of its splits)
+     built with nvcc for sm_90a, one nvcc per source, all started
+     together, with ptxas's report (and a summary of the tensor-core,
+     hd-256, short-sequence and aggregation kernels' registers and
      spills, which must be none);
   3. kernels against their plain PyTorch versions, forward and backward,
      at the main paths' shapes, the reference's test sweeps and one large
@@ -39,8 +40,13 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      one query a head at Sk 1-576, and as the path makes them, the 4
      query heads of a kv head as 4 rows; forward only, SDPA beside them)
      and its RMSNorm shapes (qwen3-8b's prefill and decode norms,
-     mamba2-370m's); the families' prefill and decode calls and norms;
-     the FL round's norms (`RMS_LAUNCH_SHAPES`); then one attention call
+     mamba2-370m's); the families' prefill and decode calls and norms
+     (the bf16 calls at padded hd 256 on the hd-256 tensor-core forward,
+     split over keys at decode with one combine launch, the CUDA-core
+     forward's time on the same inputs beside them; at recurrentgemma-
+     9b's full-window decode call the splits' partial results and the
+     combine held apart, a `flash combine` row, and other split counts
+     timed); the FL round's norms (`RMS_LAUNCH_SHAPES`); then one attention call
      of the path as the adapter makes it, traced: the two short kernels
      and no copy;
   4. the quickstart path: the FedBuff federation of examples/quickstart.py
@@ -843,6 +849,8 @@ FLASH_FAMILIES = [FLASH_RG, FLASH_PHI3, FLASH_WHISPER_ENC, FLASH_WHISPER_DEC,
                   FLASH_WHISPER_CROSS]
 FLASH_SHAPES += FLASH_FAMILIES
 TC_KERNEL = "flash_fwd_tc_kernel"     # in the tensor-core kernel's name
+TC256_KERNEL = "flash_fwd_tc256_kernel"   # in the hd-256 one's
+COMBINE_KERNEL = "flash_combine_kernel"   # in its combine's
 TC_BWD_KERNELS = ("flash_bwd_tc_delta_kernel", "flash_bwd_tc_dkdv_kernel",
                   "flash_bwd_tc_dq_kernel")   # in the backward's
 SHORT_KERNELS = {"fwd": "flash_fwd_short_kernel",   # in the short-sequence
@@ -851,16 +859,70 @@ SHORT_KERNELS = {"fwd": "flash_fwd_short_kernel",   # in the short-sequence
 
 def _cuda_core_fwd(K, q, k, v, causal, window):
     """The CUDA-core forward called through its C entry point, whatever
-    route the wrapper would pick (for an unpadded hd)."""
+    route the wrapper would pick, on inputs zero-padded as the wrapper
+    pads them (not counted)."""
     import torch
+    hd = q.shape[-1]
+    width = K.padded_head_dim(hd)
+    q, k, v = (K.pad_head_dim(t, width) for t in (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     err = K._library()[0](q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           o.data_ptr(), lse.data_ptr(),
-                          *K._dims(q, k, causal, window, q.shape[-1]))
+                          *K._dims(q, k, causal, window, hd))
     if err:
         raise RuntimeError(f"flash_fwd_launch failed with cudaError {err}")
-    return o, lse
+    return o[..., :hd], lse
+
+
+def _tc256_direct(K, q, k, v, causal, window, splits, combine=True):
+    """The hd-256 tensor-core forward (and, split, its combine) set up for
+    `splits` splits on (B, H, S, hd) inputs padded as the wrapper pads
+    them, with its outputs and workspaces allocated once: a function that
+    launches it through its C entry points (not counted; with `combine`
+    False the forward alone), o, lse and the split workspaces (o_part,
+    lse_part), or None unsplit."""
+    import torch
+    hd = q.shape[-1]
+    q, k, v = (K.pad_head_dim(t, 256) for t in (q, k, v))
+    sizes = K._sizes(q, k, False)
+    B, H, _, Sq, _ = sizes
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    parts = () if splits == 1 else (
+        torch.empty((splits, B, H, Sq, 256), dtype=torch.float32,
+                    device=q.device),
+        torch.empty((splits, B, H, Sq), dtype=torch.float32,
+                    device=q.device))
+    args = K._tc256_args((q, k, v, o, lse), [t.data_ptr() for t in parts],
+                         sizes, causal, window, splits, hd, False)
+    fwd, comb = K._library_tc256()
+    entries = ((fwd, "flash_fwd_tc256_launch"),) + (
+        ((comb, "flash_combine_launch"),) if combine and parts else ())
+
+    def run():
+        for fn, name in entries:
+            err = fn(args)
+            if err:
+                raise RuntimeError(f"{name} failed with cudaError {err}")
+    return run, o[..., :hd], lse, (parts or None)
+
+
+def _combine_direct(K, o, lse, parts, splits):
+    """The combine alone of the split workspaces `parts` into o (B, H,
+    Sq, hd) and lse, its argument block built once: a function that
+    launches it through its C entry point (not counted)."""
+    args = K._tc256_args((o, o, o, o, lse), [t.data_ptr() for t in parts],
+                         K._sizes(o, o, False), False, 0, splits,
+                         o.shape[-1], False)
+    comb = K._library_tc256()[1]
+
+    def run():
+        err = comb(args)
+        if err:
+            raise RuntimeError(f"flash_combine_launch failed with "
+                               f"cudaError {err}")
+    return run
 
 
 def _bwd_direct(K, q, k, v, o, lse, do, causal, window, parts=None):
@@ -955,17 +1017,24 @@ def check_flash(torch):
         kw = dict(causal=causal, window=window)
         route = K.route(dt, K.padded_head_dim(hd))
         short = K.short_fits(H // KH, sq, sk, K.padded_head_dim(hd), dt)
+        fwd_route = K.forward_route(H // KH, sq, sk, K.padded_head_dim(hd),
+                                    dt)
+        splits = (K._call_splits((B, H, KH, sq, sk), causal, q.get_device())
+                  if fwd_route == "tc256" else 1)
         before = dict(launch_counts)
         o, lse = K.flash_attention(q, k, v, **kw)
         o_ref, lse_ref = attention_fwd_ref(q, k, v, **kw)
         grads = K.flash_attention_bwd(q, k, v, o, lse, do, **kw)
         for name, want in ((K.NAME_TC, route == "tc"),
                            (K.NAME_BWD_TC, route == "tc"),
+                           (K.NAME_TC256, fwd_route == "tc256"),
+                           (K.NAME_COMBINE, splits > 1),
                            (K.NAME_SHORT, short), (K.NAME_BWD_SHORT, short)):
             if launch_counts[name] - before.get(name, 0) != want:
                 raise AssertionError(f"{shape}: route {route}, short "
-                                     f"{short}, but {launch_counts[name]} "
-                                     f"{name} launches")
+                                     f"{short}, forward {fwd_route}, but "
+                                     f"{launch_counts[name]} {name} "
+                                     f"launches")
         # the plain backward starts from the plain forward's o and lse
         grads_ref = attention_bwd_ref(q, k, v, o_ref, lse_ref, do, **kw)
         torch.cuda.synchronize()
@@ -1009,13 +1078,17 @@ def check_flash(torch):
                    else "flash_attention_bwd", "B": B, "H": H, "K": KH,
                    "Sq": sq, "Sk": sk, "hd": hd, "causal": causal,
                    "window": window, "dtype": dts,
-                   "route": "short" if short else route, "max_abs_err": err,
+                   "route": fwd_route if direction == "fwd" else (
+                       "short" if short else route), "max_abs_err": err,
                    "tol": tol, "kernel_ms": k_ms, "plain_ms": p_ms,
                    "library_ms": lib_ms, "bound_ms": bound[0],
                    "bound_by": bound[1], "bound_share": bound[0] / k_ms}
-            if shape == FLASH_ZOO and direction == "fwd":
+            if fwd_route == "tc256":
+                row["splits"] = splits
+            if shape in (FLASH_ZOO, FLASH_RG) and direction == "fwd":
                 # the CUDA-core forward on the same inputs, launched through
                 # its C entry point (not counted): the route this replaced
+                # (at hd 256 until the hd-256 tensor-core forward)
                 cc = _cuda_core_fwd(K, q, k, v, causal, window)
                 _compare(tag + " cuda-core", cc[:1], (o_ref,), dt)
                 row["cuda_core_ms"] = _time_ms(
@@ -1047,7 +1120,7 @@ def check_flash(torch):
             if short:
                 _short_row(K, row, tag, direction, kern, iters, q, k, v, o,
                            lse, do, kw, (o_ref, lse_ref), grads_ref, dt)
-            if shape in (FLASH_PATH, FLASH_ZOO) and not short:
+            if shape in (FLASH_PATH, FLASH_ZOO, FLASH_RG) and not short:
                 host_us, dev_us, per_call, names, events, by_name = \
                     _host_and_device(kern, iters)
                 row.update(device_us=dev_us, host_us=host_us,
@@ -1055,12 +1128,14 @@ def check_flash(torch):
                            device_us_by_kernel=by_name,
                            profiled=f"{events} kernel events over {iters} "
                                     f"calls")
-                if direction == "fwd" and (per_call != 1 or len(names) != 1
-                                           or (TC_KERNEL in names[0]) !=
-                                           (route == "tc")):
+                if direction == "fwd" and (
+                        per_call != 1 or len(names) != 1
+                        or (TC_KERNEL in names[0]) != (route == "tc")
+                        or (TC256_KERNEL in names[0])
+                        != (fwd_route == "tc256")):
                     raise AssertionError(f"{tag}: {per_call} kernels per "
                                          f"call ({names}), not one "
-                                         f"{route} kernel")
+                                         f"{fwd_route} kernel")
                 if direction == "bwd" and route == "tc" and (
                         per_call != 3 or not _tc_bwd_kernels(names)):
                     raise AssertionError(f"{tag}: {per_call} kernels per "
@@ -1103,11 +1178,73 @@ FLASH_DECODE_FAMILIES = [(8, 1, 1, 16, 160, 256, False, 0, "bfloat16"),
 FLASH_DECODE += FLASH_DECODE_FAMILIES
 
 
+# Splits over keys timed beside the chosen count at recurrentgemma-9b's
+# full-window decode call (`flash decode` row's `ms_by_splits`)
+DECODE_SPLITS_SWEEP = (1, 4, 8, 16, 32, 64)
+
+
+def _split_checks(torch, K, row, tag, q, k, v, kw, splits, iters):
+    """A split decode call's parts on the hd-256 tensor-core route, through
+    the C entry points (not counted): the splits' partial o and lse
+    against `attention_fwd_split_ref` over the same key ranges, the
+    combine against `combine_splits_ref` of those partials (its own row,
+    returned), and the forward's time at each count of
+    `DECODE_SPLITS_SWEEP`."""
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_fwd_split_ref, combine_splits_ref)
+    B, H, sq, _ = q.shape
+    sk = k.shape[2]
+    dt = q.dtype
+    run, _, _, (o_part, lse_part) = _tc256_direct(
+        K, q, k, v, kw["causal"], kw["window"], splits, combine=False)
+    run()
+    ranges = K.split_ranges(0, min(sk, sq) if kw["causal"] else sk, splits)
+    pw = [K.pad_head_dim(t, 256) for t in (q, k, v)]
+    o_ref, lse_ref = attention_fwd_split_ref(*pw, ranges, scale=q.shape[-1]
+                                             ** -0.5, **kw)
+    torch.cuda.synchronize()
+    part_err = max(_compare(tag + " split o", (o_part,), (o_ref,), dt)[0],
+                   _compare(tag + " split lse", (lse_part,), (lse_ref,),
+                            torch.float32)[0])
+    row.update(split_max_abs_err=part_err, split_ranges=ranges[:4])
+    out = torch.empty(B, H, sq, 256, dtype=dt, device=q.device)
+    out_lse = torch.empty(B, H, sq, dtype=torch.float32, device=q.device)
+    comb = _combine_direct(K, out, out_lse, (o_part, lse_part), splits)
+    comb()
+    c_ref, c_lse = combine_splits_ref(o_part, lse_part)
+    torch.cuda.synchronize()
+    c_err = max(_compare(tag + " combine", (out,), (c_ref,), dt)[0],
+                _compare(tag + " combine lse", (out_lse,), (c_lse,),
+                         torch.float32)[0])
+    bound = cost.bound(*cost.flash_combine(splits, B * H * sq, 256,
+                                           q.element_size()),
+                       cost.FP32_FLOP_PER_S)
+    c_row = {"kernel": "flash_combine", "B": B, "H": H, "Sq": sq,
+             "splits": splits, "hd": 256, "dtype": str(dt).split(".")[-1],
+             "max_abs_err": c_err, "tol": _tol(dt),
+             "kernel_ms": _time_ms(comb, iters),
+             "plain_ms": _time_ms(lambda: combine_splits_ref(o_part,
+                                                             lse_part),
+                                  iters),
+             "library_ms": None, "bound_ms": bound[0], "bound_by": bound[1]}
+    c_row["bound_share"] = c_row["bound_ms"] / c_row["kernel_ms"]
+    # the forward and its combine launched alone at each count, outputs
+    # allocated once: the device's time, not the wrapper's host time
+    row["ms_by_splits"] = {n: _time_ms(_tc256_direct(
+        K, q, k, v, kw["causal"], kw["window"], n)[0], iters)
+        for n in DECODE_SPLITS_SWEEP}
+    return c_row
+
+
 def check_flash_decode(torch):
     """Phase 3: the decode calls' forward against the plain version, with
     SDPA's time beside it, the route checked against the launch counts;
     at the path's last step (Sk 576) also its device time and kernels a
-    call."""
+    call. The calls on the hd-256 tensor-core route have the CUDA-core
+    forward's time on the same inputs beside them, and their splits; at
+    recurrentgemma-9b's full window also the splits' partial results and
+    the combine held apart (a `flash combine` row), the device time and
+    kernels a call, and the time at other split counts."""
     import torch.nn.functional as F
     from repro_torch.kernels import launch_counts
     from repro_torch.kernels.flash_attention import kernel as K
@@ -1124,14 +1261,20 @@ def check_flash_decode(torch):
         width = K.padded_head_dim(hd)
         route = K.route(dt, width)
         short = K.short_fits(H // KH, sq, sk, width, dt)
+        fwd_route = K.forward_route(H // KH, sq, sk, width, dt)
+        splits = (K._call_splits((B, H, KH, sq, sk), causal, q.get_device())
+                  if fwd_route == "tc256" else 1)
         before = dict(launch_counts)
         o, lse = K.flash_attention(q, k, v, **kw)
         for name, want in ((K.NAME_TC, route == "tc"),
-                           (K.NAME_SHORT, short)):
+                           (K.NAME_SHORT, short),
+                           (K.NAME_TC256, fwd_route == "tc256"),
+                           (K.NAME_COMBINE, splits > 1)):
             if launch_counts[name] - before.get(name, 0) != want:
                 raise AssertionError(f"{shape}: route {route}, short "
-                                     f"{short}, but {launch_counts[name]} "
-                                     f"{name} launches")
+                                     f"{short}, forward {fwd_route}, but "
+                                     f"{launch_counts[name]} {name} "
+                                     f"launches")
         o_ref, lse_ref = attention_fwd_ref(q, k, v, **kw)
         torch.cuda.synchronize()
         tag = (f"flash decode B={B} H={H} K={KH} Sq={sq} Sk={sk} hd={hd} "
@@ -1144,9 +1287,8 @@ def check_flash_decode(torch):
                            cost.BF16_TC_FLOP_PER_S)
         row = {"kernel": "flash_attention", "B": B, "H": H, "K": KH,
                "Sq": sq, "Sk": sk, "hd": hd, "causal": causal,
-               "window": window, "dtype": dts,
-               "route": "short" if short else route, "max_abs_err": err,
-               "tol": tol,
+               "window": window, "dtype": dts, "route": fwd_route,
+               "max_abs_err": err, "tol": tol,
                "kernel_ms": _time_ms(lambda: K.flash_attention(q, k, v, **kw),
                                      100),
                "plain_ms": _time_ms(lambda: attention_fwd_ref(q, k, v, **kw),
@@ -1156,6 +1298,31 @@ def check_flash_decode(torch):
                        q, k, v, enable_gqa=True), 100),
                "bound_ms": bound[0], "bound_by": bound[1]}
         row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+        if fwd_route == "tc256":
+            # the CUDA-core forward on the same inputs (not counted): the
+            # route these calls took before
+            cc = _cuda_core_fwd(K, q, k, v, causal, window)
+            _compare(tag + " cuda-core", cc[:1], (o_ref,), dt)
+            row.update(splits=splits, cuda_core_ms=_time_ms(
+                lambda: _cuda_core_fwd(K, q, k, v, causal, window), 100))
+        if shape == FLASH_DECODE_RG:
+            c_row = _split_checks(torch, K, row, tag, q, k, v, kw, splits,
+                                  100)
+            print("flash combine", json.dumps(c_row), flush=True)
+            rows.append(c_row)
+            host_us, dev_us, per_call, names, events, by_name = \
+                _host_and_device(lambda: K.flash_attention(q, k, v, **kw),
+                                 100)
+            if per_call != 2 or len(names) != 2 or not all(
+                    any(n in x for x in names)
+                    for n in (TC256_KERNEL, COMBINE_KERNEL)):
+                raise AssertionError(f"{tag}: {per_call} kernels per call "
+                                     f"({names}), not the hd-256 forward "
+                                     f"and its combine")
+            row.update(device_us=dev_us, host_us=host_us,
+                       launches_per_call=per_call, kernels_seen=names,
+                       device_us_by_kernel=by_name,
+                       profiled=f"{events} kernel events over 100 calls")
         if shape == FLASH_DECODE_PATH:
             host_us, dev_us, per_call, names, events, _ = _host_and_device(
                 lambda: K.flash_attention(q, k, v, **kw), 100)
@@ -3875,9 +4042,10 @@ def _trace_decode(torch, params, cfg, state, tok, steps):
 def _trace_decode_attention(torch, cfg, state, g):
     """One decode step's attention call as `attention_decode` makes it, on
     layer 0's cache after the serve loop: the query heads of a kv head as
-    query rows against the cache's prefix (strided in B), which the
-    wrapper copies. Its kernels and copy kernels a call, device and host
-    microseconds."""
+    query rows, a (B, G, K, hd) view, against the cache's prefix (strided
+    in B) through the (B, S, H, hd) entry point, whose wrapper copies the
+    prefix on the tensor cores' route. Its kernels and copy kernels a
+    call, device and host microseconds."""
     from repro_torch.kernels.flash_attention import ops as F
     ck, cv = (t[0] for t in state["caches"][0]["pos0"])
     B, _, K, hd = ck.shape
@@ -3886,9 +4054,8 @@ def _trace_decode_attention(torch, cfg, state, g):
                     device="cuda").to(ck.dtype)
     with torch.inference_mode():
         host_us, dev_us, per_call, names, events, by_name = _host_and_device(
-            lambda: F.flash_attention(q, ck[:, :n].transpose(1, 2),
-                                      cv[:, :n].transpose(1, 2),
-                                      causal=False), 100)
+            lambda: F.flash_attention_bshd(q.transpose(1, 2), ck[:, :n],
+                                           cv[:, :n], causal=False), 100)
     others = [x for x in names if not _is_copy_kernel(x)]
     return {"B": B, "K": K, "rows": q.shape[2], "Sk": n, "hd": hd,
             "kernels_per_call": per_call,
@@ -4107,8 +4274,10 @@ FAMILIES_SERVE = (4, 8, 64, 128)    # batch, prompt, generated, cache
 FAMILIES = {
     "recurrentgemma-9b": dict(
         prefill=(1, 4096), serve=(8, 128, 32, 4096), tol=38 * 2 ** -8,
-        forward={"flash_attention": 12, "rmsnorm": 77},
-        step={"flash_attention": 12, "rmsnorm": 77}),
+        forward={"flash_attention": 12, "flash_attention_tc256": 12,
+                 "rmsnorm": 77},
+        step={"flash_attention": 12, "flash_attention_tc256": 12,
+              "rmsnorm": 77}),
     "phi-3-vision-4.2b": dict(
         prefill=(1, 1472), serve=(8, 128, 32, 2048), tol=32 * 2 ** -8,
         forward={"flash_attention": 32, "rmsnorm": 65},
@@ -4208,9 +4377,11 @@ def _families_reduced(torch, counts):
             "index": st_k["index"], "launches": got}), flush=True)
 
 
-def _expect_launches(tag, got, want, calls, tc):
+def _expect_launches(tag, got, want, calls, tc, combines=0):
     """`got` holds `calls` times each count of `want`; with `tc`, every
-    attention launch took the tensor cores, else none did."""
+    attention launch took the tensor cores, else none did; the hd-256
+    tensor-core forward launched as often as `want` says (none where it
+    is not named) and its combine `combines` times."""
     for name, n in want.items():
         if got.get(name, 0) != n * calls:
             raise AssertionError(f"{tag}: {got}, not {n} {name} a call over "
@@ -4219,6 +4390,24 @@ def _expect_launches(tag, got, want, calls, tc):
     if n_tc != (got.get("flash_attention", 0) if tc else 0):
         raise AssertionError(f"{tag}: {n_tc} tensor-core launches of "
                              f"{got.get('flash_attention')}")
+    for name, n in (("flash_attention_tc256",
+                     want.get("flash_attention_tc256", 0) * calls),
+                    ("flash_attention_combine", combines)):
+        if got.get(name, 0) != n:
+            raise AssertionError(f"{tag}: {got}, not {n} {name} launches")
+
+
+def _rg_combines(cfg, batch, indices):
+    """The combines recurrentgemma's decode steps at cache `indices`
+    launch: one a local layer where its call over min(index + 1, window)
+    keys splits (`decode_splits`, 16 query rows a unit, batch x 1 units)."""
+    from repro_torch.kernels.flash_attention import kernel as K
+    sm = K._sm_count(0)
+    layers = sum(kind == "local" for kind in cfg.layer_kinds)
+    return layers * sum(
+        K.decode_splits(batch * cfg.num_kv_heads,
+                        min(i + 1, cfg.window_size), sm) > 1
+        for i in indices)
 
 
 def _check_close(tag, got, want, tol):
@@ -4263,7 +4452,8 @@ def _family_full(torch, arch, counts):
     from repro_torch.models import transformer as T
     from repro_torch.tree import tree_leaves
     spec, cfg = FAMILIES[arch], get_config(arch)
-    tc = arch != "recurrentgemma-9b"       # hd 256 takes the CUDA cores
+    # hd 256 takes the hd-256 tensor-core forward ("tc256"), not "tc"
+    tc = arch != "recurrentgemma-9b"
     launches = {}
     t0 = time.perf_counter()
     params = T.init_params(0, cfg, device="cuda")
@@ -4329,7 +4519,9 @@ def _family_full(torch, arch, counts):
         counts.update(launch_counts)
         launches["serve"] = dict(launch_counts)
         _expect_launches(f"families (b) {arch} serve", launches["serve"],
-                         spec["step"], steps, tc)
+                         spec["step"], steps, tc,
+                         _rg_combines(cfg, B, range(steps))
+                         if not tc else 0)
         peak = torch.cuda.max_memory_allocated()
     if norms.unheld():
         raise AssertionError(f"families (b) {arch}: RMSNorm calls at "
@@ -4401,7 +4593,10 @@ def _family_full(torch, arch, counts):
         launches["full_window"] = dict(launch_counts)
         _expect_launches(f"families (b) {arch} full window",
                          launches["full_window"], spec["step"],
-                         2 * ZOO_TRACED_STEPS, tc)
+                         2 * ZOO_TRACED_STEPS, tc,
+                         _rg_combines(cfg, B, range(
+                             RG_FULL_WINDOW,
+                             RG_FULL_WINDOW + 2 * ZOO_TRACED_STEPS)))
         line["full_window_step"] = {"index": RG_FULL_WINDOW,
                                     "keys_read": cfg.window_size, **full}
         del state
@@ -5218,8 +5413,8 @@ def run_launch_path(torch):
 
 # ptxas's report of a kernel, from its mangled name - <length><name>I<template
 # arguments>E - to its registers: the tensor-core kernels (hd, and for dk/dv
-# and dq whether P and dS are split) and the short-sequence kernels (type,
-# hd)
+# and dq whether P and dS are split), the hd-256 forward (warps, stages)
+# and its combine (hd), and the short-sequence kernels (type, hd)
 PTXAS_ENTRY = (r"Compiling entry function '\w*?\d({})I{}E.*?(\d+) bytes "
                r"spill stores, (\d+) bytes spill loads.*?Used (\d+) "
                r"registers")
@@ -5227,10 +5422,13 @@ PTXAS_KERNELS = {"tc": (r"flash_\w+?_tc_\w*?kernel",
                         r"Li(\d+)E(?:Lb(\d)E)?"),
                  "short": (r"flash_(?:fwd|bwd)_short_kernel",
                            r"(f|13__nv_bfloat16)Li(\d+)E"),
+                 "tc256": (r"flash_(?:fwd_tc256|combine)_kernel",
+                           r"Li(\d+)E(?:Li(\d+)E)?"),
                  "agg": (r"agg_(?:register|ring)_kernel",
                          r"((?:f|13__nv_bfloat16)(?:f|13__nv_bfloat16|S1_))"
                          r"(?:Li(\d)E)?")}
 SHORT_INSTANCES = 2 * 2 * 6    # directions x types x head dims
+TC256_INSTANCES = 3            # forward at (1 warp, 3 stages), (4, 2); combine
 AGG_INSTANCES = 4 * 3          # type pairs x (register 4- and 1-wide, ring)
 
 
@@ -5248,6 +5446,9 @@ def _ptxas(log: str, kind: str):
     for kernel, a, b, stores, loads, regs in found:
         if kind == "tc":
             what = f"{kernel} hd {a}" + (f" split {b}" if b else "")
+        elif kind == "tc256":
+            what = (f"{kernel} warps {a} stages {b}" if b
+                    else f"{kernel} hd {a}")
         elif kind == "short":
             what = f"{kernel} {'bf16' if 'bfloat16' in a else 'f32'} hd {b}"
         else:
@@ -5256,7 +5457,8 @@ def _ptxas(log: str, kind: str):
               f"{loads} bytes spill loads", flush=True)
         if int(stores) or int(loads):
             raise AssertionError(f"{what} spills")
-    want = {"short": SHORT_INSTANCES, "agg": AGG_INSTANCES}.get(kind)
+    want = {"short": SHORT_INSTANCES, "agg": AGG_INSTANCES,
+            "tc256": TC256_INSTANCES}.get(kind)
     if want and "Compiling entry function" in log and len(found) != want:
         raise AssertionError(f"ptxas reported {len(found)} {kind} "
                              f"kernels, not {want}")
@@ -5294,7 +5496,8 @@ def main() -> int:
     try:
         for b in build.build([agg_kernel.SOURCE, rms_kernel.SOURCE,
                               flash_kernel.SOURCE, flash_kernel.SOURCE_TC,
-                              flash_kernel.SOURCE_BWD_TC]):
+                              flash_kernel.SOURCE_BWD_TC,
+                              flash_kernel.SOURCE_TC256]):
             print(f"built {b.source.relative_to(ROOT)} -> "
                   f"{b.library.relative_to(ROOT)} in {b.seconds:.1f} s",
                   flush=True)
@@ -5302,6 +5505,8 @@ def main() -> int:
             if b.source in (flash_kernel.SOURCE_TC,
                             flash_kernel.SOURCE_BWD_TC):
                 _ptxas(b.log, "tc")
+            if b.source == flash_kernel.SOURCE_TC256:
+                _ptxas(b.log, "tc256")
             if b.source == flash_kernel.SOURCE:
                 _ptxas(b.log, "short")
             if b.source == agg_kernel.SOURCE:
@@ -5490,8 +5695,8 @@ def main() -> int:
         "families"] = {
         "work": "the families at full width, bf16: recurrentgemma-9b's "
                 "local layers at (B, H, K, S, hd) = (1, 16, 1, 4096, 256) "
-                "causal with a 2,048 window on the CUDA cores, 12 a "
-                "prefill, and its decode calls (16 query rows of the one "
+                "causal with a 2,048 window on the hd-256 tensor-core "
+                "forward, 12 a prefill, and its decode calls (16 query rows of the one "
                 "kv head over 160 and 2,048 keys), 12 a step; "
                 "phi-3-vision's (1, 32, 32, 2048, 96 padded to 128) causal "
                 "on the tensor cores, 32 a prefill, decode over 160 keys; "
@@ -5569,6 +5774,47 @@ def main() -> int:
             "block": pick(rms_rows, kname, rms_launch, rms_names),
             "out_norm": pick(rms_rows, kname, (1, 4096, 2048, "bfloat16", 0),
                              rms_names)}
+    # the hd-256 tensor-core forward and its combine: recurrentgemma-9b's
+    # prefill call and its full-window decode call
+    (rg,) = [r for r in flash_rows if r["kernel"] == flash_kernel.NAME and (
+        tuple(r[n] for n in flash_names) == FLASH_RG)]
+    (rg_dec,) = [r for r in decode_rows if r["kernel"] == flash_kernel.NAME
+                 and tuple(r[n] for n in flash_names) == FLASH_DECODE_RG]
+    (comb,) = [r for r in decode_rows if r["kernel"] == "flash_combine"]
+    tc256_rows = [r for r in flash_rows + decode_rows
+                  if r["kernel"] == flash_kernel.NAME
+                  and r["route"] == "tc256"]
+    source = "src/repro_torch/kernels/flash_attention/csrc/flash_fwd_tc256.cu"
+    kernels.append({
+        "name": "flash_fwd_tc256", "route": "cuda", "source": source,
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:91",
+        "launches": sum(launches(flash_kernel.NAME_TC256).values()),
+        "launches_by_path": launches(flash_kernel.NAME_TC256),
+        "max_abs_err": max(r["max_abs_err"] for r in tc256_rows),
+        **{k: rg[k] for k in ("plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "cuda_core_ms")},
+        "ms": rg["kernel_ms"],
+        "work": "recurrentgemma-9b's prefill call at (B, H, K, S, hd) = "
+                "(1, 16, 1, 4096, 256), causal, window 2,048, bf16, 12 a "
+                "prefill; its decode calls (16 query rows of the kv head, "
+                "B 8) 12 a step",
+        "decode": {**{k: rg_dec[k] for k in (
+            "max_abs_err", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "cuda_core_ms", "splits", "ms_by_splits")},
+            "ms": rg_dec["kernel_ms"],
+            "work": "recurrentgemma-9b's full-window decode call: B 8, 16 "
+                    "rows over 2,048 keys, split, with its combine"}})
+    kernels.append({
+        "name": "flash_combine", "route": "cuda", "source": source,
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:91",
+        "launches": sum(launches(flash_kernel.NAME_COMBINE).values()),
+        "launches_by_path": launches(flash_kernel.NAME_COMBINE),
+        **{k: comb[k] for k in ("max_abs_err", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms", "splits")},
+        "ms": comb["kernel_ms"],
+        "work": "the combine of recurrentgemma-9b's full-window decode "
+                "call: its splits' partial o and lse (B 8, 16 rows, hd "
+                "256) merged, one launch a split call"})
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on a main "

@@ -77,6 +77,15 @@ def flash(B: int, H: int, K: int, sq: int, sk: int, hd: int, itemsize: int,
     return 2 * qo + 2 * kv + lse, ops
 
 
+def flash_combine(splits: int, rows: int, hd: int, itemsize: int):
+    """(bytes, operations) of merging `splits` partial results of `rows`
+    query rows at head dim hd: the float32 partial o and lse of every split
+    read, o (in the inputs' type) and lse (float32) written; a multiply
+    and an add a split and element."""
+    return (splits * rows * (hd + 1) * 4 + rows * (hd * itemsize + 4),
+            2 * splits * rows * hd)
+
+
 def record_meta(name: str, moved_bytes, ops) -> None:
     """Record a call of kernel `name` made on the meta device: its work,
     and no launch (`launch_counts` is untouched)."""

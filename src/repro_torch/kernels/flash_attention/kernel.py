@@ -25,6 +25,13 @@ both directions:
   "cuda_core"  every other case: `csrc/flash_attention.cu`, float32
                arithmetic on the CUDA cores (float32 on the tensor cores
                would mean TF32, which changes the numbers).
+The forward alone has a further choice (`forward_route`): a bfloat16 call
+at padded hd 256 that `route` sends to the CUDA cores and that does not
+take the short kernels goes to `csrc/flash_fwd_tc256.cu` ("tc256", the
+tensor cores, every tensor read and written through its strides), split
+over keys where it has at most `DECODE_ROWS` query rows a unit
+(`decode_splits`; its partial results merged by that source's combine
+kernel); its backward stays on the CUDA cores.
 On the CUDA cores, a call whose (b, kv head) unit fits `SHORT_BUDGET`
 (`short_fits`: the transformer path's calls, S = 8) takes that source's
 short-sequence kernels, both directions: a warp a unit, the backward in
@@ -51,12 +58,15 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "flash_attention.cu"
 SOURCE_TC = CSRC / "flash_fwd_tc.cu"
 SOURCE_BWD_TC = CSRC / "flash_bwd_tc.cu"
+SOURCE_TC256 = CSRC / "flash_fwd_tc256.cu"
 NAME = "flash_attention"          # every forward call, either route
 NAME_TC = "flash_attention_tc"    # the forward calls that took "tc"
 NAME_BWD = "flash_attention_bwd"  # every backward call, either route
 NAME_BWD_TC = "flash_attention_bwd_tc"   # the backward calls that took "tc"
 NAME_SHORT = "flash_attention_short"     # the forward calls that took the
 NAME_BWD_SHORT = "flash_attention_bwd_short"   # short kernels; backward
+NAME_TC256 = "flash_attention_tc256"     # the forward calls that took "tc256"
+NAME_COMBINE = "flash_attention_combine"   # their combines (split calls)
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)   # instantiated on the CUDA cores
 TC_HEAD_DIMS = (64, 128)                # instantiated on the tensor cores
 WIDE_CHUNK = 256     # above 256, widths are multiples of this
@@ -78,6 +88,16 @@ SHORT_BUDGET = 49_152
 # sequence and head strides of q, k, v, o, do, dq, dk and dv (the
 # forward's first 4); unused fields 0.
 SHORT_ARGS = struct.Struct("<9Q9qQd24q")
+# The hd-256 tensor-core entry points' one argument (`Tc256Args` in
+# `csrc/flash_fwd_tc256.cu`), 8-byte fields: the pointers of q, k, v, o,
+# lse, o_part and lse_part (the last two 0 unsplit); B, H, K, Sq, Sk, the
+# padded hd, causal, window and splits; the stream; the scale; then
+# the batch, sequence and head strides of q, k, v and o.
+TC256_ARGS = struct.Struct("<7Q9qQd12q")
+TC256_KEYS = 32     # keys a kv tile of the hd-256 forward (`kBK`)
+DECODE_ROWS = 16    # query rows a unit at most of a split call (`kDecodeRows`)
+DECODE_BLOCKS_PER_SM = 2   # blocks an SM a split call aims at
+MAX_SPLITS = 256    # splits the combine takes (`kMaxSplits`)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -104,6 +124,44 @@ def route(dtype, padded_hd: int) -> str:
     if dtype == torch.bfloat16 and padded_hd in TC_HEAD_DIMS:
         return "tc"
     return "cuda_core"
+
+
+def forward_route(G: int, Sq: int, Sk: int, padded_hd: int, dtype) -> str:
+    """The forward's kernels for a call with G query heads a kv head, Sq
+    queries, Sk keys and a padded head dim: "short" where `short_fits`,
+    "tc256" for the other bfloat16 calls at 256, else `route`'s answer."""
+    if short_fits(G, Sq, Sk, padded_hd, dtype):
+        return "short"
+    if dtype == torch.bfloat16 and padded_hd == 256:
+        return "tc256"
+    return route(dtype, padded_hd)
+
+
+def split_ranges(lo: int, hi: int, splits: int, tile: int = TC256_KEYS):
+    """The key ranges [start, stop) of `splits` splits of keys [lo, hi), as
+    the hd-256 forward cuts a unit's keys: its n tiles of `tile` keys from
+    lo, in order, split t taking tiles [t n / splits, (t + 1) n / splits).
+    A split past the last tile is empty."""
+    n = -(-(hi - lo) // tile) if hi > lo else 0
+    return [(min(hi, lo + n * t // splits * tile),
+             min(hi, lo + n * (t + 1) // splits * tile))
+            for t in range(splits)]
+
+
+def decode_splits(units: int, visible_keys: int, sm_count: int) -> int:
+    """The number of splits over keys for `units` (b, head, query tile)
+    units that each see `visible_keys` keys, on a card of `sm_count` SMs:
+    1 where the units alone fill the card (a prefill) or see one kv tile;
+    else about `DECODE_BLOCKS_PER_SM` blocks an SM, the tiles spread evenly
+    and every split at least one tile (`split_ranges` of the count covers
+    the keys with non-empty ranges)."""
+    tiles = -(-visible_keys // TC256_KEYS)
+    if units >= sm_count or tiles <= 1:
+        return 1
+    want = min(tiles, MAX_SPLITS,
+               -(-DECODE_BLOCKS_PER_SM * sm_count // units))
+    per = -(-tiles // want)                  # tiles a split
+    return -(-tiles // per)
 
 
 def short_fits(G: int, Sq: int, Sk: int, padded_hd: int, dtype) -> bool:
@@ -191,6 +249,23 @@ def _library_tc():
     """The tensor-core forward's C entry point, typed (built at first
     use)."""
     return _typed(build.load(SOURCE_TC).flash_fwd_tc_launch, 5)
+
+
+@functools.lru_cache(maxsize=None)
+def _library_tc256():
+    """The hd-256 tensor-core forward's and its combine's C entry points,
+    typed (built at first use), each taking one `TC256_ARGS` block."""
+    lib = build.load(SOURCE_TC256)
+    fns = (lib.flash_fwd_tc256_launch, lib.flash_combine_launch)
+    for fn in fns:
+        fn.argtypes, fn.restype = [ctypes.c_char_p], ctypes.c_int
+    return fns
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """The SMs of CUDA device `index` (queried once: it costs host time)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)
@@ -320,15 +395,95 @@ def _short_bwd(q, k, v, o, lse, do, causal, window, bshd, sizes):
     return dq, dk, dv
 
 
+def _call_splits(sizes, causal, device_index: int) -> int:
+    """The splits over keys of an hd-256 tensor-core call of `sizes` (B,
+    H, K, Sq, Sk) on CUDA device `device_index`: `decode_splits` where it
+    has at most `DECODE_ROWS` query rows a unit (one query tile, keys 0 to
+    min(Sk, Sq) - 1 under causal masking, Sk - 1 otherwise), else 1."""
+    B, H, _, Sq, Sk = sizes
+    if Sq > DECODE_ROWS:
+        return 1
+    return decode_splits(B * H, min(Sk, Sq) if causal else Sk,
+                         _sm_count(device_index))
+
+
+def _tc256_args(tensors, parts, sizes, causal, window, splits, hd, bshd):
+    """The `TC256_ARGS` block of a call: the pointers of q, k, v, o, lse
+    and the split workspaces `parts` (pointers, or none), the sizes, the
+    padded hd (q's last dim), the true head dim `hd` (its scale), and
+    the batch, sequence and head strides of q, k, v and o (0 along a dim
+    of size 1, which no index moves along)."""
+    q = tensors[0]
+    st = []
+    order = (0, 1, 2) if bshd else (0, 2, 1)
+    for t in tensors[:4]:
+        shape, stride = t.shape, t.stride()
+        st += [stride[d] if shape[d] > 1 else 0 for d in order]
+    return TC256_ARGS.pack(*(t.data_ptr() for t in tensors), *parts,
+                           *_ZEROS[len(tensors) + len(parts):7], *sizes,
+                           q.shape[-1], causal, window, splits, _stream(q),
+                           hd ** -0.5, *st)
+
+
+def _split_parts(q, sizes, splits):
+    """The pointers of a split call's workspaces (o_part (splits, B, H, Sq,
+    256) and lse_part (splits, B, H, Sq), float32) in one allocation, and
+    that allocation; none unsplit."""
+    if splits == 1:
+        return (), None
+    B, H, _, Sq, _ = sizes
+    rows = splits * B * H * Sq
+    ws = q.new_empty(rows * 257, dtype=torch.float32)
+    return (ws.data_ptr(), ws.data_ptr() + rows * 256 * 4), ws
+
+
+def _tc256_fwd(q, k, v, causal, window, bshd, sizes):
+    """The hd-256 tensor-core forward on CUDA (or meta) tensors in either
+    layout, of `sizes`: o in q's layout, lse (B, H, Sq) float32; split
+    over keys (`_call_splits`), then combined, where that gives more than
+    one split. A head dim below 256 is zero-padded to it."""
+    hd = q.shape[-1]
+    q, k, v = (_rows16(pad_head_dim(t, 256)) for t in (q, k, v))
+    meta = q.device.type == "meta"
+    fwd, combine = (None, None) if meta else _library_tc256()
+    o = torch.empty_like(q)
+    B, H, _, Sq, _ = sizes
+    lse = q.new_empty((B, H, Sq), dtype=torch.float32)
+    if meta:
+        _record_meta(NAME, sizes, hd, q, causal, window, False)
+    else:
+        splits = _call_splits(sizes, causal, q.get_device())
+        parts, ws = _split_parts(q, sizes, splits)   # ws held to the end
+        args = _tc256_args((q, k, v, o, lse), parts, sizes, causal, window,
+                           splits, hd, bshd)
+        err = fwd(args)
+        if err:
+            raise RuntimeError(f"flash_fwd_tc256_launch failed with "
+                               f"cudaError {err}")
+        launch_counts[NAME] += 1
+        launch_counts[NAME_TC256] += 1
+        if splits > 1:
+            err = combine(args)
+            if err:
+                raise RuntimeError(f"flash_combine_launch failed with "
+                                   f"cudaError {err}")
+            launch_counts[NAME_COMBINE] += 1
+    return (o if o.shape[-1] == hd else o[..., :hd].contiguous()), lse
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q: (B, H, Sq, hd); k, v: (B, K, Sk, hd) -> (o like q, lse (B, H, Sq)
     float32)."""
     device = _check(q, k, v, window=window)
     if device.type == "cpu":
         return attention_fwd_ref(q, k, v, causal=causal, window=window)
-    sizes = _short_sizes(q, k, False)
-    if sizes:
+    sizes = _sizes(q, k, False)
+    kind = forward_route(sizes[1] // sizes[2], sizes[3], sizes[4],
+                         padded_head_dim(q.shape[-1]), q.dtype)
+    if kind == "short":
         return _short_fwd(q, k, v, causal, window, False, sizes)
+    if kind == "tc256":
+        return _tc256_fwd(q, k, v, causal, window, False, sizes)
     hd = q.shape[-1]
     width = padded_head_dim(hd)
     tc = route(q.dtype, width) == "tc"
@@ -406,17 +561,22 @@ def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0):
     transformer's projections) -> (o (B, Sq, H, hd) like q, lse (B, H, Sq)
     float32). On the card a call that `short_fits` reads the tensors in
     place and writes o contiguous, so that (B, Sq, H * hd) is a view of
-    it; any other call is transposed to (B, H, S, hd) for
-    `flash_attention` and back."""
+    it; a call that takes "tc256" reads them in place too and writes o in
+    q's strides where q is dense (contiguous otherwise); any other call is
+    transposed to (B, H, S, hd) for `flash_attention` and back."""
     device = _check(q, k, v, window=window, bshd=True)
     if device.type == "cpu":
         o, lse = attention_fwd_ref(q.transpose(1, 2), k.transpose(1, 2),
                                    v.transpose(1, 2), causal=causal,
                                    window=window)
         return o.transpose(1, 2), lse
-    sizes = _short_sizes(q, k, True)
-    if sizes:
+    sizes = _sizes(q, k, True)
+    kind = forward_route(sizes[1] // sizes[2], sizes[3], sizes[4],
+                         padded_head_dim(q.shape[-1]), q.dtype)
+    if kind == "short":
         return _short_fwd(q, k, v, causal, window, True, sizes)
+    if kind == "tc256":
+        return _tc256_fwd(q, k, v, causal, window, True, sizes)
     o, lse = flash_attention(*(t.transpose(1, 2).contiguous()
                                for t in (q, k, v)),
                              causal=causal, window=window)

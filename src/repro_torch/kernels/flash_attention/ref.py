@@ -37,21 +37,57 @@ def _grouped(t, k_heads):
     return t.reshape(B, k_heads, H // k_heads, S, hd).float()
 
 
-def attention_fwd_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                      scale=None):
-    """-> (o (B, H, Sq, hd) in q's dtype, lse (B, H, Sq) float32)."""
+def _attend(q, k, v, mask, scale):
+    """o (B, H, Sq, hd) and lse (B, H, Sq), float32, of q over the keys
+    that `mask` (Sq, Sk) keeps; a row that keeps none gets o 0 and lse
+    -inf."""
     B, H, Sq, hd = q.shape
-    K, Sk = k.shape[1], k.shape[2]
+    K = k.shape[1]
     s = torch.einsum("bkgqd,bktd->bkgqt", _grouped(q, K),
                      k.float()) * (hd ** -0.5 if scale is None else scale)
-    mask = _mask(Sq, Sk, causal, window, q.device)
     s = torch.where(mask, s, NEG_INF)
     live = mask.any(dim=-1)                  # rows that see some key
     p = torch.where(live[:, None], torch.softmax(s, dim=-1), 0.0)
     o = torch.einsum("bkgqt,bktd->bkgqd", p, v.float())
     lse = torch.where(live, torch.logsumexp(s, dim=-1), float("-inf"))
-    return (o.reshape(B, H, Sq, hd).to(q.dtype),
-            lse.reshape(B, H, Sq))
+    return o.reshape(B, H, Sq, hd), lse.reshape(B, H, Sq)
+
+
+def attention_fwd_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                      scale=None):
+    """-> (o (B, H, Sq, hd) in q's dtype, lse (B, H, Sq) float32)."""
+    mask = _mask(q.shape[2], k.shape[2], causal, window, q.device)
+    o, lse = _attend(q, k, v, mask, scale)
+    return o.to(q.dtype), lse
+
+
+def attention_fwd_split_ref(q, k, v, ranges, *, causal: bool = True,
+                            window: int = 0, scale=None):
+    """The forward split over keys, as `csrc/flash_fwd_tc256.cu` splits
+    it: for each key range [start, stop) of `ranges`, the attention over
+    those keys alone (o normalised by its own sum) and its log-sum-exp ->
+    (o_parts (n, B, H, Sq, hd), lse_parts (n, B, H, Sq)), float32. A row
+    that sees no key of a range gets o 0 and lse -inf there."""
+    Sk = k.shape[2]
+    mask = _mask(q.shape[2], Sk, causal, window, q.device)
+    kpos = torch.arange(Sk, device=q.device)
+    parts = [_attend(q, k, v, mask & (kpos >= start) & (kpos < stop), scale)
+             for start, stop in ranges]
+    return (torch.stack([o for o, _ in parts]),
+            torch.stack([lse for _, lse in parts]))
+
+
+def combine_splits_ref(o_parts, lse_parts):
+    """The splits of `attention_fwd_split_ref` merged, as
+    `flash_combine_kernel` merges them -> (o (B, H, Sq, hd), lse (B, H,
+    Sq)), float32: lse = log sum_t exp(lse_t), o = sum_t exp(lse_t - lse)
+    o_t. A split with lse_t = -inf adds nothing; a row with no key in any
+    split gets o 0 and lse -inf."""
+    live = lse_parts.amax(dim=0) > float("-inf")
+    lse = torch.where(live, torch.logsumexp(lse_parts, dim=0),
+                      float("-inf"))
+    w = torch.exp(lse_parts - torch.where(live, lse, 0.0))
+    return (w[..., None] * o_parts).sum(dim=0), lse
 
 
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0):

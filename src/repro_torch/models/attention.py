@@ -141,8 +141,11 @@ def attention_decode(params, x, cache: KVCache, index: int,
     window there, in ring order, which a non-causal softmax does not see.
     The G = H / K query heads of a kv head go to the kernel as G query
     rows of one head: q (B, 1, H, hd) is (B, K, G, hd) as it lies, so the
-    call is (B, K, G, hd) against the (B, K, n, hd) prefix, with no copy
-    of q or o; the wrapper copies the prefix of k and v (strided in B).
+    call is the (B, S, H, hd) entry point's, q a (B, G, K, hd) view against
+    the (B, n, K, hd) prefix of the cache as it lies. The kernels that read
+    through strides (the short and the hd-256 tensor-core ones) copy
+    neither, and the hd-256 one writes o in q's strides, so (B, 1, H * hd)
+    is a view of it; the others' wrapper copies the prefix (strided in B).
 
     `kv_override` (k, v), each (B, T, K, hd): cross-attention over all T
     of them (the encoder's output, `cross_kv`), the query without RoPE;
@@ -163,7 +166,6 @@ def attention_decode(params, x, cache: KVCache, index: int,
     else:
         q = _project_q(params, h, cfg)
         k, v = kv_override
-    o = flash_ops.flash_attention(q.reshape(B, K, H // K, hd),
-                                  k.transpose(1, 2), v.transpose(1, 2),
-                                  causal=False)
-    return x + o.reshape(B, 1, H * hd) @ params["wo"], cache
+    o = flash_ops.flash_attention_bshd(q.reshape(B, K, H // K, hd)
+                                       .transpose(1, 2), k, v, causal=False)
+    return x + o.transpose(1, 2).reshape(B, 1, H * hd) @ params["wo"], cache

@@ -24,6 +24,10 @@ from repro_torch.kernels.agg.kernel import weighted_aggregate
 from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
 from repro_torch.weights import params_from_numpy, params_to_numpy
 
+# One intra-op thread: the suite runs as several pytest workers on a few
+# cores, and torch's OpenMP pool in each worker oversubscribed them.
+torch.set_num_threads(1)
+
 _DT = {"float32": (jnp.float32, torch.float32),
        "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 

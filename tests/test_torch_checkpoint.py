@@ -16,6 +16,10 @@ from repro.ckpt import checkpoint as RCK
 from repro_torch.ckpt import checkpoint as TCK
 from repro_torch.tree import tree_leaves
 
+# One intra-op thread: the suite runs as several pytest workers on a few
+# cores, and torch's OpenMP pool in each worker oversubscribed them.
+torch.set_num_threads(1)
+
 
 def _tree(v):
     """A nested tree (dicts and a list), its values tagged by version."""

@@ -23,6 +23,10 @@ from repro_torch.fl.client import make_batched_client_update as t_batched
 from repro_torch.fl.client import make_client_update as t_single
 from repro_torch.weights import params_from_numpy, params_to_numpy
 
+# One intra-op thread: the suite runs as several pytest workers on a few
+# cores, and torch's OpenMP pool in each worker oversubscribed them.
+torch.set_num_threads(1)
+
 K = 10
 
 

@@ -26,6 +26,10 @@ from repro_torch.fl.engine import EngineConfig as TEC
 from repro_torch.tree import tree_leaves
 from repro_torch.weights import params_from_numpy
 
+# One intra-op thread: the suite runs as several pytest workers on a few
+# cores, and torch's OpenMP pool in each worker oversubscribed them.
+torch.set_num_threads(1)
+
 NUM_VAL = 200
 # Compressed federations' val losses: the raw updates part from the
 # reference's by float32 rounding (~1e-6), and where an entry lies at a

@@ -29,6 +29,10 @@ from repro_torch.models import densenet as TDN
 from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.weights import params_from_numpy, params_to_numpy
 
+# One intra-op thread: the suite runs as several pytest workers on a few
+# cores, and torch's OpenMP pool in each worker oversubscribed them.
+torch.set_num_threads(1)
+
 K = 6
 WIDTHS = {"growth": 8, "blocks": (2, 2, 2), "stem": 16, "frozen_blocks": 1}
 # float32 through ~12 convolutions and group norms, summed in other orders

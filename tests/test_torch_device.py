@@ -28,6 +28,10 @@ from repro_torch.kernels.rmsnorm import kernel as rms_kernel
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_fwd_ref
 
+# One intra-op thread: the suite runs as several pytest workers on a few
+# cores, and torch's OpenMP pool in each worker oversubscribed them.
+torch.set_num_threads(1)
+
 
 def _exp():
     return TA.FLExperiment(
@@ -762,6 +766,73 @@ def test_each_backward_takes_the_other_forwards_o_and_lse():
                     assert not a.isnan().any()
                     torch.testing.assert_close(a.float(), b.float(),
                                                **_card_tol(dt, True))
+
+
+# (B, H, K, Sq, Sk, hd, causal, window) of the hd-256 tensor-core forward:
+# recurrentgemma-9b's prefill call and its full-window decode call (16
+# query rows of the kv head), gemma3-12b's decode call at hd 240 (read as
+# 256), and ragged Sk (65, 1,000) decode- and prefill-shaped
+TC256_CASES = [(1, 16, 1, 4096, 4096, 256, True, 2048),
+               (8, 1, 1, 16, 2048, 256, False, 0),
+               (8, 8, 8, 2, 576, 240, False, 0),
+               (2, 4, 1, 16, 65, 256, False, 0),
+               (1, 4, 1, 16, 1000, 256, True, 0),
+               (2, 4, 2, 100, 65, 256, True, 3),
+               (1, 4, 2, 100, 1000, 240, False, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,K,sq,sk,hd,causal,window", TC256_CASES)
+def test_tc256_forward_and_decode_splits_on_the_card(B, H, K, sq, sk, hd,
+                                                    causal, window):
+    """A bf16 call at padded hd 256 that misses the short route takes the
+    hd-256 tensor-core forward: one `flash_attention_tc256` launch, one
+    `flash_attention_combine` launch where it splits (decode-shaped, 16
+    query rows a unit at most), no other forward; o and lse agree with the
+    plain version, the (B, S, H, hd) entry point gives the same o, and the
+    CUDA-core backward (its counts unchanged) fed this forward's o and lse
+    agrees with the plain backward at the bf16 gradient tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device with nvcc")
+    g = torch.Generator(device="cuda").manual_seed(sq + sk + hd)
+    q, k, v, do = _short_inputs(g, B, H, K, sq, sk, hd, torch.bfloat16)
+    kw = dict(causal=causal, window=window)
+    width = flash_kernel.padded_head_dim(hd)
+    assert flash_kernel.forward_route(H // K, sq, sk, width,
+                                      torch.bfloat16) == "tc256"
+    splits = flash_kernel._call_splits((B, H, K, sq, sk), causal,
+                                       q.get_device())
+    visible = min(sk, sq) if causal else sk
+    assert (splits > 1) == (sq <= flash_kernel.DECODE_ROWS
+                            and visible > flash_kernel.TC256_KEYS)
+    before = dict(launch_counts)
+    o, lse = flash_kernel.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    for name, more in (("flash_attention", 1), ("flash_attention_tc256", 1),
+                       ("flash_attention_combine", int(splits > 1)),
+                       ("flash_attention_tc", 0),
+                       ("flash_attention_short", 0)):
+        assert launch_counts[name] == before.get(name, 0) + more, name
+    ro, rlse = attention_fwd_ref(q, k, v, **kw)
+    assert o.shape == q.shape
+    torch.testing.assert_close(o.float(), ro.float(),
+                               **_card_tol(torch.bfloat16))
+    torch.testing.assert_close(lse, rlse, **_card_tol(torch.float32))
+    ob, lb = flash_kernel.flash_attention_bshd(
+        *(t.transpose(1, 2) for t in (q, k, v)), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(ob.transpose(1, 2), o) and torch.equal(lb, lse)
+    before = dict(launch_counts)
+    grads = flash_kernel.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts["flash_attention_bwd"] == \
+        before.get("flash_attention_bwd", 0) + 1
+    assert launch_counts["flash_attention_bwd_tc"] == \
+        before.get("flash_attention_bwd_tc", 0)
+    for got, ref in zip(grads, attention_bwd_ref(q, k, v, ro, rlse, do,
+                                                 **kw)):
+        torch.testing.assert_close(got.float(), ref.float(),
+                                   **_card_tol(torch.bfloat16, True))
 
 
 # --------------------------------------------------------------------------

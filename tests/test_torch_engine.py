@@ -30,6 +30,10 @@ from repro_torch.fl.engine import SimulationEngine
 from repro_torch.tree import tree_leaves
 from repro_torch.weights import params_from_numpy, params_to_numpy
 
+# One intra-op thread: the suite runs as several pytest workers on a few
+# cores, and torch's OpenMP pool in each worker oversubscribed them.
+torch.set_num_threads(1)
+
 NUM_VAL = 200
 
 

@@ -54,6 +54,10 @@ from repro_torch.weights import forest_from_arrays, params_from_numpy
 from test_hotpath_parity import _fit_hist_forest
 from tests.test_torch_faults import Scripted, StubAdapter, budgets
 
+# One intra-op thread: the suite runs as several pytest workers on a few
+# cores, and torch's OpenMP pool in each worker oversubscribed them.
+torch.set_num_threads(1)
+
 NUM_VAL = 200
 # the reference's fast-loop tests (tests/test_hotpath_parity.py:340-405)
 SCHEMES = {"async": ("async", {}, dict(eval_every=16, max_windows=64)),

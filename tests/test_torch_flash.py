@@ -24,6 +24,10 @@ from repro_torch.kernels.flash_attention.ref import (_grouped, _mask,
                                                      attention_bwd_ref,
                                                      attention_fwd_ref)
 
+# One intra-op thread: the suite runs as several pytest workers on a few
+# cores, and torch's OpenMP pool in each worker oversubscribed them.
+torch.set_num_threads(1)
+
 # float32: the same float32 arithmetic in another order (the tolerance of
 # tests/test_kernels.py's attention sweeps)
 F32 = dict(rtol=0, atol=2e-5)
@@ -300,16 +304,23 @@ class _Library(Exception):
     """Raised by a stand-in for a kernel library: which one was asked."""
 
 
-@pytest.mark.parametrize("dtype,hd,want", [
-    ("bfloat16", 64, "tc"), ("bfloat16", 80, "tc"), ("bfloat16", 128, "tc"),
-    ("bfloat16", 32, "cuda_core"), ("bfloat16", 256, "cuda_core"),
-    ("bfloat16", 300, "cuda_core"), ("float32", 64, "cuda_core"),
-    ("float32", 1000, "cuda_core")])
-def test_both_directions_take_the_route(monkeypatch, dtype, hd, want):
+@pytest.mark.parametrize("dtype,hd,want,fwd_want", [
+    ("bfloat16", 64, "tc", "tc"), ("bfloat16", 80, "tc", "tc"),
+    ("bfloat16", 128, "tc", "tc"), ("bfloat16", 32, "cuda_core", "cuda_core"),
+    ("bfloat16", 256, "cuda_core", "tc256"),
+    ("bfloat16", 240, "cuda_core", "tc256"),
+    ("bfloat16", 300, "cuda_core", "cuda_core"),
+    ("float32", 64, "cuda_core", "cuda_core"),
+    ("float32", 256, "cuda_core", "cuda_core"),
+    ("float32", 1000, "cuda_core", "cuda_core")])
+def test_both_directions_take_the_route(monkeypatch, dtype, hd, want,
+                                        fwd_want):
     """On a CUDA tensor the forward and the backward each ask for the
-    library `route` names (tensor cores: `flash_fwd_tc.cu` and
-    `flash_bwd_tc.cu`; CUDA cores: `flash_attention.cu`) before anything
-    is allocated or counted."""
+    library their route names (tensor cores: `flash_fwd_tc.cu` and
+    `flash_bwd_tc.cu`; CUDA cores: `flash_attention.cu`; the forward of a
+    bf16 call at padded hd 256 that misses the short route:
+    `flash_fwd_tc256.cu`, its backward the CUDA cores') before anything
+    is counted."""
     def ask(name):
         def library():
             raise _Library(name)
@@ -317,18 +328,23 @@ def test_both_directions_take_the_route(monkeypatch, dtype, hd, want):
     monkeypatch.setattr(TK, "_library", ask("cuda_core"))
     monkeypatch.setattr(TK, "_library_tc", ask("tc"))
     monkeypatch.setattr(TK, "_library_bwd_tc", ask("tc"))
+    monkeypatch.setattr(TK, "_library_tc256", ask("tc256"))
     dt = getattr(torch, dtype)
-    assert TK.route(dt, TK.padded_head_dim(hd)) == want
+    width = TK.padded_head_dim(hd)
+    assert TK.route(dt, width) == want
+    # the short kernels are in the CUDA cores' library
+    fwd_route = TK.forward_route(2, 8, 8, width, dt)
+    assert {"short": "cuda_core"}.get(fwd_route, fwd_route) == fwd_want
     q, k = torch.ones(1, 4, 8, hd, dtype=dt), torch.ones(1, 2, 8, hd, dtype=dt)
     lse = torch.zeros(1, 4, 8)
     before = dict(launch_counts)
-    for call in (lambda *t: TK.flash_attention(*t[:3]),
-                 TK.flash_attention_bwd):
+    for call, name in ((lambda *t: TK.flash_attention(*t[:3]), fwd_want),
+                       (TK.flash_attention_bwd, want)):
         fake = [torch.Tensor._make_subclass(_CudaLabelled, t)
                 for t in (q, k, k, q, lse, q)]
         with pytest.raises(_Library) as asked:
             call(*fake)
-        assert str(asked.value) == want
+        assert str(asked.value) == name
     assert dict(launch_counts) == before
 
 

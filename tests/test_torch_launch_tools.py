@@ -46,6 +46,10 @@ from repro_torch.models import transformer as TT
 from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.weights import params_from_numpy, zoo_params_from_numpy
 
+# One intra-op thread: the suite runs as several pytest workers on a few
+# cores, and torch's OpenMP pool in each worker oversubscribed them.
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ["gemma3-12b", "h2o-danube-1.8b", "mamba2-370m", "minitron-4b",
          "mixtral-8x7b", "phi-3-vision-4.2b", "qwen3-8b", "qwen3-8b-swa",

@@ -30,6 +30,10 @@ from repro_torch.launch import steps as TS
 from repro_torch.launch import train as TR
 from repro_torch.launch.train import synthetic_lm_batch as t_batch
 
+# One intra-op thread: the suite runs as several pytest workers on a few
+# cores, and torch's OpenMP pool in each worker oversubscribed them.
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = list_configs()
 

@@ -34,6 +34,10 @@ from repro_torch.weights import (forest_from_arrays, params_from_numpy,
                                  params_to_numpy)
 from test_hotpath_parity import _fit_hist_forest
 
+# One intra-op thread: the suite runs as several pytest workers on a few
+# cores, and torch's OpenMP pool in each worker oversubscribed them.
+torch.set_num_threads(1)
+
 NUM_VAL = 200
 
 

@@ -18,6 +18,7 @@ import pickle
 import subprocess
 import sys
 import textwrap
+import time
 
 import numpy as np
 import pytest
@@ -34,6 +35,10 @@ from repro_torch.core.scheduler import make_scheduler
 from repro_torch.core.utility import RandomForestRegressor, n_features
 from repro_torch.fl.engine import EngineConfig, SimulationEngine
 from repro_torch.fl.replan import ReplanService
+
+# One intra-op thread: the suite runs as several pytest workers on a few
+# cores, and torch's OpenMP pool in each worker oversubscribed them.
+torch.set_num_threads(1)
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
@@ -420,15 +425,34 @@ def test_mesh_8_ranks_spawned(tmp_path):
     `score_candidates(mesh=)` with a forest over 16 candidates x 24
     windows, and one `ReplanService(mesh=)` answer. Every rank's results
     equal rank 0's, the mesh's equal `mesh=None`'s bit for bit, and the
-    integers equal the reference's unsharded runs."""
+    integers equal the reference's unsharded runs, which this process
+    runs while the world runs."""
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
         [os.path.join(ROOT, "src"), ROOT]))
-    r = subprocess.run(
-        [sys.executable, "-c", _MESH8_SCRIPT, str(tmp_path),
-         str(MESH8_RANKS)], capture_output=True, text=True, timeout=240,
-        cwd=ROOT, env=env)
-    assert r.returncode == 0, r.stderr[-3000:]
-    assert "MESH8_OK" in r.stdout
+    deadline = time.monotonic() + 240
+    with open(tmp_path / "out.txt", "w") as out, \
+            open(tmp_path / "err.txt", "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", _MESH8_SCRIPT, str(tmp_path),
+             str(MESH8_RANKS)], stdout=out, stderr=err, cwd=ROOT, env=env)
+        try:
+            ref = _reference()
+            C, cases = _mesh8_world(TCN, TFT, TI)
+            _, rcases = _mesh8_world(ref["CN"], ref["FT"], ref["ISL"])
+            ref_runs = {}
+            for case in cases:
+                rname, rparams, rkw = rcases[case]
+                reng = ref["SE"](C, ref["Stub"](MESH8_K),
+                                 ref["make"](rname, **rparams),
+                                 ref["EC"](eval_every=MESH8_I + 1), **rkw)
+                ref_runs[case] = (reng, reng.run())
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    assert proc.returncode == 0, (tmp_path / "err.txt").read_text()[-3000:]
+    assert "MESH8_OK" in (tmp_path / "out.txt").read_text()
     ranks = []
     for k in range(MESH8_RANKS):
         with open(tmp_path / f"rank{k}.pkl", "rb") as f:
@@ -445,17 +469,10 @@ def test_mesh_8_ranks_spawned(tmp_path):
             elif key != "collectives":
                 _same(other[key], first[key])
     assert first["collectives"]["all_gather"] > 0
-    ref = _reference()
-    C, cases = _mesh8_world(TCN, TFT, TI)
-    _, rcases = _mesh8_world(ref["CN"], ref["FT"], ref["ISL"])
     for case in cases:
         _same(first[case, "mesh"], first[case, "none"])
         _same(first[case, "mesh_host"], first[case, "none"])
-        rname, rparams, rkw = rcases[case]
-        reng = ref["SE"](C, ref["Stub"](MESH8_K),
-                         ref["make"](rname, **rparams),
-                         ref["EC"](eval_every=MESH8_I + 1), **rkw)
-        rres = reng.run()
+        reng, rres = ref_runs[case]
         _same_as_reference(first[case, "none"], reng, rres, case)
         assert rres.num_global_updates > 0, case
     np.testing.assert_array_equal(first["scores", "mesh"],

@@ -21,6 +21,10 @@ from repro_torch.models import transformer as TT
 from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
 from repro_torch.weights import params_from_numpy
 
+# One intra-op thread: the suite runs as several pytest workers on a few
+# cores, and torch's OpenMP pool in each worker oversubscribed them.
+torch.set_num_threads(1)
+
 # one float32 forward in either framework: products summed in another
 # order, and sin/cos/exp of another library
 F32 = dict(rtol=1e-5, atol=1e-5)

@@ -18,6 +18,10 @@ import repro.optim as R
 import repro_torch.optim as T
 from repro_torch.tree import tree_leaves, tree_map
 
+# One intra-op thread: the suite runs as several pytest workers on a few
+# cores, and torch's OpenMP pool in each worker oversubscribed them.
+torch.set_num_threads(1)
+
 SHAPES = {"w": (6, 5), "blocks": [(7,), (2, 3, 4)], "norm": {"scale": (9,)}}
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}

@@ -30,6 +30,10 @@ from repro_torch.core.utility import (RandomForestRegressor, featurize,
 from repro_torch.fl.replan import ReplanService
 from repro_torch.weights import forest_from_arrays
 
+# One intra-op thread: the suite runs as several pytest workers on a few
+# cores, and torch's OpenMP pool in each worker oversubscribed them.
+torch.set_num_threads(1)
+
 S_MAX = 8
 
 

@@ -18,6 +18,10 @@ from repro_torch.kernels.rmsnorm.ops import rmsnorm as t_ops
 from repro_torch.kernels.rmsnorm.ref import (rmsnorm_bwd_ref,
                                              rmsnorm_fwd_ref, rmsnorm_ref)
 
+# One intra-op thread: the suite runs as several pytest workers on a few
+# cores, and torch's OpenMP pool in each worker oversubscribed them.
+torch.set_num_threads(1)
+
 EPS = 1e-6
 # float32: the same float32 arithmetic in another order (the float32
 # tolerance of tests/test_kernels.py)

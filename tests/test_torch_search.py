@@ -18,6 +18,10 @@ from repro_torch.weights import forest_from_arrays
 # a reference forest over staleness histograms at status 1.0
 from test_hotpath_parity import _fit_hist_forest
 
+# One intra-op thread: the suite runs as several pytest workers on a few
+# cores, and torch's OpenMP pool in each worker oversubscribed them.
+torch.set_num_threads(1)
+
 # select_candidate's band: candidates within 32 float32 ulps of the best
 # score count as tied
 BAND = 32 * float(np.finfo(np.float32).eps)

@@ -32,6 +32,10 @@ from repro_torch.fl.engine import EngineConfig as TEC
 from repro_torch.fl.simulation import run_simulation as trun
 from repro_torch.weights import params_from_numpy, params_to_numpy
 
+# One intra-op thread: the suite runs as several pytest workers on a few
+# cores, and torch's OpenMP pool in each worker oversubscribed them.
+torch.set_num_threads(1)
+
 NUM_VAL = 200
 KW = dict(local_steps=2, client_lr=1.0, eval_every=8, seed=0,
           stop_at_target=False)

@@ -13,6 +13,10 @@ from repro.core import staleness as RS
 from repro_torch.core import mesh as TM
 from repro_torch.core import staleness as TS
 
+# One intra-op thread: the suite runs as several pytest workers on a few
+# cores, and torch's OpenMP pool in each worker oversubscribed them.
+torch.set_num_threads(1)
+
 
 def _scenario(seed):
     r = np.random.default_rng(seed)

@@ -29,6 +29,10 @@ from tests.test_protocol_lockstep import ScriptedScheduler as RScripted
 from tests.test_protocol_lockstep import _StubAdapter as RStub
 from tests.test_torch_faults import Scripted, StubAdapter, budgets
 
+# One intra-op thread: the suite runs as several pytest workers on a few
+# cores, and torch's OpenMP pool in each worker oversubscribed them.
+torch.set_num_threads(1)
+
 
 class _Variant:
     """One variant, buildable for both packages: a world, a scheduler

@@ -34,6 +34,10 @@ from repro_torch.fl.engine import EngineConfig as TEC
 from repro_torch.tree import tree_leaves
 from repro_torch.weights import params_from_numpy, params_to_numpy
 
+# One intra-op thread: the suite runs as several pytest workers on a few
+# cores, and torch's OpenMP pool in each worker oversubscribed them.
+torch.set_num_threads(1)
+
 K = 10
 SMALL = {"d_model": 16, "num_layers": 1, "num_heads": 2, "num_kv_heads": 1,
          "d_ff": 32}

@@ -15,6 +15,10 @@ from repro_torch.tree import tree_flatten, tree_leaves, tree_map, \
     tree_unflatten
 from repro_torch.weights import params_from_numpy, params_to_numpy
 
+# One intra-op thread: the suite runs as several pytest workers on a few
+# cores, and torch's OpenMP pool in each worker oversubscribed them.
+torch.set_num_threads(1)
+
 MIXED = {"z": [1, {"b": 2, "a": (3, 4)}], "a": {"y": [5], "x": 6},
          "m": ((7,), [8, 9])}
 

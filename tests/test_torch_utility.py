@@ -28,6 +28,10 @@ from repro_torch.weights import (forest_from_arrays,
                                  mlp_regressor_from_numpy,
                                  params_from_numpy)
 
+# One intra-op thread: the suite runs as several pytest workers on a few
+# cores, and torch's OpenMP pool in each worker oversubscribed them.
+torch.set_num_threads(1)
+
 ULP = float(np.finfo(np.float32).eps)
 
 

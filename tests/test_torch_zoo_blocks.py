@@ -25,6 +25,10 @@ from repro_torch.models import ssm as TS
 from repro_torch.models import transformer as TT
 from repro_torch.weights import params_from_numpy
 
+# One intra-op thread: the suite runs as several pytest workers on a few
+# cores, and torch's OpenMP pool in each worker oversubscribed them.
+torch.set_num_threads(1)
+
 # one float32 block in either framework: the same products summed in
 # another order, exp/rsqrt of another library
 F32 = dict(rtol=1e-5, atol=1e-5)

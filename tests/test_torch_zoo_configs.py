@@ -17,6 +17,10 @@ from repro_torch.launch import steps as TS
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
 
+# One intra-op thread: the suite runs as several pytest workers on a few
+# cores, and torch's OpenMP pool in each worker oversubscribed them.
+torch.set_num_threads(1)
+
 ARCHS = RB.list_configs()
 # the transformer stack's configs: dense and MoE attention stacks, global
 # and local, Mamba-2, RG-LRU (recurrentgemma), the encoder-decoder

@@ -31,6 +31,10 @@ from repro_torch.models import rglru as TR
 from repro_torch.models import transformer as TT
 from repro_torch.weights import params_from_numpy, zoo_params_from_numpy
 
+# One intra-op thread: the suite runs as several pytest workers on a few
+# cores, and torch's OpenMP pool in each worker oversubscribed them.
+torch.set_num_threads(1)
+
 # one float32 block or a two-layer model in either framework: the same
 # products summed in another order, exp/rsqrt/tanh of another library
 # (the serve tests' logits tolerance); the scans reassociate the same

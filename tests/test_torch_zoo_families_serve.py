@@ -32,6 +32,10 @@ from repro_torch.tree import tree_leaves
 from repro_torch.weights import decode_state_from_numpy, decode_state_to_numpy
 from test_torch_zoo_families import CASES, F32, batch_np, load_case
 
+# One intra-op thread: the suite runs as several pytest workers on a few
+# cores, and torch's OpenMP pool in each worker oversubscribed them.
+torch.set_num_threads(1)
+
 # caches hold one projection each (the blocks' tolerance); an RG-LRU
 # state's h is a sum over the steps so far, the logits' tolerance
 CACHE = F32

@@ -27,6 +27,10 @@ from repro_torch.models import transformer as TT
 from repro_torch.weights import (decode_state_from_numpy,
                                  decode_state_to_numpy, zoo_params_from_numpy)
 
+# One intra-op thread: the suite runs as several pytest workers on a few
+# cores, and torch's OpenMP pool in each worker oversubscribed them.
+torch.set_num_threads(1)
+
 # a two-layer float32 model in either framework: the blocks' 1e-5 through
 # two residual layers, the final norm and the unembedding (logits up to ~5)
 LOGITS = dict(rtol=1e-5, atol=2e-5)

@@ -37,6 +37,10 @@ from repro_torch.weights import (adamw_state_to_numpy, zoo_params_from_numpy,
                                  zoo_params_to_numpy)
 from test_torch_zoo_families import cfgs
 
+# One intra-op thread: the suite runs as several pytest workers on a few
+# cores, and torch's OpenMP pool in each worker oversubscribed them.
+torch.set_num_threads(1)
+
 # every transformer config, and recurrentgemma's hybrid of two recurrent
 # layers and a local one (`test_torch_zoo_families.CASES`)
 SERVED = ("qwen3-8b", "qwen3-8b-swa", "gemma3-12b", "h2o-danube-1.8b",
