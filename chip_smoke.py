@@ -7,11 +7,12 @@ Phases, each of which fails the script (nonzero exit) when it fails:
   1. device: the card's name, count, and `nvidia-smi` name/power limit;
   2. build: every CUDA source of the port (aggregation, RMSNorm, flash
      attention on the CUDA cores, its forward and its backward on the
-     tensor cores, its hd-256 forward with the combine of its splits)
-     built with nvcc for sm_90a, one nvcc per source, all started
-     together, with ptxas's report (and a summary of the tensor-core,
-     hd-256, short-sequence and aggregation kernels' registers and
-     spills, which must be none);
+     tensor cores, its hd-256 forward with the combine of its splits,
+     its hd-256 backward with the merge of its head groups) built with
+     nvcc for sm_90a, one nvcc per source, all started together, with
+     ptxas's report (and a summary of the tensor-core, hd-256,
+     short-sequence and aggregation kernels' registers and spills, which
+     must be none);
   3. kernels against their plain PyTorch versions, forward and backward,
      at the main paths' shapes, the reference's test sweeps and one large
      shape each, with CUDA-event timings (kernel, plain version, one-call
@@ -46,7 +47,12 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      forward's time on the same inputs beside them; at recurrentgemma-
      9b's full-window decode call the splits' partial results and the
      combine held apart, a `flash combine` row, and other split counts
-     timed); the FL round's norms (`RMS_LAUNCH_SHAPES`); then one attention call
+     timed); the bf16 backward calls at padded hd 256 (recurrentgemma-
+     9b's train call, gemma3-12b's at hd 240, a GQA x mask sweep) on the
+     hd-256 tensor-core backward, two calls bit for bit, P and dS in one
+     bf16 part and in two, and at the first two the CUDA-core backward's
+     time on the same inputs and each head-group count's; the FL round's
+     norms (`RMS_LAUNCH_SHAPES`); then one attention call
      of the path as the adapter makes it, traced: the two short kernels
      and no copy;
   4. the quickstart path: the FedBuff federation of examples/quickstart.py
@@ -112,7 +118,7 @@ Phases, each of which fails the script (nonzero exit) when it fails:
   8. the scenarios (`scenarios` lines), link budgets and inter-satellite
      links through the repo's examples: (a) every policy of
      examples/scheduler_comparison.py (starlink40, 384 windows, its
-     ISLConfig; the chaos-held async and isl_async over the first 48,
+     ISLConfig; the chaos-held async and isl_async over the first 24,
      fedbuff and periodic over the first 96) on
      the card and on the CPU, FedSpace with phase 1 on the
      card (its seconds) and the forest carried to the CPU, sync also on
@@ -132,7 +138,7 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      under `torch.cuda.set_sync_debug_mode("error")`, groups and walls
      printed, and three cells run one by one through the card's `.run()`,
      equal to the sweep; (b) FedSpace under each fault world and under
-     churn40 as an oracle, over the first 96 windows
+     churn40 as an oracle, over the first 48 windows
      (`FAULT_FEDSPACE_WINDOWS`), phase 1 once on the card and the forest
      carried to the CPU, card against CPU as in the scenarios; (c) the traces'
      numbers (alive satellites at the end, contacts and grant units
@@ -144,7 +150,7 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      frozen leaves 0), then both timed on one flat leaf of the paper's
      size (M 20, N 26,608,958) beside one read and one write of it; (b)
      part (b) of the `payloads` section of benchmarks/hotpaths.py, 12
-     runs card and CPU over the first 96 of its 192 windows
+     runs card and CPU over the first 48 of its 192 windows
      (`STUDY_WINDOWS`): every counter equal, need_up lower with
      compression, need_dn unchanged, the aggregated-gradient counts
      shifted, one aggregation launch per aggregation, RMSNorm and
@@ -220,7 +226,10 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      halves'); (c) Part B of examples/satellite_fl_train.py as the
      reference runs it (`launch.train.train`, mamba2-370m's full config, 24
      steps at B 4 x S 64): its loss must fall, its RMSNorm calls at held
-     shapes;
+     shapes; (d) recurrentgemma-9b as (b), cut to `RG_TRAIN_LAYERS` of
+     its 38 layers (two of them local attention) at B 2 x S 4096, so that
+     each microbatch's attention, forward and backward, is `FLASH_RG` on
+     the hd-256 tensor-core kernels (the hd-256 backward's path);
   16. the launch phase (`launch` lines), the launch tools
      (`repro_torch.launch.steps`' agg steps and FL round, `launch.
      dryrun`): (a) the agg step and the bf16-product agg step for every
@@ -848,11 +857,32 @@ FLASH_WHISPER_CROSS = (8, 8, 8, 448, 1500, 64, False, 0, "bfloat16")
 FLASH_FAMILIES = [FLASH_RG, FLASH_PHI3, FLASH_WHISPER_ENC, FLASH_WHISPER_DEC,
                   FLASH_WHISPER_CROSS]
 FLASH_SHAPES += FLASH_FAMILIES
+# The hd-256 tensor-core backward's rows, bf16 (its forward "tc256" too):
+# gemma3-12b's local layers at hd 240 (16 heads over 8 kv heads, window
+# 1,024; configs/gemma3_12b.py) at one microbatch of train_4k (B 1 x S
+# 4096), and a GQA x mask sweep at hd 256 (16 and 4 heads over 1, 4 over
+# 2; causal, a window of 64, no mask; Sq != Sk both ways, hd 240 once),
+# with recurrentgemma-9b's train call, `FLASH_RG`, above
+FLASH_GEMMA_TRAIN = (1, 16, 8, 4096, 4096, 240, True, 1024, "bfloat16")
+FLASH_BWD256_SWEEP = [(2, h, k, 200, 200, 256, causal, window, "bfloat16")
+                      for h, k in ((16, 1), (4, 1), (4, 2))
+                      for causal, window in ((True, 0), (True, 64),
+                                             (False, 0))] + [
+    (1, 4, 2, 100, 170, 256, True, 0, "bfloat16"),
+    (1, 4, 2, 170, 100, 240, True, 32, "bfloat16")]
+FLASH_SHAPES += [FLASH_GEMMA_TRAIN] + FLASH_BWD256_SWEEP
+# head groups of the hd-256 backward timed at FLASH_RG (the wrapper picks
+# one of them, `kernel.bwd_groups`)
+BWD256_GROUPS = (1, 2, 4, 8, 16)
 TC_KERNEL = "flash_fwd_tc_kernel"     # in the tensor-core kernel's name
 TC256_KERNEL = "flash_fwd_tc256_kernel"   # in the hd-256 one's
 COMBINE_KERNEL = "flash_combine_kernel"   # in its combine's
 TC_BWD_KERNELS = ("flash_bwd_tc_delta_kernel", "flash_bwd_tc_dkdv_kernel",
                   "flash_bwd_tc_dq_kernel")   # in the backward's
+TC256_BWD_KERNELS = ("flash_bwd_tc256_delta_kernel",   # in the hd-256
+                     "flash_bwd_tc256_dkdv_kernel",    # backward's (the
+                     "flash_bwd_tc256_dq_kernel")      # merge's apart)
+TC256_MERGE_KERNEL = "flash_bwd_tc256_merge_kernel"
 SHORT_KERNELS = {"fwd": "flash_fwd_short_kernel",   # in the short-sequence
                  "bwd": "flash_bwd_short_kernel"}   # kernels' names
 
@@ -946,6 +976,32 @@ def _bwd_direct(K, q, k, v, o, lse, do, causal, window, parts=None):
     return [t[..., :hd] for t in grads]
 
 
+def _tc256_bwd_direct(K, q, k, v, o, lse, do, causal, window, groups,
+                      parts):
+    """The hd-256 tensor-core backward set up for `groups` head groups and
+    P and dS in `parts` bf16 parts on (B, H, S, hd) inputs padded as the
+    wrapper pads them, outputs and workspaces allocated once: a function
+    that launches it through its C entry point (not counted), and dq, dk,
+    dv at the true head dim."""
+    import torch
+    hd = q.shape[-1]
+    q, k, v, o, do = (K.pad_head_dim(t, 256) for t in (q, k, v, o, do))
+    grads = [torch.empty_like(t) for t in (q, k, v)]
+    sizes = K._sizes(q, k, False)
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    part, ws = K._group_parts(q, sizes, groups)
+    args = K._tc256_bwd_args((q, k, v, o, lse, do, *grads, delta), part,
+                             sizes, causal, window, groups, parts, hd, False)
+    fn = K._library_bwd_tc256()
+
+    def run(_ws=ws):          # the workspace lives as long as the function
+        err = fn(args)
+        if err:
+            raise RuntimeError(f"flash_bwd_tc256_launch failed with "
+                               f"cudaError {err}")
+    return run, [t[..., :hd] for t in grads]
+
+
 def _errs(outs, refs, dtype):
     """(largest |kernel - plain|, largest share of the tolerance
     |kernel - plain| / (atol + rtol |plain|)) over outputs, without
@@ -955,6 +1011,69 @@ def _errs(outs, refs, dtype):
              for o, r in zip(outs, refs)]
     return (max(d.max().item() for d, _ in diffs),
             max((d / (atol + rtol * m)).max().item() for d, m in diffs))
+
+
+def _tc256_bwd_kernels(names, groups, unpadded, per_call):
+    """Whether the kernels seen are the hd-256 backward's: delta, dk/dv and
+    dq once each, the merge once where it splits into head groups, and
+    besides them (at a padded hd) only the wrapper's pad and slice
+    copies; at hd 256 nothing else, one call that many kernels."""
+    ours = TC256_BWD_KERNELS + ((TC256_MERGE_KERNEL,) if groups > 1 else ())
+    if not all(sum(t in n for n in names) == 1 for t in ours) or any(
+            TC256_MERGE_KERNEL in n for n in names) != (groups > 1):
+        return False
+    others = [n for n in names if not any(t in n for t in ours)]
+    if unpadded:
+        return not others and per_call == len(ours)
+    return all(_is_copy_kernel(n) or "Fill" in n for n in others)
+
+
+def _tc256_bwd_row(K, row, tag, shape, q, k, v, o, lse, do, grads,
+                   grads_ref, causal, window, iters):
+    """A row of the hd-256 tensor-core backward: its head groups; a second
+    call bit for bit the first; P and dS in one bf16 part and in two
+    (errors against the plain backward, and at `FLASH_RG` and
+    `FLASH_GEMMA_TRAIN` their times); there also the CUDA-core backward on
+    the same inputs through its C entry point (the route this replaced),
+    checked and timed, and at `FLASH_RG` each head-group count of
+    `BWD256_GROUPS` that divides G, checked and timed."""
+    import torch
+    B, H, KH, sq, sk = shape[:5]
+    dt = q.dtype
+    kw = dict(causal=causal, window=window)
+    groups = K._call_groups((B, H, KH, sq, sk), q.get_device())
+    again = K.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+        raise AssertionError(f"{tag} bwd: two calls differ")
+    row.update(groups=groups, bit_equal_two_calls=True,
+               bwd_tc_parts=K.BWD_TC_PARTS)
+    runs = {}
+    for parts in (1, 2):
+        run, out = _tc256_bwd_direct(K, q, k, v, o, lse, do, causal, window,
+                                     groups, parts)
+        run()
+        runs[parts] = run
+        e = _errs(out, grads_ref, dt)
+        row.setdefault("max_abs_err_by_parts", {})[parts] = e[0]
+        row.setdefault("tol_share_by_parts", {})[parts] = e[1]
+    if shape not in (FLASH_RG, FLASH_GEMMA_TRAIN):
+        return
+    row["ms_by_parts"] = {p: _time_ms(r, iters) for p, r in runs.items()}
+    cc = _bwd_direct(K, q, k, v, o, lse, do, causal, window)
+    _compare(tag + " bwd cuda-core", cc, grads_ref, dt, grad=True)
+    row["cuda_core_ms"] = _time_ms(
+        lambda: _bwd_direct(K, q, k, v, o, lse, do, causal, window),
+        max(2, iters // 5))
+    if shape != FLASH_RG:
+        return
+    for d in BWD256_GROUPS:
+        if (H // KH) % d:
+            continue
+        run, out = _tc256_bwd_direct(K, q, k, v, o, lse, do, causal, window,
+                                     d, K.BWD_TC_PARTS)
+        run()
+        _compare(f"{tag} bwd groups {d}", out, grads_ref, dt, grad=True)
+        row.setdefault("ms_by_groups", {})[d] = _time_ms(run, iters)
 
 
 def _tc_bwd_kernels(names):
@@ -1019,6 +1138,8 @@ def check_flash(torch):
         short = K.short_fits(H // KH, sq, sk, K.padded_head_dim(hd), dt)
         fwd_route = K.forward_route(H // KH, sq, sk, K.padded_head_dim(hd),
                                     dt)
+        bwd_route = K.backward_route(H // KH, sq, sk,
+                                     K.padded_head_dim(hd), dt)
         splits = (K._call_splits((B, H, KH, sq, sk), causal, q.get_device())
                   if fwd_route == "tc256" else 1)
         before = dict(launch_counts)
@@ -1029,10 +1150,12 @@ def check_flash(torch):
                            (K.NAME_BWD_TC, route == "tc"),
                            (K.NAME_TC256, fwd_route == "tc256"),
                            (K.NAME_COMBINE, splits > 1),
+                           (K.NAME_BWD_TC256, bwd_route == "tc256"),
                            (K.NAME_SHORT, short), (K.NAME_BWD_SHORT, short)):
             if launch_counts[name] - before.get(name, 0) != want:
                 raise AssertionError(f"{shape}: route {route}, short "
-                                     f"{short}, forward {fwd_route}, but "
+                                     f"{short}, forward {fwd_route}, "
+                                     f"backward {bwd_route}, but "
                                      f"{launch_counts[name]} {name} "
                                      f"launches")
         # the plain backward starts from the plain forward's o and lse
@@ -1048,7 +1171,8 @@ def check_flash(torch):
                                     grad=True)
         big = sq * sk * B * H >= 1 << 24
         iters = 10 if big else 50 if shape in (
-            FLASH_SHORT_SWEEP + FLASH_SHORT_WIDE) else 100
+            FLASH_SHORT_SWEEP + FLASH_SHORT_WIDE + FLASH_BWD256_SWEEP) \
+            else 100
         work = (B, H, KH, sq, sk, hd, q.element_size(), causal, window)
         fwd_bound = cost.bound(*cost.flash(*work), cost.BF16_TC_FLOP_PER_S)
         bwd_bound = cost.bound(*cost.flash(*work, backward=True),
@@ -1078,8 +1202,8 @@ def check_flash(torch):
                    else "flash_attention_bwd", "B": B, "H": H, "K": KH,
                    "Sq": sq, "Sk": sk, "hd": hd, "causal": causal,
                    "window": window, "dtype": dts,
-                   "route": fwd_route if direction == "fwd" else (
-                       "short" if short else route), "max_abs_err": err,
+                   "route": fwd_route if direction == "fwd" else bwd_route,
+                   "max_abs_err": err,
                    "tol": tol, "kernel_ms": k_ms, "plain_ms": p_ms,
                    "library_ms": lib_ms, "bound_ms": bound[0],
                    "bound_by": bound[1], "bound_share": bound[0] / k_ms}
@@ -1104,6 +1228,9 @@ def check_flash(torch):
                                                for p, e in errs.items()}
                 row["tol_share_by_parts"] = {p: e[1]
                                              for p, e in errs.items()}
+            if direction == "bwd" and bwd_route == "tc256":
+                _tc256_bwd_row(K, row, tag, shape, q, k, v, o, lse, do,
+                               grads, grads_ref, causal, window, iters)
             if shape == FLASH_ZOO and direction == "bwd":
                 # the CUDA-core backward on the same inputs, and the other
                 # number of parts: the route and the design this replaced
@@ -1120,7 +1247,8 @@ def check_flash(torch):
             if short:
                 _short_row(K, row, tag, direction, kern, iters, q, k, v, o,
                            lse, do, kw, (o_ref, lse_ref), grads_ref, dt)
-            if shape in (FLASH_PATH, FLASH_ZOO, FLASH_RG) and not short:
+            if (shape in (FLASH_PATH, FLASH_ZOO, FLASH_RG) and not short) \
+                    or (shape == FLASH_GEMMA_TRAIN and direction == "bwd"):
                 host_us, dev_us, per_call, names, events, by_name = \
                     _host_and_device(kern, iters)
                 row.update(device_us=dev_us, host_us=host_us,
@@ -1141,6 +1269,12 @@ def check_flash(torch):
                     raise AssertionError(f"{tag}: {per_call} kernels per "
                                          f"call ({names}), not the three "
                                          f"tensor-core backward kernels")
+                if direction == "bwd" and bwd_route == "tc256" and \
+                        not _tc256_bwd_kernels(names, row["groups"],
+                                               hd == 256, per_call):
+                    raise AssertionError(f"{tag}: {per_call} kernels per "
+                                         f"call ({names}), not the hd-256 "
+                                         f"backward's")
             print("flash", json.dumps(row), flush=True)
             rows.append(row)
         del q, k, v, do, o, lse, o_ref, lse_ref, grads, grads_ref
@@ -2793,10 +2927,11 @@ SCENARIO_SETUP = {"pretrain_rounds": 30, "clients_per_round": 16,
 ISL_CELL_POLICIES = (("fedbuff", {"M": 12}), ("intra_plane", {}),
                      ("isl_async", {}))
 # (a)'s chaos-held policies (an aggregation nearly every window, each run
-# also held against a nudged card run) run the world's first half day (two
-# evaluations), fedbuff and periodic its first day, which keeps the whole
+# also held against a nudged card run) run the world's first quarter day
+# (one evaluation; half a day until the train phase's recurrentgemma-9b
+# step came), fedbuff and periodic its first day, which keeps the whole
 # script inside its time limit.
-SCENARIO_SHORT = {"async": 48, "isl_async": 48, "fedbuff": 96,
+SCENARIO_SHORT = {"async": 24, "isl_async": 24, "fedbuff": 96,
                   "periodic": 96}
 # Accuracy card against CPU, at every evaluation: within 0.01 (as the
 # quickstart path); where a run is chaotic (one update an aggregation at lr
@@ -3075,9 +3210,10 @@ def run_scenarios_path(torch):
 # and FedSpace (I0 24, 4-8 aggregations, 512 candidates; phase 1 of 10
 # rounds of 12 clients and 60 samples at E 8, lr 1.0) run one by one.
 FAULT_K, FAULT_G, FAULT_WINDOWS = 40, 12, 192
-# (b)'s FedSpace runs over the worlds' first day (4 re-plans), a cut that
-# keeps the whole script inside its time limit
-FAULT_FEDSPACE_WINDOWS = 96
+# (b)'s FedSpace runs over the worlds' first half day (2 re-plans; a day
+# until the train phase's recurrentgemma-9b step came), a cut that keeps
+# the whole script inside its time limit
+FAULT_FEDSPACE_WINDOWS = 48
 FAULT_SWEEPABLE = (("sync", {}), ("fedbuff", {"M": FAULT_M}),
                    ("intra_plane", {"M": FAULT_M}))
 FAULT_FEDSPACE = {"I0": 24, "n_min": 4, "n_max": 8, "num_candidates": 512}
@@ -3356,10 +3492,11 @@ def run_faults_path(torch):
 # windows), LinkConfig(20, 100, model MB, one satellite a station),
 # 600/200 samples, E 2, {mlp hidden 64 at 300 MB, transformer default at
 # 600 MB} x {off, top-k 0.25, int8} x {fedbuff M 2, async}, card and CPU;
-# each run over the first day (STUDY_WINDOWS), a cut that keeps the whole
-# script inside its time limit.
+# each run over the first half day (STUDY_WINDOWS), a cut that keeps the
+# whole script inside its time limit (96 windows until the train phase's
+# recurrentgemma-9b step came).
 COMPRESSION_TOPK = 0.25
-STUDY_WINDOWS = 96
+STUDY_WINDOWS = 48
 STUDY_MODELS = (("mlp", {"hidden": 64}, 300.0), ("transformer", {}, 600.0))
 STUDY_COMPRESSION = (("off", {}), ("topk25", {"uplink_topk": 0.25}),
                      ("int8", {"uplink_int8": True}))
@@ -4652,20 +4789,21 @@ TRAIN_LOSS_TOL = 1e-5
 TRAIN_MOMENT_TOL = 5e-5
 TRAIN_PARAM_ATOL = 0.01 * TRAIN_LR
 TRAIN_ILL_SHARE = 1e-4
-# qwen3-8b at full width for training, cut in depth for memory: bf16
-# params and grads, a float32 microbatch sum and AdamW's float32 m and v
-# are 12 bytes a parameter (plus the sum's 4): the whole model's 8.19 B
-# need 98 GB of the card's 80; 8 of its 36 layers are 2.79 B, ~45-55 GB.
+# The zoo's configs at full width for training, cut in depth for memory:
+# bf16 params and grads, a float32 microbatch sum and AdamW's float32 m
+# and v are 12 bytes a parameter (plus the sum's 4). qwen3-8b: the whole
+# model's 8.19 B need 98 GB of the card's 80; 8 of its 36 layers are
+# 2.79 B, ~45-55 GB. recurrentgemma-9b: 6 of its 38 layers (two repeats
+# of (recurrent, recurrent, local)) are 3.41 B (its 256,000 x 4,096
+# embedding and untied LM head 2.10 B of them): 16 bytes a parameter
+# make 54.6 GB, with S 4096's activations and float32 logits ~65-72 GB.
 QWEN_TRAIN_LAYERS = 8
 QWEN_TRAIN = (2, 2048)               # batch, sequence
-QWEN_TRAIN_TIMED = 3                 # steps timed after the checks' two
-# bf16 against bf16 on the card, kernels against their plain versions
-# (stated before the first run, as QWEN_BF16_REL_TOL): a rounding of one
-# unit (2**-8 relative) where the two part in each layer's output, added
-# up layer after layer: the loss through the 8 layers' forward, each
-# gradient through the forward and the backward's 8 layers again.
-QWEN_TRAIN_LOSS_TOL = QWEN_TRAIN_LAYERS * 2 ** -8
-QWEN_TRAIN_GRAD_TOL = 2 * QWEN_TRAIN_LAYERS * 2 ** -8
+RG_TRAIN_LAYERS = 6
+RG_TRAIN = (2, 4096)                 # batch, sequence: a microbatch's
+                                     # attention is FLASH_RG
+TRAIN_FULL_TIMED = 3                 # steps timed after the checks' two
+TRAIN_FULL_LR = 3e-4
 DIGEST_CHUNK = 1 << 26               # elements a chunk of `_digest`
 PART_B = dict(steps=24, batch=4, seq=64, lr=3e-4)   # examples/
                                      # satellite_fl_train.py's Part B
@@ -4830,58 +4968,142 @@ def _train_trace(torch, step, params, opt, batches):
         "launches_each_way": halves,
         "ms_by_half": half_ms,
         "optimizer_share": half_ms["optimizer"] / sum(half_ms.values()),
-        "attention_bwd_share": share("flash_bwd_tc"),
-        "attention_fwd_share": share("flash_fwd_tc"),
+        # every route's attention kernels (the CUDA cores' too, which an
+        # earlier checkout's step may take)
+        "attention_bwd_share": share("flash_bwd", "flash_delta",
+                                     "flash_dkdv", "flash_dq"),
+        "attention_fwd_share": share("flash_fwd", "flash_combine"),
         "rmsnorm_share": share("rmsnorm"),
         "slowest_kernels_us": {n[:100]: t for n, _, t in sorted(
             whole, key=lambda e: -e[2])[:10]}}
 
 
-def _train_qwen(torch, counts):
-    """(b) qwen3-8b at full width in bf16, cut to `QWEN_TRAIN_LAYERS`
-    layers, B 2 x S 2048 in `default_num_micro` microbatches, remat on:
-    one step's loss and gradients against the plain versions', two steps
-    from copies of one state bit for bit, the launches of a step, then
-    timed and traced steps."""
+def train_cut(arch, layers, stages):
+    """`arch`'s registered config at full width, cut in depth to `layers`
+    layers in `stages` (`StageSpec`s), and the full config."""
     import dataclasses
-    from repro_torch.configs.base import ShapeConfig, StageSpec, get_config
-    from repro_torch.kernels import launch_counts
+    from repro_torch.configs.base import get_config
+    full = get_config(arch)
+    return dataclasses.replace(full, num_layers=layers,
+                               stages=stages), full
+
+
+def rg_train_config():
+    """recurrentgemma-9b cut to `RG_TRAIN_LAYERS` of its 38 layers: two
+    repeats of its pattern (recurrent, recurrent, local), so two local
+    layers; and the full config."""
+    from repro_torch.configs.base import StageSpec
+    return train_cut("recurrentgemma-9b", RG_TRAIN_LAYERS,
+                     (StageSpec(("recurrent", "recurrent", "local"),
+                                RG_TRAIN_LAYERS // 3),))
+
+
+def rg_train_flops(cfg, params):
+    """Model FLOPs of one train step of `rg_train_config` at `RG_TRAIN`: 6
+    N tokens over the matmul params, plus 3 times the local layers'
+    attention forward (4 hd operations a visible pair and head)."""
+    B, S = RG_TRAIN
+    local = cfg.num_layers // 3
+    return (6 * _matmul_params(cfg, params) * B * S
+            + 3 * 4 * cfg.resolved_head_dim * cfg.num_heads * B
+            * cost.visible_pairs(S, S, True, cfg.window_size) * local)
+
+
+def use_port(src):
+    """Import the port from the directory `src` (another checkout's
+    `src`) from here on: it goes first on the path, and the port's modules
+    already imported (this script imports `repro_torch.kernels.cost`) are
+    dropped."""
+    sys.path.insert(0, str(Path(src).resolve()))
+    for name in [m for m in sys.modules
+                 if m == "repro_torch" or m.startswith("repro_torch.")]:
+        del sys.modules[name]
+
+
+def train_setup(torch, cfg, batch_seq, lr=TRAIN_FULL_LR, steps=0):
+    """A train step of `cfg` at B x S (`batch_seq`) in `default_num_micro`
+    microbatches, remat on, its params drawn on the card from seed 0,
+    AdamW's state and `steps` `synthetic_lm_batch` batches: (step, nm,
+    params, opt, batches)."""
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import steps as ST
     from repro_torch.launch.train import synthetic_lm_batch
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw_init
-    from repro_torch.tree import tree_leaves, tree_map
-    full = get_config("qwen3-8b")
-    L = QWEN_TRAIN_LAYERS
-    cfg = dataclasses.replace(full, num_layers=L,
-                              stages=(StageSpec(("global",), L),))
-    B, S = QWEN_TRAIN
+    B, S = batch_seq
     shape = ShapeConfig("train", seq_len=S, global_batch=B, kind="train")
     nm = ST.default_num_micro(cfg, shape)
-    lr = 3e-4
     params = T.init_params(0, cfg, device="cuda")
-    n_params = sum(t.numel() for t in tree_leaves(params))
-    batches = [synthetic_lm_batch(cfg, shape, s)
-               for s in range(QWEN_TRAIN_TIMED + 3)]
-    step = ST.make_train_step(cfg, num_micro=nm, lr=lr)
+    return (ST.make_train_step(cfg, num_micro=nm, lr=lr), nm, params,
+            adamw_init(params),
+            [synthetic_lm_batch(cfg, shape, s) for s in range(steps)])
 
-    # one step's loss and gradients, kernels against plain versions
+
+def time_train_steps(torch, step, params, opt, batches, timed):
+    """`timed` steps on `batches[1:]` after none, each ended by a
+    synchronise, then two traced (`_train_trace`): (ms a step, the
+    median; each step's ms; losses; peak memory in bytes; the trace)."""
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses = [], []
+    for s in range(1, timed + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batches[s])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(m["loss"].item())
+    peak = torch.cuda.max_memory_allocated()
+    trace = _train_trace(torch, step, params, opt, batches[timed + 1:])
+    step_s = sorted(walls)[len(walls) // 2]
+    trace["busy_share"] = trace["device_us"] / (step_s * 1e6)
+    return step_s * 1e3, [w * 1e3 for w in walls], losses, peak, trace
+
+
+def _train_full(torch, counts, tag, cfg, cut, batch_seq, want, flops_fn):
+    """A config at full width in bf16, cut in depth (`cut` says how and
+    why), B x S (`batch_seq`) in `default_num_micro` microbatches, remat
+    on: one step's loss and gradients against the plain versions' (within
+    L 2^-8 and 2 L 2^-8 relative), two steps from copies of one state bit
+    for bit (the state's copy on the host: one copy on the card would not
+    fit beside AdamW's), the launches of a step (`want(nm)`), every
+    RMSNorm call at a held shape, then timed and traced steps; `ms`, tokens
+    a second, `mfu` (`flops_fn(cfg, params)`, the model FLOPs of a step,
+    over the bf16 peak) and peak memory printed on the `tag` line."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_leaves
+    L = cfg.num_layers
+    B, S = batch_seq
+    step, nm, params, opt, batches = train_setup(
+        torch, cfg, batch_seq, steps=TRAIN_FULL_TIMED + 3)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    # bf16 against bf16 on the card, kernels against their plain versions
+    # (stated before the first run, as QWEN_BF16_REL_TOL): a rounding of
+    # one unit (2**-8 relative) where the two part in each layer's output,
+    # added up layer after layer: the loss through the L layers' forward,
+    # each gradient through the forward and the backward's L layers again
+    loss_tol, grad_tol = L * 2 ** -8, 2 * L * 2 ** -8
+
+    # one step's loss and gradients, kernels against plain versions (the
+    # kernels' float32 gradients wait on the host: beside the plain
+    # version's on the card, recurrentgemma-9b's did not fit)
     loss_k, grads_k = step.loss_and_grad(params, batches[0])
+    grads_k = [t.cpu() for t in tree_leaves(grads_k)]
+    torch.cuda.empty_cache()
     with PlainVersions():
         loss_p, grads_p = step.loss_and_grad(params, batches[0])
     loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
-    grad_rel = [_rel_l2(a, b) for a, b in zip(tree_leaves(grads_k),
-                                              tree_leaves(grads_p))]
-    if loss_rel > QWEN_TRAIN_LOSS_TOL or max(grad_rel) > QWEN_TRAIN_GRAD_TOL:
-        raise AssertionError(f"train (b) against the plain versions: loss "
+    grad_rel = [_rel_l2(a.to(b.device), b)
+                for a, b in zip(grads_k, tree_leaves(grads_p))]
+    if loss_rel > loss_tol or max(grad_rel) > grad_tol:
+        raise AssertionError(f"{tag} against the plain versions: loss "
                              f"{loss_rel}, gradients {grad_rel}")
     del grads_k, grads_p
     torch.cuda.empty_cache()
 
     # two steps from copies of one state: the first is the main path's
     # step whose launches are counted
-    start = tree_map(torch.clone, params)
-    opt = adamw_init(params)
+    start = [t.cpu() for t in tree_leaves(params)]
     launch_counts.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4892,73 +5114,103 @@ def _train_qwen(torch, counts):
     counts.update(launch_counts)
     launches = dict(launch_counts)
     if norms.unheld():
-        raise AssertionError(f"train (b): RMSNorm calls never held against "
+        raise AssertionError(f"{tag}: RMSNorm calls never held against "
                              f"the plain version: {norms.unheld()}")
-    # per microbatch: every layer's attention forward, again in the
-    # backward's recompute (remat), and its backward; four norms a layer
-    # (block, q, k, ffn) forward and recomputed, the final norm once,
-    # and each norm's backward once
-    want = {"flash_attention_tc": 2 * nm * L, "flash_attention_bwd_tc":
-            nm * L, "rmsnorm": nm * (4 * L + 1) + nm * 4 * L,
-            "rmsnorm_bwd": nm * (4 * L + 1)}
+    want = want(nm)
     if any(launches.get(k) != v for k, v in want.items()):
-        raise AssertionError(f"train (b) launches {launches}, want {want}")
+        raise AssertionError(f"{tag} launches {launches}, want {want}")
     a_metrics = (m_a["loss"].clone(), m_a["grad_norm"].clone())
-    a_digest = [_digest(torch, t) for t in tree_leaves(opt)]
+    a_digest = [_digest(torch, t) for t in tree_leaves([params, opt])]
     del opt
     torch.cuda.empty_cache()
-    opt = adamw_init(start)
-    start, opt, m_b = step(start, opt, batches[0])
+    with torch.no_grad():
+        for t, h in zip(tree_leaves(params), start):
+            t.copy_(h)
+    del start
+    opt = adamw_init(params)
+    params, opt, m_b = step(params, opt, batches[0])
     same = (torch.equal(a_metrics[0], m_b["loss"])
             and torch.equal(a_metrics[1], m_b["grad_norm"])
-            and all(torch.equal(a, b) for a, b in zip(
-                tree_leaves(params), tree_leaves(start)))
             and all(torch.equal(d, _digest(torch, t)) for d, t in zip(
-                a_digest, tree_leaves(opt))))
+                a_digest, tree_leaves([params, opt]))))
     if not same:
-        raise AssertionError("train (b): two steps from copies of one "
-                             "state differ")
-    del params
-    params = start
+        raise AssertionError(f"{tag}: two steps from copies of one state "
+                             f"differ")
     torch.cuda.empty_cache()
 
     # timed steps, then one traced
-    torch.cuda.reset_peak_memory_stats()
-    walls, losses = [], [m_b["loss"].item()]
-    for s in range(1, QWEN_TRAIN_TIMED + 1):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        params, opt, m = step(params, opt, batches[s])
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        losses.append(m["loss"].item())
-    peak = torch.cuda.max_memory_allocated()
-    trace = _train_trace(torch, step, params, opt,
-                         batches[QWEN_TRAIN_TIMED + 1:])
-    step_s = sorted(walls)[len(walls) // 2]
+    ms, ms_steps, losses, peak, trace = time_train_steps(
+        torch, step, params, opt, batches, TRAIN_FULL_TIMED)
     tokens = B * S
-    flops = 6 * _matmul_params(cfg, params) * tokens \
-        + 3 * 2 * B * S * S * cfg.num_heads * cfg.resolved_head_dim * L
-    trace["busy_share"] = trace["device_us"] / (step_s * 1e6)
-    print("train (b)", json.dumps({
-        "arch": cfg.name, "layers": L, "cut": f"{L} of {full.num_layers} "
-        f"layers, for memory: AdamW over the whole model needs ~98 GB",
-        "params": n_params, "dtype": cfg.param_dtype, "batch": B, "seq": S,
-        "num_micro": nm, "remat": True, "lr": lr,
+    flops = flops_fn(cfg, params)
+    print(tag, json.dumps({
+        "arch": cfg.name, "layers": L, "cut": cut, "params": n_params,
+        "dtype": cfg.param_dtype, "batch": B, "seq": S, "num_micro": nm,
+        "remat": True, "lr": TRAIN_FULL_LR,
         "loss_rel_vs_plain": loss_rel, "grad_rel_l2_vs_plain_max":
         max(grad_rel), "grad_rel_l2_vs_plain": grad_rel,
-        "tol": {"loss_rel": QWEN_TRAIN_LOSS_TOL,
-                "grad_rel_l2": QWEN_TRAIN_GRAD_TOL},
+        "tol": {"loss_rel": loss_tol, "grad_rel_l2": grad_tol},
         "bit_for_bit_from_one_state": same, "first_step_ms": first_ms,
-        "ms_per_step": step_s * 1e3, "ms_steps": [w * 1e3 for w in walls],
-        "tokens_per_s": tokens / step_s, "model_flops_per_step": flops,
-        "mfu": flops / step_s / cost.BF16_TC_FLOP_PER_S,
-        "max_memory_allocated_gb": peak / 1e9, "loss": losses,
+        "ms_per_step": ms, "ms_steps": ms_steps,
+        "tokens_per_s": tokens / ms * 1e3, "model_flops_per_step": flops,
+        "mfu": flops / (ms / 1e3) / cost.BF16_TC_FLOP_PER_S,
+        "max_memory_allocated_gb": peak / 1e9,
+        "loss": [m_b["loss"].item()] + losses,
         "launches": launches, "launches_want": want,
         "rmsnorm_calls": sorted(norms.seen), "traced": trace}),
         flush=True)
     del params, opt, batches
     torch.cuda.empty_cache()
+
+
+def _train_qwen(torch, counts):
+    """(b) qwen3-8b at full width, cut to `QWEN_TRAIN_LAYERS` layers, B 2
+    x S 2048 (`_train_full`)."""
+    from repro_torch.configs.base import StageSpec
+    L = QWEN_TRAIN_LAYERS
+    cfg, full = train_cut("qwen3-8b", L, (StageSpec(("global",), L),))
+    B, S = QWEN_TRAIN
+
+    # per microbatch: every layer's attention forward, again in the
+    # backward's recompute (remat), and its backward; four norms a layer
+    # (block, q, k, ffn) forward and recomputed, the final norm once,
+    # and each norm's backward once
+    def want(nm):
+        return {"flash_attention_tc": 2 * nm * L,
+                "flash_attention_bwd_tc": nm * L,
+                "rmsnorm": nm * (4 * L + 1) + nm * 4 * L,
+                "rmsnorm_bwd": nm * (4 * L + 1)}
+    def flops(cfg, params):     # 6 N tokens plus causal attention
+        return (6 * _matmul_params(cfg, params) * B * S
+                + 3 * 2 * B * S * S * cfg.num_heads * cfg.resolved_head_dim
+                * L)
+    _train_full(torch, counts, "train (b)", cfg,
+                f"{L} of {full.num_layers} layers, for memory: AdamW over "
+                f"the whole model needs ~98 GB", QWEN_TRAIN, want, flops)
+
+
+def _train_rg(torch, counts):
+    """(d) recurrentgemma-9b at full width, cut to `RG_TRAIN_LAYERS`
+    layers (two local), B 2 x S 4096 (`_train_full`): each microbatch's
+    local-layer attention is `FLASH_RG`, forward and backward on the hd-256
+    tensor-core kernels."""
+    cfg, full = rg_train_config()
+    L, local = cfg.num_layers, cfg.num_layers // 3
+
+    # per microbatch: each local layer's attention forward, again in the
+    # backward's recompute, and its backward; two norms a block (the
+    # recurrent block's or the attention's, and the FFN's) forward and
+    # recomputed, the final norm once, and each norm's backward once
+    def want(nm):
+        return {"flash_attention_tc256": 2 * nm * local,
+                "flash_attention_bwd_tc256": nm * local,
+                "flash_attention_bwd": nm * local,
+                "rmsnorm": nm * (2 * L + 1) + nm * 2 * L,
+                "rmsnorm_bwd": nm * (2 * L + 1)}
+    _train_full(torch, counts, "train (d)", cfg,
+                f"{L} of {full.num_layers} layers, two repeats of (recurrent"
+                f", recurrent, local), for memory: AdamW over the whole "
+                f"model needs ~150 GB", RG_TRAIN, want, rg_train_flops)
 
 
 def _train_part_b(torch, counts):
@@ -4990,15 +5242,15 @@ def _train_part_b(torch, counts):
 
 def run_train_path(torch, t_start):
     """The train phase: (a) the reduced archs card = CPU, (b) qwen3-8b at
-    full width cut in depth, (c) Part B. Returns the card's launch counts
-    over the three."""
+    full width cut in depth, (c) Part B, (d) recurrentgemma-9b at full
+    width cut in depth. Returns the card's launch counts over the four."""
     from collections import Counter
     counts = Counter()
     torch.backends.cuda.matmul.allow_tf32 = False     # float32 stays f32
     torch.cuda.empty_cache()
     seconds = {}
     for part, run in (("a", _train_reduced), ("b", _train_qwen),
-                      ("c", _train_part_b)):
+                      ("c", _train_part_b), ("d", _train_rg)):
         t0 = time.perf_counter()
         run(torch, counts)
         seconds[part] = time.perf_counter() - t0
@@ -5424,11 +5676,15 @@ PTXAS_KERNELS = {"tc": (r"flash_\w+?_tc_\w*?kernel",
                            r"(f|13__nv_bfloat16)Li(\d+)E"),
                  "tc256": (r"flash_(?:fwd_tc256|combine)_kernel",
                            r"Li(\d+)E(?:Li(\d+)E)?"),
+                 "bwd256": (r"flash_bwd_tc256_(?:delta|dkdv|dq|merge)_kernel",
+                            r"L([bi])(\d+)E"),
                  "agg": (r"agg_(?:register|ring)_kernel",
                          r"((?:f|13__nv_bfloat16)(?:f|13__nv_bfloat16|S1_))"
                          r"(?:Li(\d)E)?")}
 SHORT_INSTANCES = 2 * 2 * 6    # directions x types x head dims
 TC256_INSTANCES = 3            # forward at (1 warp, 3 stages), (4, 2); combine
+BWD256_INSTANCES = 6           # dk/dv and dq, P and dS in 1 or 2 parts;
+                               # delta and merge at hd 256
 AGG_INSTANCES = 4 * 3          # type pairs x (register 4- and 1-wide, ring)
 
 
@@ -5449,6 +5705,8 @@ def _ptxas(log: str, kind: str):
         elif kind == "tc256":
             what = (f"{kernel} warps {a} stages {b}" if b
                     else f"{kernel} hd {a}")
+        elif kind == "bwd256":
+            what = f"{kernel} " + (f"split {b}" if a == "b" else f"hd {b}")
         elif kind == "short":
             what = f"{kernel} {'bf16' if 'bfloat16' in a else 'f32'} hd {b}"
         else:
@@ -5458,7 +5716,7 @@ def _ptxas(log: str, kind: str):
         if int(stores) or int(loads):
             raise AssertionError(f"{what} spills")
     want = {"short": SHORT_INSTANCES, "agg": AGG_INSTANCES,
-            "tc256": TC256_INSTANCES}.get(kind)
+            "tc256": TC256_INSTANCES, "bwd256": BWD256_INSTANCES}.get(kind)
     if want and "Compiling entry function" in log and len(found) != want:
         raise AssertionError(f"ptxas reported {len(found)} {kind} "
                              f"kernels, not {want}")
@@ -5497,7 +5755,8 @@ def main() -> int:
         for b in build.build([agg_kernel.SOURCE, rms_kernel.SOURCE,
                               flash_kernel.SOURCE, flash_kernel.SOURCE_TC,
                               flash_kernel.SOURCE_BWD_TC,
-                              flash_kernel.SOURCE_TC256]):
+                              flash_kernel.SOURCE_TC256,
+                              flash_kernel.SOURCE_BWD_TC256]):
             print(f"built {b.source.relative_to(ROOT)} -> "
                   f"{b.library.relative_to(ROOT)} in {b.seconds:.1f} s",
                   flush=True)
@@ -5507,6 +5766,8 @@ def main() -> int:
                 _ptxas(b.log, "tc")
             if b.source == flash_kernel.SOURCE_TC256:
                 _ptxas(b.log, "tc256")
+            if b.source == flash_kernel.SOURCE_BWD_TC256:
+                _ptxas(b.log, "bwd256")
             if b.source == flash_kernel.SOURCE:
                 _ptxas(b.log, "short")
             if b.source == agg_kernel.SOURCE:
@@ -5815,6 +6076,37 @@ def main() -> int:
         "work": "the combine of recurrentgemma-9b's full-window decode "
                 "call: its splits' partial o and lse (B 8, 16 rows, hd "
                 "256) merged, one launch a split call"})
+    # the hd-256 tensor-core backward: recurrentgemma-9b's train call (a
+    # microbatch's local layer), and gemma3-12b's at hd 240
+    (rg_bwd,) = [r for r in flash_rows if r["kernel"] == flash_kernel.NAME_BWD
+                 and tuple(r[n] for n in flash_names) == FLASH_RG]
+    (gemma_bwd,) = [r for r in flash_rows
+                    if r["kernel"] == flash_kernel.NAME_BWD and tuple(
+                        r[n] for n in flash_names) == FLASH_GEMMA_TRAIN]
+    bwd256_keys = ("max_abs_err", "plain_ms", "bound_ms", "bound_by",
+                   "library_ms", "cuda_core_ms", "groups", "ms_by_parts",
+                   "max_abs_err_by_parts", "device_us_by_kernel")
+    kernels.append({
+        "name": flash_kernel.NAME_BWD_TC256, "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_bwd_tc256.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:91",
+        "launches": sum(launches(flash_kernel.NAME_BWD_TC256).values()),
+        "launches_by_path": launches(flash_kernel.NAME_BWD_TC256),
+        "max_abs_err": max(r["max_abs_err"] for r in flash_rows
+                           if r["kernel"] == flash_kernel.NAME_BWD
+                           and r["route"] == "tc256"),
+        **{k: rg_bwd[k] for k in bwd256_keys if k != "max_abs_err"},
+        "ms": rg_bwd["kernel_ms"], "ms_by_groups": rg_bwd["ms_by_groups"],
+        "work": "recurrentgemma-9b's train step's backward call at (B, H, "
+                "K, S, hd) = (1, 16, 1, 4096, 256), causal, window 2,048, "
+                "bf16, one a local layer and microbatch (4 a step at 6 "
+                "layers, B 2 x S 4096), split into head groups and merged",
+        "gemma3_12b": {**{k: gemma_bwd[k] for k in bwd256_keys},
+                       "ms": gemma_bwd["kernel_ms"],
+                       "work": "gemma3-12b's local layer at hd 240 padded "
+                               "to 256, (1, 16, 8, 4096), window 1,024, "
+                               "bf16 (no path runs it)"}})
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on a main "

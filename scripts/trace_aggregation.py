@@ -34,7 +34,7 @@ def main() -> int:
     ap.add_argument("--traced", type=int, default=3,
                     help="aggregations traced (as many more are timed)")
     args = ap.parse_args()
-    sys.path.insert(0, str(Path(args.src).resolve()))
+    chip_smoke.use_port(args.src)
     import torch
     if not torch.cuda.is_available():
         print("trace_aggregation: no CUDA device", file=sys.stderr)

@@ -40,8 +40,8 @@ The cache is invalidated — the service falls back to a full rescan — on:
   * **mesh**: under a satellite-axis mesh (`mesh=`) every answer is a
     sharded full rescan (`score_candidates(mesh=...)`) and nothing is
     cached. The reason reads "mesh" from the first answer on (the
-    reference checks it after the cold start, so its first answer reads
-    "cold").
+    reference checks it after the cold start and never fills its cache
+    under a mesh, so every one of its answers there reads "cold").
 Fallbacks are counted per reason in `ReplanService.stats`.
 
 The candidate pools, the extension bits and the selection run on the host

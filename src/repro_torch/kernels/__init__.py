@@ -8,9 +8,9 @@ the JAX package (`repro.kernels`):
   flash_attention/  causal / sliding-window flash attention with GQA,
                     forward and backward, CUDA C++ (bf16 at hd 64 and 128
                     on the tensor cores, both directions; bf16 at padded
-                    hd 256 forward on the tensor cores, split over keys
-                    at decode; short sequences on their own CUDA-core
-                    kernels)
+                    hd 256 on the tensor cores, both directions, the
+                    forward split over keys at decode; short sequences
+                    on their own CUDA-core kernels)
 
 Each kernel package holds its CUDA source (`csrc/`), a wrapper
 (`kernel.py`) that checks its inputs and launches on PyTorch's current
@@ -25,8 +25,9 @@ the kernel, or the wrapper raises.
 count, among the `flash_attention` and `flash_attention_bwd` launches,
 those of the tensor-core forward and backward, and
 `flash_attention_short` and `flash_attention_bwd_short` those of the
-short-sequence kernels, `flash_attention_tc256` those of the hd-256
-tensor-core forward and `flash_attention_combine` the combines of its
+short-sequence kernels, `flash_attention_tc256` and
+`flash_attention_bwd_tc256` those of the hd-256 tensor-core forward and
+backward, and `flash_attention_combine` the combines of the forward's
 split calls): each
 wrapper adds one where it launches its kernel and nowhere else, so a run
 can show that its path went through the kernels (`launch_counts.clear()`

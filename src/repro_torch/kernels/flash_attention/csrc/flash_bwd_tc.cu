@@ -139,23 +139,6 @@ struct DkdvLayout {
       (2 * kKV + 4 * kQ) * sizeof(bf16) + 4 * kBQ * sizeof(float);
 };
 
-// The A fragments of k-step kk of a product whose A is a score tile held
-// as m16n8 accumulators (n-blocks 2 kk and 2 kk + 1): one bf16 part, or
-// with SPLIT a high part `hi` and a low part `lo`.
-template <bool SPLIT>
-__device__ __forceinline__ void score_a(const float (*t)[4], int kk,
-                                        uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float* c = t[2 * kk + (e >> 1)] + 2 * (e & 1);
-    if (SPLIT) {
-      split_bf16(c[0], c[1], hi[e], lo[e]);
-    } else {
-      hi[e] = pack_bf16(c[0], c[1]);
-    }
-  }
-}
-
 // acc (16 x HD a warp) += A (16 x 16, k-step kk of the score tile t) times
 // rows [16 kk, 16 kk + 16) of the shared tile b (k-major, row stride ld).
 template <int HD, bool SPLIT>

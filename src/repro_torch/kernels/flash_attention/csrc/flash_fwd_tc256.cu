@@ -98,27 +98,6 @@ constexpr size_t shared_bytes() {
   return (16 * WARPS + 2 * STAGES * kBK) * kStride * sizeof(bf16);
 }
 
-// Rows [r0, r0 + ROWS) of a (rows, 256) bf16 matrix whose row r starts at
-// g + r * ld, into shared memory (row stride kStride), by THREADS threads,
-// a thread the same 16 bytes of every THREADS / 32-th row; rows at or past
-// `limit` are zero-filled. The loop is not unrolled: unrolled, its
-// addresses took registers the O accumulator needs (ptxas spilled).
-template <int ROWS, int THREADS>
-__device__ __forceinline__ void load_rows(bf16* sm, const bf16* g, int64_t ld,
-                                          int r0, int limit) {
-  constexpr int kChunks = kHD / 8;         // 16-byte pieces of a row
-  constexpr int kStep = THREADS / kChunks; // rows a pass
-  static_assert(THREADS % kChunks == 0 && ROWS % kStep == 0, "whole passes");
-  const int col = (threadIdx.x % kChunks) * 8;
-#pragma unroll 1
-  for (int r = threadIdx.x / kChunks; r < ROWS; r += kStep) {
-    const bool in = r0 + r < limit;
-    cp_async16(sm + r * kStride + col,
-               g + (in ? static_cast<int64_t>(r0 + r) * ld : 0) + col,
-               in ? 16 : 0);
-  }
-}
-
 template <int WARPS, int STAGES>
 __global__ void __launch_bounds__(32 * WARPS)
     flash_fwd_tc256_kernel(const Params p) {
@@ -173,13 +152,13 @@ __global__ void __launch_bounds__(32 * WARPS)
                                  (split + 1) / p.splits) - t0;
 
   // prologue: Q and the first STAGES - 1 tiles, one commit group a tile
-  load_rows<kBQ, kThreads>(qs, qb, p.sq[1], q0, p.Sq);
+  load_rows<kHD, kBQ, kThreads>(qs, qb, p.sq[1], q0, p.Sq);
 #pragma unroll 1
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < n) {
       const int k0 = blo + (t0 + s) * kBK;
-      load_rows<kBK, kThreads>(ks + s * kTile, kb, p.sk[1], k0, p.Sk);
-      load_rows<kBK, kThreads>(vs + s * kTile, vb, p.sv[1], k0, p.Sk);
+      load_rows<kHD, kBK, kThreads>(ks + s * kTile, kb, p.sk[1], k0, p.Sk);
+      load_rows<kHD, kBK, kThreads>(vs + s * kTile, vb, p.sv[1], k0, p.Sk);
     }
     cp_async_commit();
   }
@@ -200,9 +179,9 @@ __global__ void __launch_bounds__(32 * WARPS)
       const int nt = t + STAGES - 1;   // refill the stage tile t - 1 used
       if (nt < n) {
         const int k0 = blo + (t0 + nt) * kBK;
-        load_rows<kBK, kThreads>(ks + (nt % STAGES) * kTile, kb, p.sk[1],
+        load_rows<kHD, kBK, kThreads>(ks + (nt % STAGES) * kTile, kb, p.sk[1],
                                  k0, p.Sk);
-        load_rows<kBK, kThreads>(vs + (nt % STAGES) * kTile, vb, p.sv[1],
+        load_rows<kHD, kBK, kThreads>(vs + (nt % STAGES) * kTile, vb, p.sv[1],
                                  k0, p.Sk);
       }
       cp_async_commit();

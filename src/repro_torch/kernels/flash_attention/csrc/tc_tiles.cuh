@@ -1,5 +1,6 @@
 // Warp-level tensor-core tiles for Hopper, shared by the attention kernels
-// on the tensor cores (flash_fwd_tc.cu, flash_bwd_tc.cu): bf16 tiles copied
+// on the tensor cores (flash_fwd_tc.cu, flash_bwd_tc.cu and the hd-256
+// flash_fwd_tc256.cu, flash_bwd_tc256.cu): bf16 tiles copied
 // global -> shared with cp.async, read into mma.sync.m16n8k16 fragments
 // with ldmatrix (.trans for the operand stored k-major), float32 sums.
 //
@@ -128,6 +129,23 @@ __device__ __forceinline__ void split_bf16(float p0, float p1, uint32_t& hi,
   lo = pack_bf16(p0 - __low2float(h), p1 - __high2float(h));
 }
 
+// The A fragments of k-step kk of a product whose A is a score tile held
+// as m16n8 accumulators (n-blocks 2 kk and 2 kk + 1): one bf16 part, or
+// with SPLIT a high part `hi` and a low part `lo`.
+template <bool SPLIT>
+__device__ __forceinline__ void score_a(const float (*t)[4], int kk,
+                                        uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float* c = t[2 * kk + (e >> 1)] + 2 * (e & 1);
+    if (SPLIT) {
+      split_bf16(c[0], c[1], hi[e], lo[e]);
+    } else {
+      hi[e] = pack_bf16(c[0], c[1]);
+    }
+  }
+}
+
 // Rows [r0, r0 + ROWS) of a (rows, HD) bf16 matrix into shared memory (row
 // stride stride<HD>()), by THREADS threads; rows at or past `limit` are
 // zero-filled.
@@ -143,6 +161,28 @@ __device__ __forceinline__ void load_tile(bf16* sm, const bf16* g, int r0,
     const bool in = r0 + r < limit;
     cp_async16(sm + r * stride<HD>() + col,
                g + static_cast<int64_t>(in ? r0 + r : 0) * HD + col,
+               in ? 16 : 0);
+  }
+}
+
+// Rows [r0, r0 + ROWS) of a (rows, HD) bf16 matrix whose row r starts at
+// g + r * ld, into shared memory (row stride stride<HD>()), by THREADS
+// threads, a thread the same 16 bytes of every THREADS / (HD / 8)-th row;
+// rows at or past `limit` are zero-filled. The loop is not unrolled:
+// unrolled, its addresses took registers that the hd-256 kernels'
+// accumulators need (ptxas spilled).
+template <int HD, int ROWS, int THREADS>
+__device__ __forceinline__ void load_rows(bf16* sm, const bf16* g, int64_t ld,
+                                          int r0, int limit) {
+  constexpr int kChunks = HD / 8;          // 16-byte pieces of a row
+  constexpr int kStep = THREADS / kChunks; // rows a pass
+  static_assert(THREADS % kChunks == 0 && ROWS % kStep == 0, "whole passes");
+  const int col = (threadIdx.x % kChunks) * 8;
+#pragma unroll 1
+  for (int r = threadIdx.x / kChunks; r < ROWS; r += kStep) {
+    const bool in = r0 + r < limit;
+    cp_async16(sm + r * stride<HD>() + col,
+               g + (in ? static_cast<int64_t>(r0 + r) * ld : 0) + col,
                in ? 16 : 0);
   }
 }

@@ -25,13 +25,16 @@ both directions:
   "cuda_core"  every other case: `csrc/flash_attention.cu`, float32
                arithmetic on the CUDA cores (float32 on the tensor cores
                would mean TF32, which changes the numbers).
-The forward alone has a further choice (`forward_route`): a bfloat16 call
-at padded hd 256 that `route` sends to the CUDA cores and that does not
-take the short kernels goes to `csrc/flash_fwd_tc256.cu` ("tc256", the
-tensor cores, every tensor read and written through its strides), split
-over keys where it has at most `DECODE_ROWS` query rows a unit
+A bfloat16 call at padded hd 256 that `route` sends to the CUDA cores and
+that does not take the short kernels takes "tc256" both ways
+(`forward_route`, `backward_route`), the tensor cores with every tensor
+read and written through its strides: `csrc/flash_fwd_tc256.cu` forward,
+split over keys where it has at most `DECODE_ROWS` query rows a unit
 (`decode_splits`; its partial results merged by that source's combine
-kernel); its backward stays on the CUDA cores.
+kernel), and `csrc/flash_bwd_tc256.cu` backward, its G query heads a kv
+head split into groups where its key blocks alone do not fill the card
+(`bwd_groups`; the groups' partial dK and dV merged in a fixed order by
+that source's merge kernel).
 On the CUDA cores, a call whose (b, kv head) unit fits `SHORT_BUDGET`
 (`short_fits`: the transformer path's calls, S = 8) takes that source's
 short-sequence kernels, both directions: a warp a unit, the backward in
@@ -59,6 +62,7 @@ SOURCE = CSRC / "flash_attention.cu"
 SOURCE_TC = CSRC / "flash_fwd_tc.cu"
 SOURCE_BWD_TC = CSRC / "flash_bwd_tc.cu"
 SOURCE_TC256 = CSRC / "flash_fwd_tc256.cu"
+SOURCE_BWD_TC256 = CSRC / "flash_bwd_tc256.cu"
 NAME = "flash_attention"          # every forward call, either route
 NAME_TC = "flash_attention_tc"    # the forward calls that took "tc"
 NAME_BWD = "flash_attention_bwd"  # every backward call, either route
@@ -67,6 +71,8 @@ NAME_SHORT = "flash_attention_short"     # the forward calls that took the
 NAME_BWD_SHORT = "flash_attention_bwd_short"   # short kernels; backward
 NAME_TC256 = "flash_attention_tc256"     # the forward calls that took "tc256"
 NAME_COMBINE = "flash_attention_combine"   # their combines (split calls)
+NAME_BWD_TC256 = "flash_attention_bwd_tc256"   # the backward calls that
+                                               # took "tc256"
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)   # instantiated on the CUDA cores
 TC_HEAD_DIMS = (64, 128)                # instantiated on the tensor cores
 WIDE_CHUNK = 256     # above 256, widths are multiples of this
@@ -98,6 +104,22 @@ TC256_KEYS = 32     # keys a kv tile of the hd-256 forward (`kBK`)
 DECODE_ROWS = 16    # query rows a unit at most of a split call (`kDecodeRows`)
 DECODE_BLOCKS_PER_SM = 2   # blocks an SM a split call aims at
 MAX_SPLITS = 256    # splits the combine takes (`kMaxSplits`)
+# The hd-256 tensor-core backward's one argument (`Tc256BwdArgs` in
+# `csrc/flash_bwd_tc256.cu`), 8-byte fields: the pointers of q, k, v, o,
+# lse, do, dq, dk, dv, the delta workspace and the head groups' partial
+# dK/dV workspace (0 with one group); B, H, K, Sq, Sk, the padded hd,
+# causal, window, groups and parts (`BWD_TC_PARTS`); the stream; the
+# scale; then the batch, sequence and head strides of q, k, v, o, do, dq,
+# dk and dv.
+TC256_BWD_ARGS = struct.Struct("<11Q10qQd24q")
+BWD_KEYS = 64       # keys a dk/dv block of the hd-256 backward (`kRows`)
+# dk/dv blocks an SM (one resident at a time) that a call of the hd-256
+# backward aims at: causal and window masking leave a call's last key
+# blocks short, so more blocks than SMs balance the card. At
+# recurrentgemma-9b's call (64 key blocks, 16 heads) 1, 2, 4, 8 and 16
+# groups took 4.90, 3.35, 2.78, 2.39 and 2.44 ms on an NVIDIA H100 80GB
+# HBM3 at 700 W (chip_smoke.py's `flash` row, `ms_by_groups`): 3 picks 8.
+BWD_WAVES = 3
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -135,6 +157,23 @@ def forward_route(G: int, Sq: int, Sk: int, padded_hd: int, dtype) -> str:
     if dtype == torch.bfloat16 and padded_hd == 256:
         return "tc256"
     return route(dtype, padded_hd)
+
+
+# The backward's kernels: the forward's answer ("short", "tc256", else
+# `route`'s), since the hd-256 backward came beside the hd-256 forward.
+backward_route = forward_route
+
+
+def bwd_groups(units: int, key_tiles: int, G: int, sm_count: int) -> int:
+    """The head groups of an hd-256 backward call whose `units` (b, kv
+    head) units have `key_tiles` dk/dv blocks of `BWD_KEYS` keys each and G
+    query heads, on a card of `sm_count` SMs: the fewest groups, a divisor
+    of G, that give `BWD_WAVES` blocks an SM, or G (each group's blocks
+    walk G / groups heads); 1 where the blocks alone give that many."""
+    blocks = units * key_tiles
+    return next(d for d in range(1, G + 1)
+                if G % d == 0 and (d * blocks >= BWD_WAVES * sm_count
+                                   or d == G))
 
 
 def split_ranges(lo: int, hi: int, splits: int, tile: int = TC256_KEYS):
@@ -263,6 +302,15 @@ def _library_tc256():
 
 
 @functools.lru_cache(maxsize=None)
+def _library_bwd_tc256():
+    """The hd-256 tensor-core backward's C entry point, typed (built at
+    first use), taking one `TC256_BWD_ARGS` block."""
+    fn = build.load(SOURCE_BWD_TC256).flash_bwd_tc256_launch
+    fn.argtypes, fn.restype = [ctypes.c_char_p], ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     """The SMs of CUDA device `index` (queried once: it costs host time)."""
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -288,17 +336,6 @@ def _dims(q, k, causal, window, hd):
     the scale of the true head dim `hd`."""
     return (*_sizes(q, k, False), q.shape[-1], int(causal), int(window),
             hd ** -0.5, int(q.dtype == torch.bfloat16), _stream(q))
-
-
-def _short_sizes(q, k, bshd: bool):
-    """(B, H, K, Sq, Sk) of q and k (in the (B, S, H, hd) layout with
-    `bshd`) where the call takes the short kernels (`short_fits` at q's
-    padded head dim), else None."""
-    sizes = _sizes(q, k, bshd)
-    _, H, K, Sq, Sk = sizes
-    if short_fits(H // K, Sq, Sk, padded_head_dim(q.shape[-1]), q.dtype):
-        return sizes
-    return None
 
 
 def _sizes(q, k, bshd: bool):
@@ -349,8 +386,8 @@ def _short_args(tensors, strided, sizes, causal, window, hd, bshd):
 
 def _short_fwd(q, k, v, causal, window, bshd, sizes):
     """The short-sequence forward on CUDA (or meta) tensors in either
-    layout, of `_short_sizes`: o in q's layout (contiguous), lse (B, H,
-    Sq) float32."""
+    layout, of `sizes` (a call that `short_fits`): o in q's layout
+    (contiguous), lse (B, H, Sq) float32."""
     hd = q.shape[-1]
     width = padded_head_dim(hd)
     q, k, v = (_rows16(pad_head_dim(t, width)) for t in (q, k, v))
@@ -371,8 +408,8 @@ def _short_fwd(q, k, v, causal, window, bshd, sizes):
 
 def _short_bwd(q, k, v, o, lse, do, causal, window, bshd, sizes):
     """The short-sequence backward, one launch, on CUDA (or meta) tensors
-    in either layout, of `_short_sizes`: dq in q's layout, dk and dv in
-    k's (contiguous); no workspace."""
+    in either layout, of `sizes` (a call that `short_fits`): dq in q's
+    layout, dk and dv in k's (contiguous); no workspace."""
     hd = q.shape[-1]
     width = padded_head_dim(hd)
     q, k, v, o, do = (_rows16(pad_head_dim(t, width))
@@ -414,15 +451,10 @@ def _tc256_args(tensors, parts, sizes, causal, window, splits, hd, bshd):
     the batch, sequence and head strides of q, k, v and o (0 along a dim
     of size 1, which no index moves along)."""
     q = tensors[0]
-    st = []
-    order = (0, 1, 2) if bshd else (0, 2, 1)
-    for t in tensors[:4]:
-        shape, stride = t.shape, t.stride()
-        st += [stride[d] if shape[d] > 1 else 0 for d in order]
     return TC256_ARGS.pack(*(t.data_ptr() for t in tensors), *parts,
                            *_ZEROS[len(tensors) + len(parts):7], *sizes,
                            q.shape[-1], causal, window, splits, _stream(q),
-                           hd ** -0.5, *st)
+                           hd ** -0.5, *_bsh_strides(tensors[:4], bshd))
 
 
 def _split_parts(q, sizes, splits):
@@ -469,6 +501,78 @@ def _tc256_fwd(q, k, v, causal, window, bshd, sizes):
                                    f"cudaError {err}")
             launch_counts[NAME_COMBINE] += 1
     return (o if o.shape[-1] == hd else o[..., :hd].contiguous()), lse
+
+
+def _bsh_strides(tensors, bshd):
+    """The batch, sequence and head strides of each tensor, in that order
+    (0 along a dim of size 1, which no index moves along)."""
+    order = (0, 1, 2) if bshd else (0, 2, 1)
+    return [t.stride(d) if t.shape[d] > 1 else 0 for t in tensors
+            for d in order]
+
+
+def _call_groups(sizes, device_index: int) -> int:
+    """The head groups of an hd-256 backward call of `sizes` (B, H, K, Sq,
+    Sk) on CUDA device `device_index` (`bwd_groups`)."""
+    B, H, K, _, Sk = sizes
+    return bwd_groups(B * K, -(-Sk // BWD_KEYS), H // K,
+                      _sm_count(device_index))
+
+
+def _tc256_bwd_args(tensors, part, sizes, causal, window, groups, parts, hd,
+                   bshd):
+    """The `TC256_BWD_ARGS` block of a call: the pointers of q, k, v, o,
+    lse, do, dq, dk, dv and delta (`tensors`, q padded) and of the partial
+    workspace `part` (0 for none), the sizes, the padded hd (q's last dim),
+    `groups`, `parts`, the true head dim `hd` (its scale), and the batch,
+    sequence and head strides of q, k, v, o, do, dq, dk and dv."""
+    q, k, v, o, lse, do, dq, dk, dv, delta = tensors
+    return TC256_BWD_ARGS.pack(
+        *(t.data_ptr() for t in tensors), part, *sizes, q.shape[-1], causal,
+        window, groups, parts, _stream(q), hd ** -0.5,
+        *_bsh_strides((q, k, v, o, do, dq, dk, dv), bshd))
+
+
+def _group_parts(q, sizes, groups):
+    """The pointer of an hd-256 backward call's partial dK/dV workspace
+    ((2, groups, B, K, Sk, 256) float32), and the workspace; 0 and none
+    with one group."""
+    if groups == 1:
+        return 0, None
+    B, _, K, _, Sk = sizes
+    ws = q.new_empty(2 * groups * B * K * Sk * 256, dtype=torch.float32)
+    return ws.data_ptr(), ws
+
+
+def _tc256_bwd(q, k, v, o, lse, do, causal, window, bshd, sizes):
+    """The hd-256 tensor-core backward on CUDA (or meta) tensors in either
+    layout, of `sizes`: dq, dk and dv like q, k and v (in their strides
+    where they are dense, contiguous otherwise), one launch of the C entry
+    point (delta, dk/dv, the groups' merge where `_call_groups` gives more
+    than one, dq). A head dim below 256 is zero-padded to it."""
+    hd = q.shape[-1]
+    q, k, v, o, do = (_rows16(pad_head_dim(t, 256))
+                      for t in (q, k, v, o, do))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    B, H, _, Sq, _ = sizes
+    delta = q.new_empty((B, H, Sq), dtype=torch.float32)
+    if q.device.type == "meta":
+        _record_meta(NAME_BWD, sizes, hd, q, causal, window, True)
+    else:
+        launch = _library_bwd_tc256()
+        groups = _call_groups(sizes, q.get_device())
+        part, ws = _group_parts(q, sizes, groups)    # ws held to the end
+        err = launch(_tc256_bwd_args(
+            (q, k, v, o, lse, do, dq, dk, dv, delta), part, sizes, causal,
+            window, groups, BWD_TC_PARTS, hd, bshd))
+        if err:
+            raise RuntimeError(f"flash_bwd_tc256_launch failed with "
+                               f"cudaError {err}")
+        launch_counts[NAME_BWD] += 1
+        launch_counts[NAME_BWD_TC256] += 1
+    if hd != 256:
+        dq, dk, dv = (t[..., :hd].contiguous() for t in (dq, dk, dv))
+    return dq, dk, dv
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
@@ -523,9 +627,14 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     if device.type == "cpu":
         return attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                  window=window)
-    sizes = _short_sizes(q, k, False)
-    if sizes:
+    sizes = _sizes(q, k, False)
+    kind = backward_route(sizes[1] // sizes[2], sizes[3], sizes[4],
+                          padded_head_dim(q.shape[-1]), q.dtype)
+    if kind == "short":
         return _short_bwd(q, k, v, o, lse, do, causal, window, False,
+                          sizes)
+    if kind == "tc256":
+        return _tc256_bwd(q, k, v, o, lse, do, causal, window, False,
                           sizes)
     hd = q.shape[-1]
     width = padded_head_dim(hd)
@@ -587,7 +696,9 @@ def flash_attention_bshd_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                              window: int = 0):
     """Gradients of `flash_attention_bshd` for the cotangent do (like o,
     any strides) -> (dq like q, dk like k, dv like v), each in the
-    (B, S, H, hd) layout."""
+    (B, S, H, hd) layout. On the card a call that `short_fits` or takes
+    "tc256" (`backward_route`) reads the tensors in place; any other call
+    is transposed to (B, H, S, hd) for `flash_attention_bwd` and back."""
     B, Sq, H, _ = q.shape
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
             or do.dtype != q.dtype:
@@ -604,10 +715,14 @@ def flash_attention_bshd_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                                   lse, do.transpose(1, 2), causal=causal,
                                   window=window)
         return tuple(g.transpose(1, 2) for g in grads)
-    sizes = _short_sizes(q, k, True)
-    if sizes:
+    sizes = _sizes(q, k, True)
+    kind = backward_route(sizes[1] // sizes[2], sizes[3], sizes[4],
+                          padded_head_dim(q.shape[-1]), q.dtype)
+    if kind == "short":
         return _short_bwd(q, k, v, o, lse, do, causal, window, True,
                           sizes)
+    if kind == "tc256":
+        return _tc256_bwd(q, k, v, o, lse, do, causal, window, True, sizes)
     grads = flash_attention_bwd(
         *(t.transpose(1, 2).contiguous() for t in (q, k, v, o)), lse,
         do.transpose(1, 2).contiguous(), causal=causal, window=window)

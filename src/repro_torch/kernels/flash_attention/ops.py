@@ -8,8 +8,9 @@ On CUDA tensors both directions run in the CUDA kernels, through a
 `torch.autograd.grad` needs. In the (B, S, H, hd) layout the kernels read
 q, k, v and the cotangent in place where the call takes the short-sequence
 kernels (`kernel.short_fits`: the transformer path's calls), and write o
-and the gradients in that layout; the hd-256 tensor-core forward
-(`kernel.forward_route`) reads q, k and v in place too. On CPU tensors the
+and the gradients in that layout; the hd-256 tensor-core kernels
+(`kernel.forward_route`, `kernel.backward_route`) read q, k, v, o and the
+cotangent in place too. On CPU tensors the
 plain version runs, and autograd differentiates its torch ops."""
 from __future__ import annotations
 

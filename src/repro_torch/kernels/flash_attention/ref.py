@@ -10,6 +10,10 @@ Sq > Sk) gets output 0, gradient 0 and log-sum-exp -inf, following the
 TPU kernel; the reference's jnp oracle `attention_ref` gives the mean of
 v there (ROADMAP C3). Everywhere else this is the oracle's function.
 
+`attention_fwd_split_ref` and `combine_splits_ref` state the hd-256
+forward's split over keys, `attention_bwd_group_parts_ref` and
+`merge_groups_ref` the hd-256 backward's split over head groups.
+
 Scores are scaled by `scale`, hd**-0.5 by default; the kernels' wrapper
 zero-pads hd and passes the true hd's scale, which these functions take
 too, so padded inputs can be checked against unpadded ones."""
@@ -95,10 +99,10 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     return attention_fwd_ref(q, k, v, causal=causal, window=window)[0]
 
 
-def attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
-                      window: int = 0, scale=None):
-    """FlashAttention-2's backward written out in float32, with the
-    softmax recomputed from `lse` -> (dq like q, dk like k, dv like v)."""
+def _bwd_terms(q, k, v, o, lse, do, causal, window, scale):
+    """P and dS (B, K, G, Sq, Sk), the grouped q and do (B, K, G, Sq, hd),
+    k, v and the scale, float32: FlashAttention-2's backward with the
+    softmax recomputed from `lse`."""
     B, H, Sq, hd = q.shape
     K, Sk = k.shape[1], k.shape[2]
     scale = hd ** -0.5 if scale is None else scale
@@ -109,9 +113,47 @@ def attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
     lse_g = lse.reshape(B, K, H // K, Sq, 1)
     p = torch.where(mask, torch.exp(s - lse_g), 0.0)
     delta = (dog * _grouped(o, K)).sum(dim=-1, keepdim=True)
-    dv = torch.einsum("bkgqt,bkgqd->bktd", p, dog)
     ds = p * (torch.einsum("bkgqd,bktd->bkgqt", dog, vf) - delta)
+    return p, ds, qg, dog, kf, scale
+
+
+def attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
+                      window: int = 0, scale=None):
+    """FlashAttention-2's backward written out in float32, with the
+    softmax recomputed from `lse` -> (dq like q, dk like k, dv like v)."""
+    p, ds, qg, dog, kf, scale = _bwd_terms(q, k, v, o, lse, do, causal,
+                                           window, scale)
+    dv = torch.einsum("bkgqt,bkgqd->bktd", p, dog)
     dq = torch.einsum("bkgqt,bktd->bkgqd", ds, kf) * scale
     dk = torch.einsum("bkgqt,bkgqd->bktd", ds, qg) * scale
-    return (dq.reshape(B, H, Sq, hd).to(q.dtype), dk.to(k.dtype),
+    return (dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+def attention_bwd_group_parts_ref(q, k, v, o, lse, do, groups: int, *,
+                                  causal: bool = True, window: int = 0,
+                                  scale=None):
+    """dK and dV split over head groups, as `csrc/flash_bwd_tc256.cu`
+    splits them: group g of `groups` takes the query heads [g G / groups,
+    (g + 1) G / groups) of each kv head's G -> (dk_parts, dv_parts), each
+    (groups, B, K, Sk, hd) float32, dk_parts without the scale."""
+    p, ds, qg, dog, _, _ = _bwd_terms(q, k, v, o, lse, do, causal, window,
+                                      scale)
+    G = qg.shape[2]
+    cuts = [G * g // groups for g in range(groups + 1)]
+    heads = [slice(a, b) for a, b in zip(cuts, cuts[1:])]
+    return (torch.stack([torch.einsum("bkgqt,bkgqd->bktd", ds[:, :, h],
+                                      qg[:, :, h]) for h in heads]),
+            torch.stack([torch.einsum("bkgqt,bkgqd->bktd", p[:, :, h],
+                                      dog[:, :, h]) for h in heads]))
+
+
+def merge_groups_ref(dk_parts, dv_parts, scale: float, dtype):
+    """The head groups' partial dK and dV added in order (g = 0, 1, ...),
+    as `flash_bwd_tc256_merge_kernel` adds them, dK times `scale` ->
+    (dk, dv) in `dtype`."""
+    dk, dv = dk_parts[0].clone(), dv_parts[0].clone()
+    for a, b in zip(dk_parts[1:], dv_parts[1:]):
+        dk += a
+        dv += b
+    return (dk * scale).to(dtype), dv.to(dtype)

@@ -790,8 +790,9 @@ def test_tc256_forward_and_decode_splits_on_the_card(B, H, K, sq, sk, hd,
     `flash_attention_combine` launch where it splits (decode-shaped, 16
     query rows a unit at most), no other forward; o and lse agree with the
     plain version, the (B, S, H, hd) entry point gives the same o, and the
-    CUDA-core backward (its counts unchanged) fed this forward's o and lse
-    agrees with the plain backward at the bf16 gradient tolerance."""
+    backward fed this forward's o and lse (the hd-256 tensor-core
+    backward, one `flash_attention_bwd_tc256` launch) agrees with the
+    plain backward at the bf16 gradient tolerance."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device with nvcc")
     g = torch.Generator(device="cuda").manual_seed(sq + sk + hd)
@@ -825,14 +826,90 @@ def test_tc256_forward_and_decode_splits_on_the_card(B, H, K, sq, sk, hd,
     before = dict(launch_counts)
     grads = flash_kernel.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
-    assert launch_counts["flash_attention_bwd"] == \
-        before.get("flash_attention_bwd", 0) + 1
-    assert launch_counts["flash_attention_bwd_tc"] == \
-        before.get("flash_attention_bwd_tc", 0)
+    for name, more in (("flash_attention_bwd", 1),
+                       ("flash_attention_bwd_tc256", 1),
+                       ("flash_attention_bwd_tc", 0)):
+        assert launch_counts[name] == before.get(name, 0) + more, name
     for got, ref in zip(grads, attention_bwd_ref(q, k, v, ro, rlse, do,
                                                  **kw)):
         torch.testing.assert_close(got.float(), ref.float(),
                                    **_card_tol(torch.bfloat16, True))
+
+
+# (B, H, K, Sq, Sk, hd, causal, window) of the hd-256 tensor-core backward:
+# recurrentgemma-9b's train call (16 heads over 1, window 2,048: split into
+# head groups), gemma3-12b's at hd 240 (16 over 8, window 1,024), GQA 4
+# over 1 with a window, no mask and Sq != Sk both ways, ragged tiles
+TC256_BWD_CASES = [(1, 16, 1, 4096, 4096, 256, True, 2048),
+                   (1, 16, 8, 4096, 4096, 240, True, 1024),
+                   (2, 4, 1, 200, 200, 256, True, 64),
+                   (2, 4, 1, 200, 200, 256, False, 0),
+                   (1, 4, 2, 100, 170, 256, True, 0),
+                   (1, 4, 2, 170, 100, 240, True, 32)]
+
+
+def _tc256_bwd_with_groups(q, k, v, o, lse, do, causal, window, groups):
+    """The hd-256 backward through its C entry point with `groups` head
+    groups (not counted), on inputs zero-padded as the wrapper pads them."""
+    hd = q.shape[-1]
+    q, k, v, o, do = (flash_kernel.pad_head_dim(t, 256)
+                      for t in (q, k, v, o, do))
+    grads = [torch.empty_like(t) for t in (q, k, v)]
+    sizes = flash_kernel._sizes(q, k, False)
+    delta = torch.empty(q.shape[:3], device=q.device)
+    part, ws = flash_kernel._group_parts(q, sizes, groups)
+    assert flash_kernel._library_bwd_tc256()(flash_kernel._tc256_bwd_args(
+        (q, k, v, o, lse, do, *grads, delta), part, sizes, causal, window,
+        groups, flash_kernel.BWD_TC_PARTS, hd, False)) == 0
+    torch.cuda.synchronize()
+    del ws
+    return [t[..., :hd] for t in grads]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,K,sq,sk,hd,causal,window", TC256_BWD_CASES)
+def test_tc256_backward_on_the_card(B, H, K, sq, sk, hd, causal, window):
+    """A bf16 backward at padded hd 256 off the short route takes the
+    hd-256 tensor-core backward (one `flash_attention_bwd` and one
+    `flash_attention_bwd_tc256` launch) and agrees with the plain backward
+    fed the plain forward's o and lse at the bf16 gradient tolerance; two
+    calls give the same bits; the (B, S, H, hd) entry point gives the same
+    bits; one head group and every divisor of G give gradients within the
+    same tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device with nvcc")
+    g = torch.Generator(device="cuda").manual_seed(sq + sk + hd + H)
+    q, k, v, do = _short_inputs(g, B, H, K, sq, sk, hd, torch.bfloat16)
+    kw = dict(causal=causal, window=window)
+    assert flash_kernel.backward_route(
+        H // K, sq, sk, flash_kernel.padded_head_dim(hd),
+        torch.bfloat16) == "tc256"
+    o, lse = flash_kernel.flash_attention(q, k, v, **kw)
+    before = dict(launch_counts)
+    grads = flash_kernel.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    for name, more in (("flash_attention_bwd", 1),
+                       ("flash_attention_bwd_tc256", 1),
+                       ("flash_attention_bwd_tc", 0),
+                       ("flash_attention_bwd_short", 0)):
+        assert launch_counts[name] == before.get(name, 0) + more, name
+    again = flash_kernel.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    bshd = flash_kernel.flash_attention_bshd_bwd(
+        *(t.transpose(1, 2) for t in (q, k, v, o)), lse,
+        do.transpose(1, 2), **kw)
+    assert all(torch.equal(a, b.transpose(1, 2))
+               for a, b in zip(grads, bshd))
+    ro, rlse = attention_fwd_ref(q, k, v, **kw)
+    ref = attention_bwd_ref(q, k, v, ro, rlse, do, **kw)
+    G = H // K
+    for got in [grads] + [_tc256_bwd_with_groups(q, k, v, o, lse, do,
+                                                  causal, window, d)
+                          for d in range(1, G + 1) if G % d == 0]:
+        for a, b, t in zip(got, ref, (q, k, v)):
+            assert a.shape == t.shape and not a.isnan().any()
+            torch.testing.assert_close(a.float(), b.float(),
+                                       **_card_tol(torch.bfloat16, True))
 
 
 # --------------------------------------------------------------------------

@@ -317,10 +317,9 @@ def test_both_directions_take_the_route(monkeypatch, dtype, hd, want,
                                         fwd_want):
     """On a CUDA tensor the forward and the backward each ask for the
     library their route names (tensor cores: `flash_fwd_tc.cu` and
-    `flash_bwd_tc.cu`; CUDA cores: `flash_attention.cu`; the forward of a
-    bf16 call at padded hd 256 that misses the short route:
-    `flash_fwd_tc256.cu`, its backward the CUDA cores') before anything
-    is counted."""
+    `flash_bwd_tc.cu`; CUDA cores: `flash_attention.cu`; a bf16 call at
+    padded hd 256 that misses the short route: `flash_fwd_tc256.cu` and
+    `flash_bwd_tc256.cu`) before anything is counted."""
     def ask(name):
         def library():
             raise _Library(name)
@@ -329,17 +328,19 @@ def test_both_directions_take_the_route(monkeypatch, dtype, hd, want,
     monkeypatch.setattr(TK, "_library_tc", ask("tc"))
     monkeypatch.setattr(TK, "_library_bwd_tc", ask("tc"))
     monkeypatch.setattr(TK, "_library_tc256", ask("tc256"))
+    monkeypatch.setattr(TK, "_library_bwd_tc256", ask("tc256"))
     dt = getattr(torch, dtype)
     width = TK.padded_head_dim(hd)
     assert TK.route(dt, width) == want
     # the short kernels are in the CUDA cores' library
     fwd_route = TK.forward_route(2, 8, 8, width, dt)
     assert {"short": "cuda_core"}.get(fwd_route, fwd_route) == fwd_want
+    assert TK.backward_route(2, 8, 8, width, dt) == fwd_route
     q, k = torch.ones(1, 4, 8, hd, dtype=dt), torch.ones(1, 2, 8, hd, dtype=dt)
     lse = torch.zeros(1, 4, 8)
     before = dict(launch_counts)
     for call, name in ((lambda *t: TK.flash_attention(*t[:3]), fwd_want),
-                       (TK.flash_attention_bwd, want)):
+                       (TK.flash_attention_bwd, fwd_want)):
         fake = [torch.Tensor._make_subclass(_CudaLabelled, t)
                 for t in (q, k, k, q, lse, q)]
         with pytest.raises(_Library) as asked:
