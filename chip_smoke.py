@@ -225,8 +225,10 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      backward's share, the 10 slowest kernels; its launches must be the
      halves'); (c) Part B of examples/satellite_fl_train.py as the
      reference runs it (`launch.train.train`, mamba2-370m's full config, 24
-     steps at B 4 x S 64): its loss must fall, its RMSNorm calls at held
-     shapes; (d) recurrentgemma-9b as (b), cut to `RG_TRAIN_LAYERS` of
+     steps at B 4 x S 64) on the host mesh (`launch.mesh.make_host_mesh`:
+     the data-parallel ZeRO-1 step at a world of one, on the NCCL group
+     started before this phase, so the group's start is outside its wall):
+     its loss must fall, its RMSNorm calls at held shapes; (d) recurrentgemma-9b as (b), cut to `RG_TRAIN_LAYERS` of
      its 38 layers (two of them local attention) at B 2 x S 4096, so that
      each microbatch's attention, forward and backward, is `FLASH_RG` on
      the hd-256 tensor-core kernels (the hd-256 backward's path);
@@ -254,13 +256,22 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      a fresh process with no card visible beside the build and waited for
      before the kernel checks, so that it loads no timed phase: it must
      say ok; its terms printed;
-  17. the satellite-axis mesh on a world-1 NCCL group (`mesh` lines),
-     last because the group leaves a thread behind: (a) the mesh gate's
+  17. the satellite-axis mesh on the world-1 NCCL group started before
+     the train phase (`mesh` lines), last because ending the group leaves
+     a thread behind: (a) the mesh gate's
      K 1,000 run, fast and host loop, with the mesh and with
      `mesh=None`, bit for bit; (b) `score_candidates(mesh=)` at K 191 /
      R 5,000; (c) `ReplanService(mesh=)` at K 1,000 / R 20,000, each
      against the unsharded result and timed;
-  18. one JSON line listing every ported kernel.
+  18. the zoo's mesh on the same group, before it ends (`zoo mesh`
+     lines, `run_zoo_mesh_path`): (a) `make_production_mesh()` refused
+     on one card, `make_host_mesh()` (1, 1); (b) qwen3-8b at 8 layers,
+     two train steps on the host mesh (data parallel, ZeRO-1) = two with
+     `mesh=None`, bit for bit; (c) qwen3-moe-30b-a3b at 4 of 48 layers,
+     the expert-parallel loss and gradients against the grouped path's
+     and the plain versions', each step timed; (d) `make_agg_step_opt`
+     at whisper-base's agg_m96 on the host mesh = `mesh=None`, timed;
+  19. one JSON line listing every ported kernel.
 The last line is `{"ok": true,
 "device": {...}}`. Without a CUDA device, or away from the repository's
 sources, it exits nonzero and prints no result. Imports nothing of JAX or
@@ -269,6 +280,7 @@ of the JAX package.
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -1828,8 +1840,9 @@ class _NullAdapter:
 
 def run_mesh_path(torch, smi):
     """The last phase, after the launch tools': the satellite-axis mesh
-    (`mesh` lines) on a world-1 NCCL group that the phase starts
-    (`repro_torch.core.mesh.sim_mesh`) and destroys: (a) the mesh gate's
+    (`mesh` lines) on the world-1 NCCL group that `main` started before
+    the train phase and ends after this one
+    (`repro_torch.core.mesh.sim_mesh` takes it): (a) the mesh gate's
     run, fast loop (its scans CUDA graphs
     holding their collectives) and host loop, each with the mesh and
     with `mesh=None`: the version, pending and buffered columns, `ig`,
@@ -1840,9 +1853,10 @@ def run_mesh_path(torch, smi):
     `mesh=None` bit for bit, each timed; (c) `ReplanService(mesh=)` at
     K 1,000, R 20,000: two requests, each a sharded full rescan (reason
     "mesh", no cache) equal to the unsharded service's full answer,
-    each timed. Returns the launch counts of (a)'s runs."""
+    each timed. Then the zoo's mesh on the same group
+    (`run_zoo_mesh_path`). Returns the launch counts of (a)'s runs and of
+    the zoo mesh's steps."""
     import numpy as np
-    import torch.distributed as dist
     from repro_torch.core import mesh as MM
     from repro_torch.core import staleness as SS
     from repro_torch.core.scheduler import make_scheduler
@@ -1853,112 +1867,325 @@ def run_mesh_path(torch, smi):
     card = smi.splitlines()[0]
     t_phase = time.perf_counter()
     mesh = MM.sim_mesh()
-    try:
-        K, W, M = MESH_GATE["K"], MESH_GATE["W"], MESH_GATE["M"]
-        C = np.random.default_rng(0).random((W, K)) < 0.08
-        out, counts = {}, {}
-        launch_counts.clear()
-        for fast in (True, False):
-            for label, m in (("none", None), ("mesh", mesh)):
-                MM.collective_counts.clear()
-                eng = SimulationEngine(
-                    C, _NullAdapter(torch, K),
-                    make_scheduler("fedbuff", M=M),
-                    EngineConfig(eval_every=W, max_windows=W,
-                                 fast_loop=fast), mesh=m)
-                with LoopStats(torch) as st:
-                    res = eng.run()
-                key = ("fast" if fast else "host", label)
-                out[key] = (eng, res)
-                line = dict(st.line(eng),
-                            collectives=dict(+MM.collective_counts))
-                print(f"mesh (a) K {K}, {W} windows, fedbuff M {M}, "
-                      f"{'fast' if fast else 'host'} loop, "
-                      f"{'world-1 NCCL mesh' if m else 'mesh=None'}: "
-                      f"{json.dumps(line)}; {card}", flush=True)
-                if fast and m is not None and not (
-                        MM.collective_counts["psum"]
-                        and MM.collective_counts["all_gather"]
-                        and st.replays):
-                    raise AssertionError("mesh (a): the mesh's fast loop "
-                                         "ran no collective or no graph")
-        counts = dict(launch_counts)
-        for loop in ("fast", "host"):
-            (e0, r0), (e1, r1) = out[loop, "none"], out[loop, "mesh"]
-            if not (np.array_equal(e0.version, e1.version)
-                    and np.array_equal(e0.pending, e1.pending)
-                    and np.array_equal(e0.buffered_base, e1.buffered_base)
-                    and e0.ig == e1.ig
-                    and r0.staleness_hist.tolist()
-                    == r1.staleness_hist.tolist()
-                    and r0.idle_connections == r1.idle_connections
-                    and r0.total_connections == r1.total_connections):
-                raise AssertionError(f"mesh (a) {loop} loop: the mesh run "
-                                     f"differs from mesh=None")
-        (e0, r0) = out["fast", "none"]
-        if r0.num_global_updates == 0 or counts.get(
-                "weighted_aggregate") != 4 * r0.num_global_updates:
-            raise AssertionError(f"mesh (a): {counts} launches for 4 runs "
-                                 f"of {r0.num_global_updates} aggregations")
-        print(f"mesh (a): fast and host loop, mesh = mesh=None bit for bit "
-              f"(columns, ig {e0.ig}, histogram, idle "
-              f"{r0.idle_connections} of {r0.total_connections} "
-              f"connections, {r0.num_global_updates} aggregations); "
-              f"{card}", flush=True)
+    K, W, M = MESH_GATE["K"], MESH_GATE["W"], MESH_GATE["M"]
+    C = np.random.default_rng(0).random((W, K)) < 0.08
+    out, counts = {}, {}
+    launch_counts.clear()
+    for fast in (True, False):
+        for label, m in (("none", None), ("mesh", mesh)):
+            MM.collective_counts.clear()
+            eng = SimulationEngine(
+                C, _NullAdapter(torch, K),
+                make_scheduler("fedbuff", M=M),
+                EngineConfig(eval_every=W, max_windows=W,
+                             fast_loop=fast), mesh=m)
+            with LoopStats(torch) as st:
+                res = eng.run()
+            key = ("fast" if fast else "host", label)
+            out[key] = (eng, res)
+            line = dict(st.line(eng),
+                        collectives=dict(+MM.collective_counts))
+            print(f"mesh (a) K {K}, {W} windows, fedbuff M {M}, "
+                  f"{'fast' if fast else 'host'} loop, "
+                  f"{'world-1 NCCL mesh' if m else 'mesh=None'}: "
+                  f"{json.dumps(line)}; {card}", flush=True)
+            if fast and m is not None and not (
+                    MM.collective_counts["psum"]
+                    and MM.collective_counts["all_gather"]
+                    and st.replays):
+                raise AssertionError("mesh (a): the mesh's fast loop "
+                                     "ran no collective or no graph")
+    counts = dict(launch_counts)
+    for loop in ("fast", "host"):
+        (e0, r0), (e1, r1) = out[loop, "none"], out[loop, "mesh"]
+        if not (np.array_equal(e0.version, e1.version)
+                and np.array_equal(e0.pending, e1.pending)
+                and np.array_equal(e0.buffered_base, e1.buffered_base)
+                and e0.ig == e1.ig
+                and r0.staleness_hist.tolist()
+                == r1.staleness_hist.tolist()
+                and r0.idle_connections == r1.idle_connections
+                and r0.total_connections == r1.total_connections):
+            raise AssertionError(f"mesh (a) {loop} loop: the mesh run "
+                                 f"differs from mesh=None")
+    (e0, r0) = out["fast", "none"]
+    if r0.num_global_updates == 0 or counts.get(
+            "weighted_aggregate") != 4 * r0.num_global_updates:
+        raise AssertionError(f"mesh (a): {counts} launches for 4 runs "
+                             f"of {r0.num_global_updates} aggregations")
+    print(f"mesh (a): fast and host loop, mesh = mesh=None bit for bit "
+          f"(columns, ig {e0.ig}, histogram, idle "
+          f"{r0.idle_connections} of {r0.total_connections} "
+          f"connections, {r0.num_global_updates} aggregations); "
+          f"{card}", flush=True)
 
-        rf = _search_forest()
-        for tag, shape in (("(b) score_candidates", MESH_SEARCH),
-                           ("(c) ReplanService", MESH_SERVE)):
-            K, R, I0 = shape["K"], shape["R"], shape["I0"]
-            r = np.random.default_rng(1)
-            C = r.random((I0 + 1, K)) < 0.15
-            ig = 20
-            state = SS.SatState(*(torch.as_tensor(
-                r.integers(-1, ig + 1, K).astype(np.int32), device="cuda")
-                for _ in range(3)))
-            if tag.startswith("(b)"):
-                cands = random_candidates(r, I0, 4, 8, R)
-                calls = {label: (lambda m=m: score_candidates(
-                    cands, C[:I0], state, ig, rf, 1.0, mesh=m))
-                    for label, m in (("none", None), ("mesh", mesh))}
-                got = {k: f() for k, f in calls.items()}
-                if not np.array_equal(got["mesh"], got["none"]):
-                    raise AssertionError("mesh (b): sharded scores differ")
-                ms = {k: _time_ms(f, 5) for k, f in calls.items()}
-                row = {"K": K, "R": R, "I0": I0, "scores_equal": True,
-                       "ms_none": ms["none"], "ms_mesh": ms["mesh"]}
-            else:
-                svc = ReplanService(rf, I0=I0, num_candidates=R, n_min=4,
-                                    n_max=8, mesh=mesh)
-                ms = {"mesh": [], "none": []}
-                for i in range(2):
-                    draws = {}
-                    for label, s in (("mesh", svc), ("none", ReplanService(
-                            rf, I0=I0, num_candidates=R, n_min=4,
-                            n_max=8))):
-                        torch.cuda.synchronize()
-                        t0 = time.perf_counter()
-                        draws[label] = s.replan(
-                            i, C[i:i + I0], state, ig, 1.0,
-                            rng=np.random.default_rng(10 + i))
-                        ms[label].append((time.perf_counter() - t0) * 1e3)
-                    if not np.array_equal(draws["mesh"], draws["none"]):
-                        raise AssertionError(f"mesh (c) request {i}: the "
-                                             f"sharded answer differs")
-                    if (svc.last_mode, svc.last_reason) != ("full", "mesh") \
-                            or svc.pool is not None:
-                        raise AssertionError("mesh (c): the service under a "
-                                             "mesh cached or took no full "
-                                             "rescan")
-                row = {"K": K, "R": R, "I0": I0, "answers_equal": True,
-                       "reason": svc.last_reason, "stats": svc.stats,
-                       "ms_mesh": ms["mesh"], "ms_none": ms["none"]}
-            print(f"mesh {tag}: {json.dumps(row)}; {card}", flush=True)
-        print(f"mesh: phase {time.perf_counter() - t_phase:.1f} s; {card}",
-              flush=True)
-    finally:
-        dist.destroy_process_group()
-    return {"mesh": counts}
+    rf = _search_forest()
+    for tag, shape in (("(b) score_candidates", MESH_SEARCH),
+                       ("(c) ReplanService", MESH_SERVE)):
+        K, R, I0 = shape["K"], shape["R"], shape["I0"]
+        r = np.random.default_rng(1)
+        C = r.random((I0 + 1, K)) < 0.15
+        ig = 20
+        state = SS.SatState(*(torch.as_tensor(
+            r.integers(-1, ig + 1, K).astype(np.int32), device="cuda")
+            for _ in range(3)))
+        if tag.startswith("(b)"):
+            cands = random_candidates(r, I0, 4, 8, R)
+            calls = {label: (lambda m=m: score_candidates(
+                cands, C[:I0], state, ig, rf, 1.0, mesh=m))
+                for label, m in (("none", None), ("mesh", mesh))}
+            got = {k: f() for k, f in calls.items()}
+            if not np.array_equal(got["mesh"], got["none"]):
+                raise AssertionError("mesh (b): sharded scores differ")
+            ms = {k: _time_ms(f, 5) for k, f in calls.items()}
+            row = {"K": K, "R": R, "I0": I0, "scores_equal": True,
+                   "ms_none": ms["none"], "ms_mesh": ms["mesh"]}
+        else:
+            svc = ReplanService(rf, I0=I0, num_candidates=R, n_min=4,
+                                n_max=8, mesh=mesh)
+            ms = {"mesh": [], "none": []}
+            for i in range(2):
+                draws = {}
+                for label, s in (("mesh", svc), ("none", ReplanService(
+                        rf, I0=I0, num_candidates=R, n_min=4,
+                        n_max=8))):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    draws[label] = s.replan(
+                        i, C[i:i + I0], state, ig, 1.0,
+                        rng=np.random.default_rng(10 + i))
+                    ms[label].append((time.perf_counter() - t0) * 1e3)
+                if not np.array_equal(draws["mesh"], draws["none"]):
+                    raise AssertionError(f"mesh (c) request {i}: the "
+                                         f"sharded answer differs")
+                if (svc.last_mode, svc.last_reason) != ("full", "mesh") \
+                        or svc.pool is not None:
+                    raise AssertionError("mesh (c): the service under a "
+                                         "mesh cached or took no full "
+                                         "rescan")
+            row = {"K": K, "R": R, "I0": I0, "answers_equal": True,
+                   "reason": svc.last_reason, "stats": svc.stats,
+                   "ms_mesh": ms["mesh"], "ms_none": ms["none"]}
+        print(f"mesh {tag}: {json.dumps(row)}; {card}", flush=True)
+    print(f"mesh: phase {time.perf_counter() - t_phase:.1f} s; {card}",
+          flush=True)
+    # the zoo's mesh, carved out of the same group before it ends
+    zoo_counts = run_zoo_mesh_path(torch, card)
+    return {"mesh": counts, "zoo_mesh": zoo_counts}
+
+
+# The zoo mesh phase (`zoo mesh` lines): the zoo's launch layer on a mesh
+# carved out of the mesh phase's world-1 NCCL group. (b) qwen3-8b as train
+# (b); (c) qwen3-moe-30b-a3b (hf:Qwen/Qwen3-30B-A3B: d_model 2048, 128
+# experts, top 8, d_ff 768) cut to 4 of its 48 layers, for memory: its
+# 3.1 B parameters need ~43 GB of bf16 params, float32 gradient sums and
+# AdamW moments, and the three gradient trees compared beside each other
+# ~43 GB with the params; (d) whisper-base's agg_m96 as launch (b).
+ZOO_MESH_MOE_LAYERS = 4
+ZOO_MESH_TRAIN = (2, 2048)           # batch, sequence: 2 microbatches
+ZOO_MESH_STEPS = 2
+ZOO_MESH_AGG = ("whisper-base", 96)
+ZOO_MESH_AGG_ITERS = 5
+
+
+def _zoo_mesh_train(torch, cfg, mesh, moe_groups, batches):
+    """ZOO_MESH_STEPS steps of `build`'s train step on `mesh` (None: one
+    device) from seed 0's params: (per step ms, per step collectives,
+    loss, the state's digests, peak bytes)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import mesh as MM
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+    B, S = ZOO_MESH_TRAIN
+    shape = ShapeConfig("train", seq_len=S, global_batch=B, kind="train")
+    fn, _, _, _ = ST.build(cfg, shape, mesh, moe_groups=moe_groups)
+    params = T.init_params(0, cfg, device="cuda")
+    opt = ST.init_opt_state(params, cfg, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, coll, losses = [], [], []
+    for b in batches:
+        MM.collective_counts.clear()
+        t0 = time.perf_counter()
+        params, opt, m = fn(params, opt, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        coll.append(dict(MM.collective_counts))
+        losses.append(m["loss"].item())
+    digests = [_digest(torch, t) for t in tree_leaves([params, opt])]
+    peak = torch.cuda.max_memory_allocated()
+    del params, opt
+    torch.cuda.empty_cache()
+    return ms, coll, losses, digests, peak
+
+
+def run_zoo_mesh_path(torch, card):
+    """The zoo's mesh (`launch/mesh.py`, `sharding.py`, the steps of
+    `launch/steps.py` on a mesh, `moe.moe_apply_ep`) on the mesh phase's
+    world-1 NCCL group, before it ends: (a) `make_production_mesh()`
+    refused on one card, its message printed, and `make_host_mesh()` a
+    (1, 1) mesh; (b) qwen3-8b cut to 8 layers (train (b)'s configuration)
+    two steps through `build` on the host mesh (data parallel with ZeRO-1,
+    every collective issued) and two with `mesh=None` from the same init
+    and batches: params and moments equal bit for bit; (c) qwen3-moe at
+    full width cut to `ZOO_MESH_MOE_LAYERS` layers: the expert-parallel
+    loss and gradients (`moe_groups=-2` on the host mesh) against the
+    grouped step's (`moe_groups=1`, `mesh=None`) and against the plain
+    versions' within `_train_full`'s tolerances, then one train step of
+    each timed; (d) `make_agg_step_opt` at whisper-base's agg_m96 on the
+    host mesh = `mesh=None` bit for bit, each timed. Returns the launch
+    counts of (b)'s and (c)'s steps."""
+    from collections import Counter
+    from repro_torch.configs.base import ShapeConfig, StageSpec, get_config
+    from repro_torch.core import mesh as MM
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.agg.ops import flat_tree
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+    from repro_torch.launch.train import synthetic_lm_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+    t_phase = time.perf_counter()
+    counts = Counter()
+    torch.cuda.empty_cache()
+
+    # (a) the production mesh needs 256 ranks; the host mesh is (1, 1)
+    try:
+        make_production_mesh()
+    except RuntimeError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("zoo mesh (a): a production mesh on one card")
+    host = make_host_mesh()
+    if MM.axis_sizes(host) != {"data": 1, "model": 1}:
+        raise AssertionError(f"zoo mesh (a): host mesh {host}")
+    print(f"zoo mesh (a): make_production_mesh() refused: {refused}; "
+          f"make_host_mesh() = {MM.axis_sizes(host)}; {card}", flush=True)
+
+    # (b) qwen3-8b, host mesh against mesh=None, bit for bit
+    L = QWEN_TRAIN_LAYERS
+    cfg, full = train_cut("qwen3-8b", L, (StageSpec(("global",), L),))
+    B, S = ZOO_MESH_TRAIN
+    shape = ShapeConfig("train", seq_len=S, global_batch=B, kind="train")
+    batches = [synthetic_lm_batch(cfg, shape, s)
+               for s in range(ZOO_MESH_STEPS)]
+    runs = {}
+    for label, mesh in (("none", None), ("host", host)):
+        launch_counts.clear()
+        runs[label] = _zoo_mesh_train(torch, cfg, mesh, 1, batches)
+        runs[label] += (dict(launch_counts),)
+        counts.update(launch_counts)
+    (ms0, c0, l0, d0, p0, k0), (ms1, c1, l1, d1, p1, k1) = (
+        runs["none"], runs["host"])
+    same = l0 == l1 and all(torch.equal(a, b) for a, b in zip(d0, d1))
+    if not same or k0 != k1 or not all(c.get("all_reduce") for c in c1):
+        raise AssertionError(f"zoo mesh (b): host mesh = mesh=None "
+                             f"{same}, launches {k1} / {k0}, collectives "
+                             f"{c1}")
+    print("zoo mesh (b)", json.dumps({
+        "arch": cfg.name, "layers": f"{L} of {full.num_layers}",
+        "batch": B, "seq": S, "dtype": cfg.param_dtype,
+        "steps": ZOO_MESH_STEPS, "bit_for_bit": same, "loss": l1,
+        "ms_per_step_host_mesh": ms1, "ms_per_step_none": ms0,
+        "collectives_per_step": c1,
+        "peak_gb_host_mesh": p1 / 1e9, "peak_gb_none": p0 / 1e9,
+        "launches_per_run": k1}) + f"; {card}", flush=True)
+    del batches
+    torch.cuda.empty_cache()
+
+    # (c) qwen3-moe: expert parallelism against the grouped path
+    Lm = ZOO_MESH_MOE_LAYERS
+    cfg, full = train_cut("qwen3-moe-30b-a3b", Lm,
+                          (StageSpec(("global",), Lm),))
+    batches = [synthetic_lm_batch(cfg, shape, s) for s in range(2)]
+    params = T.init_params(0, cfg, device="cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    steps = {label: ST.build(cfg, shape, mesh, moe_groups=g)[0]
+             for label, mesh, g in (("ep", host, -2), ("grouped", None, 1))}
+    MM.collective_counts.clear()
+    launch_counts.clear()
+    loss_ep, g_ep = steps["ep"].loss_and_grad(params, batches[0])
+    ep_sums = dict(MM.collective_counts)
+    counts.update(launch_counts)
+    launch_counts.clear()
+    loss_gr, g_gr = steps["grouped"].loss_and_grad(params, batches[0])
+    counts.update(launch_counts)
+    with PlainVersions():
+        loss_pl, g_pl = steps["ep"].loss_and_grad(params, batches[0])
+    g_ep, g_gr, g_pl = (tree_leaves(g) for g in (g_ep, g_gr, g_pl))
+    loss_tol, grad_tol = Lm * 2 ** -8, 2 * Lm * 2 ** -8
+    vs_plain = [_rel_l2(a, b) for a, b in zip(g_ep, g_pl)]
+    err = {"loss_vs_grouped": abs(loss_ep.item() - loss_gr.item())
+           / abs(loss_gr.item()),
+           "grad_vs_grouped": max(_rel_l2(a, b) for a, b in zip(g_ep, g_gr)),
+           "loss_vs_plain": abs(loss_ep.item() - loss_pl.item())
+           / abs(loss_pl.item()),
+           "grad_vs_plain": max(vs_plain), "grad_vs_plain_by_leaf": vs_plain,
+           "grads_bit_equal_grouped": all(torch.equal(a, b)
+                                          for a, b in zip(g_ep, g_gr))}
+    del g_ep, g_gr, g_pl, params
+    torch.cuda.empty_cache()
+    if max(err["loss_vs_grouped"], err["loss_vs_plain"]) > loss_tol or max(
+            err["grad_vs_grouped"], err["grad_vs_plain"]) > grad_tol or not (
+            ep_sums.get("psum_partial") and ep_sums.get("grad_psum_grad")):
+        raise AssertionError(f"zoo mesh (c): {err}, EP sums {ep_sums}")
+    timed = {}
+    for label, mesh, g in (("ep", host, -2), ("grouped", None, 1)):
+        launch_counts.clear()
+        ms, coll, losses, _, peak = _zoo_mesh_train(torch, cfg, mesh, g,
+                                                    batches[:1])
+        counts.update(launch_counts)
+        timed[label] = {"ms_per_step": ms[0], "collectives_per_step": coll[0],
+                        "loss": losses[0], "peak_gb": peak / 1e9,
+                        "launches": dict(launch_counts)}
+    print("zoo mesh (c)", json.dumps({
+        "arch": cfg.name, "layers": f"{Lm} of {full.num_layers}",
+        "params": n_params, "experts": cfg.num_experts,
+        "top_k": cfg.experts_per_token, "batch": B, "seq": S,
+        "dtype": cfg.param_dtype, "errors": err,
+        "tol": {"loss_rel": loss_tol, "grad_rel_l2": grad_tol},
+        "ep_sums_per_loss_and_grad": ep_sums, **timed}) + f"; {card}",
+        flush=True)
+    del batches
+    torch.cuda.empty_cache()
+
+    # (d) the sharded agg step on the host mesh = mesh=None
+    arch, m = ZOO_MESH_AGG
+    cfg = get_config(arch)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    params = flat_tree(T.init_params(0, cfg, device="meta"), device="cuda")
+    upd = flat_tree(params, lead=(m,))
+    for t in tree_leaves(params):
+        t.normal_(0, 0.02, generator=g)
+    for t in tree_leaves(upd):
+        t.normal_(0, 0.01, generator=g)
+    stal = torch.randint(0, 9, (m,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    calls = {label: (lambda f=ST.make_agg_step_opt(cfg, mesh): f(
+        params, upd, stal)) for label, mesh in (("none", None),
+                                                ("host", host))}
+    MM.collective_counts.clear()
+    got = {k: f() for k, f in calls.items()}
+    reduces = MM.collective_counts["all_reduce"]
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(got["host"]), tree_leaves(got["none"])))
+    if not same or reduces != len(tree_leaves(params)):
+        raise AssertionError(f"zoo mesh (d): host mesh = mesh=None {same}, "
+                             f"{reduces} all-reduces")
+    del got
+    ms = {k: _time_ms(f, ZOO_MESH_AGG_ITERS) for k, f in calls.items()}
+    print("zoo mesh (d)", json.dumps({
+        "arch": arch, "m": m, "params": sum(t.numel() for t in
+                                            tree_leaves(params)),
+        "dtype": cfg.param_dtype, "bit_for_bit": same,
+        "all_reduces": reduces, "ms_host_mesh": ms["host"],
+        "ms_none": ms["none"]}) + f"; {card}", flush=True)
+    del params, upd, calls
+    torch.cuda.empty_cache()
+    print(f"zoo mesh: phase {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {dict(counts)}; {card}", flush=True)
+    return dict(counts)
 
 
 def transformer_experiment():
@@ -5213,19 +5440,60 @@ def _train_rg(torch, counts):
                 f"model needs ~150 GB", RG_TRAIN, want, rg_train_flops)
 
 
+class StepTimes:
+    """While entered, each call of a train step that
+    `launch.steps.make_train_step` makes is timed on the host clock up to
+    a synchronise (`ms`, in call order): the steps alone, without the
+    set-up around them (the mesh, the params' draw, the first
+    collective's communicator)."""
+
+    def __init__(self, torch):
+        self.torch, self.ms = torch, []
+
+    def __enter__(self):
+        from repro_torch.launch import steps as ST
+        self.ST, self.make = ST, ST.make_train_step
+
+        def make(*args, **kw):
+            step = self.make(*args, **kw)
+
+            def timed(*a):
+                t0 = time.perf_counter()
+                out = step(*a)
+                self.torch.cuda.synchronize()
+                self.ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+            return timed
+        ST.make_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        self.ST.make_train_step = self.make
+
+
+def part_b(torch):
+    """Part B once (`launch.train.train`, `PART_B`) on the default group
+    the caller started, if any: (loss history, wall s, each step's ms)."""
+    from repro_torch.launch.train import train
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with StepTimes(torch) as steps:
+        hist = train("mamba2-370m", reduced=False, log_every=4, **PART_B)
+        torch.cuda.synchronize()
+    return hist, time.perf_counter() - t0, steps.ms
+
+
 def _train_part_b(torch, counts):
     """(c) Part B of examples/satellite_fl_train.py as the reference runs
     it: mamba2-370m at full config (48 layers, bf16) through
-    `launch.train.train`; the loss must fall, and every RMSNorm call's
-    configuration must be one `check_rmsnorm` held (`RmsCalls`)."""
+    `launch.train.train`, on the host mesh of the world-1 NCCL group
+    `main` started; the loss must fall, and every RMSNorm call's
+    configuration must be one `check_rmsnorm` held (`RmsCalls`). Timed
+    whole (wall over steps, as since PR 26) and a step at a time."""
     from repro_torch.kernels import launch_counts
-    from repro_torch.launch.train import train
     launch_counts.clear()
-    t0 = time.perf_counter()
     with RmsCalls() as norms:
-        hist = train("mamba2-370m", reduced=False, log_every=4, **PART_B)
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+        hist, wall, ms_steps = part_b(torch)
     counts.update(launch_counts)
     got = dict(launch_counts)
     if not hist[-1] < hist[0] or got.get("flash_attention") \
@@ -5236,7 +5504,8 @@ def _train_part_b(torch, counts):
     print("train (c)", json.dumps({
         "arch": "mamba2-370m", "config": "full (48 layers, bf16)", **PART_B,
         "loss_history": hist, "ms_per_step": wall / PART_B["steps"] * 1e3,
-        "wall_s": wall, "launches": got,
+        "wall_s": wall, "ms_per_step_steps_alone": statistics.median(
+            ms_steps), "ms_steps": ms_steps, "launches": got,
         "rmsnorm_calls": sorted(norms.seen)}), flush=True)
 
 
@@ -5822,15 +6091,23 @@ def main() -> int:
     families, family_launches = run_families_path(torch)
     paths.update(families)
     done("families path")
-    paths.update(run_train_path(torch, t_start))
-    done("train path")
-    launch, launch_rows = run_launch_path(torch)
-    paths.update(launch)
-    done("launch path")
-    # last: the NCCL group it starts and destroys leaves a thread behind
+    # one world-1 NCCL group (`core.mesh.init_world`) for Part B's host
+    # mesh (train (c)) and the mesh phases, started outside any timed
+    # wall and ended last: ending it leaves a thread behind
     # (scripts/mesh_phase_after_cost.py), so no timed phase runs after it
-    paths.update(run_mesh_path(torch, smi))
-    done("mesh path")
+    import torch.distributed as dist
+    from repro_torch.core.mesh import init_world
+    init_world("cuda")
+    try:
+        paths.update(run_train_path(torch, t_start))
+        done("train path")
+        launch, launch_rows = run_launch_path(torch)
+        paths.update(launch)
+        done("launch path")
+        paths.update(run_mesh_path(torch, smi))
+        done("mesh path")
+    finally:
+        dist.destroy_process_group()
 
     # 6. the kernels line. One aggregation of the quickstart (one launch
     # over its flat model at M=20, float32); one SGD step of a

@@ -8,8 +8,8 @@ Builds the aggregation kernel and starts the CPU's thread pool (one
 CPU matrix product, as the CPU runs before the phase in `chip_smoke.py`
 do), then times the quickstart FedBuff run of `chip_smoke.py` (its fast
 loop, then its host loop) `--rounds` times, runs the `mesh` phase
-(`chip_smoke.run_mesh_path`: a world-1 NCCL group started, used inside
-CUDA graphs and destroyed), and times the same runs `--rounds` times
+(a world-1 NCCL group started with `core.mesh.init_world`, used inside
+CUDA graphs by `chip_smoke.run_mesh_path`, and destroyed), and times the same runs `--rounds` times
 again, all in one process on one card. `--control` leaves the phase out,
 so that a control process run beside it (ABBA) shows the host's own
 drift. It also counts the process's threads by name before and after
@@ -33,9 +33,11 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 
 from chip_smoke import (LoopStats, _engine,  # noqa: E402
                         quickstart_experiment, run_mesh_path)
+from repro_torch.core.mesh import init_world  # noqa: E402
 from repro_torch.fl.api import Federation  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.agg import kernel as agg_kernel  # noqa: E402
@@ -95,7 +97,11 @@ def main() -> int:
             t_before = threads()
             t0 = time.perf_counter()
             if not args.control:
-                run_mesh_path(torch, smi)
+                init_world("cuda")
+                try:
+                    run_mesh_path(torch, smi)
+                finally:
+                    dist.destroy_process_group()
             wall = time.perf_counter() - t0
             t_after = threads()
             gc.collect()

@@ -26,16 +26,39 @@ satellite never uploads, downloads, gossips, idles or enters the buffer,
 so every counter and every real satellite's trajectory is the unpadded
 run's, bit for bit (`docs/scaling.md`, "Parity contract").
 
-The reference's `shard_map` and `abstract_mesh` are shims over JAX's
-changing spellings and have no counterpart here; the role of
-`abstract_mesh`, a mesh without devices for the zoo's sharding specs,
-belongs to the zoo's mesh (`launch/mesh.py`, `sharding.py`), still to
-port.
+The reference's `shard_map` is a shim over JAX's changing spellings and
+has no counterpart here. Its `abstract_mesh`, a mesh without devices for
+the zoo's sharding specs, is `MeshShape` here: axis names and sizes, no
+ranks. Everything that reads a mesh's
+shape (`axis_sizes`) takes a `MeshShape` as it takes a live
+`DeviceMesh`; the zoo's mesh (`repro_torch.launch.mesh`,
+`repro_torch.sharding`, the steps of `repro_torch.launch.steps`) builds
+on both.
 
 `collective_counts` counts the collectives that ran, by kind (`psum`,
-`pmax`, `all_gather`), beside `repro_torch.kernels.launch_counts`: each
-function adds one where it issues its collective, and a CUDA graph that
-captured some adds them at each replay (`fl/engine.py::ChunkGraphs`).
+`pmax`, `all_gather`, and the zoo's float collectives `psum_partial`,
+`grad_psum`, `psum_shared`, `all_reduce`, `gather_params`), beside
+`repro_torch.kernels.launch_counts`: each function adds one where it
+issues its collective (an autograd function's backward where its
+backward does), and a CUDA graph that captured some adds them at each
+replay (`fl/engine.py::ChunkGraphs`).
+
+The zoo's autograd collectives, for a sum whose terms live on the ranks
+of a group (`shard_map`'s `psum` under `jax.grad`, where each rank's
+program is a piece of one global function):
+  * `psum_partial`: partial results summed over the group (the expert
+    combine over `model`); the gradient of each rank's partial is the
+    sum's own, passed through unchanged;
+  * `grad_psum`: the identity on a tensor that every rank of the group
+    holds alike (the tokens and the router under expert parallelism);
+    its gradient is summed over the group, since each rank used it for
+    its part of the function;
+  * `psum_shared`: a sum over the group whose result every rank then
+    uses alike (the MoE balance statistics over the data axes); the
+    gradient is summed over the group too, for the data-parallel step
+    that averages the ranks' gradients afterwards.
+`torch.distributed.nn.functional.all_reduce` is the last of these, and
+applied to the combine it would give n times the gradients.
 """
 from __future__ import annotations
 
@@ -55,6 +78,67 @@ collective_counts: Counter = Counter()
 
 
 # ---------------------------------------------------------------------------
+# meshes: shapes without ranks, and the world the live ones stand on
+
+
+class MeshShape:
+    """A mesh without devices (the reference's `AbstractMesh`): its axis
+    names in order and their sizes. `shape` maps each name to its size,
+    as a live mesh's `axis_sizes` does; it has no ranks, so nothing that
+    needs a collective runs on it."""
+
+    def __init__(self, shape, axis_names):
+        if len(shape) != len(axis_names):
+            raise ValueError(f"{len(shape)} sizes for axes {axis_names}")
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, (int(n) for n in shape)))
+
+    def size(self) -> int:
+        return int(np.prod(list(self.shape.values()), dtype=np.int64))
+
+    def __repr__(self):
+        return f"MeshShape({self.shape})"
+
+
+def axis_sizes(mesh) -> dict:
+    """{axis name: size} of a `MeshShape` or a live `DeviceMesh` (read
+    through its `mesh_dim_names` and `size(i)`)."""
+    if isinstance(mesh, MeshShape):
+        return dict(mesh.shape)
+    return {name: int(mesh.size(i))
+            for i, name in enumerate(mesh.mesh_dim_names)}
+
+
+def is_live(mesh) -> bool:
+    """Whether `mesh` has ranks (a `DeviceMesh`), not only a shape."""
+    return mesh is not None and not isinstance(mesh, MeshShape)
+
+
+def init_world(device) -> bool:
+    """Start the default process group where none exists, on `device`'s
+    backend (NCCL for "cuda", gloo for "cpu"): from the environment that
+    `torchrun` sets (``env://``), else a world of one on an in-process
+    store (`dist.HashStore`, no port). Binds a CUDA rank to its card.
+    Returns whether it started the group: the caller that started it ends
+    it (`torch.distributed.destroy_process_group`)."""
+    dev = resolve_device(device)
+    started = False
+    if not dist.is_initialized():
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        if "TORCHELASTIC_RUN_ID" in os.environ:
+            dist.init_process_group(backend)
+        else:
+            dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                    world_size=1)
+        started = True
+    if dev.type == "cuda":
+        local = os.environ.get("LOCAL_RANK")
+        torch.cuda.set_device(int(local) if local is not None
+                              else dist.get_rank() % torch.cuda.device_count())
+    return started
+
+
+# ---------------------------------------------------------------------------
 # the simulation mesh
 
 
@@ -65,23 +149,17 @@ def sim_mesh(num_devices: Optional[int] = None, *, axis: str = SAT_AXIS,
     as the reference's clips to the devices there are; below it raises,
     since a rank outside the mesh would run no shard.
 
-    With no group initialized this starts a world of one itself, on an
-    in-process store (`dist.HashStore`, no port): a single-device mesh is
-    valid and runs the sharded path with trivial collectives. Under
-    `torch.multiprocessing.spawn` or `torchrun` the caller's group is
-    taken as it is. `device=None` means "cuda" (NCCL) and raises without
-    a card; ``device="cpu"`` is the only way to a gloo mesh. The caller
-    ends the group (`torch.distributed.destroy_process_group`)."""
+    With no group initialized this starts one itself (`init_world`): a
+    world of one on an in-process store, where a single-device mesh is
+    valid and runs the sharded path with trivial collectives, or under
+    `torchrun` the world it describes. Under `torch.multiprocessing.spawn`
+    the caller's group is taken as it is. `device=None` means "cuda"
+    (NCCL) and raises without a card; ``device="cpu"`` is the only way to
+    a gloo mesh. The caller ends the group
+    (`torch.distributed.destroy_process_group`)."""
     from torch.distributed.device_mesh import DeviceMesh
     dev = resolve_device(device)
-    if not dist.is_initialized():
-        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
-                                store=dist.HashStore(), rank=0,
-                                world_size=1)
-    if dev.type == "cuda":
-        local = os.environ.get("LOCAL_RANK")
-        torch.cuda.set_device(int(local) if local is not None
-                              else dist.get_rank() % torch.cuda.device_count())
+    init_world(dev)
     world = dist.get_world_size()
     if num_devices is not None and int(num_devices) < world:
         raise ValueError(f"sim_mesh(num_devices={num_devices}) is below "
@@ -93,6 +171,27 @@ def sim_mesh(num_devices: Optional[int] = None, *, axis: str = SAT_AXIS,
 def mesh_size(mesh) -> int:
     """Device count of a mesh (the satellite-axis shard count)."""
     return int(mesh.size())
+
+
+def sat_sharding(mesh):
+    """DTensor placements of an array whose leading axis is the
+    satellite axis, sharded along the mesh's first axis (the reference's
+    `NamedSharding(mesh, P(mesh.axis_names[0]))`): `Shard(0)` on that mesh
+    dim, `Replicate()` on any other."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = (mesh.axis_names if isinstance(mesh, MeshShape)
+             else mesh.mesh_dim_names)
+    return (Shard(0),) + (Replicate(),) * (len(names) - 1)
+
+
+def axes_group(mesh, axes):
+    """The process group over `axes` of a live mesh: the axis's own for
+    one name, the axes flattened into one (outermost first, as a spec
+    entry splits a dim) for several, e.g. ("pod", "data")."""
+    axes = tuple(axes)
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    return mesh[axes]._flatten("_".join(axes)).get_group()
 
 
 def mesh_axis(mesh):
@@ -200,3 +299,60 @@ def all_gather(x: torch.Tensor, axis) -> torch.Tensor:
     collective_counts["all_gather"] += 1
     out = torch.cat(parts, dim=-1)
     return out.view(torch.bool) if src.dtype == torch.bool else out
+
+
+# ---------------------------------------------------------------------------
+# the zoo's float collectives, with their gradients
+
+
+class _AllReduce(torch.autograd.Function):
+    """Forward: the group's sum (or the identity); backward: the
+    identity (or the group's sum). `kind` names it in
+    `collective_counts`."""
+
+    @staticmethod
+    def forward(ctx, x, group, fwd: bool, bwd: bool, kind: str):
+        ctx.group, ctx.bwd, ctx.kind = group, bwd, kind
+        if not fwd:
+            return x.view_as(x)
+        y = x.clone()
+        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+        collective_counts[kind] += 1
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.bwd:
+            return g, None, None, None, None
+        g = g.clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        collective_counts[ctx.kind + "_grad"] += 1
+        return g, None, None, None, None
+
+
+def psum_partial(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over `group` of each rank's partial `x`; its gradient is
+    the cotangent itself on every rank (`shard_map`'s `psum` of partial
+    terms)."""
+    return _AllReduce.apply(x, group, True, False, "psum_partial")
+
+
+def grad_psum(x: torch.Tensor, group) -> torch.Tensor:
+    """`x`, which every rank of `group` holds alike; its gradient is the
+    sum over the group of the ranks' cotangents."""
+    return _AllReduce.apply(x, group, False, True, "grad_psum")
+
+
+def psum_shared(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over `group`, used alike by every rank; the gradient is
+    summed over the group too (for a step that averages its ranks'
+    gradients afterwards)."""
+    return _AllReduce.apply(x, group, True, True, "psum_shared")
+
+
+def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum `x` over `group` in place, outside autograd (a gradient sum, a
+    bf16 partial product). Returns `x`."""
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    collective_counts["all_reduce"] += 1
+    return x

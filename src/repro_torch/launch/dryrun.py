@@ -19,10 +19,19 @@ reference's:
     the executed ops (there is no HLO); `xla_cost_flops_unscaled` holds
     its matrix-product FLOPs without the kernels' (there is no XLA);
   * `chips` is 256 (`--mesh single`) or 512 (`multi`), the reference's
-    production meshes, over which the terms are spread;
-  * `memory`: `argument_bytes` and `output_bytes` of the step's meta
-    arguments and outputs; `temp_bytes` and `generated_code_bytes` are
+    production meshes (`launch.mesh.production_mesh_shape`, passed to
+    `build`, which gives the step of one device and the shardings of the
+    mesh), over which the terms are spread;
+  * `memory`: `argument_bytes` and `output_bytes` a chip, as the
+    reference's memory analysis gives them: each leaf's bytes over the
+    product of the mesh sizes its spec shards it over (`sharding.
+    NamedSharding.shards`); `temp_bytes` and `generated_code_bytes` are
     null, since no compiler plans the step.
+
+`--opt-decode` sets `sharding.DECODE_OPT` for the run (the decode caches'
+feature dim over 'model'). `--strict-dtypes` is the reference's XLA flag
+that keeps its agg_opt all-reduce in bf16; the port's `make_agg_step_opt`
+all-reduces in bf16 already, so the flag is accepted and changes nothing.
 
 Each invocation runs one combination and appends its record to the JSON
 file (`append_result`, under a lock, replacing an earlier record of the
@@ -38,17 +47,28 @@ import traceback
 
 import torch
 
+from repro_torch import sharding as Sh
 from repro_torch.configs.base import INPUT_SHAPES, get_config
 from repro_torch.launch import input_specs as IS
 from repro_torch.launch import roofline as RL
 from repro_torch.launch import steps as ST
+from repro_torch.launch.mesh import production_mesh_shape
 from repro_torch.tree import tree_leaves
 
 MESH_CHIPS = {"single": 256, "multi": 512}
 
 
-def _nbytes(tree) -> int:
-    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+def chip_bytes(tree, shardings) -> int:
+    """Bytes a chip of the tensors of `tree` (leaves in order with the
+    `NamedSharding`s of `shardings`): each leaf's over its shard count.
+    A host int (the decode state's index) is no tensor and counts 0."""
+    leaves = tree_leaves(tree)
+    named = tree_leaves(shardings,
+                        is_leaf=lambda x: isinstance(x, Sh.NamedSharding))
+    if len(leaves) != len(named):
+        raise ValueError(f"{len(leaves)} leaves for {len(named)} shardings")
+    return sum(t.numel() * t.element_size() // s.shards()
+               for t, s in zip(leaves, named)
                if isinstance(t, torch.Tensor))
 
 
@@ -63,12 +83,14 @@ def run_one(arch: str, shape_name: str, mesh_kind: str, *,
         return rec
     t0 = time.time()
     chips = MESH_CHIPS[mesh_kind]
+    mesh = production_mesh_shape(multi_pod=(mesh_kind == "multi"))
     try:
-        fn, args, _, _ = ST.build(cfg, shape, num_micro=num_micro,
-                                  q_chunk=q_chunk, moe_groups=moe_groups)
+        fn, args, in_sh, out_sh = ST.build(
+            cfg, shape, mesh, num_micro=num_micro, q_chunk=q_chunk,
+            moe_groups=moe_groups)
         if shape.kind == "decode":
             args[1]["index"] = shape.seq_len - 1
-        arg_bytes = _nbytes(args)
+        arg_bytes = chip_bytes(args, in_sh)
         with RL.OpCounter() as counter:
             out = fn(*args)
         terms = RL.analyze(counter, chips)
@@ -88,7 +110,7 @@ def run_one(arch: str, shape_name: str, mesh_kind: str, *,
                                    if terms["hlo_flops"] else None),
             **terms,
             "memory": {"argument_bytes": arg_bytes,
-                       "output_bytes": _nbytes(out),
+                       "output_bytes": chip_bytes(out, out_sh),
                        "temp_bytes": None, "generated_code_bytes": None},
             "ops_counted": counter.ops,
             "kernel_calls": dict(counter.kernel_calls),
@@ -130,11 +152,6 @@ def _append_locked(path: str, rec: dict):
         json.dump(data, f, indent=1)
 
 
-def _a10(flag: str):
-    raise SystemExit(f"{flag} sets the reference's shardings or XLA flags; "
-                     f"the port has no mesh yet (ROADMAP A.10)")
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -146,31 +163,36 @@ def main(argv=None):
                     help="accepted; changes nothing (models/attention.py)")
     ap.add_argument("--moe-groups", type=int, default=1,
                     help="-1 = auto (one routing group per sequence); "
-                         "-2 = expert parallelism (ROADMAP A.10); "
-                         "-3 on an agg shape = the opt agg step")
+                         "-2 = expert parallelism (on the mesh's shape: "
+                         "one routing group a data shard); -3 on an agg "
+                         "shape = the opt agg step")
     ap.add_argument("--remat-attn", action="store_true",
                     help="accepted; changes nothing (the port's attention "
                          "is one kernel call, not q-chunks)")
     ap.add_argument("--opt-decode", action="store_true",
-                    help="the reference's sharded-cache decode (A.10)")
+                    help="sharding.DECODE_OPT: the decode caches' feature "
+                         "dim over 'model', vocab-sharded serve logits")
     ap.add_argument("--strict-dtypes", action="store_true",
-                    help="the reference's XLA precision flag (A.10)")
+                    help="the reference's XLA flag keeping agg_opt's "
+                         "all-reduce in bf16; accepted and changes "
+                         "nothing (the port's is bf16 already)")
     ap.add_argument("--variant", default="",
                     help="tag appended to the record key")
     ap.add_argument("--save-hlo", default=None,
                     help="the reference's HLO dump; the port has none")
     args = ap.parse_args(argv)
-    if args.opt_decode:
-        _a10("--opt-decode")
-    if args.strict_dtypes:
-        _a10("--strict-dtypes")
     if args.save_hlo:
         raise SystemExit("--save-hlo: the port executes its steps eagerly "
                          "and has no HLO to save")
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-    rec = run_one(args.arch, args.shape, args.mesh,
-                  num_micro=args.num_micro, q_chunk=args.q_chunk,
-                  moe_groups=args.moe_groups)
+    decode_opt = Sh.DECODE_OPT
+    Sh.DECODE_OPT = decode_opt or args.opt_decode
+    try:
+        rec = run_one(args.arch, args.shape, args.mesh,
+                      num_micro=args.num_micro, q_chunk=args.q_chunk,
+                      moe_groups=args.moe_groups)
+    finally:
+        Sh.DECODE_OPT = decode_opt
     if args.variant:
         rec["shape"] = rec["shape"] + "+" + args.variant
     append_result(args.out, rec)

@@ -21,7 +21,12 @@ issues, its backward and a remat's recomputation included:
     nothing and records its work by the formulas of
     `repro_torch.kernels.cost` (`kernels.meta_counts`), which the counter
     adds;
-  * collective bytes: 0 until the mesh comes (ROADMAP A.10).
+  * collective bytes: 0. The reference counts the collectives GSPMD
+    inserts into its per-shard program (the model axis's all-gathers and
+    reduce-scatters of tensor parallelism, the data axes' gradient sums);
+    the dry run executes the step of one device on the mesh's shape, which
+    issues none, and the port's tensor-parallel partition of the dense
+    steps does not exist yet (ROADMAP A.10 part 3).
 
 The counter executes the whole step, so its totals are global, where the
 reference's per-shard HLO totals are scaled by the chips; `analyze` keeps

@@ -18,38 +18,71 @@ RG-LRU's too. The serve step writes the decode state in place (C19): KV
 caches, SSM and RG-LRU states and a cross block's self cache. The
 aggregation steps return new params and write nothing given.
 
-One device has no mesh: the `*_shardings` functions take `mesh=None` and
-return `(args, None, None)`, and a mesh, expert parallelism
-(`moe_groups=-2`) or a sharded buffer raises, naming ROADMAP A.10.
+On a mesh (`launch/mesh.py`; `sharding.py`'s specs):
+  * the `*_shardings` functions return `(args, in shardings, out
+    shardings)`: the whole arguments on the meta device and trees of
+    `sharding.NamedSharding` (the reference's specs and their DTensor
+    placements); with `mesh=None`, `(args, None, None)`;
+  * `make_train_step(cfg, mesh)` on a live mesh whose model axis is 1 (the
+    host mesh) is data parallel with ZeRO-1 (`_make_dp_train_step`), and
+    `moe_groups=-2` takes expert parallelism (`moe.moe_apply_ep`);
+  * `make_agg_step_opt(cfg, mesh)` runs the reference's collective
+    schedule: each rank's rows of the buffer and model shards of the
+    leaves, a local bf16 product, one bf16 all-reduce over the data axes;
+  * on a `MeshShape` (no ranks) `build` returns the steps of one device,
+    for the dry run's single execution on meta tensors, with the
+    placements;
+  * prefill, the serve step, `make_agg_step` and the FL round take no
+    mesh, as in the reference, where GSPMD partitions them by their
+    shardings; on a live host mesh each rank runs them whole.
+The `model` axis of the dense steps above 1 on a live mesh (GSPMD's
+tensor parallelism, for which the reference has no code of its own)
+raises, naming ROADMAP A.10 part 3.
 """
 from __future__ import annotations
 
 import torch
 
+import torch.distributed as dist
+
+from repro_torch import sharding as Sh
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.core import mesh as Mesh
 from repro_torch.core.aggregation import apply_aggregation
 from repro_torch.core.staleness import staleness_compensation
 from repro_torch.kernels.agg.ops import flat_tree
 from repro_torch.launch import input_specs as IS
 from repro_torch.models import transformer as T
-from repro_torch.optim import adamw_apply, adamw_init, clip_by_global_norm
-from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.optim import (adamw_apply, adamw_apply_zero1, adamw_init,
+                               clip_by_global_norm)
+from repro_torch.tree import (tree_flatten, tree_leaves, tree_map,
+                              tree_unflatten)
+
+PART_3 = ("ROADMAP A.10 part 3 (the model axis of the dense steps: GSPMD's "
+          "tensor parallelism in the reference)")
 
 
-def _no_mesh(mesh, moe_groups: int = 1):
-    if mesh is not None or moe_groups == -2:
+def _model_size(mesh) -> int:
+    return Mesh.axis_sizes(mesh)["model"]
+
+
+def _refuse_model_axis(mesh, what: str):
+    """A live mesh whose model axis is above 1 runs no dense step."""
+    if Mesh.is_live(mesh) and _model_size(mesh) > 1:
         raise NotImplementedError(
-            "meshes, shardings and expert parallelism (moe_groups=-2) come "
-            "with ROADMAP A.10; the port's steps run on one device")
+            f"{what} on a live mesh with a model axis of "
+            f"{_model_size(mesh)}: the port runs the dense steps data "
+            f"parallel only; {PART_3}")
 
 
 def default_num_micro(cfg: ModelConfig, shape: ShapeConfig,
                       mesh=None) -> int:
-    """A microbatch count that gives each data shard ~1 sequence a
-    microbatch (bounds activation memory at long sequences); one device
-    is one data shard."""
-    _no_mesh(mesh)
-    return min(max(1, shape.global_batch), 16)
+    """Pick a microbatch count so each data shard sees ~1 sequence per
+    microbatch (bounds activation memory at long seq); no mesh is one
+    data shard."""
+    dp = 1 if mesh is None else Sh.data_size(mesh)
+    m = max(1, shape.global_batch // dp)
+    return min(m, 16)
 
 
 # ---------------------------------------------------------------------------
@@ -58,7 +91,8 @@ def default_num_micro(cfg: ModelConfig, shape: ShapeConfig,
 
 def make_loss_and_grad(cfg: ModelConfig, *, num_micro: int = 1,
                        q_chunk: int = 512, aux_weight: float = 0.01,
-                       moe_groups: int = 1):
+                       moe_groups: int = 1, shard=None, moe_ep=None,
+                       moe_group=None):
     """loss_and_grad(params, batch) -> (loss, grads): the loss
     `lm_loss + aux_weight * aux` (remat on, as in the reference's step)
     and its gradient in the params' tree, both device tensors. With
@@ -66,18 +100,40 @@ def make_loss_and_grad(cfg: ModelConfig, *, num_micro: int = 1,
     its first dim; their gradients are added in order into float32 sums,
     and the sums and the loss are divided by `num_micro`, as the
     reference's scan does. With one, the gradients are in the params'
-    dtypes."""
+    dtypes.
+
+    `shard=(index, count)`: this rank's rows of each microbatch, part
+    `index` of `count` equal parts (microbatch first, then shard, as the
+    reference's scan constrains each microbatch to the data axes); with
+    microbatches the sums and the loss are divided by `num_micro * count`,
+    the rank's share of the global mean, which a sum over the ranks
+    completes. `moe_ep` and `moe_group` reach `transformer.forward`."""
     def loss_fn(params, mb):
         logits, aux = T.forward(params, mb, cfg, q_chunk=q_chunk,
-                                moe_groups=moe_groups)
+                                moe_groups=moe_groups, moe_ep=moe_ep,
+                                moe_group=moe_group)
         return T.lm_loss(logits, mb["labels"]) + aux_weight * aux
+
+    def rows(mb):
+        if shard is None:
+            return mb
+        index, count = shard
+        out = {}
+        for k, v in mb.items():
+            if v.shape[0] % count:
+                raise ValueError(
+                    f"a microbatch of {v.shape[0]} rows does not split "
+                    f"over {count} data shards")
+            n = v.shape[0] // count
+            out[k] = v.narrow(0, index * n, n)
+        return out
 
     def loss_and_grad(params, batch):
         leaves, structure = tree_flatten(params)
         live = [p.detach().requires_grad_() for p in leaves]
         tree = tree_unflatten(structure, live)
         if num_micro == 1:
-            loss = loss_fn(tree, batch)
+            loss = loss_fn(tree, rows(batch))
             grads = torch.autograd.grad(loss, live)
             return loss.detach(), tree_unflatten(structure, list(grads))
         micro = {k: v.reshape(num_micro, v.shape[0] // num_micro,
@@ -86,13 +142,14 @@ def make_loss_and_grad(cfg: ModelConfig, *, num_micro: int = 1,
                 for p in leaves]
         loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
         for i in range(num_micro):
-            l_i = loss_fn(tree, {k: v[i] for k, v in micro.items()})
+            l_i = loss_fn(tree, rows({k: v[i] for k, v in micro.items()}))
             for acc, g in zip(sums, torch.autograd.grad(l_i, live)):
                 acc.add_(g)
             loss = loss + l_i.detach()
+        share = num_micro * (1 if shard is None else shard[1])
         for acc in sums:
-            acc.div_(num_micro)
-        return loss / num_micro, tree_unflatten(structure, sums)
+            acc.div_(share)
+        return loss / share, tree_unflatten(structure, sums)
 
     return loss_and_grad
 
@@ -104,14 +161,30 @@ def make_train_step(cfg: ModelConfig, mesh=None, *, num_micro: int = 1,
     """train_step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "grad_norm"}): the loss and gradient of `make_loss_and_grad`,
     then `update`: the gradient clipped to `clip_norm` by its global norm,
-    one AdamW step at `lr`. params and opt_state (`optim.adamw_init`) are
+    one AdamW step at `lr`. params and opt_state (`init_opt_state`) are
     written in place and returned; the metrics are device tensors, so a
     step reads nothing back. `q_chunk` is accepted and, as in prefill,
     changes nothing (`models/attention.py`). The step's two halves are its
     attributes `loss_and_grad(params, batch)` and `update(params,
     opt_state, grads) -> (opt_state, grad_norm)`, for a profiler that
-    times them apart."""
-    _no_mesh(mesh, moe_groups)
+    times them apart.
+
+    `mesh`: None or a `MeshShape` gives the step of one device (on a
+    `MeshShape`, `moe_groups=-2` routes the MoE tokens in one group a data
+    shard, the expert-parallel program's groups); a live mesh whose model
+    axis is 1 gives the data-parallel ZeRO-1 step (`_make_dp_train_step`);
+    a live model axis above 1 raises (ROADMAP A.10 part 3)."""
+    if Mesh.is_live(mesh):
+        _refuse_model_axis(mesh, "the train step")
+        return _make_dp_train_step(
+            cfg, mesh, num_micro=num_micro, lr=lr, q_chunk=q_chunk,
+            aux_weight=aux_weight, clip_norm=clip_norm,
+            moe_groups=moe_groups)
+    if moe_groups == -2:
+        if mesh is None:
+            raise ValueError("moe_groups=-2 is expert parallelism over a "
+                             "mesh's model axis; give the step a mesh")
+        moe_groups = Sh.data_size(mesh)
     loss_and_grad = make_loss_and_grad(
         cfg, num_micro=num_micro, q_chunk=q_chunk, aux_weight=aux_weight,
         moe_groups=max(moe_groups, 1))
@@ -119,6 +192,115 @@ def make_train_step(cfg: ModelConfig, mesh=None, *, num_micro: int = 1,
     def update(params, opt_state, grads):
         grads, gnorm = clip_by_global_norm(grads, clip_norm)
         return adamw_apply(grads, opt_state, params, lr), gnorm
+
+    def train_step(params, opt_state, batch):
+        loss, grads = loss_and_grad(params, batch)
+        opt_state, gnorm = update(params, opt_state, grads)
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm}
+
+    train_step.loss_and_grad, train_step.update = loss_and_grad, update
+    return train_step
+
+
+def zero1_dims(params, cfg: ModelConfig, mesh) -> list:
+    """Per leaf (in `tree_leaves` order), the dim its AdamW moments are
+    split on over the mesh's 'data' axis (`sharding.opt_spec_from_param`,
+    ZeRO-1), or None where no dim divides."""
+    pspecs = tree_leaves(Sh.param_specs(params, cfg, mesh),
+                         is_leaf=Sh.is_spec)
+    out = []
+    for p, ps in zip(tree_leaves(params), pspecs):
+        spec = Sh.opt_spec_from_param(ps, p.shape, mesh)
+        out.append(spec.index("data") if "data" in spec else None)
+    return out
+
+
+def init_opt_state(params, cfg: ModelConfig, mesh=None):
+    """The AdamW state the train step of `mesh` takes: `adamw_init`'s
+    whole moments, or on a live mesh this rank's ZeRO-1 pieces of them
+    (float32 zeros of each leaf's piece along its `zero1_dims` dim, the
+    piece of the rank's index on the 'data' axis)."""
+    if not Mesh.is_live(mesh):
+        return adamw_init(params)
+    n = Mesh.axis_sizes(mesh)["data"]
+    leaves, structure = tree_flatten(params)
+    state = {"step": torch.zeros((), dtype=torch.int32,
+                                 device=leaves[0].device)}
+
+    def piece(p, d):
+        shape = list(p.shape)
+        if d is not None:
+            shape[d] //= n
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+
+    dims = zero1_dims(params, cfg, mesh)
+    for key in ("m", "v"):
+        state[key] = tree_unflatten(structure, [piece(p, d) for p, d in
+                                                zip(leaves, dims)])
+    return state
+
+
+def _make_dp_train_step(cfg: ModelConfig, mesh, *, num_micro, lr, q_chunk,
+                        aux_weight, clip_norm, moe_groups):
+    """The train step, data parallel over the data axes of a live mesh
+    whose model axis is 1, with ZeRO-1:
+      * every rank is given the whole batch and takes its rows of each
+        microbatch (`make_loss_and_grad(shard=)`);
+      * a MoE model's routing groups fall within a rank (`moe_groups`, the
+        global count, must be a multiple of the data shards, so that
+        capacity and drops are the global program's); the balance loss
+        sums its statistics over the data axes (`moe.moe_apply`), or with
+        `moe_groups=-2` it is expert parallel (`moe.moe_apply_ep`, the
+        rank's tokens one routing group);
+      * each rank's float32 gradient sums and loss, its share of the
+        global means, are summed over the data axes (one microbatch: the
+        gradients go over in float32, are divided by the shards and come
+        back in the params' dtypes), so the global-norm clip is the same
+        on every rank;
+      * AdamW runs on the rank's ZeRO-1 pieces of m and v
+        (`init_opt_state`) and gathers the updated pieces back into the
+        params' own storage (`optim.adamw_apply_zero1`).
+    At a world of one every collective still runs, and the step gives the
+    one-device step's bits."""
+    dp_axes = Sh.data_axes(mesh)
+    dp_group = Mesh.axes_group(mesh, dp_axes)
+    n, r = dist.get_world_size(dp_group), dist.get_rank(dp_group)
+    zero_group = mesh.get_group("data")
+    moe_ep = moe_group = None
+    groups = max(moe_groups, 1)
+    if moe_groups == -2:
+        moe_ep = (mesh, dp_axes)
+    elif cfg.num_experts:
+        if groups % n:
+            raise ValueError(
+                f"{groups} MoE routing groups do not fall within {n} data "
+                f"shards: capacity and drops would differ from the global "
+                f"program's (moe_groups=-1 gives one group a sequence)")
+        groups, moe_group = groups // n, dp_group
+    local = make_loss_and_grad(
+        cfg, num_micro=num_micro, q_chunk=q_chunk, aux_weight=aux_weight,
+        moe_groups=groups, shard=(r, n), moe_ep=moe_ep, moe_group=moe_group)
+    dims = zero1_dims(_meta_params(cfg), cfg, mesh)     # shapes alone
+
+    def loss_and_grad(params, batch):
+        loss, grads = local(params, batch)
+        leaves, structure = tree_flatten(grads)
+        loss = Mesh.all_reduce_(loss.clone(), dp_group)
+        if num_micro > 1:          # the ranks' shares of the means
+            for g in leaves:
+                Mesh.all_reduce_(g, dp_group)
+            return loss, grads
+        sums = [Mesh.all_reduce_(g.float(), dp_group).div_(n).to(g.dtype)
+                for g in leaves]
+        return loss / n, tree_unflatten(structure, sums)
+
+    def update(params, opt_state, grads):
+        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        state = adamw_apply_zero1(
+            grads, opt_state, params, lr, dims=dims,
+            index=dist.get_rank(zero_group),
+            count=dist.get_world_size(zero_group), group=zero_group)
+        return state, gnorm
 
     def train_step(params, opt_state, batch):
         loss, grads = loss_and_grad(params, batch)
@@ -160,18 +342,24 @@ def make_decode_state_shape(cfg: ModelConfig, shape: ShapeConfig):
 
 def make_serve_step(cfg: ModelConfig):
     """serve_step(params, state, token (B, 1)) -> (greedy next token
-    (B, 1) int32, new state)."""
+    (B, 1) int32, new state). `serve_step.logits_spec()` is the spec the
+    reference constrains the logits to under `sharding.DECODE_OPT`
+    (vocab-sharded, the argmax reducing over the sharded vocab dim), None
+    without it; on one device or a host mesh the logits are whole."""
     def serve_step(params, state, token):
         with torch.inference_mode():
             logits, state = T.decode_step(params, token, state, cfg)
             next_token = torch.argmax(logits[:, -1, :], dim=-1)
             return next_token.to(torch.int32)[:, None], state
 
+    serve_step.logits_spec = lambda: ((None, None, "model")
+                                      if Sh.DECODE_OPT else None)
     return serve_step
 
 
 # ---------------------------------------------------------------------------
-# Abstract arguments (meta tensors: shapes and dtypes, no memory)
+# Abstract arguments (meta tensors: shapes and dtypes, no memory) and, on a
+# mesh, their shardings
 
 
 def _meta(spec):
@@ -182,30 +370,65 @@ def _meta_params(cfg: ModelConfig):
     return T.init_params(0, cfg, device="meta")
 
 
+def _named(mesh, *spec_trees):
+    return tuple(Sh.to_named(t, mesh) for t in spec_trees)
+
+
 def train_shardings(cfg: ModelConfig, shape: ShapeConfig, mesh=None):
-    """(args, None, None) of the train step: (params, AdamW state, batch)
-    on the meta device."""
-    _no_mesh(mesh)
+    """(args, in, out) of the train step: args (params, AdamW state,
+    batch) on the meta device; on a mesh, in = the shardings of (params,
+    opt state, batch) and out those of (params, opt state, metrics),
+    else None, None."""
     params = _meta_params(cfg)
+    opt = adamw_init(params)
     batch = {k: _meta(v) for k, v in IS.train_batch_specs(cfg, shape).items()}
-    return (params, adamw_init(params), batch), None, None
+    args = (params, opt, batch)
+    if mesh is None:
+        return args, None, None
+    pspecs = Sh.param_specs(params, cfg, mesh)
+    ospecs = Sh.opt_state_specs(opt, pspecs, cfg, mesh)
+    bspecs = Sh.batch_specs(batch, mesh)
+    metric_specs = {"loss": (), "grad_norm": ()}
+    return (args, _named(mesh, pspecs, ospecs, bspecs),
+            _named(mesh, pspecs, ospecs, metric_specs))
 
 
 def prefill_shardings(cfg: ModelConfig, shape: ShapeConfig, mesh=None):
-    """(args, None, None) of the prefill step: (params, batch) on the meta
-    device."""
-    _no_mesh(mesh)
+    """(args, in, out) of the prefill step: args (params, batch) on the
+    meta device; on a mesh the shardings of (params, batch) and of the
+    logits (B, V), else None, None."""
+    params = _meta_params(cfg)
     batch = {k: _meta(v)
              for k, v in IS.prefill_batch_specs(cfg, shape).items()}
-    return (_meta_params(cfg), batch), None, None
+    args = (params, batch)
+    if mesh is None:
+        return args, None, None
+    pspecs = Sh.param_specs(params, cfg, mesh)
+    bspecs = Sh.batch_specs(batch, mesh)
+    bspec = (Sh.data_axes(mesh)
+             if shape.global_batch % Sh.data_size(mesh) == 0 else None)
+    vspec = ("model" if cfg.vocab_size % _model_size(mesh) == 0
+             else None)
+    return (args, _named(mesh, pspecs, bspecs),
+            Sh.to_named(Sh.spec_of(bspec, vspec), mesh))
 
 
 def decode_shardings(cfg: ModelConfig, shape: ShapeConfig, mesh=None):
-    """(args, None, None) of the serve step: (params, decode state, token)
-    on the meta device; the state's `index` is the host int 0."""
-    _no_mesh(mesh)
-    return (_meta_params(cfg), make_decode_state_shape(cfg, shape),
-            _meta(IS.decode_token_spec(cfg, shape))), None, None
+    """(args, in, out) of the serve step: args (params, decode state,
+    token) on the meta device, the state's `index` the host int 0; on a
+    mesh the shardings of (params, state, token) and of (token, state),
+    else None, None."""
+    params = _meta_params(cfg)
+    state = make_decode_state_shape(cfg, shape)
+    token = _meta(IS.decode_token_spec(cfg, shape))
+    args = (params, state, token)
+    if mesh is None:
+        return args, None, None
+    pspecs = Sh.param_specs(params, cfg, mesh)
+    sspecs = Sh.decode_state_specs(state, cfg, mesh, shape)
+    tspecs = Sh.batch_specs({"token": token}, mesh)["token"]
+    return (args, _named(mesh, pspecs, sspecs, tspecs),
+            _named(mesh, tspecs, sspecs))
 
 
 # ---------------------------------------------------------------------------
@@ -227,20 +450,43 @@ def make_agg_step(cfg: ModelConfig, *, alpha: float = 0.5):
 
 def make_agg_step_opt(cfg: ModelConfig, mesh=None, *, alpha: float = 0.5,
                       reduce_dtype=torch.bfloat16):
-    """The reference's hand-scheduled eq. 4 on one shard: per leaf, the
-    staleness weights' product with the M updates in `reduce_dtype`
+    """The reference's hand-scheduled eq. 4: per leaf, the staleness
+    weights' product with the M updates in `reduce_dtype`
     (`torch.tensordot`, a plain product outside the kernel as in the
     reference, where it runs outside Pallas), then the float32 add to the
-    params, cast to their dtype. The reference's psum over the data axis
-    is the identity on one device; a mesh raises (ROADMAP A.10)."""
-    _no_mesh(mesh)
+    params, cast to their dtype.
+
+    On a live mesh (any (data, model) shape) each rank is given its
+    pieces, as `agg_shardings` lays them out: each leaf's model shard
+    (its `sharding.param_spec`), the buffer's rows of its index on the
+    data axes (all of "pod" and "data") with the same model shard, and the
+    whole staleness (M,). It takes its rows of the weights, the local
+    product in `reduce_dtype`, one all-reduce of that product over the
+    data axes in `reduce_dtype` (bf16 on the wire: the reference's
+    collective bytes), then the float32 add; it returns its model shards
+    of the new params. On one device, or a `MeshShape`, the product is
+    over all M rows and nothing is reduced."""
+    live = Mesh.is_live(mesh)
+    if live:
+        dp_axes = Sh.data_axes(mesh)
+        group = Mesh.axes_group(mesh, dp_axes)
+        sizes, coords = Mesh.axis_sizes(mesh), Sh.coordinate(mesh)
 
     def agg_step(params, update_stack, staleness):
         c = staleness_compensation(staleness, alpha)
         w = (c / c.sum().clamp(min=1e-12)).to(reduce_dtype)
+        if live:
+            start, length = Sh.shard_range(w.shape[0], dp_axes, sizes,
+                                           coords)
+            w = w.narrow(0, start, length)
 
         def one(p, u):
+            if u.shape[0] != w.shape[0]:
+                raise ValueError(f"{u.shape[0]} update rows for {w.shape[0]}"
+                                 f" weights of this rank")
             delta = torch.tensordot(w, u.to(reduce_dtype), dims=1)
+            if live:
+                Mesh.all_reduce_(delta, group)
             return (p.float() + delta.float()).to(p.dtype)
 
         return tree_map(one, params, update_stack)
@@ -248,16 +494,27 @@ def make_agg_step_opt(cfg: ModelConfig, mesh=None, *, alpha: float = 0.5,
     return agg_step
 
 
-def agg_shardings(cfg: ModelConfig, mesh=None, *, buffer_m: int = 96):
-    """(args, None, None) of the agg step: (params, a buffer of `buffer_m`
-    updates in the params' dtypes, staleness (M,) int32) on the meta
-    device, the params and the updates laid out as views of one buffer a
-    dtype (`flat_tree`), as the agg step reads them in place."""
-    _no_mesh(mesh)
+def agg_shardings(cfg: ModelConfig, mesh=None, *, buffer_m: int = 96,
+                  shard_buffer: bool = True):
+    """(args, in, out) of the agg step: args (params, a buffer of
+    `buffer_m` updates in the params' dtypes, staleness (M,) int32) on the
+    meta device, the params and the updates laid out as views of one
+    buffer a dtype (`flat_tree`), as the agg step reads them in place. On
+    a mesh: the buffer's rows over 'data' where it divides them (and
+    `shard_buffer`), each leaf's model dims as its param's; else None,
+    None."""
     params = flat_tree(_meta_params(cfg))
     updates = flat_tree(params, lead=(buffer_m,))
     staleness = torch.empty((buffer_m,), dtype=torch.int32, device="meta")
-    return (params, updates, staleness), None, None
+    args = (params, updates, staleness)
+    if mesh is None:
+        return args, None, None
+    pspecs = Sh.param_specs(params, cfg, mesh)
+    mspec = ("data" if shard_buffer
+             and buffer_m % Mesh.axis_sizes(mesh)["data"] == 0 else None)
+    uspecs = Sh.map_specs(lambda ps: Sh.spec_of(mspec, *ps), pspecs)
+    return (args, _named(mesh, pspecs, uspecs, ()),
+            Sh.to_named(pspecs, mesh))
 
 
 # ---------------------------------------------------------------------------
@@ -307,15 +564,24 @@ def make_fl_round_step(cfg: ModelConfig, *, local_steps: int = 4,
 def fl_round_shardings(cfg: ModelConfig, mesh=None, *, buffer_m: int = 16,
                        local_steps: int = 4, batch: int = 8,
                        seq: int = 512):
-    """(args, None, None) of the FL round: (params, the clients' batches
+    """(args, in, out) of the FL round: args (params, the clients' batches
     (M, local_steps, batch, seq) int32, staleness (M,) int32) on the meta
-    device."""
-    _no_mesh(mesh)
+    device; on a mesh the clients over 'data' where it divides M, else
+    None, None."""
     size = (buffer_m, local_steps, batch, seq)
     cb = {k: torch.empty(size, dtype=torch.int32, device="meta")
           for k in ("tokens", "labels")}
     staleness = torch.empty((buffer_m,), dtype=torch.int32, device="meta")
-    return (_meta_params(cfg), cb, staleness), None, None
+    params = _meta_params(cfg)
+    args = (params, cb, staleness)
+    if mesh is None:
+        return args, None, None
+    pspecs = Sh.param_specs(params, cfg, mesh)
+    mspec = ("data" if buffer_m % Mesh.axis_sizes(mesh)["data"] == 0
+             else None)
+    cbspecs = tree_map(lambda _: Sh.spec_of(mspec), cb)
+    return (args, _named(mesh, pspecs, cbspecs, ()),
+            Sh.to_named(pspecs, mesh))
 
 
 # ---------------------------------------------------------------------------
@@ -324,36 +590,41 @@ def fl_round_shardings(cfg: ModelConfig, mesh=None, *, buffer_m: int = 16,
 
 def build(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *,
           num_micro: int = None, q_chunk: int = 512, moe_groups: int = 1):
-    """Returns (fn, abstract_args, None, None): the step of `shape.kind`
-    and its arguments on the meta device. `moe_groups` carries the
-    reference's flags: -3 on an agg shape takes `make_agg_step_opt`; -1
-    means one routing group per microbatch sequence (train) or per
-    sequence (prefill); -2 (expert parallelism) raises, naming A.10."""
-    _no_mesh(mesh, moe_groups)
+    """Returns (fn, abstract_args, in shardings, out shardings): the step
+    of `shape.kind` for `mesh` and its arguments on the meta device (the
+    shardings None without a mesh). `moe_groups` carries the reference's
+    flags: -3 on an agg shape takes `make_agg_step_opt`; -1 means one
+    routing group per microbatch sequence (train) or per sequence
+    (prefill); -2 is expert parallelism (`make_train_step`). On a live
+    mesh with a model axis above 1 the train, prefill, serve and FL round
+    steps raise (ROADMAP A.10 part 3)."""
     if shape.kind == "agg":
-        fn = (make_agg_step_opt(cfg) if moe_groups == -3
+        fn = (make_agg_step_opt(cfg, mesh) if moe_groups == -3
               else make_agg_step(cfg))
-        args, i, o = agg_shardings(cfg, buffer_m=shape.global_batch)
+        args, i, o = agg_shardings(cfg, mesh, buffer_m=shape.global_batch)
         return fn, args, i, o
+    _refuse_model_axis(mesh, f"the {shape.kind} step")
     if shape.kind == "flround":
         fn = make_fl_round_step(cfg)
-        args, i, o = fl_round_shardings(cfg, buffer_m=shape.global_batch,
+        args, i, o = fl_round_shardings(cfg, mesh,
+                                        buffer_m=shape.global_batch,
                                         seq=shape.seq_len)
         return fn, args, i, o
     if shape.kind == "train":
         nm = num_micro if num_micro is not None else \
-            default_num_micro(cfg, shape)
+            default_num_micro(cfg, shape, mesh)
         if moe_groups == -1:   # one routing group per microbatch sequence
             moe_groups = max(1, shape.global_batch // nm)
-        fn = make_train_step(cfg, num_micro=nm, q_chunk=q_chunk,
+        fn = make_train_step(cfg, mesh, num_micro=nm, q_chunk=q_chunk,
                              moe_groups=moe_groups)
-        args, i, o = train_shardings(cfg, shape)
+        args, i, o = train_shardings(cfg, shape, mesh)
     elif shape.kind == "prefill":
         if moe_groups == -1:
             moe_groups = shape.global_batch
-        fn = make_prefill_step(cfg, q_chunk=q_chunk, moe_groups=moe_groups)
-        args, i, o = prefill_shardings(cfg, shape)
+        fn = make_prefill_step(cfg, q_chunk=q_chunk,
+                               moe_groups=max(moe_groups, 1))
+        args, i, o = prefill_shardings(cfg, shape, mesh)
     else:
         fn = make_serve_step(cfg)
-        args, i, o = decode_shardings(cfg, shape)
+        args, i, o = decode_shardings(cfg, shape, mesh)
     return fn, args, i, o

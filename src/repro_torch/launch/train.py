@@ -1,27 +1,41 @@
 """Datacenter training launcher (the port of `repro.launch.train`): train
-a zoo architecture with the train step of `repro_torch.launch.steps` on
-one device, the card unless `--device cpu` is given. Used by
+a zoo architecture with the train step of `repro_torch.launch.steps` on a
+mesh (`launch/mesh.py`), the card unless `--device cpu` is given. Used by
 examples/satellite_fl_train_torch.py's Part B, and standalone for LM
 pretraining smoke runs.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b \\
         --reduced --steps 20 --batch 8 --seq 128
+
+`--mesh host` (the default) is `make_host_mesh()`: one process is a world
+of one; under `torchrun --nproc-per-node N` the N ranks train data
+parallel with ZeRO-1 (the batch split over them a microbatch at a time),
+and only rank 0 prints:
+
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --arch qwen3-8b --reduced --steps 20 --batch 8 --seq 128
+
+`--mesh single` and `multi` are the production meshes, which need worlds
+of 256 and 512 ranks.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from repro_torch.configs.base import ShapeConfig, get_config
 from repro_torch.device import resolve_device
 from repro_torch.launch import steps as ST
 from repro_torch.launch.input_specs import train_batch_specs
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.models import transformer as T
-from repro_torch.optim import adamw_init
 
 
 def synthetic_lm_batch(cfg, shape, step, seed=0, device=None):
@@ -58,35 +72,46 @@ def train(arch: str, *, reduced: bool = True, steps: int = 20,
           num_micro: int = 1, mesh_kind: str = "host", log_every: int = 5,
           device=None):
     """Train `arch` from `init_params(0, ...)` for `steps` steps of
-    `synthetic_lm_batch`; prints the reference's log line and returns the
-    loss history. `mesh_kind` "host" is one device; the production
-    meshes come with ROADMAP A.10."""
-    if mesh_kind != "host":
-        raise NotImplementedError(
-            f"mesh_kind={mesh_kind!r}: the production meshes come with "
-            f"ROADMAP A.10; the port trains on one device (\"host\")")
+    `synthetic_lm_batch` on the mesh `mesh_kind` names; prints the
+    reference's log line (rank 0 of the mesh alone) and returns the loss
+    history. "host" is `launch.mesh.make_host_mesh(device)`: a world of
+    one in this process, or the ranks of the group it runs in (under
+    `torchrun`: data parallel with ZeRO-1, every rank drawing the same
+    params and batches). "single" and "multi" are the production meshes,
+    which raise below 256 and 512 ranks. A process group this call starts
+    it also ends."""
     dev = resolve_device(device)
-    cfg = get_config(arch)
-    if reduced:
-        cfg = cfg.reduced()
-    shape = ShapeConfig("custom", seq_len=seq, global_batch=batch,
-                        kind="train")
-    step_fn = ST.make_train_step(cfg, num_micro=num_micro,
-                                 q_chunk=min(512, seq), lr=lr)
-    params = T.init_params(0, cfg, device=dev)
-    opt = adamw_init(params)
-    history = []
-    for s in range(steps):
-        t0 = time.time()
-        batch_data = synthetic_lm_batch(cfg, shape, s, device=dev)
-        params, opt, metrics = step_fn(params, opt, batch_data)
-        loss = float(metrics["loss"])
-        history.append(loss)
-        if s % log_every == 0 or s == steps - 1:
-            print(f"step {s:4d} loss {loss:.4f} "
-                  f"gnorm {float(metrics['grad_norm']):.3f} "
-                  f"({time.time() - t0:.2f}s)", flush=True)
-    return history
+    started = not dist.is_initialized()
+    mesh = {"host": lambda: make_host_mesh(dev),
+            "single": lambda: make_production_mesh(device=dev),
+            "multi": lambda: make_production_mesh(True, device=dev),
+            }[mesh_kind]()
+    try:
+        cfg = get_config(arch)
+        if reduced:
+            cfg = cfg.reduced()
+        shape = ShapeConfig("custom", seq_len=seq, global_batch=batch,
+                            kind="train")
+        step_fn = ST.make_train_step(cfg, mesh, num_micro=num_micro,
+                                     q_chunk=min(512, seq), lr=lr)
+        params = T.init_params(0, cfg, device=dev)
+        opt = ST.init_opt_state(params, cfg, mesh)
+        lead = dist.get_rank() == 0
+        history = []
+        for s in range(steps):
+            t0 = time.time()
+            batch_data = synthetic_lm_batch(cfg, shape, s, device=dev)
+            params, opt, metrics = step_fn(params, opt, batch_data)
+            loss = float(metrics["loss"])
+            history.append(loss)
+            if lead and (s % log_every == 0 or s == steps - 1):
+                print(f"step {s:4d} loss {loss:.4f} "
+                      f"gnorm {float(metrics['grad_norm']):.3f} "
+                      f"({time.time() - t0:.2f}s)", flush=True)
+        return history
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def main(argv: Optional[Sequence[str]] = None):
@@ -108,7 +133,8 @@ def main(argv: Optional[Sequence[str]] = None):
                  batch=args.batch, seq=args.seq, lr=args.lr,
                  num_micro=args.num_micro, mesh_kind=args.mesh,
                  device=args.device)
-    print(f"loss: {hist[0]:.4f} -> {hist[-1]:.4f}")
+    if int(os.environ.get("RANK", "0")) == 0:
+        print(f"loss: {hist[0]:.4f} -> {hist[-1]:.4f}")
 
 
 if __name__ == "__main__":

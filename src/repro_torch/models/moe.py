@@ -24,9 +24,11 @@ is cut off), so it reads nothing back to the host.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import mesh as Mesh
 from repro_torch.models import layers as L
 
 
@@ -48,13 +50,18 @@ def _capacity(cfg: ModelConfig, num_tokens: int) -> int:
     return max(8, -(-c // 8) * 8)  # round up to a multiple of 8
 
 
-def _route(xt, router, k: int):
-    """xt (..., T, D) -> probs (..., T, E) float32, normalised gates and
-    expert ids (..., T, k) in `jax.lax.top_k`'s order."""
-    probs = torch.softmax((xt @ router).float(), dim=-1)
+def _top_k(probs, k: int):
+    """probs (..., T, E) -> (probs, normalised gates, expert ids (..., T,
+    k)) in `jax.lax.top_k`'s order."""
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, expert_idx = vals[..., :k], idx[..., :k]
     return probs, gate_vals / gate_vals.sum(dim=-1, keepdim=True), expert_idx
+
+
+def _route(xt, router, k: int):
+    """xt (..., T, D) -> probs (..., T, E) float32, normalised gates and
+    expert ids (..., T, k) in `jax.lax.top_k`'s order."""
+    return _top_k(torch.softmax((xt @ router).float(), dim=-1), k)
 
 
 def _experts(buf, params):
@@ -65,22 +72,18 @@ def _experts(buf, params):
     return torch.bmm(act, params["w_down"])
 
 
-def moe_apply(params, x, cfg: ModelConfig, *, groups: int = 1):
-    """x: (B, S, D) -> (x + MoE(x), aux loss). `groups` > 1 splits the
-    tokens into that many independent routing groups, each with its own
-    capacity (the reference's `_moe_apply_grouped`, its data-parallel
-    dispatch); one group is the reference's `moe_apply`."""
-    B, S, D = x.shape
-    E, k = cfg.num_experts, cfg.experts_per_token
-    T = B * S
-    assert T % groups == 0, (T, groups)
-    G, Tg = groups, T // groups
-    C = _capacity(cfg, Tg)
-    dev = x.device
-
-    h = L.rmsnorm(params["norm"], x, cfg.norm_eps)
-    xg = h.reshape(G, Tg, D)
-    probs, gate_vals, expert_idx = _route(xg, params["router"], k)
+def _dispatch_combine(xg, gate_vals, expert_idx, experts, E: int, C: int,
+                      lo: int = 0, El: int = None):
+    """The experts [lo, lo + El) (all of them where El is None) of each
+    group's routed tokens: xg (G, Tg, D), gates and expert ids (G, Tg, k),
+    `experts` a tree holding their "w_gate", "w_up" and "w_down" (El
+    stacked). Each group has capacity C an expert; returns the gated outputs (G, Tg, D), a token's
+    k slots added in ascending expert order (0 for an expert outside the
+    window or a dropped assignment), and the tokens an expert (G, E)."""
+    G, Tg, D = xg.shape
+    k = expert_idx.shape[-1]
+    El = E if El is None else El
+    dev = xg.device
 
     # the Tg*k assignments of each group, sorted by expert (stable)
     flat_e = expert_idx.reshape(G, Tg * k)
@@ -90,24 +93,25 @@ def moe_apply(params, x, cfg: ModelConfig, *, groups: int = 1):
     counts = F.one_hot(flat_e, E).sum(dim=1)          # (G, E)
     offsets = torch.cumsum(counts, dim=1) - counts
     rank = torch.arange(Tg * k, device=dev) - torch.gather(offsets, 1, se)
-    keep = rank < C
+    le = se - lo                                      # expert in window
+    mine = (rank < C) & (le >= 0) & (le < El)
 
-    # scatter the kept assignments into (G, E, C) rows of one buffer; the
-    # dropped ones go to one spare row past the end
+    # scatter the kept assignments into (G, El, C) rows of one buffer;
+    # the dropped ones go to one spare row past the end
     gidx = torch.arange(G, device=dev)[:, None]
-    rows = torch.where(keep, (gidx * E + se) * C + rank, G * E * C)
-    buf = xg.new_zeros((G * E * C + 1, D))
+    rows = torch.where(mine, (gidx * El + le) * C + rank, G * El * C)
+    buf = xg.new_zeros((G * El * C + 1, D))
     buf.index_copy_(0, rows.reshape(-1),
                     xg[gidx, st].reshape(G * Tg * k, D))
-    y = _experts(buf[:-1].reshape(G, E, C, D).transpose(0, 1)
-                 .reshape(E, G * C, D), params)
-    y = y.reshape(E, G, C, D).transpose(0, 1).reshape(G * E * C, D)
+    y = _experts(buf[:-1].reshape(G, El, C, D).transpose(0, 1)
+                 .reshape(El, G * C, D), experts)
+    y = y.reshape(El, G, C, D).transpose(0, 1).reshape(G * El * C, D)
 
     # combine: each assignment's gated output back in (token, slot)
     # order, then a token's k outputs added in ascending expert order
-    w = torch.where(keep, torch.gather(
+    w = torch.where(mine, torch.gather(
         gate_vals.reshape(G, Tg * k), 1, order), 0.0)
-    rows_c = torch.where(keep, rows, 0)
+    rows_c = torch.where(mine, rows, 0)
     per_assign = y[rows_c] * w.to(y.dtype)[..., None]       # (G, Tg*k, D)
     inv = torch.empty_like(order).scatter_(
         1, order, torch.arange(Tg * k, device=dev).expand(G, -1))
@@ -117,10 +121,106 @@ def moe_apply(params, x, cfg: ModelConfig, *, groups: int = 1):
     out = parts[:, :, 0]
     for i in range(1, k):
         out = out + parts[:, :, i]
+    return out, counts
 
-    frac_tokens = counts.sum(dim=0).float() / (T * k)
-    frac_probs = probs.reshape(T, E).mean(dim=0)
-    aux = E * torch.sum(frac_tokens * frac_probs)
+
+def _balance_loss(cfg: ModelConfig, counts, prob_sums, T: int):
+    """Switch's load-balancing loss E·Σ_e frac_tokens·frac_probs from the
+    tokens an expert (E,) and the probabilities' sums (E,) over T
+    tokens."""
+    frac_tokens = counts.float() / (T * cfg.experts_per_token)
+    frac_probs = prob_sums / T
+    return cfg.num_experts * torch.sum(frac_tokens * frac_probs)
+
+
+def moe_apply(params, x, cfg: ModelConfig, *, groups: int = 1,
+              data_group=None):
+    """x: (B, S, D) -> (x + MoE(x), aux loss). `groups` > 1 splits the
+    tokens into that many independent routing groups, each with its own
+    capacity (the reference's `_moe_apply_grouped`, its data-parallel
+    dispatch); one group is the reference's `moe_apply`.
+
+    `data_group`: x is this rank's share of a data-parallel batch (its
+    routing groups whole). The balance loss is the reference's over every
+    rank's tokens: the tokens an expert and the probabilities' sums are
+    summed over the group (`core.mesh.psum`, `psum_shared`) before their
+    product, so every rank has the global program's aux."""
+    B, S, D = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    T = B * S
+    assert T % groups == 0, (T, groups)
+    G, Tg = groups, T // groups
+    C = _capacity(cfg, Tg)
+
+    h = L.rmsnorm(params["norm"], x, cfg.norm_eps)
+    xg = h.reshape(G, Tg, D)
+    probs, gate_vals, expert_idx = _route(xg, params["router"], k)
+    out, counts = _dispatch_combine(xg, gate_vals, expert_idx, params, E, C)
+
+    counts, prob_sums = counts.sum(dim=0), probs.reshape(T, E).sum(dim=0)
+    if data_group is not None:
+        counts = Mesh.psum(counts, data_group)
+        prob_sums = Mesh.psum_shared(prob_sums, data_group)
+        T = T * dist.get_world_size(data_group)
+    return x + out.reshape(B, S, D), _balance_loss(cfg, counts, prob_sums,
+                                                   T)
+
+
+def moe_apply_ep(params, x, cfg: ModelConfig, mesh, *,
+                 data_axes=("data",), model_axis: str = "model"):
+    """Expert parallelism over the live `mesh` (the reference's
+    `shard_map` schedule, written with the collectives of
+    `repro_torch.core.mesh`):
+
+      * x (B_l, S, D) is this rank's tokens: sharded over the data axes,
+        replicated over `model_axis`; they form one routing group;
+      * params hold the norm and the router whole and this rank's
+        E / n_model experts (w_* sliced on the expert dim, as
+        `sharding.param_spec` shards them); the rank takes the experts
+        [m·El, (m+1)·El) for its model index m;
+      * dispatch, the grouped products and the partial combine are local
+        (`_dispatch_combine` over the rank's expert window), then one sum
+        over the model group (`psum_partial`: its gradient passes to every
+        rank's partial unchanged);
+      * the tokens the dispatch reads and the probabilities the gates come
+        from are used alike by every model rank for its part of the
+        output, so their gradients are summed over the model group
+        (`grad_psum`); the balance loss reads the probabilities directly
+        and counts once;
+      * aux is the mean over the data axes of each shard's aux
+        (`psum_shared` / n_data), the reference's definition, not the
+        global aux.
+
+    With these, a rank's gradients summed over the data axes are the dense
+    program's (never n_model times them). Requires num_experts % n_model
+    == 0 (qwen3-moe; mixtral falls back to the grouped path in
+    `transformer._ffn_apply`)."""
+    from repro_torch.core.mesh import axes_group
+    model_group = mesh.get_group(model_axis)
+    data_group = axes_group(mesh, data_axes)
+    n_model, m = dist.get_world_size(model_group), dist.get_rank(model_group)
+    n_data = dist.get_world_size(data_group)
+    B, S, D = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    assert E % n_model == 0, (E, n_model)
+    El = E // n_model
+    if params["w_gate"].shape[0] != El:
+        raise ValueError(f"moe_apply_ep takes the rank's {El} experts, "
+                         f"not {params['w_gate'].shape[0]}")
+    Tg = B * S
+    C = _capacity(cfg, Tg)
+
+    h = L.rmsnorm(params["norm"], x, cfg.norm_eps)
+    xt = h.reshape(1, Tg, D)
+    probs, _, _ = _route(xt, params["router"], k)
+    _, gate_vals, expert_idx = _top_k(Mesh.grad_psum(probs, model_group), k)
+    out, counts = _dispatch_combine(
+        Mesh.grad_psum(xt, model_group), gate_vals, expert_idx, params, E, C,
+        lo=m * El, El=El)
+    out = Mesh.psum_partial(out, model_group)
+    aux = _balance_loss(cfg, counts.sum(dim=0),
+                        probs.reshape(Tg, E).sum(dim=0), Tg)
+    aux = Mesh.psum_shared(aux, data_group) / n_data
     return x + out.reshape(B, S, D), aux
 
 

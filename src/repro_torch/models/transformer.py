@@ -62,9 +62,22 @@ def _ffn_init(generator: torch.Generator, cfg: ModelConfig):
             "mlp": L.mlp_init(generator, cfg)}
 
 
-def _ffn_apply(params, x, cfg: ModelConfig, moe_groups: int = 1):
+def _ffn_apply(params, x, cfg: ModelConfig, moe_groups: int = 1,
+               moe_ep=None, moe_group=None):
+    """The FFN: dense, or MoE. `moe_ep=(mesh, data_axes)` takes the
+    expert-parallel path (`moe.moe_apply_ep`) where the mesh's model axis
+    divides the experts, else the grouped one, as the reference does
+    (mixtral at model 16); `moe_group` is the data-parallel group whose
+    tokens the grouped path's balance loss covers (`moe.moe_apply`)."""
     if cfg.num_experts:
-        return M.moe_apply(params["moe"], x, cfg, groups=moe_groups)
+        if moe_ep is not None:
+            mesh, data_axes = moe_ep
+            if cfg.num_experts % mesh.size(
+                    mesh.mesh_dim_names.index("model")) == 0:
+                return M.moe_apply_ep(params["moe"], x, cfg, mesh,
+                                      data_axes=data_axes)
+        return M.moe_apply(params["moe"], x, cfg, groups=moe_groups,
+                           data_group=moe_group)
     h = L.rmsnorm(params["norm"], x, cfg.norm_eps)
     return x + L.mlp_apply(params["mlp"], h, cfg.mlp_act), 0.0
 
@@ -92,7 +105,8 @@ def block_init(generator: torch.Generator, cfg: ModelConfig, kind: str):
 
 
 def block_apply(params, x, cfg: ModelConfig, kind: str, *, positions=None,
-                enc_out=None, q_chunk=512, moe_groups=1):
+                enc_out=None, q_chunk=512, moe_groups=1, moe_ep=None,
+                moe_group=None):
     _check_kind(kind)
     if kind == SSM:
         return S.ssm_apply(params["ssm"], x, cfg), 0.0
@@ -107,7 +121,7 @@ def block_apply(params, x, cfg: ModelConfig, kind: str, *, positions=None,
     else:
         x = A.attention_apply(params["attn"], x, cfg, kind, q_chunk=q_chunk,
                               positions=positions)
-    return _ffn_apply(params["ffn"], x, cfg, moe_groups)
+    return _ffn_apply(params["ffn"], x, cfg, moe_groups, moe_ep, moe_group)
 
 
 def block_init_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
@@ -190,7 +204,7 @@ def _reps(stage_params, repeats: int):
 
 def stage_apply(stage_params, x, cfg: ModelConfig, spec: StageSpec, *,
                 positions=None, enc_out=None, q_chunk=512, remat=True,
-                moe_groups=1):
+                moe_groups=1, moe_ep=None, moe_group=None):
     """The stage's repeats in order. With `remat` (and autograd
     recording), each repeat's blocks run under a checkpoint: their
     activations are recomputed in the backward."""
@@ -199,7 +213,8 @@ def stage_apply(stage_params, x, cfg: ModelConfig, spec: StageSpec, *,
         for j, kind in enumerate(spec.pattern):
             h, a = block_apply(rep[f"pos{j}"], h, cfg, kind,
                                positions=positions, enc_out=enc,
-                               q_chunk=q_chunk, moe_groups=moe_groups)
+                               q_chunk=q_chunk, moe_groups=moe_groups,
+                               moe_ep=moe_ep, moe_group=moe_group)
             aux = aux + a
         return h, aux
 
@@ -328,12 +343,14 @@ def _encode(params, frames, cfg: ModelConfig, q_chunk=512, remat=True):
 
 
 def forward(params, batch, cfg: ModelConfig, *, q_chunk=512, remat=True,
-            moe_groups=1):
+            moe_groups=1, moe_ep=None, moe_group=None):
     """Full-sequence forward. batch: {"tokens": (B, S) int}, with
     "image_embeds" (B, N, VISION_DIM) float32 for the vision frontend or
     "frames" (B, T, D) for an encoder-decoder. Returns (logits (B, S, V),
     aux loss): with images, logits on the text positions only. `remat`
-    matters only where autograd records (`stage_apply`)."""
+    matters only where autograd records (`stage_apply`). `moe_ep` and
+    `moe_group` reach the MoE blocks (`_ffn_apply`): a rank's batch under
+    expert or data parallelism."""
     _check_model(cfg)
     dt = L.dtype_of(cfg)
     enc_out = None
@@ -350,7 +367,8 @@ def forward(params, batch, cfg: ModelConfig, *, q_chunk=512, remat=True,
     for spec, sp in zip(cfg.stages, params["stages"]):
         x, a = stage_apply(sp, x, cfg, spec, enc_out=enc_out,
                            q_chunk=q_chunk, remat=remat,
-                           moe_groups=moe_groups)
+                           moe_groups=moe_groups, moe_ep=moe_ep,
+                           moe_group=moe_group)
         aux = aux + a
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if cfg.frontend == "vision":

@@ -12,10 +12,16 @@ reference's. The train step's two work in place (ROADMAP C20):
 state's `step`, `m` and `v` and writes the params. A model of 2.8 B
 parameters has 22.3 GB of float32 moments, which the card holds once,
 not twice. The step stays a device tensor, so an update reads nothing
-back to the host."""
+back to the host.
+
+`adamw_apply_zero1` is the data-parallel step's AdamW under ZeRO-1: each
+rank holds m and v only for its piece of a leaf, updates that piece of
+the param and gathers the group's pieces back into the param's own
+storage."""
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map, \
     tree_unflatten
@@ -147,4 +153,58 @@ def adamw_apply(grads, state, params, lr, b1=0.9, b2=0.95, eps=1e-8,
                           tree_leaves(state["v"]), tree_leaves(params)):
         u = _adamw_leaf(g, m, v, p, c1, c2, lr, b1, b2, eps, weight_decay)
         p.copy_(u.add_(p.float()))
+    return state
+
+
+def _gather_into(p, piece, dim: int, count: int, group):
+    """Every rank's `piece` of `p` along `dim` (rank k's the k-th of
+    `count`) written into `p`: straight into its storage where the pieces
+    are slabs of dim 0, else a leaf at a time through one list of the
+    pieces."""
+    from repro_torch.core.mesh import collective_counts
+    collective_counts["gather_params"] += 1
+    if dim == 0 and p.is_contiguous():
+        # torch 2.13 renamed all_gather_into_tensor to all_gather_single
+        gather = getattr(dist, "all_gather_single", None) \
+            or dist.all_gather_into_tensor
+        gather(p, piece.contiguous(), group=group)
+        return
+    parts = [torch.empty_like(piece) for _ in range(count)]
+    dist.all_gather(parts, piece.contiguous(), group=group)
+    n = piece.shape[dim]
+    for k, part in enumerate(parts):
+        p.narrow(dim, k * n, n).copy_(part)
+
+
+@torch.no_grad()
+def adamw_apply_zero1(grads, state, params, lr, *, dims, index: int,
+                      count: int, group, b1=0.9, b2=0.95, eps=1e-8,
+                      weight_decay=0.1):
+    """`adamw_apply` under ZeRO-1 over `group` (`count` ranks, this one
+    `index`): a leaf whose `dims` entry is d has in the state m and v of
+    its piece `index` of `count` along d alone; the rank updates that
+    piece of the param from the same piece of the (whole, already
+    summed) gradient, then the pieces are gathered back into the param
+    (`_gather_into`). A leaf whose entry is None has whole moments and is
+    updated whole on every rank, as `adamw_apply` does. Returns the
+    state."""
+    state["step"].add_(1)
+    c1, c2 = _corrections(state["step"], b1, b2)
+    for g, m, v, p, d in zip(tree_leaves(grads), tree_leaves(state["m"]),
+                             tree_leaves(state["v"]), tree_leaves(params),
+                             dims):
+        if d is None:
+            u = _adamw_leaf(g, m, v, p, c1, c2, lr, b1, b2, eps,
+                            weight_decay)
+            p.copy_(u.add_(p.float()))
+            continue
+        n = p.shape[d] // count
+        gs, ps = g.narrow(d, index * n, n), p.narrow(d, index * n, n)
+        if m.shape != gs.shape:
+            raise ValueError(f"moments of shape {tuple(m.shape)} for the "
+                             f"piece {tuple(gs.shape)} of a leaf: ZeRO-1 "
+                             f"takes each rank's pieces "
+                             f"(launch.steps.init_opt_state)")
+        u = _adamw_leaf(gs, m, v, ps, c1, c2, lr, b1, b2, eps, weight_decay)
+        _gather_into(p, u.add_(ps.float()).to(p.dtype), d, count, group)
     return state

@@ -176,12 +176,31 @@ def test_agg_step_opt_matches_the_reference(arch, dtype):
 
 
 def test_agg_steps_refuse_a_mesh():
+    """On a mesh's shape (no ranks) the agg steps and their shardings take
+    the mesh: `make_agg_step_opt` is the one-shard program there, and the
+    two `*_shardings` give the buffer's rows over 'data' and the params'
+    model shards. What they refuse: a buffer whose rows are not the
+    weights' (on a live mesh, the rank's share of them)."""
+    from repro_torch.launch.mesh import production_mesh_shape
     cfg = tget("qwen3-8b").reduced()
-    with pytest.raises(NotImplementedError, match="A.10"):
-        TS.make_agg_step_opt(cfg, mesh=object())
-    for fn in (TS.agg_shardings, TS.fl_round_shardings):
-        with pytest.raises(NotImplementedError, match="A.10"):
-            fn(cfg, mesh=object())
+    mesh = production_mesh_shape()
+    params = TT.init_params(0, cfg, device="cpu")
+    upd = tree_map(lambda p: 0.01 * torch.ones((4,) + tuple(p.shape)),
+                   params)
+    stal = torch.arange(4, dtype=torch.int32)
+    got = TS.make_agg_step_opt(cfg, mesh)(params, upd, stal)
+    want = TS.make_agg_step_opt(cfg)(params, upd, stal)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got),
+                                                 tree_leaves(want)))
+    for fn, m in ((TS.agg_shardings, 96), (TS.fl_round_shardings, 16)):
+        _, ins, outs = fn(cfg, mesh, buffer_m=m)
+        assert ins[1] is not None and outs is not None
+        (spec,) = {s.spec[0] for s in tree_leaves(
+            ins[1], is_leaf=lambda x: hasattr(x, "placements"))}
+        assert spec == "data"
+    with pytest.raises(ValueError, match="update rows"):
+        TS.make_agg_step_opt(cfg)(params, tree_map(lambda u: u[:3], upd),
+                                  stal)
 
 
 # ---------------------------------------------------------------------------
@@ -302,8 +321,12 @@ def test_build_args_match_the_reference(monkeypatch):
             assert len(targs) == len(rargs), (arch, name)
             for ta, ra in zip(targs, rargs):
                 assert _port_paths(ta) == _ref_paths(ra), (arch, name)
-    with pytest.raises(NotImplementedError, match="A.10"):
+    with pytest.raises(ValueError, match="give the step a mesh"):
         TS.build(tget("mixtral-8x7b"), T_SHAPES["train_4k"], moe_groups=-2)
+    from repro_torch.launch.mesh import production_mesh_shape
+    fn, _, i, _ = TS.build(tget("mixtral-8x7b"), T_SHAPES["train_4k"],
+                           production_mesh_shape(), moe_groups=-2)
+    assert callable(fn) and i is not None
     fn, _, _, _ = TS.build(tget("qwen3-8b"), T_SHAPES["agg_m96"],
                            moe_groups=-3)
     assert fn.__qualname__.startswith("make_agg_step_opt")
@@ -493,8 +516,10 @@ def test_dryrun_and_sweep_write_the_reference_records(tmp_path):
     fresh process, which writes an ok record with the reference's keys
     that `benchmarks/roofline_report.py` formats; run again, the sweep
     skips the recorded cell. A pair the reference skips is skipped; the
-    reference's sharding and XLA flags raise, naming A.10, and its HLO
-    dump, saying there is none."""
+    reference's `--opt-decode` shards the decode caches' feature dim over
+    'model' (fewer argument bytes a chip), `--strict-dtypes` is accepted
+    beside the opt agg step, and its HLO dump raises, saying there is
+    none."""
     out = tmp_path / "dryrun.json"
     sweep = ("repro_torch.launch.sweep", "--out", str(out), "--mesh",
              "multi", "--archs", "whisper-base", "--shapes", "agg_m96")
@@ -518,8 +543,22 @@ def test_dryrun_and_sweep_write_the_reference_records(tmp_path):
     from repro_torch.launch import dryrun
     assert dryrun.run_one("qwen3-8b", "long_500k", "single")["status"] == \
         "skipped"
-    for flag, what in (("--opt-decode", "A.10"), ("--strict-dtypes", "A.10"),
-                       ("--save-hlo=x", "no HLO")):
-        with pytest.raises(SystemExit, match=what):
-            dryrun.main(["--arch", "qwen3-8b", "--shape", "decode_32k",
-                         flag, "--out", str(out)])
+    chip = {}
+    for flags, tag in (((), "base"), (("--opt-decode",), "opt")):
+        dryrun.main(["--arch", "mamba2-370m", "--shape", "decode_32k",
+                     *flags, "--variant", tag, "--out", str(out)])
+        (rec,) = [r for r in json.loads(out.read_text())
+                  if r["shape"] == "decode_32k+" + tag]
+        assert rec["status"] == "ok"
+        chip[flags] = rec["memory"]["argument_bytes"]
+    assert 0 < chip[("--opt-decode",)] < chip[()]
+    from repro_torch import sharding
+    assert sharding.DECODE_OPT is False
+    dryrun.main(["--arch", "whisper-base", "--shape", "agg_m96", "--moe-groups",
+                 "-3", "--strict-dtypes", "--out", str(out)])
+    (rec,) = [r for r in json.loads(out.read_text())
+              if r["shape"] == "agg_m96" and r["mesh"] == "single"]
+    assert rec["status"] == "ok" and rec["kernel_calls"] == {}
+    with pytest.raises(SystemExit, match="no HLO"):
+        dryrun.main(["--arch", "qwen3-8b", "--shape", "decode_32k",
+                     "--save-hlo=x", "--out", str(out)])

@@ -19,6 +19,7 @@ from repro.configs.base import INPUT_SHAPES as R_SHAPES
 from repro.configs.base import ShapeConfig as RShape
 from repro.configs.base import get_config as rget
 from repro.configs.base import list_configs
+from repro.core.mesh import abstract_mesh
 from repro.launch import input_specs as RI
 from repro.launch import steps as RS
 from repro.launch.train import synthetic_lm_batch as r_batch
@@ -28,6 +29,7 @@ from repro_torch.configs.base import get_config as tget
 from repro_torch.launch import input_specs as TI
 from repro_torch.launch import steps as TS
 from repro_torch.launch import train as TR
+from repro_torch.launch.mesh import production_mesh_shape
 from repro_torch.launch.train import synthetic_lm_batch as t_batch
 
 # One intra-op thread: the suite runs as several pytest workers on a few
@@ -88,8 +90,11 @@ def test_default_num_micro_matches():
         ts = TShape("t", seq_len=16, global_batch=batch, kind="train")
         assert TS.default_num_micro(tget("qwen3-8b"), ts) \
             == RS.default_num_micro(rget("qwen3-8b"), rs, mesh)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        TS.default_num_micro(tget("qwen3-8b"), ts, mesh)
+        # the production mesh's 16 data shards, on its shape alone
+        assert TS.default_num_micro(tget("qwen3-8b"), ts,
+                                    production_mesh_shape()) \
+            == RS.default_num_micro(rget("qwen3-8b"), rs, abstract_mesh(
+                (16, 16), ("data", "model")))
 
 
 def test_train_lowers_the_loss_on_the_cpu(capsys):
@@ -104,8 +109,13 @@ def test_train_lowers_the_loss_on_the_cpu(capsys):
 
 @pytest.mark.parametrize("mesh_kind", ["single", "multi"])
 def test_production_meshes_raise(mesh_kind):
-    with pytest.raises(NotImplementedError, match="A.10"):
+    """The production meshes need worlds of 256 and 512 ranks; one process
+    is a world of one, and no group is left behind."""
+    import torch.distributed as dist
+    need = 512 if mesh_kind == "multi" else 256
+    with pytest.raises(RuntimeError, match=f"world of {need} ranks"):
         TR.train("qwen3-8b", steps=1, mesh_kind=mesh_kind, device="cpu")
+    assert not dist.is_initialized()
 
 
 def test_cli_runs_on_the_cpu():

@@ -210,9 +210,21 @@ def test_train_step_writes_in_place_and_reads_nothing_back():
                for v in metrics.values())
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()}, {"moe_groups": -2}])
+class _LiveMesh:
+    """A stand-in for a live (1, 2) mesh over (data, model)."""
+    mesh_dim_names = ("data", "model")
+
+    def size(self, i=None):
+        return (1, 2)[i] if i is not None else 2
+
+
+@pytest.mark.parametrize("kw", [{"mesh": _LiveMesh()}, {"moe_groups": -2}])
 def test_meshes_and_expert_parallelism_raise(kw):
+    """What the step still refuses: a live model axis above 1 (ROADMAP
+    A.10 part 3), and expert parallelism without a mesh to hold the
+    experts (the live meshes' steps: tests/test_torch_zoo_mesh*.py)."""
     tc = tget("mixtral-8x7b").reduced()
     mesh = kw.pop("mesh", None)
-    with pytest.raises(NotImplementedError, match="A.10"):
+    with pytest.raises(NotImplementedError if mesh else ValueError,
+                       match="A.10 part 3" if mesh else "needs|mesh"):
         TS.make_train_step(tc, mesh, **kw)
