@@ -271,7 +271,21 @@ Phases, each of which fails the script (nonzero exit) when it fails:
      the expert-parallel loss and gradients against the grouped path's
      and the plain versions', each step timed; (d) `make_agg_step_opt`
      at whisper-base's agg_m96 on the host mesh = `mesh=None`, timed;
-  19. one JSON line listing every ported kernel.
+  19. tensor parallelism on the card (`zoo tp` lines,
+     `run_zoo_tp_path`), after the NCCL group has ended: two ranks
+     spawned over a gloo group, both on the one card, the mesh (1, 2)
+     over (data, model); (a) qwen3-8b at full width cut to
+     `ZOO_TP_LAYERS` layers: prefill at B 1 x S 2048, 8 greedy serve
+     steps at B 8 and one train step at B 2 x S 2048 (its loss and
+     gradients first), each against `mesh=None` on the card run first and
+     freed (loss, grad norm, named gradient leaves, logits, tokens); (b)
+     qwen3-moe-30b-a3b cut to `ZOO_TP_MOE_LAYERS` layers in float32, 64
+     experts a rank: the loss and gradients against `mesh=None`, with
+     the tokens whose expert set differs; every rank's
+     attention calls at its per-rank heads, its RMSNorm calls at held
+     shapes, ms and peak memory (gloo carries the collectives through
+     host memory: these are not NVLink's times);
+  20. one JSON line listing every ported kernel.
 The last line is `{"ok": true,
 "device": {...}}`. Without a CUDA device, or away from the repository's
 sources, it exits nonzero and prints no result. Imports nothing of JAX or
@@ -558,6 +572,19 @@ RMS_SHAPES += RMS_FAMILY_SHAPES
 RMS_LAUNCH_SHAPES = [((1, 4096, 1024), "bfloat16", 0),
                      ((1, 4096, 2048), "bfloat16", 0)]
 RMS_SHAPES += RMS_LAUNCH_SHAPES
+# The zoo tp phase's per-rank shapes at a model axis of 2: qwen3-8b's q-
+# and k-norms over its 16 query and 4 kv heads of 128 a rank at S 2048
+# (prefill, a train microbatch) and at a decode step of B 8, bf16; and
+# qwen3-moe-30b-a3b's in float32, its q-norm over 16 heads and k-norm
+# over its 2 kv heads a rank (its block norm over d_model 2048 is
+# mamba2-370m's out_norm shape). `RmsCalls` holds the phase to them.
+RMS_TP_SHAPES = [((1, 32768, 128), "bfloat16", 0),
+                 ((1, 8192, 128), "bfloat16", 0),
+                 ((1, 128, 128), "bfloat16", 0),
+                 ((1, 32, 128), "bfloat16", 0),
+                 ((1, 32768, 128), "float32", 0),
+                 ((1, 4096, 128), "float32", 0)]
+RMS_SHAPES += RMS_TP_SHAPES
 RMS_EPS = 1e-6
 
 
@@ -883,6 +910,12 @@ FLASH_BWD256_SWEEP = [(2, h, k, 200, 200, 256, causal, window, "bfloat16")
     (1, 4, 2, 100, 170, 256, True, 0, "bfloat16"),
     (1, 4, 2, 170, 100, 240, True, 32, "bfloat16")]
 FLASH_SHAPES += [FLASH_GEMMA_TRAIN] + FLASH_BWD256_SWEEP
+# The zoo tp phase's prefill and train calls of a rank at a model axis of
+# 2 (its query heads and the kv heads they read), each at S 2048, causal:
+# qwen3-8b's 16 over 4 in bf16, qwen3-moe-30b-a3b's 16 over 2 in float32
+FLASH_TP = (1, 16, 4, 2048, 2048, 128, True, 0, "bfloat16")
+FLASH_TP_MOE = (1, 16, 2, 2048, 2048, 128, True, 0, "float32")
+FLASH_SHAPES += [FLASH_TP, FLASH_TP_MOE]
 # head groups of the hd-256 backward timed at FLASH_RG (the wrapper picks
 # one of them, `kernel.bwd_groups`)
 BWD256_GROUPS = (1, 2, 4, 8, 16)
@@ -1322,6 +1355,11 @@ FLASH_DECODE_FAMILIES = [(8, 1, 1, 16, 160, 256, False, 0, "bfloat16"),
                          (8, 8, 8, 1, 64, 64, False, 0, "bfloat16"),
                          (8, 8, 8, 1, 1500, 64, False, 0, "bfloat16")]
 FLASH_DECODE += FLASH_DECODE_FAMILIES
+# The zoo tp phase's decode call of a rank at a model axis of 2, at its
+# serve loop's last step: qwen3-8b's 4 kv heads a rank, the 4 query heads
+# of each as 4 rows, over a prefix of 8
+FLASH_DECODE_TP = (8, 4, 4, 4, 8, 128, False, 0, "bfloat16")
+FLASH_DECODE += [FLASH_DECODE_TP]
 
 
 # Splits over keys timed beside the chosen count at recurrentgemma-9b's
@@ -5991,6 +6029,462 @@ def _ptxas(log: str, kind: str):
                              f"kernels, not {want}")
 
 
+# The zoo tp phase (`zoo tp` lines): tensor parallelism over the model axis
+# (`models/layers.py::TensorParallel` through the train, prefill and serve
+# steps of `launch/steps.py` on a live mesh) on the one card, after the
+# world-1 NCCL group has ended: `ZOO_TP_RANKS` processes spawned over a
+# gloo group on a `FileStore`, each on the same card, the mesh
+# `ZOO_TP_MESH` over (data, model). NCCL refuses two ranks on one device;
+# gloo carries the CUDA tensors' all-reduces and all-gathers through host
+# memory, so the phase's times are not those of tensor parallelism over
+# NVLink. (a) qwen3-8b at full width cut to `ZOO_TP_LAYERS` of its 36
+# layers (bf16 params and gradients, float32 microbatch sums and AdamW
+# moments: ~16 bytes a parameter, 2.0 B parameters, ~32 GB for `mesh=None`
+# run first and freed, ~16 GB a rank; the cut keeps both ranks' peaks on
+# the card and the phase near 90 s); (b) qwen3-moe-30b-a3b cut to
+# `ZOO_TP_MOE_LAYERS` of its 48 layers (3.1 B parameters), its 128
+# experts 64 a rank, in float32: in bf16 the partition's other rounding
+# flips top-8 choices at near-ties and moves an expert stack's gradient
+# as far as the kernels' own numerics do (`scripts/zoo_tp_phase.py
+# --controls`), so only float32 holds the gradients leaf by leaf. Each rank's named gradient leaves go to the parent
+# through files in a temporary directory (~1.3 GB a rank for (a), ~2.9 GB
+# for (b)).
+ZOO_TP_RANKS = 2
+ZOO_TP_MESH = (1, 2)
+ZOO_TP_LAYERS = 4
+ZOO_TP_MOE_LAYERS = 4
+ZOO_TP_TRAIN = (2, 2048)             # batch, sequence: 2 microbatches
+ZOO_TP_PREFILL = (1, 2048)           # batch, sequence
+ZOO_TP_SERVE = (8, 8, 64)            # batch, greedy steps, cache slots
+ZOO_TP_TIMEOUT = 600                 # seconds for the spawned world
+ZOO_TP_MOE_DTYPE = "float32"
+# float32 against `mesh=None`: the loss as the train phase's card against
+# CPU (`TRAIN_LOSS_TOL`), a gradient leaf's relative L2 error as the CPU
+# tests' gradient tolerance (1e-4)
+ZOO_TP_F32_GRAD_TOL = 1e-4
+
+
+class FlashCalls:
+    """Within the block, counts the zoo's attention kernel calls on the
+    card by (direction, B, H, K, Sq, Sk, hd, causal, window, dtype), by
+    wrapping the kernel module's (B, S, H, hd) entry points that
+    `kernels/flash_attention/ops.py` calls (the transformer's layout)."""
+
+    def __enter__(self):
+        from collections import Counter
+        from repro_torch.kernels.flash_attention import kernel as K
+        self.seen, self._saved = Counter(), []
+        for name, tag in (("flash_attention_bshd", "fwd"),
+                          ("flash_attention_bshd_bwd", "bwd")):
+            fn = getattr(K, name)
+
+            def wrapped(q, k, v, *args, _fn=fn, _tag=tag, causal=True,
+                        window=0):
+                if q.is_cuda:
+                    self.seen[(_tag, *K._sizes(q, k, True), q.shape[-1],
+                               causal, window,
+                               str(q.dtype).split(".")[-1])] += 1
+                return _fn(q, k, v, *args, causal=causal, window=window)
+            self._saved.append((K, name, fn))
+            setattr(K, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+class MoeRoutes:
+    """Within the block, keeps the expert ids (G, Tg, k) of every MoE
+    dispatch in call order (a remat's recomputation too), by wrapping
+    `models/moe.py::_dispatch_combine`, which `moe_apply` calls."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe as M
+        self.ids, self._fn = [], M._dispatch_combine
+
+        def wrapped(xg, gate_vals, expert_idx, *args, **kw):
+            self.ids.append(expert_idx.detach().to("cpu", torch.int16))
+            return self._fn(xg, gate_vals, expert_idx, *args, **kw)
+        M._dispatch_combine = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as M
+        M._dispatch_combine = self._fn
+
+
+def _flips(got, want):
+    """(tokens whose expert set differs, tokens routed) over two runs'
+    `MoeRoutes.ids`, call by call."""
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} MoE dispatches, not {len(want)}")
+    differ = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                 for a, b in zip(got, want))
+    return differ, sum(a[..., 0].numel() for a in want)
+
+
+def _tp_named(tree, moe: bool):
+    """The named leaves of a params-shaped tree (params, gradients or
+    specs): the embedding, the LM head, and the first and last layer's
+    wq, wk, wo and w_down (and a MoE layer's router and w_gate), a
+    layer's leaf taken at its index on the stage's repeat axis."""
+    out = {"embed": (tree["emb"]["embed"], None),
+           "lm_head": (tree["emb"]["lm_head"], None)}
+    block = tree["stages"][0]["pos0"]
+    ffn = block["ffn"]["moe" if moe else "mlp"]
+    for i, tag in ((0, "first"), (-1, "last")):
+        for key in ("wq", "wk", "wo"):
+            out[f"{tag}.{key}"] = (block["attn"][key], i)
+        for key in (("router", "w_gate", "w_down") if moe else ("w_down",)):
+            out[f"{tag}.{key}"] = (ffn[key], i)
+    return out
+
+
+def _tp_program(torch, cfg, mesh, part, card=""):
+    """One program of the phase on `mesh` (None: one device, the
+    reference), from seed 0's params drawn on the card, a rank's pieces
+    of them on a live mesh (`sharding.shard_params`). Part "a": the
+    prefill step at `ZOO_TP_PREFILL` (a warm call, then one timed), the
+    greedy serve loop of `ZOO_TP_SERVE` from seeded tokens (on one device
+    `transformer.decode_step` and `torch.argmax`, each step's top-2 logit
+    gap kept), then the train step at `ZOO_TP_TRAIN`: its loss and
+    gradients, then one whole step timed. Part "b": the loss and gradients
+    alone, and the global gradient norm. Returns the results on the host:
+    the named gradient leaves (`_tp_named`; a rank's pieces), the MoE
+    routes (`MoeRoutes`), the launches, collectives and kernel shapes of
+    the mesh's steps."""
+    from collections import Counter
+    from repro_torch import sharding as Sh
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import mesh as MM
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.train import synthetic_lm_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import global_norm
+    from repro_torch.tree import tree_leaves
+    moe = bool(cfg.num_experts)
+    out = {"launches": {}, "collectives": {}}
+    torch.backends.cuda.matmul.allow_tf32 = False     # float32 stays f32
+    params = T.init_params(0, cfg, device="cuda")
+    if mesh is not None:
+        params = Sh.shard_params(params, cfg, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    flash, rms, unheld = Counter(), set(), set()
+
+    def counted(key, fn):
+        launch_counts.clear()
+        MM.collective_counts.clear()
+        with FlashCalls() as f, RmsCalls() as r:
+            got = fn()
+            torch.cuda.synchronize()
+        flash.update(f.seen)
+        rms.update(r.seen)
+        unheld.update(r.unheld())
+        out["launches"][key] = dict(launch_counts)
+        out["collectives"][key] = dict(MM.collective_counts)
+        return got
+
+    if part == "a":
+        B, S = ZOO_TP_PREFILL
+        toks = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                             device="cuda")
+        prefill = ST.make_prefill_step(cfg, mesh=mesh)
+        prefill(params, {"tokens": toks})                  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = counted("prefill", lambda: prefill(params, {"tokens": toks}))
+        out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        out["prefill"] = logits.float().cpu()
+        B, steps, C = ZOO_TP_SERVE
+        tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=g,
+                            device="cuda", dtype=torch.int32)
+        if mesh is None:
+            state = T.init_decode_state(params, cfg, B, C,
+                                        getattr(torch, cfg.param_dtype))
+            toks, gaps = [], []
+            with torch.inference_mode():
+                for _ in range(steps):
+                    lg, state = T.decode_step(params, tok, state, cfg)
+                    gaps.append(_top2_gap(lg[:, -1]))
+                    tok = torch.argmax(lg[:, -1], dim=-1).to(
+                        torch.int32)[:, None]
+                    toks.append(tok)
+            out["serve_gaps"] = torch.stack(gaps, dim=1).cpu()
+        else:
+            serve = ST.make_serve_step(cfg, mesh)
+            state = ST.init_serve_state(params, cfg, B, C, mesh)
+
+            def loop():
+                nonlocal tok, state
+                toks = []
+                for _ in range(steps):
+                    tok, state = serve(params, state, tok)
+                    toks.append(tok)
+                return toks
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = counted("serve", loop)
+            out["serve_ms_per_step"] = (time.perf_counter() - t0) / steps \
+                * 1e3
+            out["cache_kv_heads"] = tree_leaves(state["caches"])[0].shape[-2]
+        out["serve"] = torch.cat(toks, dim=1).cpu()
+        del state
+
+    B, S = ZOO_TP_TRAIN
+    shape = ShapeConfig("train", seq_len=S, global_batch=B, kind="train")
+    nm = ST.default_num_micro(cfg, shape)
+    step = ST.build(cfg, shape, mesh, num_micro=nm)[0]
+    batch = synthetic_lm_batch(cfg, shape, 0)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with MoeRoutes() as routes:
+        loss, grads = counted("loss_and_grad",
+                              lambda: step.loss_and_grad(params, batch))
+    out["routes"] = routes.ids
+    out["loss_and_grad_ms"] = (time.perf_counter() - t0) * 1e3
+    out["num_micro"] = nm
+    out["loss"] = loss.item()
+    if mesh is None:
+        out["grad_norm_lg"] = global_norm(grads).item()
+    else:
+        meta = T.init_params(0, cfg, device="meta")
+        cut = [Sh.model_sharded(s) for s in tree_leaves(
+            Sh.param_specs(meta, cfg, mesh), is_leaf=Sh.is_spec)]
+        out["grad_norm_lg"] = global_norm(
+            grads, sharded=cut, group=mesh.get_group("model")).item()
+    out["grads"] = {k: (x if i is None else x[i]).cpu()
+                    for k, (x, i) in _tp_named(grads, moe).items()}
+    del grads
+    if part == "a":
+        opt = ST.init_opt_state(params, cfg, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = counted("train", lambda: step(params, opt, batch))
+        out["train_ms"] = (time.perf_counter() - t0) * 1e3
+        out["train_loss"], out["grad_norm"] = (m["loss"].item(),
+                                               m["grad_norm"].item())
+        del opt
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["flash_calls"] = sorted([list(k), n] for k, n in flash.items())
+    out["rms_calls"] = sorted(list(c) for c in rms)
+    out["rms_unheld"] = sorted(list(c) for c in unheld)
+    del params, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_config(arch):
+    """The phase's configs: `arch` at full width cut in depth (qwen3-moe
+    in float32, `ZOO_TP_MOE_DTYPE`), and the full config."""
+    import dataclasses
+    from repro_torch.configs.base import StageSpec
+    if arch != "qwen3-moe-30b-a3b":
+        return train_cut(arch, ZOO_TP_LAYERS,
+                         (StageSpec(("global",), ZOO_TP_LAYERS),))
+    L = ZOO_TP_MOE_LAYERS
+    cfg, full = train_cut(arch, L, (StageSpec(("global",), L),))
+    return dataclasses.replace(cfg, param_dtype=ZOO_TP_MOE_DTYPE), full
+
+
+def _tp_rank(rank, world, out_dir):
+    """One rank of the phase's spawned world: the gloo group, the mesh
+    over the one card, parts (a) and (b), each rank's results saved to
+    ``{out_dir}/rank{rank}.pt``."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(Path(out_dir) / "store"), world),
+        rank=rank, world_size=world)
+    try:
+        mesh = DeviceMesh("cuda", torch.arange(world).reshape(ZOO_TP_MESH),
+                          mesh_dim_names=("data", "model"))
+        out = {part: _tp_program(torch, tp_config(arch)[0], mesh, part)
+               for part, arch in (("a", "qwen3-8b"),
+                                  ("b", "qwen3-moe-30b-a3b"))}
+        from repro_torch import sharding as Sh
+        out["coord"] = Sh.coordinate(mesh)
+        torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_rel_l2(torch, pieces, want, spec, sizes):
+    """The relative L2 error of a leaf whose ranks hold `pieces`
+    [(coords, piece)] against the whole `want`: the squared errors of
+    each rank's piece against its piece of `want` (`sharding.piece`),
+    summed once a piece (ranks holding the same piece count once)."""
+    from repro_torch import sharding as Sh
+    err, seen = 0.0, set()
+    for coords, got in pieces:
+        ref = Sh.piece(want, spec, sizes, coords)
+        key = tuple(Sh.shard_range(want.shape[d], e, sizes, coords)
+                    for d, e in enumerate(spec) if e is not None)
+        if key in seen:
+            continue
+        seen.add(key)
+        err += float((got.float() - ref.float()).square().sum())
+    return (err / float(want.float().square().sum())) ** 0.5
+
+
+def run_zoo_tp_path(torch, card):
+    """Tensor parallelism over the model axis on one card: (a) qwen3-8b and
+    (b) qwen3-moe-30b-a3b cut in depth (`tp_config`), each first on one
+    device (`mesh=None`, `_tp_program`) and freed, then on a spawned world
+    of `ZOO_TP_RANKS` gloo ranks over the mesh `ZOO_TP_MESH` (`_tp_rank`):
+    the loss, the gradient norm and the named gradient leaves within the
+    train phase's bf16 tolerances (L 2^-8 relative, 2 L 2^-8 relative L2),
+    (a)'s prefill logits within L 2^-8 relative L2, its greedy tokens
+    equal wherever the reference's top-2 gap is above twice the prefill's
+    largest logit error, every rank the same tokens, its step's loss and
+    grad norm; every rank's attention calls at the per-rank head counts,
+    its RMSNorm calls at held shapes, ms and peak memory printed. Returns
+    the ranks' launch counts, summed."""
+    import tempfile
+    import torch.multiprocessing as mp
+    from collections import Counter
+    from repro_torch import sharding as Sh
+    from repro_torch.core.mesh import MeshShape, axis_sizes
+    from repro_torch.models import transformer as T
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    refs = {}
+    for part, arch in (("a", "qwen3-8b"), ("b", "qwen3-moe-30b-a3b")):
+        refs[part] = _tp_program(torch, tp_config(arch)[0], None, part)
+    t_ref = time.perf_counter() - t_phase
+    with tempfile.TemporaryDirectory() as out_dir:
+        ctx = mp.start_processes(_tp_rank, args=(ZOO_TP_RANKS, out_dir),
+                                 nprocs=ZOO_TP_RANKS, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + ZOO_TP_TIMEOUT
+        try:
+            while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"zoo tp: the spawned world ran past"
+                                         f" {ZOO_TP_TIMEOUT} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        ranks = [torch.load(Path(out_dir) / f"rank{r}.pt")
+                 for r in range(ZOO_TP_RANKS)]
+    t_world = time.perf_counter() - t_phase - t_ref
+    mesh = MeshShape(ZOO_TP_MESH, ("data", "model"))
+    sizes = axis_sizes(mesh)
+    counts = Counter()
+    for part, arch in (("a", "qwen3-8b"), ("b", "qwen3-moe-30b-a3b")):
+        cfg, full = tp_config(arch)
+        L, ref = cfg.num_layers, refs[part]
+        outs = [r[part] for r in ranks]
+        for o in outs:
+            for key in ("loss_and_grad", "train", "prefill", "serve"):
+                counts.update(o["launches"].get(key, {}))
+        tol_loss, tol_grad = ((TRAIN_LOSS_TOL, ZOO_TP_F32_GRAD_TOL)
+                              if cfg.param_dtype == "float32"
+                              else (L * 2 ** -8, 2 * L * 2 ** -8))
+        specs = _tp_named(Sh.param_specs(T.init_params(0, cfg, device="meta"),
+                                         cfg, mesh), bool(cfg.num_experts))
+        grad_err = {
+            name: _tp_rel_l2(torch, [(r["coord"], r[part]["grads"][name])
+                                     for r in ranks], ref["grads"][name],
+                             spec if i is None else spec[1:], sizes)
+            for name, (spec, i) in specs.items()}
+        flips = [_flips(o["routes"], ref["routes"]) for o in outs]
+        err = {"loss": max(abs(o["loss"] - ref["loss"]) / abs(ref["loss"])
+                           for o in outs),
+               "routing_flips": flips,
+               "grad_norm": max(abs(o["grad_norm_lg"] - ref["grad_norm_lg"])
+                                / ref["grad_norm_lg"] for o in outs),
+               "grads": grad_err}
+        bad = [k for k in ("loss", "grad_norm") if err[k] > tol_loss] + [
+            k for k, e in grad_err.items() if e > tol_grad]
+        line = {"arch": cfg.name, "layers": f"{L} of {full.num_layers}",
+                "mesh": dict(sizes), "batch": ZOO_TP_TRAIN[0],
+                "seq": ZOO_TP_TRAIN[1], "num_micro": ref["num_micro"],
+                "dtype": cfg.param_dtype, "errors": err,
+                "tol": {"loss_rel": tol_loss, "grad_rel_l2": tol_grad},
+                "none": {k: ref[k] for k in (
+                    "loss", "grad_norm_lg", "loss_and_grad_ms", "peak_gb",
+                    "train_ms", "prefill_ms") if k in ref}}
+        if part == "a":
+            lg_ref = ref["prefill"]
+            lg = torch.cat([r["a"]["prefill"] for r in sorted(
+                ranks, key=lambda r: r["coord"]["model"])], dim=-1)
+            rel = _rel_l2(lg, lg_ref)
+            max_err = (lg - lg_ref).abs().max().item()
+            if rel > tol_loss:
+                bad.append("prefill")
+            want, gaps = ref["serve"], ref["serve_gaps"]
+            for o in outs:
+                if not torch.equal(o["serve"], outs[0]["serve"]):
+                    bad.append("serve tokens differ between ranks")
+            parted = []
+            for b in range(want.shape[0]):
+                diff = (outs[0]["serve"][b] != want[b]).nonzero()
+                if len(diff):
+                    t = int(diff[0])
+                    parted.append((b, t, float(gaps[b, t])))
+                    if float(gaps[b, t]) >= 2 * max_err:
+                        bad.append(f"serve row {b} at step {t}")
+            for o in outs:
+                if abs(o["train_loss"] - ref["train_loss"]) > tol_loss * abs(
+                        ref["train_loss"]) or abs(
+                        o["grad_norm"] - ref["grad_norm"]) > tol_loss * abs(
+                        ref["grad_norm"]):
+                    bad.append("train step metrics")
+                if o["cache_kv_heads"] != cfg.num_kv_heads // ZOO_TP_MESH[1]:
+                    bad.append("cache kv heads")
+            line.update(prefill={"batch": ZOO_TP_PREFILL[0],
+                                 "seq": ZOO_TP_PREFILL[1], "rel_l2": rel,
+                                 "max_abs_err": max_err,
+                                 "tol_rel_l2": tol_loss},
+                        serve={"batch": ZOO_TP_SERVE[0],
+                               "steps": ZOO_TP_SERVE[1],
+                               "cache": ZOO_TP_SERVE[2], "parted": parted,
+                               "tokens_equal": not parted},
+                        train_step={"loss": [o["train_loss"] for o in outs],
+                                    "grad_norm": [o["grad_norm"]
+                                                  for o in outs],
+                                    "none_loss": ref["train_loss"],
+                                    "none_grad_norm": ref["grad_norm"]})
+        heads = (cfg.num_heads // ZOO_TP_MESH[1],
+                 cfg.num_kv_heads // ZOO_TP_MESH[1])
+        for r, o in enumerate(outs):
+            # a rank's kv heads, and its query heads (the prefill's and
+            # the train step's calls) or its kv heads' rows (decode's)
+            wrong = [c for c, _ in o["flash_calls"]
+                     if c[3] != heads[1] or c[2] not in heads]
+            if not o["flash_calls"] or wrong or o["rms_unheld"]:
+                bad.append(f"rank {r}: attention calls {wrong}, unheld "
+                           f"RMSNorm {o['rms_unheld']}")
+            print(f"zoo tp ({part}) rank {r}", json.dumps({
+                "coord": ranks[r]["coord"],
+                **{k: o[k] for k in ("loss", "grad_norm_lg",
+                                     "loss_and_grad_ms", "train_ms",
+                                     "prefill_ms", "serve_ms_per_step",
+                                     "peak_gb", "cache_kv_heads") if k in o},
+                "attention_calls": o["flash_calls"],
+                "rmsnorm_calls": o["rms_calls"],
+                "launches": o["launches"],
+                "collectives": o["collectives"]}) + f"; {card}", flush=True)
+        print(f"zoo tp ({part})", json.dumps(line) + f"; {card}", flush=True)
+        if bad:
+            raise AssertionError(f"zoo tp ({part}): {bad}")
+    print(f"zoo tp: phase {time.perf_counter() - t_phase:.1f} s (mesh=None "
+          f"{t_ref:.1f} s, the spawned world {t_world:.1f} s); launches "
+          f"{dict(counts)}; two ranks share one card over gloo through host"
+          f" memory; {card}", flush=True)
+    return {"zoo_tp": dict(counts)}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6094,7 +6588,9 @@ def main() -> int:
     # one world-1 NCCL group (`core.mesh.init_world`) for Part B's host
     # mesh (train (c)) and the mesh phases, started outside any timed
     # wall and ended last: ending it leaves a thread behind
-    # (scripts/mesh_phase_after_cost.py), so no timed phase runs after it
+    # (scripts/mesh_phase_after_cost.py), so no timed phase of this
+    # process runs after it (the zoo tp phase's timed ranks are processes
+    # of their own)
     import torch.distributed as dist
     from repro_torch.core.mesh import init_world
     init_world("cuda")
@@ -6108,6 +6604,10 @@ def main() -> int:
         done("mesh path")
     finally:
         dist.destroy_process_group()
+    # tensor parallelism on a spawned gloo world of two ranks on the card,
+    # after the NCCL group has ended
+    paths.update(run_zoo_tp_path(torch, smi))
+    done("zoo tp path")
 
     # 6. the kernels line. One aggregation of the quickstart (one launch
     # over its flat model at M=20, float32); one SGD step of a
@@ -6312,6 +6812,23 @@ def main() -> int:
             "block": pick(rms_rows, kname, rms_launch, rms_names),
             "out_norm": pick(rms_rows, kname, (1, 4096, 2048, "bfloat16", 0),
                              rms_names)}
+    # the zoo tp phase's calls of a rank at a model axis of 2
+    tp_work = ("a rank of the zoo tp phase (mesh (1, 2), two ranks on the "
+               "card): qwen3-8b's prefill and train calls at (B, H, K, S, "
+               "hd) = (1, 16, 4, 2048, 128) causal bf16, one a layer and "
+               "microbatch; qwen3-moe-30b-a3b's at (1, 16, 2, 2048, 128) "
+               "float32 on the CUDA cores")
+    for kname in (flash_kernel.NAME, flash_kernel.NAME_BWD):
+        entry = next(k for k in kernels if k["name"] == kname)
+        entry["zoo_tp"] = {
+            "work": tp_work,
+            "qwen3_8b": pick(flash_rows, kname, FLASH_TP, flash_names),
+            "qwen3_moe": pick(flash_rows, kname, FLASH_TP_MOE, flash_names)}
+    next(k for k in kernels if k["name"] == flash_kernel.NAME)["zoo_tp"][
+        "decode"] = {
+        "work": "qwen3-8b's decode call of a rank at B 8: its 4 kv heads' 4 "
+                "query rows each over the serve loop's last prefix of 8",
+        **pick(decode_rows, flash_kernel.NAME, FLASH_DECODE_TP, flash_names)}
     # the hd-256 tensor-core forward and its combine: recurrentgemma-9b's
     # prefill call and its full-window decode call
     (rg,) = [r for r in flash_rows if r["kernel"] == flash_kernel.NAME and (

@@ -37,7 +37,8 @@ on both.
 
 `collective_counts` counts the collectives that ran, by kind (`psum`,
 `pmax`, `all_gather`, and the zoo's float collectives `psum_partial`,
-`grad_psum`, `psum_shared`, `all_reduce`, `gather_params`), beside
+`grad_psum`, `psum_shared`, `all_reduce`, `gather_params`,
+`gather_shards`), beside
 `repro_torch.kernels.launch_counts`: each function adds one where it
 issues its collective (an autograd function's backward where its
 backward does), and a CUDA graph that captured some adds them at each
@@ -59,6 +60,14 @@ program is a piece of one global function):
     that averages the ranks' gradients afterwards.
 `torch.distributed.nn.functional.all_reduce` is the last of these, and
 applied to the combine it would give n times the gradients.
+
+Tensor parallelism over the model axis (`repro_torch.models.layers.
+TensorParallel`) adds `gather_shards`: the ranks' pieces of a leaf
+concatenated along a dim (a column-sharded router, the kv columns of
+another rank); its gradient is the rank's own piece of the cotangent,
+which every rank holds whole (behind a `grad_psum` where the ranks'
+cotangents are partial). Its vocab-parallel loss takes the row maximum
+with `pmax`, outside autograd (the maximum cancels from the gradient).
 """
 from __future__ import annotations
 
@@ -273,7 +282,9 @@ def psum(x: torch.Tensor, axis) -> torch.Tensor:
 
 
 def pmax(x: torch.Tensor, axis) -> torch.Tensor:
-    """Maximum over the axis's ranks of an int32 tensor, a new tensor."""
+    """Maximum over the axis's ranks of `x`, a new tensor: an int32
+    tensor, or a float one that holds no gradient (the vocab-parallel
+    loss's row maximum)."""
     if axis is None:
         return x
     y = x.clone()
@@ -356,3 +367,30 @@ def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
     dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
     collective_counts["all_reduce"] += 1
     return x
+
+
+class _GatherShards(torch.autograd.Function):
+    """Forward: the group's pieces concatenated along `dim` in rank
+    order; backward: the rank's own piece of the (whole) cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int, group):
+        n, r = dist.get_world_size(group), dist.get_rank(group)
+        ctx.dim, ctx.r, ctx.size = dim, r, x.shape[dim]
+        parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
+                 for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        collective_counts["gather_shards"] += 1
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.r * ctx.size, ctx.size), None, None
+
+
+def gather_shards(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The whole tensor from every rank's equal piece `x` along `dim`
+    (rank k's the k-th); its gradient is the rank's piece of the
+    cotangent, whole on every rank."""
+    return _GatherShards.apply(x, dim % x.dim(), group)
+

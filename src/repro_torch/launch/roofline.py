@@ -25,8 +25,11 @@ issues, its backward and a remat's recomputation included:
     inserts into its per-shard program (the model axis's all-gathers and
     reduce-scatters of tensor parallelism, the data axes' gradient sums);
     the dry run executes the step of one device on the mesh's shape, which
-    issues none, and the port's tensor-parallel partition of the dense
-    steps does not exist yet (ROADMAP A.10 part 3).
+    issues none. The port's tensor-parallel partition exists on live
+    meshes (`models/layers.py::TensorParallel`, the steps of
+    `launch/steps.py` on a model axis above 1); counting its collectives
+    on the meta device, from one rank's program, waits for ROADMAP A.10
+    part 6.
 
 The counter executes the whole step, so its totals are global, where the
 reference's per-shard HLO totals are scaled by the chips; `analyze` keeps

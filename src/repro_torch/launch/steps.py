@@ -23,21 +23,29 @@ On a mesh (`launch/mesh.py`; `sharding.py`'s specs):
     shardings)`: the whole arguments on the meta device and trees of
     `sharding.NamedSharding` (the reference's specs and their DTensor
     placements); with `mesh=None`, `(args, None, None)`;
-  * `make_train_step(cfg, mesh)` on a live mesh whose model axis is 1 (the
-    host mesh) is data parallel with ZeRO-1 (`_make_dp_train_step`), and
-    `moe_groups=-2` takes expert parallelism (`moe.moe_apply_ep`);
+  * `make_train_step(cfg, mesh)` on a live mesh is data parallel over
+    the data axes with ZeRO-1 and, where the model axis is above 1, tensor
+    parallel over it (`_make_mesh_train_step`); `moe_groups=-2` takes
+    expert parallelism (`moe.moe_apply_ep`) where the model axis is not
+    tensor parallel;
   * `make_agg_step_opt(cfg, mesh)` runs the reference's collective
     schedule: each rank's rows of the buffer and model shards of the
     leaves, a local bf16 product, one bf16 all-reduce over the data axes;
   * on a `MeshShape` (no ranks) `build` returns the steps of one device,
     for the dry run's single execution on meta tensors, with the
     placements;
-  * prefill, the serve step, `make_agg_step` and the FL round take no
-    mesh, as in the reference, where GSPMD partitions them by their
-    shardings; on a live host mesh each rank runs them whole.
-The `model` axis of the dense steps above 1 on a live mesh (GSPMD's
-tensor parallelism, for which the reference has no code of its own)
-raises, naming ROADMAP A.10 part 3.
+  * `make_prefill_step(cfg, mesh=)` and `make_serve_step(cfg, mesh=)`
+    split the batch over the data axes where it divides and, on a model
+    axis above 1, run the rank's part of the tensor-parallel program;
+    `init_serve_state` makes the rank's decode state;
+  * `make_agg_step` and the FL round take no mesh, as in the reference,
+    where GSPMD partitions them by their shardings; on a live host mesh
+    each rank runs them whole.
+A model axis above 1 is GSPMD's tensor parallelism in the reference,
+which has no code of its own for it: here `layers.TensorParallel` over
+the rank's pieces of the params (`sharding.shard_params`), for the
+decoder-only attention families, dense or MoE. The other families and the
+FL round raise there, naming the ROADMAP item (`_refuse_model_axis`).
 """
 from __future__ import annotations
 
@@ -52,27 +60,76 @@ from repro_torch.core.aggregation import apply_aggregation
 from repro_torch.core.staleness import staleness_compensation
 from repro_torch.kernels.agg.ops import flat_tree
 from repro_torch.launch import input_specs as IS
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.optim import (adamw_apply, adamw_apply_zero1, adamw_init,
                                clip_by_global_norm)
 from repro_torch.tree import (tree_flatten, tree_leaves, tree_map,
                               tree_unflatten)
 
-PART_3 = ("ROADMAP A.10 part 3 (the model axis of the dense steps: GSPMD's "
-          "tensor parallelism in the reference)")
+PART_4 = ("ROADMAP A.10 part 4 (the model axis of mamba2-370m, "
+          "recurrentgemma-9b, whisper-base and phi-3-vision-4.2b)")
+PART_5 = ("ROADMAP A.10 part 5 (the FL round and make_agg_step on a model "
+          "axis above 1)")
+PART_8 = ("ROADMAP A.10 part 8 (expert parallelism, moe_groups=-2, beside "
+          "a tensor-parallel model axis)")
 
 
 def _model_size(mesh) -> int:
     return Mesh.axis_sizes(mesh)["model"]
 
 
-def _refuse_model_axis(mesh, what: str):
-    """A live mesh whose model axis is above 1 runs no dense step."""
-    if Mesh.is_live(mesh) and _model_size(mesh) > 1:
+def _tensor_parallel(mesh) -> bool:
+    return Mesh.is_live(mesh) and _model_size(mesh) > 1
+
+
+def _refuse_model_axis(cfg: ModelConfig, mesh, what: str, kind: str):
+    """On a live mesh whose model axis is above 1, the FL round and the
+    families with no tensor-parallel partition (`layers.tp_unsupported`)
+    raise, naming their ROADMAP item."""
+    if not _tensor_parallel(mesh):
+        return
+    n = _model_size(mesh)
+    if kind == "flround":
         raise NotImplementedError(
-            f"{what} on a live mesh with a model axis of "
-            f"{_model_size(mesh)}: the port runs the dense steps data "
-            f"parallel only; {PART_3}")
+            f"{what} on a live mesh with a model axis of {n}: {PART_5}")
+    other = L.tp_unsupported(cfg)
+    if other:
+        raise NotImplementedError(
+            f"{what} of {cfg.name} on a live mesh with a model axis of {n}:"
+            f" no tensor-parallel partition of its {', '.join(other)}; "
+            f"{PART_4}")
+
+
+def _tp(cfg: ModelConfig, mesh, what: str, kind: str):
+    """The `layers.TensorParallel` of a live mesh whose model axis is
+    above 1 (after `_refuse_model_axis`), else None."""
+    _refuse_model_axis(cfg, mesh, what, kind)
+    if not _tensor_parallel(mesh):
+        return None
+    return L.TensorParallel(cfg, mesh.get_group("model"))
+
+
+def _row_shard(mesh, batch: int):
+    """(index, count, group) of the rank's rows of a batch of `batch` over
+    the data axes of a live mesh, or None without one or where the rows
+    do not divide (every data rank then runs them all)."""
+    if not Mesh.is_live(mesh):
+        return None
+    n = Sh.data_size(mesh)
+    if batch % n:
+        return None
+    group = Mesh.axes_group(mesh, Sh.data_axes(mesh))
+    return dist.get_rank(group), n, group
+
+
+def _rows(batch: dict, shard):
+    """The rank's rows of each tensor of `batch` (`_row_shard`)."""
+    if shard is None:
+        return batch
+    index, count, _ = shard
+    return {k: v.narrow(0, index * (v.shape[0] // count),
+                        v.shape[0] // count) for k, v in batch.items()}
 
 
 def default_num_micro(cfg: ModelConfig, shape: ShapeConfig,
@@ -92,7 +149,7 @@ def default_num_micro(cfg: ModelConfig, shape: ShapeConfig,
 def make_loss_and_grad(cfg: ModelConfig, *, num_micro: int = 1,
                        q_chunk: int = 512, aux_weight: float = 0.01,
                        moe_groups: int = 1, shard=None, moe_ep=None,
-                       moe_group=None):
+                       moe_group=None, tp=None):
     """loss_and_grad(params, batch) -> (loss, grads): the loss
     `lm_loss + aux_weight * aux` (remat on, as in the reference's step)
     and its gradient in the params' tree, both device tensors. With
@@ -107,12 +164,14 @@ def make_loss_and_grad(cfg: ModelConfig, *, num_micro: int = 1,
     reference's scan constrains each microbatch to the data axes); with
     microbatches the sums and the loss are divided by `num_micro * count`,
     the rank's share of the global mean, which a sum over the ranks
-    completes. `moe_ep` and `moe_group` reach `transformer.forward`."""
+    completes. `moe_ep`, `moe_group` and `tp` (the rank's part of a
+    tensor-parallel program, its params its pieces) reach
+    `transformer.forward`; the gradients are then the rank's pieces."""
     def loss_fn(params, mb):
         logits, aux = T.forward(params, mb, cfg, q_chunk=q_chunk,
                                 moe_groups=moe_groups, moe_ep=moe_ep,
-                                moe_group=moe_group)
-        return T.lm_loss(logits, mb["labels"]) + aux_weight * aux
+                                moe_group=moe_group, tp=tp)
+        return T.lm_loss(logits, mb["labels"], tp=tp) + aux_weight * aux
 
     def rows(mb):
         if shard is None:
@@ -171,12 +230,11 @@ def make_train_step(cfg: ModelConfig, mesh=None, *, num_micro: int = 1,
 
     `mesh`: None or a `MeshShape` gives the step of one device (on a
     `MeshShape`, `moe_groups=-2` routes the MoE tokens in one group a data
-    shard, the expert-parallel program's groups); a live mesh whose model
-    axis is 1 gives the data-parallel ZeRO-1 step (`_make_dp_train_step`);
-    a live model axis above 1 raises (ROADMAP A.10 part 3)."""
+    shard, the expert-parallel program's groups); a live mesh gives the
+    data- and tensor-parallel ZeRO-1 step (`_make_mesh_train_step`), whose
+    params are the rank's pieces (`sharding.shard_params`)."""
     if Mesh.is_live(mesh):
-        _refuse_model_axis(mesh, "the train step")
-        return _make_dp_train_step(
+        return _make_mesh_train_step(
             cfg, mesh, num_micro=num_micro, lr=lr, q_chunk=q_chunk,
             aux_weight=aux_weight, clip_norm=clip_norm,
             moe_groups=moe_groups)
@@ -219,7 +277,9 @@ def init_opt_state(params, cfg: ModelConfig, mesh=None):
     """The AdamW state the train step of `mesh` takes: `adamw_init`'s
     whole moments, or on a live mesh this rank's ZeRO-1 pieces of them
     (float32 zeros of each leaf's piece along its `zero1_dims` dim, the
-    piece of the rank's index on the 'data' axis)."""
+    piece of the rank's index on the 'data' axis). `params` are the
+    rank's (its model pieces on a model axis above 1); the dims are read
+    from the whole leaves' specs."""
     if not Mesh.is_live(mesh):
         return adamw_init(params)
     n = Mesh.axis_sizes(mesh)["data"]
@@ -233,17 +293,19 @@ def init_opt_state(params, cfg: ModelConfig, mesh=None):
             shape[d] //= n
         return torch.zeros(shape, dtype=torch.float32, device=p.device)
 
-    dims = zero1_dims(params, cfg, mesh)
+    dims = zero1_dims(_meta_params(cfg), cfg, mesh)
     for key in ("m", "v"):
         state[key] = tree_unflatten(structure, [piece(p, d) for p, d in
                                                 zip(leaves, dims)])
     return state
 
 
-def _make_dp_train_step(cfg: ModelConfig, mesh, *, num_micro, lr, q_chunk,
-                        aux_weight, clip_norm, moe_groups):
-    """The train step, data parallel over the data axes of a live mesh
-    whose model axis is 1, with ZeRO-1:
+def _make_mesh_train_step(cfg: ModelConfig, mesh, *, num_micro, lr,
+                          q_chunk, aux_weight, clip_norm, moe_groups):
+    """The train step on a live mesh: data parallel over its data axes
+    with ZeRO-1 and, where its model axis is above 1, tensor parallel over
+    that (`layers.TensorParallel`; the params, the gradients and the
+    moments are the rank's pieces):
       * every rank is given the whole batch and takes its rows of each
         microbatch (`make_loss_and_grad(shard=)`);
       * a MoE model's routing groups fall within a rank (`moe_groups`, the
@@ -251,17 +313,27 @@ def _make_dp_train_step(cfg: ModelConfig, mesh, *, num_micro, lr, q_chunk,
         capacity and drops are the global program's); the balance loss
         sums its statistics over the data axes (`moe.moe_apply`), or with
         `moe_groups=-2` it is expert parallel (`moe.moe_apply_ep`, the
-        rank's tokens one routing group);
+        rank's tokens one routing group), at a model axis of 1 only
+        (above 1 it raises, ROADMAP A.10 part 8);
       * each rank's float32 gradient sums and loss, its share of the
         global means, are summed over the data axes (one microbatch: the
         gradients go over in float32, are divided by the shards and come
         back in the params' dtypes), so the global-norm clip is the same
         on every rank;
+      * on a model axis above 1 the global-norm clip sums the squares of
+        the cut leaves' pieces over the model group and counts the whole
+        leaves once (`optim.global_norm(sharded=)`);
       * AdamW runs on the rank's ZeRO-1 pieces of m and v
         (`init_opt_state`) and gathers the updated pieces back into the
         params' own storage (`optim.adamw_apply_zero1`).
     At a world of one every collective still runs, and the step gives the
-    one-device step's bits."""
+    one-device step's bits; at a model axis of 1 it is the data-parallel
+    step alone."""
+    if moe_groups == -2 and cfg.num_experts and _tensor_parallel(mesh):
+        raise NotImplementedError(
+            f"the train step of {cfg.name} with moe_groups=-2 on a live "
+            f"mesh with a model axis of {_model_size(mesh)}: {PART_8}")
+    tp = _tp(cfg, mesh, "the train step", "train")
     dp_axes = Sh.data_axes(mesh)
     dp_group = Mesh.axes_group(mesh, dp_axes)
     n, r = dist.get_world_size(dp_group), dist.get_rank(dp_group)
@@ -279,8 +351,15 @@ def _make_dp_train_step(cfg: ModelConfig, mesh, *, num_micro, lr, q_chunk,
         groups, moe_group = groups // n, dp_group
     local = make_loss_and_grad(
         cfg, num_micro=num_micro, q_chunk=q_chunk, aux_weight=aux_weight,
-        moe_groups=groups, shard=(r, n), moe_ep=moe_ep, moe_group=moe_group)
-    dims = zero1_dims(_meta_params(cfg), cfg, mesh)     # shapes alone
+        moe_groups=groups, shard=(r, n), moe_ep=moe_ep, moe_group=moe_group,
+        tp=tp)
+    meta = _meta_params(cfg)                             # shapes alone
+    dims = zero1_dims(meta, cfg, mesh)
+    clip = {}
+    if tp is not None:
+        clip = {"group": tp.group, "sharded": [
+            Sh.model_sharded(spec) for spec in tree_leaves(
+                Sh.param_specs(meta, cfg, mesh), is_leaf=Sh.is_spec)]}
 
     def loss_and_grad(params, batch):
         loss, grads = local(params, batch)
@@ -295,7 +374,7 @@ def _make_dp_train_step(cfg: ModelConfig, mesh, *, num_micro, lr, q_chunk,
         return loss / n, tree_unflatten(structure, sums)
 
     def update(params, opt_state, grads):
-        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        grads, gnorm = clip_by_global_norm(grads, clip_norm, **clip)
         state = adamw_apply_zero1(
             grads, opt_state, params, lr, dims=dims,
             index=dist.get_rank(zero_group),
@@ -316,12 +395,30 @@ def _make_dp_train_step(cfg: ModelConfig, mesh, *, num_micro, lr, q_chunk,
 
 
 def make_prefill_step(cfg: ModelConfig, *, q_chunk: int = 512,
-                      moe_groups: int = 1):
-    """prefill_step(params, batch) -> next-token logits (B, V)."""
+                      moe_groups: int = 1, mesh=None):
+    """prefill_step(params, batch) -> next-token logits (B, V).
+
+    `mesh`: on a live mesh every rank is given the whole batch and takes
+    its rows over the data axes where B divides them and, for a MoE
+    model, its routing groups (`moe_groups` of the whole batch) fall
+    within the rank; else it runs every row. On a model axis above 1 it
+    runs its part of the tensor-parallel forward on its pieces of the
+    params. It returns its piece of the logits, (rows, V / model) where
+    the vocab divides, as `prefill_shardings`'s out spec lays them out
+    where the rows split."""
+    tp = _tp(cfg, mesh, "the prefill step", "prefill")
+
     def prefill_step(params, batch):
         with torch.inference_mode():
-            logits, _ = T.forward(params, batch, cfg, q_chunk=q_chunk,
-                                  moe_groups=moe_groups)
+            shard = _row_shard(mesh, batch["tokens"].shape[0])
+            groups = moe_groups
+            if shard is not None and cfg.num_experts:
+                if groups % shard[1]:
+                    shard = None       # every rank routes the whole batch
+                else:
+                    groups //= shard[1]
+            logits, _ = T.forward(params, _rows(batch, shard), cfg,
+                                  q_chunk=q_chunk, moe_groups=groups, tp=tp)
             return logits[:, -1, :]
 
     return prefill_step
@@ -340,17 +437,53 @@ def make_decode_state_shape(cfg: ModelConfig, shape: ShapeConfig):
                                enc_frames=frames, device="meta")
 
 
-def make_serve_step(cfg: ModelConfig):
+def init_serve_state(params, cfg: ModelConfig, batch: int, seq_len: int,
+                     mesh=None, *, enc_frames=None):
+    """The decode state the serve step of `mesh` takes, on the params'
+    device: `transformer.init_decode_state` of the whole batch, or on a
+    live mesh of the rank's rows (`_row_shard`) and, on a model axis above
+    1, of the kv heads its query heads read (ROADMAP C30). An
+    encoder-decoder's `enc_frames` are the whole batch's; the rank
+    encodes its rows of them."""
+    tp = _tp(cfg, mesh, "the serve step", "decode")
+    shard = _row_shard(mesh, batch)
+    rows = batch if shard is None else batch // shard[1]
+    if enc_frames is not None:
+        enc_frames = _rows({"frames": enc_frames}, shard)["frames"]
+    return T.init_decode_state(params, cfg, rows, seq_len, L.dtype_of(cfg),
+                               enc_frames=enc_frames, tp=tp)
+
+
+def make_serve_step(cfg: ModelConfig, mesh=None):
     """serve_step(params, state, token (B, 1)) -> (greedy next token
     (B, 1) int32, new state). `serve_step.logits_spec()` is the spec the
     reference constrains the logits to under `sharding.DECODE_OPT`
     (vocab-sharded, the argmax reducing over the sharded vocab dim), None
-    without it; on one device or a host mesh the logits are whole."""
+    without it; on one device or a host mesh the logits are whole.
+
+    `mesh`: on a live mesh every rank is given the whole token and the
+    state of `init_serve_state`; it steps its rows, on a model axis above
+    1 its part of the tensor-parallel program, whose greedy pick reduces
+    over the vocab pieces (`TensorParallel.argmax`, the lowest index on a
+    tie). Every rank returns the whole (B, 1) token (the rows gathered
+    over the data axes)."""
+    tp = _tp(cfg, mesh, "the serve step", "decode")
+
     def serve_step(params, state, token):
         with torch.inference_mode():
-            logits, state = T.decode_step(params, token, state, cfg)
-            next_token = torch.argmax(logits[:, -1, :], dim=-1)
-            return next_token.to(torch.int32)[:, None], state
+            if not Mesh.is_live(mesh):
+                logits, state = T.decode_step(params, token, state, cfg)
+                next_token = torch.argmax(logits[:, -1, :], dim=-1)
+                return next_token.to(torch.int32)[:, None], state
+            shard = _row_shard(mesh, token.shape[0])
+            logits, state = T.decode_step(
+                params, _rows({"t": token}, shard)["t"], state, cfg, tp)
+            last = logits[:, -1, :]
+            pick = (torch.argmax(last, dim=-1) if tp is None
+                    else tp.argmax(last)).to(torch.int32)
+            if shard is not None:
+                pick = Mesh.all_gather(pick, shard[2])
+            return pick[:, None], state
 
     serve_step.logits_spec = lambda: ((None, None, "model")
                                       if Sh.DECODE_OPT else None)
@@ -596,14 +729,17 @@ def build(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *,
     flags: -3 on an agg shape takes `make_agg_step_opt`; -1 means one
     routing group per microbatch sequence (train) or per sequence
     (prefill); -2 is expert parallelism (`make_train_step`). On a live
-    mesh with a model axis above 1 the train, prefill, serve and FL round
-    steps raise (ROADMAP A.10 part 3)."""
+    mesh the train, prefill and serve steps are the mesh's
+    (`make_train_step`, `make_prefill_step(mesh=)`,
+    `make_serve_step(mesh=)`); with a model axis above 1 the FL round and
+    the families without a tensor-parallel partition raise
+    (`_refuse_model_axis`)."""
     if shape.kind == "agg":
         fn = (make_agg_step_opt(cfg, mesh) if moe_groups == -3
               else make_agg_step(cfg))
         args, i, o = agg_shardings(cfg, mesh, buffer_m=shape.global_batch)
         return fn, args, i, o
-    _refuse_model_axis(mesh, f"the {shape.kind} step")
+    _refuse_model_axis(cfg, mesh, f"the {shape.kind} step", shape.kind)
     if shape.kind == "flround":
         fn = make_fl_round_step(cfg)
         args, i, o = fl_round_shardings(cfg, mesh,
@@ -622,9 +758,10 @@ def build(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *,
         if moe_groups == -1:
             moe_groups = shape.global_batch
         fn = make_prefill_step(cfg, q_chunk=q_chunk,
-                               moe_groups=max(moe_groups, 1))
+                               moe_groups=max(moe_groups, 1),
+                               mesh=mesh if Mesh.is_live(mesh) else None)
         args, i, o = prefill_shardings(cfg, shape, mesh)
     else:
-        fn = make_serve_step(cfg)
+        fn = make_serve_step(cfg, mesh if Mesh.is_live(mesh) else None)
         args, i, o = decode_shardings(cfg, shape, mesh)
     return fn, args, i, o

@@ -18,6 +18,11 @@ Layouts:
                keep T = min(window, seq_len) slots (a ring buffer).
 Parameters may carry a leading satellite axis, which x then shares (the
 transformer payload's batched client update).
+
+Under tensor parallelism (`tp`, a `layers.TensorParallel`) a rank runs
+its query heads and the kv heads they read: q (B, S, H/n, hd), k and v
+(B, T, `tp.kv_heads`, hd), its rows of `wo` summed over the model group;
+its KV cache holds those kv heads alone.
 """
 from __future__ import annotations
 
@@ -53,19 +58,29 @@ def attention_init(generator: torch.Generator, cfg: ModelConfig, kind: str):
     return p
 
 
-def _project_qkv(params, x, cfg: ModelConfig, positions):
+def _project_qkv(params, x, cfg: ModelConfig, positions, tp=None):
     """x: (*lead, B, S, D) -> q (*lead, B, S, H, hd), k and v
     (*lead, B, S, K, hd), qk-norm (in the kernel) and RoPE applied to q
-    and k."""
+    and k; under `tp` the rank's H/n query heads and `tp.kv_heads` kv
+    heads."""
     *batch, S, _ = x.shape
     hd = cfg.resolved_head_dim
     H, K = cfg.num_heads, cfg.num_kv_heads
-    q = L.linear(x, params["wq"]).reshape(*batch, S, H, hd)
-    k = L.linear(x, params["wk"]).reshape(*batch, S, K, hd)
-    v = L.linear(x, params["wv"]).reshape(*batch, S, K, hd)
+    wk, wv = params["wk"], params["wv"]
     if cfg.qk_norm:
-        q = L.rmsnorm(params["q_norm"], q, cfg.norm_eps)
-        k = L.rmsnorm(params["k_norm"], k, cfg.norm_eps)
+        qn, kn = params["q_norm"], params["k_norm"]
+    if tp is not None:
+        x, H, K = tp.enter(x), tp.heads, tp.kv_heads
+        wk, wv = tp.kv_columns(wk), tp.kv_columns(wv)
+        if cfg.qk_norm:
+            qn = {"scale": tp.enter(qn["scale"])}
+            kn = {"scale": tp.enter(kn["scale"])}
+    q = L.linear(x, params["wq"]).reshape(*batch, S, H, hd)
+    k = L.linear(x, wk).reshape(*batch, S, K, hd)
+    v = L.linear(x, wv).reshape(*batch, S, K, hd)
+    if cfg.qk_norm:
+        q = L.rmsnorm(qn, q, cfg.norm_eps)
+        k = L.rmsnorm(kn, k, cfg.norm_eps)
     sin, cos = L.rope_tables(positions, hd, cfg.rope_theta, x.device)
     return L.rotate(q, sin, cos), L.rotate(k, sin, cos), v
 
@@ -86,24 +101,27 @@ def _project_q(params, h, cfg: ModelConfig):
 
 
 def attention_apply(params, x, cfg: ModelConfig, kind: str,
-                    q_chunk: int = 512, positions=None, kv_override=None):
+                    q_chunk: int = 512, positions=None, kv_override=None,
+                    tp=None):
     """Full-sequence (prefill) attention block with pre-norm and residual.
     `positions` (S,) or (B, S) default to 0..S-1. A global or local layer
     is causal, an encoder layer (`enc`) not; all three apply RoPE.
     `kv_override` (k, v, causal): cross-attention over precomputed k and
-    v (`cross_kv`), its query without RoPE."""
+    v (`cross_kv`), its query without RoPE. `tp`: the rank's heads, the
+    output projection summed over the model group."""
     B, S, _ = x.shape
     h = L.rmsnorm(params["norm"], x, cfg.norm_eps)
     if kv_override is None:
         if positions is None:
             positions = torch.arange(S, device=x.device)
-        q, k, v = _project_qkv(params, h, cfg, positions)
+        q, k, v = _project_qkv(params, h, cfg, positions, tp)
         causal, window = kind != ENC_ATTN, _window(cfg, kind)
     else:
         k, v, causal = kv_override
         q, window = _project_q(params, h, cfg), 0
     o = flash_ops.flash_attention_bshd(q, k, v, causal=causal, window=window)
-    return x + o.reshape(B, S, -1) @ params["wo"]
+    y = o.reshape(B, S, -1) @ params["wo"]
+    return x + (y if tp is None else tp.leave(y))
 
 
 def cross_kv(params, enc_out, cfg: ModelConfig):
@@ -123,15 +141,17 @@ def cross_kv(params, enc_out, cfg: ModelConfig):
 
 
 def init_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int, dtype,
-               device=None) -> KVCache:
+               device=None, kv_heads: int = None) -> KVCache:
+    """Zeros of the cache; `kv_heads` (default all K) is a tensor-parallel
+    rank's (`TensorParallel.kv_heads`)."""
     T = min(cfg.window_size, seq_len) if kind == LOCAL_ATTN else seq_len
-    shape = (batch, T, cfg.num_kv_heads, cfg.resolved_head_dim)
+    shape = (batch, T, kv_heads or cfg.num_kv_heads, cfg.resolved_head_dim)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
 
 def attention_decode(params, x, cache: KVCache, index: int,
-                     cfg: ModelConfig, kind: str, kv_override=None):
+                     cfg: ModelConfig, kind: str, kv_override=None, tp=None):
     """x: (B, 1, D); index: a host int, the number of tokens already in
     the cache. Writes the new k and v into slot index % T of the cache
     (in place) and returns (y, cache).
@@ -149,14 +169,18 @@ def attention_decode(params, x, cache: KVCache, index: int,
 
     `kv_override` (k, v), each (B, T, K, hd): cross-attention over all T
     of them (the encoder's output, `cross_kv`), the query without RoPE;
-    nothing is written and `cache` comes back as it was given."""
+    nothing is written and `cache` comes back as it was given.
+
+    `tp`: the rank's query heads against its kv heads' cache, the output
+    projection summed over the model group."""
     B = x.shape[0]
     hd = cfg.resolved_head_dim
-    H, K = cfg.num_heads, cfg.num_kv_heads
+    H, K = ((cfg.num_heads, cfg.num_kv_heads) if tp is None
+            else (tp.heads, tp.kv_heads))
     h = L.rmsnorm(params["norm"], x, cfg.norm_eps)
     if kv_override is None:
         pos = torch.full((1,), index, device=x.device)
-        q, k_new, v_new = _project_qkv(params, h, cfg, pos)
+        q, k_new, v_new = _project_qkv(params, h, cfg, pos, tp)
         T = cache.k.shape[1]
         slot = index % T
         cache.k[:, slot] = k_new[:, 0]
@@ -168,4 +192,5 @@ def attention_decode(params, x, cache: KVCache, index: int,
         k, v = kv_override
     o = flash_ops.flash_attention_bshd(q.reshape(B, K, H // K, hd)
                                        .transpose(1, 2), k, v, causal=False)
-    return x + o.transpose(1, 2).reshape(B, 1, H * hd) @ params["wo"], cache
+    y = o.transpose(1, 2).reshape(B, 1, H * hd) @ params["wo"]
+    return x + (y if tp is None else tp.leave(y)), cache

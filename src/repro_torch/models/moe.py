@@ -133,8 +133,28 @@ def _balance_loss(cfg: ModelConfig, counts, prob_sums, T: int):
     return cfg.num_experts * torch.sum(frac_tokens * frac_probs)
 
 
+def _dispatch_over_model(xg, probs, params, cfg: ModelConfig, C: int,
+                         model_group):
+    """The expert layer over `model_group`, whose every rank holds the
+    same tokens xg (G, Tg, D) and their probabilities (G, Tg, E): each
+    routes them all and runs the experts it holds, its E/n where the spec
+    cut the expert dim, all E (their d_ff pieces, or whole) where it did
+    not. The tokens and the probabilities the gates come from go through
+    `grad_psum` (every rank uses them for its part of the output), the
+    partial outputs through `psum_partial`. Returns the outputs (G, Tg, D)
+    and the tokens an expert (G, E)."""
+    E, k = cfg.num_experts, cfg.experts_per_token
+    El = params["w_gate"].shape[0]
+    lo = 0 if El == E else dist.get_rank(model_group) * El
+    _, gate_vals, expert_idx = _top_k(Mesh.grad_psum(probs, model_group), k)
+    out, counts = _dispatch_combine(
+        Mesh.grad_psum(xg, model_group), gate_vals, expert_idx, params, E, C,
+        lo=lo, El=El)
+    return Mesh.psum_partial(out, model_group), counts
+
+
 def moe_apply(params, x, cfg: ModelConfig, *, groups: int = 1,
-              data_group=None):
+              data_group=None, model_group=None):
     """x: (B, S, D) -> (x + MoE(x), aux loss). `groups` > 1 splits the
     tokens into that many independent routing groups, each with its own
     capacity (the reference's `_moe_apply_grouped`, its data-parallel
@@ -144,18 +164,32 @@ def moe_apply(params, x, cfg: ModelConfig, *, groups: int = 1,
     routing groups whole). The balance loss is the reference's over every
     rank's tokens: the tokens an expert and the probabilities' sums are
     summed over the group (`core.mesh.psum`, `psum_shared`) before their
-    product, so every rank has the global program's aux."""
+    product, so every rank has the global program's aux.
+
+    `model_group`: tensor parallelism (`layers.TensorParallel`). Every
+    rank of the group holds the same tokens and the whole router
+    (gathered) and runs its experts (`_dispatch_over_model`, as
+    `moe_apply_ep` does). Experts the spec leaves whole run whole, with
+    no collective."""
     B, S, D = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     T = B * S
     assert T % groups == 0, (T, groups)
     G, Tg = groups, T // groups
     C = _capacity(cfg, Tg)
+    if model_group is not None and params["w_gate"].shape[0] == E and \
+            params["w_gate"].shape[-1] == cfg.d_ff:
+        model_group = None                   # whole experts on every rank
 
     h = L.rmsnorm(params["norm"], x, cfg.norm_eps)
     xg = h.reshape(G, Tg, D)
     probs, gate_vals, expert_idx = _route(xg, params["router"], k)
-    out, counts = _dispatch_combine(xg, gate_vals, expert_idx, params, E, C)
+    if model_group is None:
+        out, counts = _dispatch_combine(xg, gate_vals, expert_idx, params,
+                                        E, C)
+    else:
+        out, counts = _dispatch_over_model(xg, probs, params, cfg, C,
+                                           model_group)
 
     counts, prob_sums = counts.sum(dim=0), probs.reshape(T, E).sum(dim=0)
     if data_group is not None:
@@ -179,14 +213,12 @@ def moe_apply_ep(params, x, cfg: ModelConfig, mesh, *,
         `sharding.param_spec` shards them); the rank takes the experts
         [m·El, (m+1)·El) for its model index m;
       * dispatch, the grouped products and the partial combine are local
-        (`_dispatch_combine` over the rank's expert window), then one sum
-        over the model group (`psum_partial`: its gradient passes to every
-        rank's partial unchanged);
-      * the tokens the dispatch reads and the probabilities the gates come
-        from are used alike by every model rank for its part of the
-        output, so their gradients are summed over the model group
-        (`grad_psum`); the balance loss reads the probabilities directly
-        and counts once;
+        to the rank's experts, then one sum over the model group
+        (`_dispatch_over_model`: `psum_partial` on the outputs, whose
+        gradient passes to every rank's partial unchanged, and
+        `grad_psum` on the tokens and the probabilities that every model
+        rank uses alike); the balance loss reads the probabilities
+        directly and counts once;
       * aux is the mean over the data axes of each shard's aux
         (`psum_shared` / n_data), the reference's definition, not the
         global aux.
@@ -198,7 +230,7 @@ def moe_apply_ep(params, x, cfg: ModelConfig, mesh, *,
     from repro_torch.core.mesh import axes_group
     model_group = mesh.get_group(model_axis)
     data_group = axes_group(mesh, data_axes)
-    n_model, m = dist.get_world_size(model_group), dist.get_rank(model_group)
+    n_model = dist.get_world_size(model_group)
     n_data = dist.get_world_size(data_group)
     B, S, D = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
@@ -213,11 +245,8 @@ def moe_apply_ep(params, x, cfg: ModelConfig, mesh, *,
     h = L.rmsnorm(params["norm"], x, cfg.norm_eps)
     xt = h.reshape(1, Tg, D)
     probs, _, _ = _route(xt, params["router"], k)
-    _, gate_vals, expert_idx = _top_k(Mesh.grad_psum(probs, model_group), k)
-    out, counts = _dispatch_combine(
-        Mesh.grad_psum(xt, model_group), gate_vals, expert_idx, params, E, C,
-        lo=m * El, El=El)
-    out = Mesh.psum_partial(out, model_group)
+    out, counts = _dispatch_over_model(xt, probs, params, cfg, C,
+                                       model_group)
     aux = _balance_loss(cfg, counts.sum(dim=0),
                         probs.reshape(Tg, E).sum(dim=0), Tg)
     aux = Mesh.psum_shared(aux, data_group) / n_data

@@ -25,6 +25,13 @@ remat=True)` recomputes one repeat of a stage's pattern in the backward
 body) and keeps only the repeat's input. The decode state is the caches,
 on the params' device, and `index`, a host int, so a step reads nothing
 back from the device; `decode_step` writes the caches in place.
+
+`tp` (a `layers.TensorParallel`, None by default) runs a rank's part of a
+tensor-parallel program over the model axis: `forward`, `decode_step`,
+`init_decode_state` and `lm_loss` take it, and it reaches every block
+beside `moe_ep`/`moe_group`. The params are then the rank's pieces
+(`repro_torch.sharding.shard_params`), the logits the rank's vocab
+columns, the caches its kv heads.
 """
 from __future__ import annotations
 
@@ -63,22 +70,29 @@ def _ffn_init(generator: torch.Generator, cfg: ModelConfig):
 
 
 def _ffn_apply(params, x, cfg: ModelConfig, moe_groups: int = 1,
-               moe_ep=None, moe_group=None):
+               moe_ep=None, moe_group=None, tp=None):
     """The FFN: dense, or MoE. `moe_ep=(mesh, data_axes)` takes the
     expert-parallel path (`moe.moe_apply_ep`) where the mesh's model axis
     divides the experts, else the grouped one, as the reference does
     (mixtral at model 16); `moe_group` is the data-parallel group whose
-    tokens the grouped path's balance loss covers (`moe.moe_apply`)."""
+    tokens the grouped path's balance loss covers (`moe.moe_apply`).
+    `tp`: the MLP's d_ff pieces (`TensorParallel.mlp`), or the router
+    gathered whole and the rank's experts over the model group."""
     if cfg.num_experts:
+        p = params["moe"]
+        if tp is not None:
+            p = dict(p, router=tp.whole(p["router"], -1, cfg.num_experts))
         if moe_ep is not None:
             mesh, data_axes = moe_ep
             if cfg.num_experts % mesh.size(
                     mesh.mesh_dim_names.index("model")) == 0:
-                return M.moe_apply_ep(params["moe"], x, cfg, mesh,
-                                      data_axes=data_axes)
-        return M.moe_apply(params["moe"], x, cfg, groups=moe_groups,
-                           data_group=moe_group)
+                return M.moe_apply_ep(p, x, cfg, mesh, data_axes=data_axes)
+        return M.moe_apply(p, x, cfg, groups=moe_groups,
+                           data_group=moe_group,
+                           model_group=None if tp is None else tp.group)
     h = L.rmsnorm(params["norm"], x, cfg.norm_eps)
+    if tp is not None:
+        return x + tp.mlp(params["mlp"], h, cfg.mlp_act), 0.0
     return x + L.mlp_apply(params["mlp"], h, cfg.mlp_act), 0.0
 
 
@@ -106,7 +120,7 @@ def block_init(generator: torch.Generator, cfg: ModelConfig, kind: str):
 
 def block_apply(params, x, cfg: ModelConfig, kind: str, *, positions=None,
                 enc_out=None, q_chunk=512, moe_groups=1, moe_ep=None,
-                moe_group=None):
+                moe_group=None, tp=None):
     _check_kind(kind)
     if kind == SSM:
         return S.ssm_apply(params["ssm"], x, cfg), 0.0
@@ -120,16 +134,19 @@ def block_apply(params, x, cfg: ModelConfig, kind: str, *, positions=None,
                               q_chunk=q_chunk, kv_override=(k, v, False))
     else:
         x = A.attention_apply(params["attn"], x, cfg, kind, q_chunk=q_chunk,
-                              positions=positions)
-    return _ffn_apply(params["ffn"], x, cfg, moe_groups, moe_ep, moe_group)
+                              positions=positions, tp=tp)
+    return _ffn_apply(params["ffn"], x, cfg, moe_groups, moe_ep, moe_group,
+                      tp)
 
 
 def block_init_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
-                     dtype, device=None, enc_out=None, params=None):
+                     dtype, device=None, enc_out=None, params=None,
+                     kv_heads=None):
     """One block's decode state: a KVCache, an SSMState, an LRUState, or
     for a cross block {"self": KVCache, "cross_k", "cross_v"}, the latter
     `cross_kv` of `enc_out` ((B, T, D)) with `params`, or zeros of their
-    shape where `params` is None (the meta device's shapes)."""
+    shape where `params` is None (the meta device's shapes). `kv_heads`:
+    a tensor-parallel rank's attention cache."""
     _check_kind(kind)
     if kind == SSM:
         return S.ssm_init_state(cfg, batch, dtype, device)
@@ -147,10 +164,11 @@ def block_init_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
         return {"self": A.init_cache(cfg, GLOBAL_ATTN, batch, seq_len, dtype,
                                      device),
                 "cross_k": ck, "cross_v": cv}
-    return A.init_cache(cfg, kind, batch, seq_len, dtype, device)
+    return A.init_cache(cfg, kind, batch, seq_len, dtype, device, kv_heads)
 
 
-def block_decode(params, x, cache, index: int, cfg: ModelConfig, kind: str):
+def block_decode(params, x, cache, index: int, cfg: ModelConfig, kind: str,
+                 tp=None):
     _check_kind(kind)
     if kind == SSM:
         return S.ssm_decode(params["ssm"], x, cache, cfg)
@@ -165,8 +183,8 @@ def block_decode(params, x, cache, index: int, cfg: ModelConfig, kind: str):
         cache = dict(cache, self=self_c)
     else:
         x, cache = A.attention_decode(params["attn"], x, cache, index, cfg,
-                                      kind)
-    x, _ = _ffn_apply(params["ffn"], x, cfg)
+                                      kind, tp=tp)
+    x, _ = _ffn_apply(params["ffn"], x, cfg, tp=tp)
     return x, cache
 
 
@@ -204,7 +222,7 @@ def _reps(stage_params, repeats: int):
 
 def stage_apply(stage_params, x, cfg: ModelConfig, spec: StageSpec, *,
                 positions=None, enc_out=None, q_chunk=512, remat=True,
-                moe_groups=1, moe_ep=None, moe_group=None):
+                moe_groups=1, moe_ep=None, moe_group=None, tp=None):
     """The stage's repeats in order. With `remat` (and autograd
     recording), each repeat's blocks run under a checkpoint: their
     activations are recomputed in the backward."""
@@ -214,7 +232,7 @@ def stage_apply(stage_params, x, cfg: ModelConfig, spec: StageSpec, *,
             h, a = block_apply(rep[f"pos{j}"], h, cfg, kind,
                                positions=positions, enc_out=enc,
                                q_chunk=q_chunk, moe_groups=moe_groups,
-                               moe_ep=moe_ep, moe_group=moe_group)
+                               moe_ep=moe_ep, moe_group=moe_group, tp=tp)
             aux = aux + a
         return h, aux
 
@@ -252,7 +270,7 @@ def _rep_of(node, r: int):
 
 def stage_init_cache(cfg: ModelConfig, spec: StageSpec, batch: int,
                      seq_len: int, dtype, device=None, enc_out=None,
-                     stage_params=None):
+                     stage_params=None, kv_heads=None):
     """{"pos<j>": a block's state (`block_init_cache`)}, each tensor
     stacked on a leading repeat axis, as the stage's parameters. A cross
     block's "cross_k" and "cross_v" are each repeat's `cross_kv` of
@@ -267,14 +285,15 @@ def stage_init_cache(cfg: ModelConfig, spec: StageSpec, batch: int,
                 cfg, kind, batch, seq_len, dtype, device, enc_out,
                 None if rep is None else rep[f"pos{j}"]) for rep in reps])
             continue
-        c = block_init_cache(cfg, kind, batch, seq_len, dtype, device)
+        c = block_init_cache(cfg, kind, batch, seq_len, dtype, device,
+                             kv_heads=kv_heads)
         out[f"pos{j}"] = type(c)(*(t.new_zeros((spec.repeats, *t.shape))
                                    for t in c))
     return out
 
 
 def stage_decode(stage_params, caches, x, index: int, cfg: ModelConfig,
-                 spec: StageSpec):
+                 spec: StageSpec, tp=None):
     """One token through the stage; the stacked caches are written in
     place (an attention block writes its slot, a cross block its self
     cache's slot; an SSM or RG-LRU block's new state is copied into its
@@ -282,7 +301,8 @@ def stage_decode(stage_params, caches, x, index: int, cfg: ModelConfig,
     for r, rep in enumerate(_reps(stage_params, spec.repeats)):
         for j, kind in enumerate(spec.pattern):
             cache = _rep_of(caches[f"pos{j}"], r)
-            x, new = block_decode(rep[f"pos{j}"], x, cache, index, cfg, kind)
+            x, new = block_decode(rep[f"pos{j}"], x, cache, index, cfg, kind,
+                                  tp)
             if kind in _STATEFUL:
                 for dst, src in zip(cache, new):
                     dst.copy_(src)
@@ -343,18 +363,19 @@ def _encode(params, frames, cfg: ModelConfig, q_chunk=512, remat=True):
 
 
 def forward(params, batch, cfg: ModelConfig, *, q_chunk=512, remat=True,
-            moe_groups=1, moe_ep=None, moe_group=None):
+            moe_groups=1, moe_ep=None, moe_group=None, tp=None):
     """Full-sequence forward. batch: {"tokens": (B, S) int}, with
     "image_embeds" (B, N, VISION_DIM) float32 for the vision frontend or
     "frames" (B, T, D) for an encoder-decoder. Returns (logits (B, S, V),
     aux loss): with images, logits on the text positions only. `remat`
     matters only where autograd records (`stage_apply`). `moe_ep` and
     `moe_group` reach the MoE blocks (`_ffn_apply`): a rank's batch under
-    expert or data parallelism."""
+    expert or data parallelism; `tp` the rank's part of a tensor-parallel
+    program (its vocab columns of the logits)."""
     _check_model(cfg)
     dt = L.dtype_of(cfg)
     enc_out = None
-    x = L.embed(params["emb"], batch["tokens"], cfg)
+    x = L.embed(params["emb"], batch["tokens"], cfg, tp)
     if cfg.frontend == "vision":
         # the reference's image_embeds (f32) @ vis_proj promotes to f32
         img = (batch["image_embeds"].float() @ params["vis_proj"].float()
@@ -368,22 +389,24 @@ def forward(params, batch, cfg: ModelConfig, *, q_chunk=512, remat=True,
         x, a = stage_apply(sp, x, cfg, spec, enc_out=enc_out,
                            q_chunk=q_chunk, remat=remat,
                            moe_groups=moe_groups, moe_ep=moe_ep,
-                           moe_group=moe_group)
+                           moe_group=moe_group, tp=tp)
         aux = aux + a
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if cfg.frontend == "vision":
         x = x[:, batch["image_embeds"].shape[1]:]   # the text positions
-    return L.unembed(params["emb"], x, cfg), aux
+    return L.unembed(params["emb"], x, cfg, tp), aux
 
 
 def init_decode_state(params: Optional[dict], cfg: ModelConfig, batch: int,
-                      seq_len: int, dtype, *, enc_frames=None, device=None):
+                      seq_len: int, dtype, *, enc_frames=None, device=None,
+                      tp=None):
     """Decode state: {"caches": one stacked tree per stage, "index": 0}.
     The caches go on the params' device (or `device` where params is
     None: "meta" gives the shapes alone). An encoder-decoder takes its
     frames (B, T, D): the encoder runs on them once (without autograd)
     and each cross block keeps its `cross_kv`; on the meta device only
-    their shape is read."""
+    their shape is read. `tp`: a tensor-parallel rank's state, its
+    caches holding its kv heads alone (ROADMAP C30)."""
     _check_model(cfg)
     enc_out = None
     if cfg.is_encoder_decoder:
@@ -403,23 +426,25 @@ def init_decode_state(params: Optional[dict], cfg: ModelConfig, batch: int,
     stages = ([None] * len(cfg.stages) if params is None
               else params["stages"])
     caches = [stage_init_cache(cfg, spec, batch, seq_len, dtype, device,
-                               enc_out, sp)
+                               enc_out, sp,
+                               None if tp is None else tp.kv_heads)
               for spec, sp in zip(cfg.stages, stages)]
     return {"caches": caches, "index": 0}
 
 
-def decode_step(params, token, state, cfg: ModelConfig):
+def decode_step(params, token, state, cfg: ModelConfig, tp=None):
     """token: (B, 1) int. Returns (logits (B, 1, V), new state); the
     caches (KV, SSM and RG-LRU states, a cross block's self cache) are
     written in place and `index` advances by one (ROADMAP C19: stepping
-    twice from one state is no replay; copy it first)."""
-    x = L.embed(params["emb"], token, cfg)
+    twice from one state is no replay; copy it first). `tp`: the rank's
+    part, its vocab columns of the logits."""
+    x = L.embed(params["emb"], token, cfg, tp)
     index = state["index"]
     for spec, sp, cache in zip(cfg.stages, params["stages"],
                                state["caches"]):
-        x, _ = stage_decode(sp, cache, x, index, cfg, spec)
+        x, _ = stage_decode(sp, cache, x, index, cfg, spec, tp)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = L.unembed(params["emb"], x, cfg)
+    logits = L.unembed(params["emb"], x, cfg, tp)
     return logits, {"caches": state["caches"], "index": index + 1}
 
 
@@ -427,12 +452,18 @@ def decode_step(params, token, state, cfg: ModelConfig):
 # Loss
 
 
-def lm_loss(logits, labels, mask=None):
-    """Cross-entropy in float32 with an optional validity mask."""
+def lm_loss(logits, labels, mask=None, tp=None):
+    """Cross-entropy in float32 with an optional validity mask. Under
+    `tp`, logits that are the rank's vocab columns take the
+    vocab-parallel form (`TensorParallel.nll`); every rank gets the
+    global loss."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = lse - ll
+    if tp is not None and logits.shape[-1] != tp.cfg.vocab_size:
+        nll = tp.nll(logits, labels)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        nll = lse - ll
     if mask is None:
         return torch.mean(nll)
     mask = mask.float()

@@ -27,19 +27,37 @@ from repro_torch.tree import tree_flatten, tree_leaves, tree_map, \
     tree_unflatten
 
 
-def global_norm(tree):
-    """sqrt of the sum of every leaf's squares, in float32."""
-    total = 0
-    for x in tree_leaves(tree):
-        total = total + torch.sum(torch.square(x.float()))
-    return torch.sqrt(total)
+def global_norm(tree, *, sharded=None, group=None):
+    """sqrt of the sum of every leaf's squares, in float32.
+
+    `sharded` (one bool a leaf, in `tree_leaves` order) with `group`: the
+    leaves marked are a rank's pieces of leaves cut over the group (a
+    tensor-parallel step's), whose squares are summed over it; the others
+    are whole and alike on every rank, and count once."""
+    if sharded is None:
+        total = 0
+        for x in tree_leaves(tree):
+            total = total + torch.sum(torch.square(x.float()))
+        return torch.sqrt(total)
+    from repro_torch.core.mesh import all_reduce_
+    leaves = tree_leaves(tree)
+    own = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    whole = torch.zeros_like(own)
+    for x, cut in zip(leaves, sharded):
+        sq = torch.sum(torch.square(x.float()))
+        if cut:
+            own = own + sq
+        else:
+            whole = whole + sq
+    return torch.sqrt(all_reduce_(own, group) + whole)
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm):
+def clip_by_global_norm(grads, max_norm, *, sharded=None, group=None):
     """Scale every leaf by min(1, max_norm / norm), in place (in float32,
-    then back to the leaf's dtype). Returns (grads, norm)."""
-    norm = global_norm(grads)
+    then back to the leaf's dtype). Returns (grads, norm). `sharded` and
+    `group` as `global_norm`'s."""
+    norm = global_norm(grads, sharded=sharded, group=group)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     for g in tree_leaves(grads):
         if g.dtype == torch.float32:

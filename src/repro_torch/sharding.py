@@ -23,7 +23,10 @@ A mesh here is a `repro_torch.core.mesh.MeshShape` (names and sizes, no
 ranks: what the specs and the dry run need) or a live `DeviceMesh`;
 `to_named` gives each spec its `NamedSharding`, whose `placements` are
 the DTensor placements, one a mesh dim, and `local_shard` cuts a rank's
-piece of a whole tensor by a spec."""
+piece of a whole tensor by a spec. `shard_params` gives a rank its pieces
+of a params tree (what the tensor-parallel steps of
+`repro_torch.launch.steps` take), and `unshard_params` puts every rank's
+pieces back together."""
 from __future__ import annotations
 
 import numpy as np
@@ -279,12 +282,69 @@ def shard_range(size: int, entry, sizes: dict, coords: dict):
     return index * length, length
 
 
-def local_shard(x, spec: tuple, mesh):
-    """The rank's piece of the whole tensor `x` by `spec` on the live
-    `mesh`: a view (`narrow` on each split dim)."""
-    sizes, coords = axis_sizes(mesh), coordinate(mesh)
+def piece(x, spec: tuple, sizes: dict, coords: dict):
+    """The piece of the whole tensor `x` by `spec` at the mesh coordinate
+    `coords` ({axis: index}) of a mesh of `sizes`: a view (`narrow` on
+    each split dim)."""
     for d, entry in enumerate(spec):
         if entry is not None:
             start, length = shard_range(x.shape[d], entry, sizes, coords)
             x = x.narrow(d, start, length)
     return x
+
+
+def local_shard(x, spec: tuple, mesh):
+    """The rank's piece of the whole tensor `x` by `spec` on the live
+    `mesh`: a view (`narrow` on each split dim)."""
+    return piece(x, spec, axis_sizes(mesh), coordinate(mesh))
+
+
+def shard_params(params, cfg: ModelConfig, mesh, coords: dict = None):
+    """The rank's pieces of a whole params tree by `param_specs`, each a
+    copy of its own (the whole tree can then be freed): on a live `mesh`
+    the rank's coordinate, or `coords` on any mesh (a `MeshShape`
+    too)."""
+    sizes = axis_sizes(mesh)
+    coords = coordinate(mesh) if coords is None else coords
+    return tree_map(lambda x, spec: piece(x, spec, sizes, coords).clone(),
+                    params, param_specs(params, cfg, mesh))
+
+
+def assemble(pieces, spec: tuple, sizes: dict):
+    """The whole tensor from every coordinate's piece: `pieces` is
+    [(coords, piece)] (numpy arrays or tensors) covering the mesh; the
+    inverse of `piece`. Ranks that hold the same piece (over an axis the
+    spec leaves whole) must hold the same values; the first is taken."""
+    first = pieces[0][1]
+    shape = [n * int(np.prod([sizes[a] for a in _entry_axes(e)],
+                             dtype=np.int64))
+             for n, e in zip(first.shape, tuple(spec) + (None,) *
+                             (first.ndim - len(spec)))]
+    whole = np.empty(shape, dtype=np.asarray(first).dtype)
+    for coords, p in pieces:
+        index = []
+        for d, entry in enumerate(spec):
+            if entry is None:
+                index.append(slice(None))
+            else:
+                start, length = shard_range(shape[d], entry, sizes, coords)
+                index.append(slice(start, start + length))
+        whole[tuple(index)] = np.asarray(p)
+    return whole
+
+
+def unshard_params(pieces, cfg: ModelConfig, mesh, whole_shapes):
+    """The whole params tree (numpy) from [(coords, the pieces' tree)]
+    covering `mesh`, by the specs of `whole_shapes` (a tree of the whole
+    leaves, e.g. the meta device's): the inverse of `shard_params`."""
+    specs = param_specs(whole_shapes, cfg, mesh)
+    sizes = axis_sizes(mesh)
+    coords = [c for c, _ in pieces]
+    return tree_map(lambda *leaves: assemble(
+        list(zip(coords, leaves[:-1])), leaves[-1], sizes),
+        *(tree for _, tree in pieces), specs)
+
+
+def model_sharded(spec: tuple) -> bool:
+    """Whether a spec splits a dim over the 'model' axis."""
+    return any("model" in _entry_axes(e) for e in spec)

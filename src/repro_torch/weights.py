@@ -109,14 +109,22 @@ def _check_zoo_keys(tree):
                          f"{sorted(_ZOO_OPTIONAL_KEYS)}; got {sorted(keys)}")
 
 
-def zoo_params_from_numpy(tree, device) -> dict:
+def zoo_params_from_numpy(tree, device, *, mesh=None, cfg=None) -> dict:
     """A reference zoo tree (`repro.models.transformer.init_params`, its
     leaves as numpy arrays: {"emb", "stages": a list of stacked trees with
     the leading repeat axis, "final_norm"}, and where the config has them
     "enc_stage", "enc_norm" and "vis_proj") -> the port's tree on
-    `device`: the same keys, list, shapes and dtypes."""
+    `device`: the same keys, list, shapes and dtypes. With a live `mesh`
+    (and the tree's `cfg`), the rank's pieces of it
+    (`sharding.shard_params`), what the steps of a tensor-parallel mesh
+    take."""
     _check_zoo_keys(tree)
-    return params_from_numpy(tree, device)
+    if mesh is None:
+        return params_from_numpy(tree, device)
+    from repro_torch import sharding
+    whole = tree_map(lambda a: _tensor(a, "cpu"), tree)
+    return tree_map(lambda t: t.to(device),
+                    sharding.shard_params(whole, cfg, mesh))
 
 
 def zoo_params_to_numpy(params) -> dict:

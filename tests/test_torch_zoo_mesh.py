@@ -4,7 +4,8 @@ each test): every `build` kind on the host mesh gives the bits of
 `mesh=None`, collectives and all; the host-mesh train step against the
 reference's step; expert parallelism of one rank against the grouped
 path; what still raises (the production meshes below 256 ranks, a live
-model axis above 1, a mesh on a machine without a card unless the CPU is
+model axis above 1 for the families and the FL round without a
+tensor-parallel partition, a mesh on a machine without a card unless the CPU is
 asked for).
 
 The reference's train step constrains its microbatches to the mesh's data
@@ -271,17 +272,42 @@ class _LiveMesh:
         return (1, 2)[i] if i is not None else 2
 
 
-@pytest.mark.parametrize("kind", ["train", "prefill", "decode", "flround"])
-def test_a_live_model_axis_raises(kind):
-    """The dense steps' model axis is ROADMAP A.10 part 3: a live mesh
-    whose model axis is above 1 raises, naming it."""
-    cfg = get_config("qwen3-8b").reduced()
+REFUSED = ("mamba2-370m", "recurrentgemma-9b", "whisper-base",
+           "phi-3-vision-4.2b")
+
+
+@pytest.mark.parametrize("arch,kind", [(a, k) for a in REFUSED
+                                       for k in ("train", "prefill",
+                                                 "decode")]
+                         + [("qwen3-8b", "flround")])
+def test_a_live_model_axis_raises(arch, kind):
+    """What has no tensor-parallel partition yet: on a live mesh whose
+    model axis is above 1, the steps of the four families outside the
+    decoder-only attention ones raise, naming the arch and ROADMAP A.10
+    part 4, and the FL round of any family raises, naming part 5."""
+    cfg = get_config(arch).reduced()
     shape = ShapeConfig("s", 16, 2, kind)
-    with pytest.raises(NotImplementedError, match="A.10 part 3"):
+    match = "A.10 part 5" if kind == "flround" else f"{arch}.*A.10 part 4"
+    with pytest.raises(NotImplementedError, match=match):
         TS.build(cfg, shape, _LiveMesh())
     if kind == "train":
-        with pytest.raises(NotImplementedError, match="A.10 part 3"):
+        with pytest.raises(NotImplementedError, match=match):
             TS.make_train_step(cfg, _LiveMesh())
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "mixtral-8x7b"])
+def test_expert_parallelism_beside_a_live_model_axis_raises(arch):
+    """The train step with moe_groups=-2 on a live mesh whose model axis
+    is above 1 (expert parallelism beside tensor parallelism, held against
+    no oracle yet) raises, naming the arch and ROADMAP A.10 part 8, from
+    `make_train_step` and from `build`."""
+    cfg = get_config(arch).reduced()
+    match = f"{arch}.*A.10 part 8"
+    with pytest.raises(NotImplementedError, match=match):
+        TS.make_train_step(cfg, _LiveMesh(), moe_groups=-2)
+    with pytest.raises(NotImplementedError, match=match):
+        TS.build(cfg, ShapeConfig("s", 16, 2, "train"), _LiveMesh(),
+                 moe_groups=-2)
 
 
 def test_routing_groups_must_fall_within_a_rank(host, monkeypatch):

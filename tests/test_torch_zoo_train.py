@@ -220,11 +220,13 @@ class _LiveMesh:
 
 @pytest.mark.parametrize("kw", [{"mesh": _LiveMesh()}, {"moe_groups": -2}])
 def test_meshes_and_expert_parallelism_raise(kw):
-    """What the step still refuses: a live model axis above 1 (ROADMAP
-    A.10 part 3), and expert parallelism without a mesh to hold the
-    experts (the live meshes' steps: tests/test_torch_zoo_mesh*.py)."""
-    tc = tget("mixtral-8x7b").reduced()
+    """What the step still refuses: a live model axis above 1 for a family
+    with no tensor-parallel partition (mamba2-370m, ROADMAP A.10 part 4),
+    and expert parallelism without a mesh to hold the experts (the live
+    meshes' steps: tests/test_torch_zoo_mesh*.py and
+    tests/test_torch_zoo_tp.py)."""
     mesh = kw.pop("mesh", None)
+    tc = tget("mamba2-370m" if mesh else "mixtral-8x7b").reduced()
     with pytest.raises(NotImplementedError if mesh else ValueError,
-                       match="A.10 part 3" if mesh else "needs|mesh"):
+                       match="A.10 part 4" if mesh else "needs|mesh"):
         TS.make_train_step(tc, mesh, **kw)
